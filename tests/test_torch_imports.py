@@ -1,0 +1,73 @@
+"""The port stands apart from JAX and never falls back to the CPU silently.
+
+- Importing every module of tpusparse_torch, in a fresh interpreter, leaves ``jax`` out
+  of ``sys.modules``.
+- A CUDA device requested where there is no CUDA raises.
+- A kernel build without nvcc raises.
+- chip_smoke.py exits non-zero, and prints no result, without a CUDA card.
+"""
+
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tpusparse_torch import _build, _device, generate
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import tpusparse_torch
+mods = sorted(m.name for m in pkgutil.walk_packages(tpusparse_torch.__path__,
+                                                    "tpusparse_torch."))
+for m in mods:
+    importlib.import_module(m)
+print(json.dumps({"mods": mods, "jax": "jax" in sys.modules}))
+"""
+
+
+def test_no_module_imports_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not res["jax"], res
+    for mod in ("tpusparse_torch.ops", "tpusparse_torch.solvers.cg",
+                "tpusparse_torch.kernels.stencil5", "tpusparse_torch.cli.cg_solver",
+                "tpusparse_torch.bench.sysinfo", "tpusparse_torch.convert"):
+        assert mod in res["mods"]
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _device.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate.ones_field(4)  # the default device is CUDA
+    assert _device.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        _device.resolve_device("meta")
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        _device.resolve_dtype("bf16")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.lib()
+    assert _build._lib is None
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run for real")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

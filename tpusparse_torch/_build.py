@@ -1,0 +1,124 @@
+"""Build the package's CUDA sources into one shared library and load it with ctypes.
+
+The sources under ``tpusparse_torch/csrc/`` are compiled by ``nvcc`` at first use, for
+Hopper only (``sm_90a``), into ``tpusparse_torch/build/<hash>/libtpusparse_kernels.so``,
+where ``<hash>`` covers the sources and the compiler flags: an edit to a source builds
+anew, an unchanged tree reuses the library.  The library has a plain C interface; every
+entry point takes raw device pointers and a ``cudaStream_t`` and returns a CUDA error code.
+
+Any failure to find ``nvcc``, to compile or to load raises ``RuntimeError``: there is no
+fallback.  Nothing is built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+LIB_NAME = "libtpusparse_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+_D = ctypes.c_double
+# name -> (argtypes, restype) of every C function in csrc/: the kernel entry points return
+# a CUDA error code, the two size queries an int64, tps_error_string a C string
+_SIGNATURES = {
+    "tps_error_string": ((ctypes.c_int,), ctypes.c_char_p),
+    "tps_stencil5_partials": ((_I, _I), _I),
+    "tps_stencil5_max_rows": ((), _I),
+    **{f"tps_spmv_stencil5_const_{t}": ((_P, _P, _P, _P, _I, _I, _D, _D, _P, _P, _P),
+                                        ctypes.c_int) for t in ("f32", "f64")},
+    **{f"tps_stencil5_const_pupdate_dot_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,
+                                                _P, _P), ctypes.c_int) for t in ("f32", "f64")},
+    **{f"tps_cg_const_update_recompute_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,
+                                               _P, _P), ctypes.c_int) for t in ("f32", "f64")},
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the build (or load) that produced the library
+build_log = ""  # nvcc's output of that build (ptxas register and spill lines)
+
+
+def sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+                       "tpusparse_torch can only be built on a machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: pathlib.Path) -> str:
+    nvcc = nvcc_path()
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    if not cu:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build never loads a half-written file
+    return proc.stdout + proc.stderr
+
+
+def _load(path: pathlib.Path):
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {path}: {e}") from e
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)  # AttributeError names a missing entry point
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    return lib
+
+
+def lib():
+    """The loaded kernel library, built first if needed."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:  # the launch path: no lock once the library is loaded
+        return _lib
+    with _lock:
+        if _lib is None:
+            t0 = time.perf_counter()
+            out = BUILD / _digest() / LIB_NAME
+            log = _compile(out) if not out.exists() else ""
+            _lib = _load(out)
+            build_seconds = time.perf_counter() - t0
+            build_log = log
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error (a launch that was refused)."""
+    if err != 0:
+        msg = lib().tps_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,76 @@
+"""Device and system provenance for the port's benchmark exports.
+
+Counterpart of ``tpusparse/bench/sysinfo.py``, with the reference's own sources
+(gpu_detection.cu): CUDA device properties (:76-108) and the ``nvidia-smi`` query
+(:41-74).  The card's power limit is recorded because a card set below its maximum runs
+slower under load: every number the port reports carries it.
+
+Peak figures come from this module's own table of NVIDIA cards (data sheets, dense, no
+sparsity).  A card missing from the table reports no peak rather than a guessed one.
+"""
+
+from __future__ import annotations
+
+import platform
+import shutil
+import subprocess
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from tpusparse.bench.sysinfo import _cpu_model, _ram_gb
+
+# The cards the port has run on.  Device name (as torch.cuda.get_device_name reports it)
+# -> (HBM GB/s, f32 GFLOP/s without tensor cores).
+GPU_SPECS = {
+    "NVIDIA H100 80GB HBM3": (3350.0, 67_000.0),  # H100 SXM5
+}
+
+
+def gpu_peaks(device_kind: str) -> Tuple[Optional[float], Optional[float]]:
+    return GPU_SPECS.get(device_kind, (None, None))
+
+
+def nvidia_smi() -> Optional[str]:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` for card 0, or
+    None where the tool is absent or fails."""
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        return None
+    try:
+        out = subprocess.run([exe, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=30, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if lines else None
+
+
+def get_system_info(device) -> Dict[str, Any]:
+    device = torch.device(device)
+    info: Dict[str, Any] = {
+        "backend": device.type,
+        "torch_version": torch.__version__,
+        "cpu_model": _cpu_model(),
+        "ram_gb": round(_ram_gb(), 1),
+        "hostname": platform.node(),
+        "python": platform.python_version(),
+    }
+    if device.type == "cuda":
+        props = torch.cuda.get_device_properties(device)
+        info.update({
+            "device_kind": props.name,
+            "platform": "gpu",
+            "num_devices": torch.cuda.device_count(),
+            "cuda_version": torch.version.cuda,
+            "compute_capability": f"{props.major}.{props.minor}",
+            "sm_count": props.multi_processor_count,
+            "hbm_bytes_total": props.total_memory,
+            "nvidia_smi": nvidia_smi(),
+        })
+    else:
+        info.update({"device_kind": "cpu", "platform": "cpu", "num_devices": 1})
+    peak_bw, peak_flops = gpu_peaks(info["device_kind"])
+    info["peak_hbm_gbs"] = peak_bw
+    info["peak_f32_gflops"] = peak_flops
+    return info

@@ -1,0 +1,165 @@
+"""Single-device Conjugate Gradient solver of the port.
+
+Counterpart of ``tpusparse/solvers/cg.py``, same algorithm and iteration-count semantics
+(reference cg_solver.cu:538-650; ``iterations`` counts the converging iteration):
+
+    r0 = b - A·x0 ; p0 = r0 ; rr0 = <r0, r0> ; converged <=> rr < tol²·<b, b>
+    loop:  Ap = A·p ; α = rr / <p, Ap> ; x += α·p ; r -= α·Ap ; rr' = <r, r>
+           β = rr' / rr ; p = r + β·p
+
+Two loops, as in the JAX package:
+
+  - recompute-Ap (default when the operator has both passes): pass A forms p' = r + β·p
+    and <p', A·p'> (kernel K1), pass B forms x', r' and <r', r'> recomputing A·p' from p'
+    (kernel K2).  Ap never reaches device memory: 8 words per point per iteration.  Pass A
+    writes p' into a second buffer, and the two p buffers swap every iteration.
+  - classic: ``run_device_dot`` (kernel K3 with its fused dot), then the x/r/p updates and
+    <r, r> in plain PyTorch, as the JAX package left them to XLA on the accelerator:
+    11 words per point per iteration.
+
+α, β, rr and <p, Ap> stay on the device as 0-d tensors, and the kernels read α and β
+through a device pointer.  The host reads one flag per iteration, the convergence test
+rr > tol², which is the reference's own per-iteration poll (cg_solver.cu:598-599); the
+JAX package instead ran the whole loop on the device under ``lax.while_loop``.  A CUDA
+graph of the iteration is later work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class CGConfig:
+    """Parity with reference CGConfig (include/solvers/cg_solver.h:21-26)."""
+
+    max_iters: int = 1000
+    tolerance: float = 1e-6
+    verbose: int = 0
+    enable_detailed_timers: bool = False
+
+
+@dataclasses.dataclass
+class CGStats:
+    """Parity with reference CGStats (include/solvers/cg_solver.h:28-43); the same fields
+    as ``tpusparse.solvers.cg.CGStats``.  The phase, collective and dispatch buckets stay
+    zero here: the port has no stepped or sharded solver yet."""
+
+    iterations: int = 0
+    converged: bool = False
+    residual_norm: float = 0.0
+    relative_residual: float = 0.0
+    total_time_ms: float = 0.0
+    spmv_time_ms: float = 0.0
+    blas1_time_ms: float = 0.0
+    reduction_time_ms: float = 0.0
+    halo_time_ms: float = 0.0
+    allreduce_time_ms: float = 0.0
+    dispatch_block_ms: float = 0.0
+    dispatch_readback_ms: float = 0.0
+    dispatch_clipped: tuple = ()
+
+
+def _dot(a, b):
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def uses_recompute(op, recompute_ap: Optional[bool] = None) -> bool:
+    """Whether ``cg_solve(op, recompute_ap=...)`` runs the recompute-Ap loop: None picks it
+    when the operator provides both passes, False never, True always (ValueError if the
+    operator lacks them)."""
+    avail = op.run_pupdate_dot_op is not None and op.run_update_recompute_op is not None
+    if recompute_ap is True and not avail:
+        raise ValueError(f"recompute_ap requested but operator '{op.name}' lacks "
+                         "run_pupdate_dot_op/run_update_recompute_op")
+    return avail and recompute_ap is not False
+
+
+def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
+             b_is_ones: bool = False, recompute_ap: Optional[bool] = None,
+             use_pallas_blas1: Optional[bool] = None):
+    """Solve A·x = b on the operator's device.  Returns (x, CGStats).
+
+    Args:
+      op: an ``ops.DeviceOperator``.
+      b: right-hand side field on ``op.device`` (ignored when ``b_is_ones``).
+      x0: initial guess (default zeros); nonzero x0 computes r0 = b - A·x0 through
+        ``op.run_device``.
+      b_is_ones: b is the canonical all-ones right-hand side and x0 = 0; r0 = ones is made
+        on the device and no separate b is kept.
+      recompute_ap: None uses the recompute-Ap loop when the operator provides both passes;
+        False forces the classic loop; True raises if the operator lacks the passes.
+      use_pallas_blas1: the classic loop's BLAS1 kernels (K4-K7) are not ported yet, so
+        True raises; None and False run those updates in plain PyTorch.
+    """
+    config = config or CGConfig()
+    if use_pallas_blas1:
+        raise NotImplementedError("the BLAS1 kernels K4-K7 (tpusparse/kernels/blas1.py) are "
+                                  "not ported yet (ROADMAP Queue 2)")
+    if b_is_ones and x0 is not None:
+        raise ValueError("b_is_ones implies x0 = 0")
+    recompute = uses_recompute(op, recompute_ap)
+
+    t0 = time.perf_counter()
+    if b_is_ones:
+        r = op.ones_b()
+    else:
+        if b is None or tuple(b.shape) != tuple(op.field_shape):
+            raise ValueError(f"b must be a field of shape {op.field_shape}")
+        b = b.to(device=op.device, dtype=op.dtype)
+        r = b.clone()  # the loops update r in place
+    if x0 is None:
+        x = torch.zeros_like(r)
+        rr = _dot(r, r)
+        bb = rr
+    else:
+        x = x0.to(device=op.device, dtype=op.dtype).clone()
+        r.sub_(op.run_device(x))
+        rr = _dot(r, r)
+        bb = _dot(b, b)  # the criterion is relative to ‖b‖, not ‖r0‖
+    tol2 = (config.tolerance * config.tolerance) * bb
+
+    k = 0
+    if recompute:
+        p_prev = torch.zeros_like(r)
+        p_buf = torch.empty_like(r)
+        rr_prev = torch.ones_like(rr)
+        zero = torch.zeros_like(rr)
+        # strict >: a zero right-hand side (rr0 = 0 = tol2) runs no 0/0 step
+        while k < config.max_iters and bool(rr > tol2):
+            beta = zero if k == 0 else rr / rr_prev
+            p, pap = op.run_pupdate_dot_op(beta, r, p_prev, out=p_buf)
+            alpha = rr / pap
+            x, r, rr_new = op.run_update_recompute_op(alpha, x, r, p)
+            p_buf, p_prev = p_prev, p
+            rr_prev, rr = rr, rr_new
+            k += 1
+    else:
+        p = r.clone()
+        while k < config.max_iters and bool(rr > tol2):
+            ap, pap = op.run_device_dot(p)
+            alpha = rr / pap
+            x.add_(alpha * p)
+            r.sub_(alpha * ap)
+            del ap
+            rr_new = _dot(r, r)
+            p.mul_(rr_new / rr).add_(r)  # p = r + β·p
+            rr = rr_new
+            k += 1
+
+    rr_f, bb_f = torch.stack([rr, bb]).tolist()  # one device->host read; also the sync
+    total_ms = (time.perf_counter() - t0) * 1e3
+    res = rr_f ** 0.5
+    b_norm = bb_f ** 0.5
+    stats = CGStats(
+        iterations=k,
+        converged=bool(res < config.tolerance * b_norm) if b_norm > 0 else True,
+        residual_norm=res,
+        relative_residual=res / b_norm if b_norm > 0 else 0.0,
+        total_time_ms=total_ms,
+    )
+    return x, stats
