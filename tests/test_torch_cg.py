@@ -4,6 +4,8 @@ the numpy transcription of the reference algorithm (tests.test_cg.reference_cg).
 f64 on the CPU: the port's operators run their plain twins, the JAX solver runs its
 Pallas kernels in interpret mode.  Iteration counts must be identical; solutions agree to
 rtol 1e-10 (the bar of tests/test_kernels_stencil5.py's recompute-vs-classic parity).
+``stencil5-bf16c`` runs in f32, its native state: iteration counts identical, x to rtol
+1e-5, and bit for bit equal to ``stencil5`` in f32.
 """
 
 import jax.numpy as jnp
@@ -68,6 +70,61 @@ def test_cg_nonzero_x0_matches_jax(loop):
     assert np.linalg.norm(np.ones(g * g) - A @ x.numpy().ravel()) / g < 1e-5
 
 
+@pytest.mark.parametrize("g", [8, 16])
+@pytest.mark.parametrize("mode", ["stencil5", "stencil5-bf16c", "stencil5-xla"])
+@pytest.mark.parametrize("blas1", [True, False])
+def test_cg_values_carrying_matches_jax_and_reference(g, mode, blas1):
+    """The classic loop with planes (K8's twin), with the BLAS1 twins of K4-K6 or with
+    plain updates, against the JAX solver with the same ``use_pallas_blas1``."""
+    f32 = mode == "stencil5-bf16c"
+    A = formats.stencil5_to_csr(generate.make_stencil5(g)).to_dense()
+    x_ref, iters_ref, _ = reference_cg(A, np.ones(g * g))
+    jdt, tdt = (jnp.float32, torch.float32) if f32 else (jnp.float64, torch.float64)
+    jop = jops.get_operator(mode, _stencil(g), dtype=jdt)
+    xj, sj = jcg.cg_solve(jop, jnp.ones((g, g), jdt), use_pallas_blas1=blas1)
+    op = ops.get_operator(mode, _stencil(g), dtype=tdt, device="cpu")
+    x, s = cg.cg_solve(op, b_is_ones=True, use_pallas_blas1=blas1)
+    assert x.dtype == tdt and s.converged and sj.converged
+    assert s.iterations == sj.iterations == iters_ref, (s.iterations, sj.iterations, iters_ref)
+    rtol, atol = (1e-5, 1e-6) if f32 else (1e-10, 1e-12)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(op.from_field(x).numpy(), x_ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("blas1", [True, False])
+def test_bf16c_solution_equals_stencil5_f32_bitwise(blas1):
+    """tests/test_cg.py's property, for the port: bf16 planes holding 5/−1/0 give the f32
+    planes' solution bit for bit."""
+    g = 24
+    x32, s32 = cg.cg_solve(ops.get_operator("stencil5", _stencil(g), device="cpu"),
+                           b_is_ones=True, use_pallas_blas1=blas1)
+    x16, s16 = cg.cg_solve(ops.get_operator("stencil5-bf16c", _stencil(g), device="cpu"),
+                           b_is_ones=True, use_pallas_blas1=blas1)
+    assert s16.iterations == s32.iterations and s32.converged
+    assert torch.equal(x16, x32)
+
+
+@pytest.mark.parametrize("mode,loop", [("stencil5-const", "recompute"),
+                                       ("stencil5-const", "classic"),
+                                       ("stencil5", "classic")])
+def test_cg_nonzero_x0_through_axpby_dot(mode, loop):
+    """r0 = b − A·x0 with <r0, r0> through K7's twin, <b, b> through K6's."""
+    g = 12
+    x0 = np.random.RandomState(1).randn(g, g)
+    jop = jops.get_operator(mode, _stencil(g), dtype=jnp.float64)
+    xj, sj = jcg.cg_solve(jop, jnp.ones((g, g), jnp.float64), jnp.asarray(x0),
+                          use_pallas_blas1=True,
+                          recompute_ap=LOOPS[loop] if mode == "stencil5-const" else None)
+    op = _port_op(g, mode)
+    x, s = cg.cg_solve(op, op.ones_b(), convert.fields_from_numpy(x0, "cpu"),
+                       recompute_ap=LOOPS[loop], use_pallas_blas1=True)
+    assert s.converged and s.iterations == sj.iterations
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-10, atol=1e-12)
+    x_plain, s_plain = cg.cg_solve(op, op.ones_b(), convert.fields_from_numpy(x0, "cpu"),
+                                   recompute_ap=LOOPS[loop], use_pallas_blas1=False)
+    assert s_plain.iterations == s.iterations and torch.equal(x_plain, x)
+
+
 def test_explicit_b_matches_synthesized_ones():
     op = _port_op(16)
     x1, s1 = cg.cg_solve(op, b_is_ones=True)
@@ -126,8 +183,8 @@ def test_max_iters_cap(loop):
 
 def test_unported_options_raise():
     op = _port_op(8)
-    with pytest.raises(NotImplementedError, match="K4-K7"):
-        cg.cg_solve(op, b_is_ones=True, use_pallas_blas1=True)
+    with pytest.raises(NotImplementedError, match="K9/K10"):
+        cg.cg_solve(op, b_is_ones=True, fused_pupdate=True)
     with pytest.raises(ValueError, match="recompute_ap"):
         cg.cg_solve(_port_op(8, "stencil5-const-xla"), b_is_ones=True, recompute_ap=True)
     with pytest.raises(ValueError, match="b_is_ones"):
@@ -145,5 +202,7 @@ def test_operand_from_planes_and_csr():
                                formats.stencil5_to_csr(st).to_dense() @ np.ones(81), rtol=1e-6)
     planes = st.planes.copy()
     planes[formats.C, 3, 3] = 7.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="use mode 'stencil5'"):
         convert.operand_from_stencil5(formats.Stencil5(9, planes))
+    op = ops.get_operator("stencil5", formats.Stencil5(9, planes), device="cpu")
+    assert op.planes[formats.C, 3, 3] == 7.0

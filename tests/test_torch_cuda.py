@@ -8,7 +8,8 @@ there without the conftest:
 
 Tolerances, relative to the largest reference magnitude: f64 1e-12; f32 1e-5 for fields
 and 1e-4 for dots (the dots sum in another order).  CG: equal iteration counts, x to rtol
-1e-10.
+1e-10.  Fields are also required to equal the twins' bit for bit where the kernels round
+every operation as PyTorch does (K4, K5, K7, K8).
 """
 
 import numpy as np
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from tpusparse.formats import Stencil5
-from tpusparse_torch import ops
+from tpusparse_torch import generate, ops
+from tpusparse_torch.kernels import blas1
 from tpusparse_torch.kernels import stencil5 as st5
 from tpusparse_torch.solvers import cg
 
@@ -67,6 +69,57 @@ def test_kernels_match_twins_on_card(dev, g, dtype):
     assert _rel(xk, xp) <= tol_field and _rel(rk, rp) <= tol_field and _rel(d, dp) <= tol_dot
 
 
+# (planes dtype, state dtype) of K8's four instantiations
+K8_PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
+            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.float64)]
+
+
+@pytest.mark.parametrize("g", [37, 1000])
+@pytest.mark.parametrize("pdt,dtype", K8_PAIRS)
+def test_k8_matches_twin_on_card(dev, g, pdt, dtype):
+    tol_field, tol_dot = TOL[dtype]
+    gen = torch.Generator(device=dev).manual_seed(g)
+    band = g // 2 + 1
+    for rows, halos in ((g, False), (band, True)):
+        planes = _randn(gen, dev, dtype, 5, rows, g).to(pdt)
+        x = _randn(gen, dev, dtype, rows, g)
+        hs = (_randn(gen, dev, dtype, 1, g), _randn(gen, dev, dtype, 1, g)) if halos else ()
+        y, d = st5.spmv_stencil5(planes, x, *hs, with_dot=True)
+        yp, dp = st5.spmv_stencil5_plain(planes, x, *hs, with_dot=True)
+        assert y.dtype == dtype and torch.equal(y, yp)
+        assert _rel(d, dp) <= tol_dot
+        assert torch.equal(st5.spmv_stencil5(planes, x, *hs), yp)
+
+
+def test_k8_on_ones_gives_the_analytic_checksums(dev):
+    g = 1000
+    want = generate.stencil5_spmv_checksums(g)
+    for pdt, dtype in K8_PAIRS:
+        planes = generate.make_stencil5_planes_device(g, dtype=pdt, device=dev)
+        y = st5.spmv_stencil5(planes, generate.ones_field(g, dtype, dev)).double()
+        np.testing.assert_allclose((float(y.sum()), float(torch.linalg.vector_norm(y))), want,
+                                   rtol=1e-12)
+
+
+@pytest.mark.parametrize("g", [37, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_blas1_kernels_match_twins_on_card(dev, g, dtype):
+    tol_field, tol_dot = TOL[dtype]
+    gen = torch.Generator(device=dev).manual_seed(g + 1)
+    x, r, p, ap = (_randn(gen, dev, dtype, g, g) for _ in range(4))
+    a = torch.tensor(0.37, dtype=dtype, device=dev)
+    xk, rk, dk = blas1.cg_update(a, x.clone(), r.clone(), p, ap)
+    xp, rp, dp = blas1.cg_update_plain(a, x.clone(), r.clone(), p, ap)
+    assert torch.equal(xk, xp) and torch.equal(rk, rp) and _rel(dk, dp) <= tol_dot
+    assert torch.equal(blas1.p_update(a, r, p.clone()), blas1.p_update_plain(a, r, p.clone()))
+    assert _rel(blas1.dot(x, r), blas1.dot_plain(x, r)) <= tol_dot
+    zk, dk = blas1.axpby_dot(1.0, x, -1.0, r)
+    zp, dp = blas1.axpby_dot_plain(1.0, x, -1.0, r)
+    assert torch.equal(zk, zp) and torch.equal(zk, x - r) and _rel(dk, dp) <= tol_dot
+    with pytest.raises(ValueError, match="r must not overlap p"):
+        blas1.cg_update(a, x, r, r, ap)
+
+
 def test_each_wrapper_counts_its_launches(dev):
     g = 64
     x, r, p = (torch.rand(g, g, device=dev, dtype=torch.float64) for _ in range(3))
@@ -78,8 +131,17 @@ def test_each_wrapper_counts_its_launches(dev):
     st5.cg_const_update_recompute(a, x, r, p, **KW)
     st5.spmv_stencil5_const_plain(x, **KW)  # twins do not count
     st5.cg_const_update_recompute_plain(a, x, r, p, **KW)
-    assert st5.LAUNCHES == {"spmv_stencil5_const": 2, "spmv_stencil5_const_pupdate_dot": 1,
+    st5.spmv_stencil5(torch.rand(5, g, g, device=dev, dtype=torch.float64), x)
+    assert st5.LAUNCHES == {"spmv_stencil5": 1, "spmv_stencil5_const": 2,
+                            "spmv_stencil5_const_pupdate_dot": 1,
                             "cg_const_update_recompute": 1}
+    blas1.reset_launches()
+    blas1.cg_update(a, x, r, p, p.clone())
+    blas1.p_update(a, r, p)
+    blas1.dot(x, r)
+    blas1.axpby_dot(a, x, a, r)
+    blas1.dot_plain(x, r)  # twins do not count
+    assert blas1.LAUNCHES == {"cg_update": 1, "p_update": 1, "dot": 1, "axpby_dot": 1}
 
 
 def test_kernel_path_rejects_what_it_cannot_run(dev):
@@ -92,15 +154,30 @@ def test_kernel_path_rejects_what_it_cannot_run(dev):
         st5.spmv_stencil5_const_pupdate_dot(0.5, x.clone(), x, out=x, **KW)
 
 
-@pytest.mark.parametrize("loop", ["recompute", "classic"])
-def test_cg_on_card_matches_cpu(dev, loop):
-    """The kernels' solve on the card against the plain twins' solve on the CPU, f64."""
+@pytest.mark.parametrize("mode,loop", [("stencil5-const", "recompute"),
+                                       ("stencil5-const", "classic"),
+                                       ("stencil5", "classic")])
+@pytest.mark.parametrize("x0", [False, True])
+def test_cg_on_card_matches_cpu(dev, mode, loop, x0):
+    """The kernels' solve on the card against the plain twins' solve on the CPU, f64,
+    from x0 = 0 (K6 for <r0, r0>) and from a seeded x0 (K7 for r0)."""
     g = 64
     st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
     recompute = loop == "recompute"
-    op_c = ops.get_operator("stencil5-const", st, dtype=torch.float64, device=dev)
-    x_c, s_c = cg.cg_solve(op_c, b_is_ones=True, recompute_ap=recompute)
-    op = ops.get_operator("stencil5-const", st, dtype=torch.float64, device="cpu")
-    x, s = cg.cg_solve(op, b_is_ones=True, recompute_ap=recompute)
+    start = torch.from_numpy(np.random.RandomState(g).randn(g, g)) if x0 else None
+    res = []
+    for device in (dev, "cpu"):
+        op = ops.get_operator(mode, st, dtype=torch.float64, device=device)
+        b = op.ones_b()
+        res.append(cg.cg_solve(op, b, start, recompute_ap=recompute))
+    (x_c, s_c), (x, s) = res
     assert s_c.converged and s_c.iterations == s.iterations
     np.testing.assert_allclose(x_c.cpu().numpy(), x.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_bf16c_solution_equals_stencil5_f32_on_card(dev):
+    st = Stencil5(grid_size=256, planes=None, constant=(5.0, -1.0))
+    x32, s32 = cg.cg_solve(ops.get_operator("stencil5", st, device=dev), b_is_ones=True)
+    x16, s16 = cg.cg_solve(ops.get_operator("stencil5-bf16c", st, device=dev), b_is_ones=True)
+    assert s32.converged and s16.iterations == s32.iterations
+    assert torch.equal(x16, x32)

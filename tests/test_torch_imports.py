@@ -36,8 +36,11 @@ def test_no_module_imports_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert not res["jax"], res
     for mod in ("tpusparse_torch.ops", "tpusparse_torch.solvers.cg",
-                "tpusparse_torch.kernels.stencil5", "tpusparse_torch.cli.cg_solver",
-                "tpusparse_torch.bench.sysinfo", "tpusparse_torch.convert"):
+                "tpusparse_torch.kernels.stencil5", "tpusparse_torch.kernels.blas1",
+                "tpusparse_torch.kernels._launch", "tpusparse_torch.cli.cg_solver",
+                "tpusparse_torch.cli.spmv_bench", "tpusparse_torch.bench.sysinfo",
+                "tpusparse_torch.bench.metrics", "tpusparse_torch.convert",
+                "tpusparse_torch.generate"):
         assert mod in res["mods"]
 
 

@@ -6,8 +6,10 @@ port imports ``torch`` and never ``jax``.  Host code without JAX (operand format
 stencil generator and checksums, Matrix Market I/O, benchmark statistics, metrics and
 exports) is shared with ``tpusparse`` rather than copied.
 
-The first slice runs CG on the constant-coefficient 5-point stencil (``stencil5-const``)
-through three hand-written CUDA kernels (``csrc/stencil5_const.cu``); see ``PERF.md`` and
+Ported so far: CG on the constant-coefficient 5-point stencil (``stencil5-const``,
+``csrc/stencil5_const.cu``) and on the values-carrying stencil with f32/f64 or bf16
+coefficient planes (``stencil5``, ``stencil5-bf16c``, ``csrc/stencil5.cu``), the classic
+loop's BLAS1 kernels (``csrc/blas1.cu``), and the CG and SpMV CLIs; see ``PERF.md`` and
 ``ROADMAP.md`` for what is ported and what is still to come.
 """
 

@@ -1,8 +1,9 @@
 """Build the package's CUDA sources into one shared library and load it with ctypes.
 
 The sources under ``tpusparse_torch/csrc/`` are compiled by ``nvcc`` at first use, for
-Hopper only (``sm_90a``), into ``tpusparse_torch/build/<hash>/libtpusparse_kernels.so``,
-where ``<hash>`` covers the sources and the compiler flags: an edit to a source builds
+Hopper only (``sm_90a``): one ``nvcc -c`` per ``.cu`` file, all started together, then one
+link into ``tpusparse_torch/build/<hash>/libtpusparse_kernels.so``, where ``<hash>``
+covers the sources (headers included) and the compiler flags: an edit to a source builds
 anew, an unchanged tree reuses the library.  The library has a plain C interface; every
 entry point takes raw device pointers and a ``cudaStream_t`` and returns a CUDA error code.
 
@@ -25,14 +26,14 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 LIB_NAME = "libtpusparse_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double
 # name -> (argtypes, restype) of every C function in csrc/: the kernel entry points return
-# a CUDA error code, the two size queries an int64, tps_error_string a C string
+# a CUDA error code, the three size queries an int64, tps_error_string a C string
 _SIGNATURES = {
     "tps_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     "tps_stencil5_partials": ((_I, _I), _I),
@@ -43,6 +44,15 @@ _SIGNATURES = {
                                                 _P, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_cg_const_update_recompute_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,
                                                _P, _P), ctypes.c_int) for t in ("f32", "f64")},
+    **{f"tps_spmv_stencil5_{t}": ((_P, _P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64", "bf16_f32", "bf16_f64")},
+    "tps_blas1_partials": ((_I,), _I),
+    **{f"tps_cg_update_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64")},
+    **{f"tps_p_update_{t}": ((_P, _P, _P, _I, _P), ctypes.c_int) for t in ("f32", "f64")},
+    **{f"tps_dot_{t}": ((_P, _P, _I, _P, _P, _P), ctypes.c_int) for t in ("f32", "f64")},
+    **{f"tps_axpby_dot_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64")},
 }
 
 _lock = threading.Lock()
@@ -72,21 +82,38 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Start every command at once, wait for all; raise on the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def _compile(out: pathlib.Path) -> str:
     nvcc = nvcc_path()
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    cu = [p for p in sources() if p.suffix == ".cu"]
     if not cu:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a half-written file
-    return proc.stdout + proc.stderr
+    work = out.parent / f".objs.{os.getpid()}"  # private to this process until the rename
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [work / f"{p.stem}.o" for p in cu]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", str(o)]
+                    for p, o in zip(cu, objs)])
+        tmp = work / LIB_NAME
+        log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a half-written file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return log
 
 
 def _load(path: pathlib.Path):

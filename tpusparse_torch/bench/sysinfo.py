@@ -66,6 +66,7 @@ def get_system_info(device) -> Dict[str, Any]:
             "compute_capability": f"{props.major}.{props.minor}",
             "sm_count": props.multi_processor_count,
             "hbm_bytes_total": props.total_memory,
+            "l2_cache_bytes": props.L2_cache_size,
             "nvidia_smi": nvidia_smi(),
         })
     else:

@@ -6,6 +6,11 @@ Counterpart of ``tpusparse/cli/cg_solver.py`` (reference src/main/cg_solver.cu:4
         [--tol=1e-6] [--maxiter=1000] [--loop=auto|classic|recompute] [--json=<f>]
         [--csv=<f>] [--runs=10] [--warmup=3] [--dtype=f32|f64] [--device=cuda|cpu]
 
+Modes: stencil5-const (values-free, K1-K3), stencil5 and stencil5-bf16c (coefficient
+planes in the state's dtype or in bf16, K8; classic loop), and their plain-PyTorch
+oracles stencil5-const-xla and stencil5-xla.  The classic loop's updates run through the
+BLAS1 kernels K4-K7.
+
 b = ones, x0 = 0; 3 warm-up solves, then 10 timed solves with the reference's statistics
 (median, 2σ outlier rejection); Sum(x)/Norm2(x) checksums and the RMS-vs-ones heuristic;
 ``performance.gflops_spmv`` from the measured time of one SpMV apply (CUDA events).
@@ -67,7 +72,7 @@ def main(argv=None) -> int:
         loop_kind = "recompute-ap" if cg.uses_recompute(op, recompute_ap) else "fused-classic"
     except ValueError:
         print(f"[ERROR] --loop=recompute: mode '{args.mode}' provides no recompute passes "
-              "(stencil5-const does)", file=sys.stderr)
+              "(only stencil5-const does)", file=sys.stderr)
         return 2
     config = cg.CGConfig(max_iters=args.maxiter, tolerance=args.tol, verbose=args.verbose)
 

@@ -2,8 +2,9 @@
 
 ``fields_from_numpy`` turns numpy arrays (as ``np.asarray`` gives them from JAX arrays:
 x, r, p, halo rows, scalars) into tensors, so a test can start both packages from the
-same mid-solve state.  ``operand_from_stencil5`` reads the constant coefficients of the
-shared ``tpusparse.formats.Stencil5``.
+same mid-solve state.  Of the shared ``tpusparse.formats.Stencil5``,
+``operand_from_stencil5`` reads the constant coefficients and ``planes_from_numpy`` carries
+the host coefficient planes to the device.
 """
 
 from __future__ import annotations
@@ -34,12 +35,23 @@ def fields_from_numpy(arrays, device="cuda", dtype=None):
     return torch.tensor(np.asarray(arrays), dtype=dtype, device=dev)
 
 
+def planes_from_numpy(planes, dtype=torch.float32, device="cuda"):
+    """A Stencil5's host planes (5, g, g) (as ``make_stencil5`` or, from a .mtx,
+    ``formats.csr_to_stencil5`` gives them) as a contiguous tensor in ``dtype`` on
+    ``device``; bfloat16 rounds each coefficient once, from the host's precision.  Always
+    copies."""
+    planes = np.asarray(planes)
+    if planes.ndim != 3 or planes.shape[0] != 5:
+        raise ValueError(f"expected planes of shape (5, rows, g), got {planes.shape}")
+    return torch.tensor(planes, dtype=dtype, device=resolve_device(device))
+
+
 def operand_from_stencil5(st: Stencil5):
     """(diag, offdiag) of a constant-coefficient Stencil5.
 
     Uses ``st.constant`` when set; otherwise ``st.planes`` must be exactly the Dirichlet
-    stencil that ``make_stencil5`` builds for some (diag, offdiag).  A values-carrying
-    operand with general coefficients needs the planes kernel (ROADMAP Queue 1 item 8)."""
+    stencil that ``make_stencil5`` builds for some (diag, offdiag).  General coefficient
+    planes need the values-carrying operator, mode ``stencil5``."""
     if st.constant is not None:
         diag, offdiag = st.constant
         return float(diag), float(offdiag)
@@ -50,7 +62,7 @@ def operand_from_stencil5(st: Stencil5):
     diag = float(planes[C].flat[0])
     offdiag = float(planes[N, 1, 0]) if g > 1 else 0.0
     if not np.array_equal(planes, make_stencil5(g, diag, offdiag, dtype=planes.dtype).planes):
-        raise NotImplementedError(
-            "the stencil5-const operator needs uniform coefficients; general coefficient "
-            "planes need the values-carrying kernel (ROADMAP Queue 1 item 8, not ported)")
+        raise ValueError(
+            "the stencil5-const operator needs uniform coefficients; for general coefficient "
+            "planes use mode 'stencil5' (the values-carrying operator)")
     return diag, offdiag

@@ -13,9 +13,15 @@ Two loops, as in the JAX package:
     and <p', A·p'> (kernel K1), pass B forms x', r' and <r', r'> recomputing A·p' from p'
     (kernel K2).  Ap never reaches device memory: 8 words per point per iteration.  Pass A
     writes p' into a second buffer, and the two p buffers swap every iteration.
-  - classic: ``run_device_dot`` (kernel K3 with its fused dot), then the x/r/p updates and
-    <r, r> in plain PyTorch, as the JAX package left them to XLA on the accelerator:
-    11 words per point per iteration.
+  - classic: ``run_device_dot`` (the operator's SpMV with its fused dot: K3, or K8 with
+    planes), then the BLAS1 kernels: K4 (x, r and <r, r> in one pass) and K5 (p).  With
+    K3 that is 2 + 6 + 3 = 11 words per point per iteration, with K8 7 + 6 + 3 = 16.
+    ``use_pallas_blas1=False`` runs those updates as plain PyTorch ops instead, the
+    counterpart of the JAX package's XLA path; eager PyTorch runs each op as its own pass
+    (~18 words per point with K3).
+
+The BLAS1 kernels also form the start: K6 gives <r0, r0> (and <b, b>), and for a nonzero
+x0, K7 gives r0 = b - A·x0 with <r0, r0> in one pass.
 
 α, β, rr and <p, Ap> stay on the device as 0-d tensors, and the kernels read α and β
 through a device pointer.  The host reads one flag per iteration, the convergence test
@@ -31,6 +37,8 @@ import time
 from typing import Optional
 
 import torch
+
+from ..kernels import blas1
 
 
 @dataclasses.dataclass
@@ -64,10 +72,6 @@ class CGStats:
     dispatch_clipped: tuple = ()
 
 
-def _dot(a, b):
-    return torch.dot(a.reshape(-1), b.reshape(-1))
-
-
 def uses_recompute(op, recompute_ap: Optional[bool] = None) -> bool:
     """Whether ``cg_solve(op, recompute_ap=...)`` runs the recompute-Ap loop: None picks it
     when the operator provides both passes, False never, True always (ValueError if the
@@ -81,7 +85,7 @@ def uses_recompute(op, recompute_ap: Optional[bool] = None) -> bool:
 
 def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
              b_is_ones: bool = False, recompute_ap: Optional[bool] = None,
-             use_pallas_blas1: Optional[bool] = None):
+             use_pallas_blas1: Optional[bool] = None, fused_pupdate: Optional[bool] = None):
     """Solve A·x = b on the operator's device.  Returns (x, CGStats).
 
     Args:
@@ -93,34 +97,44 @@ def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
         on the device and no separate b is kept.
       recompute_ap: None uses the recompute-Ap loop when the operator provides both passes;
         False forces the classic loop; True raises if the operator lacks the passes.
-      use_pallas_blas1: the classic loop's BLAS1 kernels (K4-K7) are not ported yet, so
-        True raises; None and False run those updates in plain PyTorch.
+      use_pallas_blas1: True or None runs the BLAS1 kernels K4-K7 (the start's dots and
+        r0, the classic loop's updates); False runs those steps as plain PyTorch ops.
+        None means True here, unlike the JAX package, whose accelerator default was XLA:
+        XLA fused those updates into single passes, eager PyTorch does not.
+      fused_pupdate: the operator's fused p-update + SpMV pass (K9/K10) is not ported yet,
+        so True raises; None and False run without it, as the JAX package's default.
     """
     config = config or CGConfig()
-    if use_pallas_blas1:
-        raise NotImplementedError("the BLAS1 kernels K4-K7 (tpusparse/kernels/blas1.py) are "
-                                  "not ported yet (ROADMAP Queue 2)")
+    if fused_pupdate:
+        raise NotImplementedError("fused_pupdate needs the fused p-update + SpMV kernels K9/K10 "
+                                  "(tpusparse/kernels/stencil5.py), not ported yet "
+                                  "(ROADMAP Queue 2)")
+    kernels = use_pallas_blas1 is not False
     if b_is_ones and x0 is not None:
         raise ValueError("b_is_ones implies x0 = 0")
     recompute = uses_recompute(op, recompute_ap)
 
     t0 = time.perf_counter()
-    if b_is_ones:
-        r = op.ones_b()
-    else:
+    if not b_is_ones:
         if b is None or tuple(b.shape) != tuple(op.field_shape):
             raise ValueError(f"b must be a field of shape {op.field_shape}")
         b = b.to(device=op.device, dtype=op.dtype)
-        r = b.clone()  # the loops update r in place
+    dot = blas1.dot if kernels else blas1.dot_plain
     if x0 is None:
+        r = op.ones_b() if b_is_ones else b.clone()  # the loops update r in place
         x = torch.zeros_like(r)
-        rr = _dot(r, r)
+        rr = dot(r, r)
         bb = rr
     else:
         x = x0.to(device=op.device, dtype=op.dtype).clone()
-        r.sub_(op.run_device(x))
-        rr = _dot(r, r)
-        bb = _dot(b, b)  # the criterion is relative to ‖b‖, not ‖r0‖
+        ax0 = op.run_device(x)
+        if kernels:
+            r, rr = blas1.axpby_dot(1.0, b, -1.0, ax0)  # r0 = b - A·x0 and <r0, r0>
+        else:
+            r = b - ax0
+            rr = dot(r, r)
+        del ax0
+        bb = dot(b, b)  # the criterion is relative to ‖b‖, not ‖r0‖
     tol2 = (config.tolerance * config.tolerance) * bb
 
     k = 0
@@ -139,15 +153,16 @@ def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
             rr_prev, rr = rr, rr_new
             k += 1
     else:
+        cg_update = blas1.cg_update if kernels else blas1.cg_update_plain
+        p_update = blas1.p_update if kernels else blas1.p_update_plain
+        # its own buffer: K4 updates r in place while it reads p (in the JAX loop p *is*
+        # r on the first iteration)
         p = r.clone()
         while k < config.max_iters and bool(rr > tol2):
             ap, pap = op.run_device_dot(p)
-            alpha = rr / pap
-            x.add_(alpha * p)
-            r.sub_(alpha * ap)
+            x, r, rr_new = cg_update(rr / pap, x, r, p, ap)
             del ap
-            rr_new = _dot(r, r)
-            p.mul_(rr_new / rr).add_(r)  # p = r + β·p
+            p_update(rr_new / rr, r, p)  # p = r + β·p
             rr = rr_new
             k += 1
 
