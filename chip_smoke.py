@@ -8,20 +8,34 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
 
   1. the card: nvidia-smi's name and power limit, torch's device properties;
   2. build the kernels of tpusparse_torch/csrc/ with nvcc (timed);
-  3. each kernel K1-K8 against its plain PyTorch twin on the card, at g = 37, 1000 and
-     4096: K1-K3 and K4-K7 in f32 and f64, K8 in its four planes/state pairs (f32/f32,
-     f64/f64, bf16/f32, bf16/f64), stencils with and without halo rows (tolerances: f64
-     1e-12; f32 1e-5 for fields, 1e-4 for dots, relative to the largest reference
-     magnitude);
+  3. each kernel against its plain PyTorch twin on the card, at g = 37, 1000 and 4096:
+     K1-K3 and K4-K7 in f32 and f64, K8 in its four planes/state pairs (f32/f32, f64/f64,
+     bf16/f32, bf16/f64), stencils with and without halo rows; K11 (DIA) and the ELL
+     kernel of K12/K13 in f32 and f64 on the stencil's operands made on the card, and on
+     host packs of five more matrices of about 10^6 rows: random banded with variable row
+     lengths, uniformly random columns (ELL only: it has ~10^6 diagonals), a width-1
+     diagonal, one with empty rows, and a DIA with offsets ±300 and ±1000 holding NaN
+     where its diagonals leave the matrix (tolerances: f64 1e-12; f32 1e-5 for fields,
+     1e-4 for dots, relative to the largest reference magnitude);
   4. the SpMVs on ones at 20480² against the analytic checksums: K3 in f32 and f64, K8 in
-     f32, bf16c and f64;
-  5. the main paths, with every launch count set to 0 before and read after: the CG CLI at
+     f32, bf16c and f64, K11 and the ELL kernel in f32 and f64;
+  5. the main paths, each read on its own: every launch count is set to 0 just before a
+     path runs and read just after, and the path must have launched its own kernels (CG
+     over stencil5-const recompute: K1, K2, K6; every classic CG: its SpMV, K4, K5, K6;
+     the seeded-x0 solve also K7; an SpMV CLI run: its mode's kernel).  The CG CLI at
      gen:20480 with mode stencil5-const (f64 recompute, exactly 14 iterations; f32
-     recompute; f32 classic, through K3 + K4 + K5 + K6) and mode stencil5 (f64, exactly 14
-     iterations; f32) and stencil5-bf16c (f32); the SpMV CLI over stencil5,
-     stencil5-bf16c and stencil5-const; the bf16c solution against the f32 stencil5
-     solution, bit for bit; one solve from a seeded nonzero x0 (K7), held with the x0 = 0
-     solve to the true residual.  Every kernel K1-K8 must have launched;
+     recompute; f32 classic, through K3 + K4 + K5 + K6), mode stencil5 (f64, exactly 14
+     iterations; f32), stencil5-bf16c (f32), csr (f64, exactly 14 iterations; f32) and dia
+     (f64, exactly 14 iterations), the csr and dia f64 solutions held to stencil5 f64's
+     (Sum/Norm2 to 1e-10 relative); the SpMV CLI, one run per mode, over stencil5,
+     stencil5-bf16c, stencil5-const, csr and dia with equal checksums, and the
+     csr-to-stencil5 kernel time ratio (the reference's 2.07×); the SpMV CLI over csr,
+     csr-xla, dia-xla and bcoo (cuSPARSE) at G_HOST², the grid whose host CSR (bcoo's
+     operand) builds in well under a minute (each run's wall time, its operator's build
+     included, is printed); the bf16c solution against the f32 stencil5 solution, bit for
+     bit; one solve from a seeded nonzero x0 (K7), held with the x0 = 0 solve to the true
+     residual.  The kernels line's launches are the paths' counts summed; the counts of
+     each path go to chiprun_out/chip_smoke_launches.json;
   6. each kernel against its plain twin at 20480² on seeded random fields at the main
      paths' shapes (same tolerances), then timed against it on those inputs (CUDA events,
      plain/kernel/kernel/plain); the solves' median times, next to the card's name and
@@ -44,6 +58,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 G_BIG = 20480
+G_HOST = 10240
 GRIDS = (37, 1000, 4096)
 DIAG, OFFDIAG = 5.0, -1.0
 # wrapper name -> (short name, kernel function in the CUDA source, source, the Pallas
@@ -67,17 +82,35 @@ KERNELS = {
                   "tpusparse/kernels/blas1.py:117"),
     "spmv_stencil5": ("K8", "spmv_planes_kernel", "tpusparse_torch/csrc/stencil5.cu",
                       "tpusparse/kernels/stencil5.py:432"),
+    "spmv_dia": ("K11", "spmv_dia_kernel", "tpusparse_torch/csrc/dia.cu",
+                 "tpusparse/kernels/dia.py:84"),
+    "spmv_ell": ("K12", "spmv_ell_kernel", "tpusparse_torch/csrc/ell.cu",
+                 "tpusparse/kernels/gather_ell.py:283, tpusparse/kernels/gather_ell.py:645"),
 }
-# the CLI's CG runs of the main path: label -> (mode, arguments, iterations required)
+# the kernels each main path must launch in its own run: the recompute loop's two passes
+# and its <r0, r0>; the classic loop's SpMV with its dot, K4, K5 and <r0, r0>
+RECOMPUTE = ("spmv_stencil5_const_pupdate_dot", "cg_const_update_recompute", "dot")
+CLASSIC = ("cg_update", "p_update", "dot")
+# the CLI's CG runs of the main path: label -> (mode, arguments, iterations required,
+# kernels required)
 CG_RUNS = {
-    "const f64 recompute": ("stencil5-const", ["--dtype=f64"], 14),
-    "const f32 recompute": ("stencil5-const", ["--dtype=f32"], None),
-    "const f32 classic": ("stencil5-const", ["--dtype=f32", "--loop=classic"], None),
-    "stencil5 f64": ("stencil5", ["--dtype=f64"], 14),
-    "stencil5 f32": ("stencil5", ["--dtype=f32"], None),
-    "bf16c f32": ("stencil5-bf16c", ["--dtype=f32"], None),
+    "const f64 recompute": ("stencil5-const", ["--dtype=f64"], 14, RECOMPUTE),
+    "const f32 recompute": ("stencil5-const", ["--dtype=f32"], None, RECOMPUTE),
+    "const f32 classic": ("stencil5-const", ["--dtype=f32", "--loop=classic"], None,
+                          ("spmv_stencil5_const",) + CLASSIC),
+    "stencil5 f64": ("stencil5", ["--dtype=f64"], 14, ("spmv_stencil5",) + CLASSIC),
+    "stencil5 f32": ("stencil5", ["--dtype=f32"], None, ("spmv_stencil5",) + CLASSIC),
+    "bf16c f32": ("stencil5-bf16c", ["--dtype=f32"], None, ("spmv_stencil5",) + CLASSIC),
+    "csr f64": ("csr", ["--dtype=f64"], 14, ("spmv_ell",) + CLASSIC),
+    "csr f32": ("csr", ["--dtype=f32"], None, ("spmv_ell",) + CLASSIC),
+    "dia f64": ("dia", ["--dtype=f64"], 14, ("spmv_dia",) + CLASSIC),
 }
-SPMV_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const")
+# the SpMV CLI's modes: mode -> kernels required (the plain twins and cuSPARSE need none)
+SPMV_NEEDS = {"stencil5": ("spmv_stencil5",), "stencil5-bf16c": ("spmv_stencil5",),
+              "stencil5-const": ("spmv_stencil5_const",), "csr": ("spmv_ell",),
+              "dia": ("spmv_dia",), "csr-xla": (), "dia-xla": (), "bcoo": ()}
+SPMV_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr", "dia")
+HOST_MODES = ("csr", "csr-xla", "dia-xla", "bcoo")
 
 
 def rel(a, b) -> float:
@@ -92,6 +125,35 @@ def abs_err(a, b) -> float:
 
 def dname(dtype) -> str:
     return str(dtype).removeprefix("torch.")
+
+
+class PathCounts:
+    """The launch counts of the main paths, read path by path: every count is set to 0
+    just before a path runs and read just after, and the path must have launched each
+    kernel it names."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.by_path = {}
+
+    def run(self, label, needs, fn):
+        for counter in self.counters:
+            counter.reset_launches()
+        out = fn()
+        counts = {name: c.LAUNCHES[name] for c in self.counters for name in c.LAUNCHES
+                  if c.LAUNCHES[name]}
+        self.by_path[label] = counts
+        print(f"[launches] {label}: "
+              + ", ".join(f"{KERNELS[n][0]} {counts[n]}" for n in KERNELS if n in counts),
+              flush=True)
+        missing = [f"{KERNELS[n][0]} {n}" for n in needs if counts.get(n, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels of this path never launched: {missing}")
+        return out
+
+    def totals(self):
+        """{wrapper: launches summed over the paths}."""
+        return {name: sum(c.get(name, 0) for c in self.by_path.values()) for name in KERNELS}
 
 
 class Compare:
@@ -230,7 +292,66 @@ def compare_blas1(torch, blas1, cmp, x, r, p, ap, label):
     cmp.check("axpby_dot", label, dtype, [("z", zk, zp, "field"), ("<z,z>", dk, dp, "dot")])
 
 
-def phase_compare(torch, st5, blas1, cmp):
+def compare_generic(torch, ell, dia, cmp, operands, x, label):
+    """K11 and the ELL kernel against their twins on operands = (ELL operand or None, DIA
+    operand or None), with and without the dot; y must also be finite."""
+    for name, mod, operand in (("spmv_ell", ell, operands[0]), ("spmv_dia", dia, operands[1])):
+        if operand is None:
+            continue
+        kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+        y = kern(*operand, x)
+        cmp.check(name, label, x.dtype, [("y", y, plain(*operand, x), "field")])
+        y, d = kern(*operand, x, with_dot=True)
+        yp, dp = plain(*operand, x, with_dot=True)
+        cmp.check(name, label + " with dot", x.dtype, [("y", y, yp, "field"),
+                                                       ("dot", d, dp, "dot")])
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{KERNELS[name][0]} {label}: y is not finite")
+
+
+def generic_matrices():
+    """Phase 3's host matrices, 10^6 rows each, made with vectorized numpy from a seed:
+    {label: (ELLMatrix or None, DIAMatrix or None)}."""
+    import numpy as np
+
+    from tpusparse import formats
+
+    n = 1_000_000
+    rng = np.random.RandomState(11)
+
+    def csr(rows, cols, vals):
+        return formats.coo_to_csr(formats.COOMatrix(n, n, rows, cols, vals))
+
+    # random banded: 1..9 entries a row at columns within 64 of the diagonal
+    rows = np.repeat(np.arange(n, dtype=np.int64), rng.randint(1, 10, n))
+    cols = np.clip(rows + rng.randint(-64, 65, rows.size), 0, n - 1)
+    vals = rng.randn(rows.size)
+    band = csr(rows, cols, vals)
+    keep = rows % 3 != 0  # the same without every third row
+    holes = csr(rows[keep], cols[keep], vals[keep])
+    rows = np.repeat(np.arange(n, dtype=np.int64), 3)
+    scattered = csr(rows, rng.randint(0, n, 3 * n).astype(np.int64), rng.randn(3 * n))
+    i = np.arange(n, dtype=np.int64)
+    diagonal = csr(i, i, rng.randn(n))
+    # offsets ±300 and ±1000, NaN wherever a diagonal leaves the matrix: a product with a
+    # padded zero would carry it into y, a select does not
+    offsets = np.array([-1000, -300, 0, 300, 1000], dtype=np.int64)
+    data = rng.randn(offsets.size, n)
+    for d, off in enumerate(offsets):
+        data[d, (i + off < 0) | (i + off >= n)] = np.nan
+    far = formats.DIAMatrix(num_rows=n, num_cols=n, offsets=offsets, data=data)
+    return {
+        "random banded": (formats.csr_to_ell(band), formats.csr_to_dia(band)),
+        "uniformly random columns": (formats.csr_to_ell(scattered), None),
+        "width-1 diagonal": (formats.csr_to_ell(diagonal), formats.csr_to_dia(diagonal)),
+        "every third row empty": (formats.csr_to_ell(holes), formats.csr_to_dia(holes)),
+        "DIA offsets ±300 ±1000, NaN off the matrix": (None, far),
+    }
+
+
+def phase_compare(torch, st5, blas1, ell, dia, cmp):
+    from tpusparse_torch import convert, generate
+
     dev = torch.device("cuda")
     for g in GRIDS:
         for dtype in (torch.float32, torch.float64):
@@ -248,10 +369,29 @@ def phase_compare(torch, st5, blas1, cmp):
                 compare_k8(torch, st5, cmp, randn(5, g, g).to(pdt), randn(g, g), (), pl)
                 compare_k8(torch, st5, cmp, randn(5, band, g).to(pdt), randn(band, g),
                            (randn(1, g), randn(1, g)), pl + f" band {band} rows + halos")
+            compare_generic(torch, ell, dia, cmp, (
+                generate.make_stencil5_ell_device(g, DIAG, OFFDIAG, dtype=dtype, device=dev),
+                generate.make_stencil5_dia_device(g, DIAG, OFFDIAG, dtype=dtype, device=dev)),
+                randn(g * g), f"stencil {lab}")
+    t0 = time.perf_counter()
+    mats = generic_matrices()
+    print(f"[compare] host matrices of 10^6 rows built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for label, (e, d) in mats.items():
+            operands = (None if e is None else convert.ell_from_numpy(e.col, e.val, dtype, dev),
+                        None if d is None else convert.dia_from_numpy(d.data, d.offsets, dtype,
+                                                                      dev))
+            n = (e or d).num_rows
+            x = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+            width = f"W={e.width}" if e is not None else f"ndiag={d.ndiag}"
+            compare_generic(torch, ell, dia, cmp, operands, x,
+                            f"{label} n={n} {width} {dname(dtype)}")
     torch.cuda.synchronize()
 
 
-def phase_checksum(torch, st5, generate):
+def phase_checksum(torch, st5, ell, dia, generate):
     want = generate.stencil5_spmv_checksums(G_BIG, DIAG, OFFDIAG)
 
     def check(label, y):
@@ -273,25 +413,31 @@ def phase_checksum(torch, st5, generate):
             check(f"K8 {G_BIG}² planes {dname(pdt)} state {dname(dtype)}",
                   st5.spmv_stencil5(planes, x))
             del planes
+        for short, spmv, make in (("ELL", ell.spmv_ell, generate.make_stencil5_ell_device),
+                                  ("K11", dia.spmv_dia, generate.make_stencil5_dia_device)):
+            operand = make(G_BIG, DIAG, OFFDIAG, dtype=dtype, device="cuda")
+            check(f"{short} {G_BIG}² {dname(dtype)}", spmv(*operand, x.reshape(-1)))
+            del operand
+            torch.cuda.empty_cache()
         del x
         torch.cuda.empty_cache()
 
 
 def phase_main_path(torch, counters, cg_cli, spmv_cli):
-    """The main paths through the entry points a user calls.  Returns ({label: CG export},
-    {wrapper: launches})."""
+    """The main paths through the entry points a user calls, each with its own launch
+    counts.  Returns ({label: CG export}, {wrapper: launches summed over the paths})."""
     from tpusparse.formats import Stencil5
     from tpusparse_torch import ops
     from tpusparse_torch.kernels import stencil5 as st5
     from tpusparse_torch.solvers import cg
 
     OUT.mkdir(exist_ok=True)
+    counts = PathCounts(counters)
     results = {}
-    for counter in counters:
-        counter.reset_launches()
-    for label, (mode, extra, iters) in CG_RUNS.items():
+    for label, (mode, extra, iters, needs) in CG_RUNS.items():
         path = OUT / f"chip_smoke_cg_{label.replace(' ', '_')}.json"
-        rc = cg_cli.main([f"gen:{G_BIG}", f"--mode={mode}", *extra, f"--json={path}"])
+        rc = counts.run(f"cg {label}", needs, lambda: cg_cli.main(
+            [f"gen:{G_BIG}", f"--mode={mode}", *extra, f"--json={path}"]))
         res = json.loads(path.read_text())
         its = res["convergence"]["iterations"]
         print(f"[cg] {label}: rc {rc}, mode {mode}, loop {res['loop']}, converged "
@@ -306,29 +452,28 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
         raise AssertionError(f"CG checksums of bf16c and stencil5 f32 differ: "
                              f"{results['bf16c f32']['validation']} vs "
                              f"{results['stencil5 f32']['validation']}")
+    ref = results["stencil5 f64"]["validation"]
+    for label in ("csr f64", "dia f64"):
+        v = results[label]["validation"]
+        errs = {k: abs(v[k] - ref[k]) / abs(ref[k]) for k in ("solution_sum", "solution_norm")}
+        print(f"[cg] {label} solution against stencil5 f64: Sum rel {errs['solution_sum']:.3e}, "
+              f"Norm2 rel {errs['solution_norm']:.3e} (tol 1e-10)", flush=True)
+        if not max(errs.values()) <= 1e-10:
+            raise AssertionError(f"CG {label} solution differs from stencil5 f64's: {errs}")
 
-    spmv_json = OUT / "chip_smoke_spmv.json"
-    rc = spmv_cli.main([f"gen:{G_BIG}", f"--mode={','.join(SPMV_MODES)}", "--runs=3",
-                        "--warmup=1", f"--json={spmv_json}"])
-    sums = {}
-    for mode in SPMV_MODES:
-        b = json.loads(spmv_json.with_name(f"{spmv_json.stem}_{mode}.json").read_text())[
-            "benchmark"]
-        sums[mode] = (b["validation"]["sum_y"], b["validation"]["norm2_y"])
-        p = b["performance"]
-        print(f"[spmv] {mode} {G_BIG}²: kernel {p['time_kernel_ms']!r} ms, "
-              f"{p['bandwidth_gbs']!r} GB/s (roofline share {p['roofline_fraction']!r}), "
-              f"run median {p['time_median_ms']!r} ms, sum {sums[mode][0]!r} norm "
-              f"{sums[mode][1]!r}", flush=True)
-    if rc != 0 or len(set(sums.values())) != 1:
-        raise AssertionError(f"spmv_bench at {G_BIG}²: rc {rc}, checksums {sums}")
+    kernel_ms = run_spmv_cli(spmv_cli, counts, G_BIG, SPMV_MODES, "chip_smoke_spmv.json")
+    print(f"[spmv] csr / stencil5 SpMV kernel time at {G_BIG}² f32: "
+          f"{kernel_ms['csr'] / kernel_ms['stencil5']!r} (the reference's CSR / STENCIL5: "
+          f"2.07 on its A100)", flush=True)
+    run_spmv_cli(spmv_cli, counts, G_HOST, HOST_MODES, "chip_smoke_spmv_host.json")
 
     # the values-carrying solves' solutions, bit for bit: bf16 planes against f32 planes
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
     xs = {}
     for mode in ("stencil5", "stencil5-bf16c"):
         op = ops.get_operator(mode, st, dtype=torch.float32, device="cuda")
-        xs[mode], s = cg.cg_solve(op, b_is_ones=True)
+        xs[mode], s = counts.run(f"cg_solve {mode} f32", ("spmv_stencil5",) + CLASSIC,
+                                 lambda: cg.cg_solve(op, b_is_ones=True))
         op.free()
         print(f"[cg] {mode} f32 cg_solve: {s.iterations} iterations", flush=True)
     if not torch.equal(xs["stencil5"], xs["stencil5-bf16c"]):
@@ -348,7 +493,9 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
     op = ops.get_operator("stencil5", st, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(7)
     x0 = torch.randn(G_BIG, G_BIG, generator=gen, device="cuda", dtype=torch.float32)
-    x, s = cg.cg_solve(op, op.ones_b(), x0)
+    x, s = counts.run("cg_solve stencil5 f32 from a seeded x0",
+                      ("spmv_stencil5", "axpby_dot") + CLASSIC,
+                      lambda: cg.cg_solve(op, op.ones_b(), x0))
     op.free()
     del x0
     res, res_zero = true_residual(x), true_residual(x_zero)
@@ -359,12 +506,40 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
     del x, x_zero
     torch.cuda.empty_cache()
 
-    launches = {name: c.LAUNCHES[name] for c in counters for name in c.LAUNCHES}
-    print(f"[launches] main path: {launches}", flush=True)
-    missing = [f"{KERNELS[n][0]} {n}" for n in KERNELS if launches.get(n, 0) <= 0]
+    launches = counts.totals()
+    (OUT / "chip_smoke_launches.json").write_text(json.dumps(counts.by_path, indent=1))
+    missing = [f"{KERNELS[n][0]} {n}" for n in KERNELS if launches[n] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
     return results, launches
+
+
+def run_spmv_cli(spmv_cli, counts, g, modes, name):
+    """The SpMV CLI at gen:g, f32, one run per mode, each with its own launch counts; the
+    wall time of a run includes its operator's build (for bcoo, the host CSR).  Raises unless every mode gives the same checksums.  Returns {mode: kernel
+    ms}."""
+    spmv_json = OUT / name
+    sums, kernel_ms = {}, {}
+    for mode in modes:
+        t0 = time.perf_counter()
+        rc = counts.run(f"spmv {mode} {g}²", SPMV_NEEDS[mode], lambda: spmv_cli.main(
+            [f"gen:{g}", f"--mode={mode}", "--runs=3", "--warmup=1", f"--json={spmv_json}"]))
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"spmv_bench --mode={mode} at {g}²: rc {rc}")
+        b = json.loads(spmv_json.with_name(f"{spmv_json.stem}_{mode}.json").read_text())[
+            "benchmark"]
+        sums[mode] = (b["validation"]["sum_y"], b["validation"]["norm2_y"])
+        p = b["performance"]
+        kernel_ms[mode] = p["time_kernel_ms"]
+        print(f"[spmv] {mode} {g}²: kernel {p['time_kernel_ms']!r} ms, "
+              f"{p['bandwidth_gbs']!r} GB/s (roofline share {p['roofline_fraction']!r}), "
+              f"run median {p['time_median_ms']!r} ms, sum {sums[mode][0]!r} norm "
+              f"{sums[mode][1]!r}; the CLI run with its operator's build {wall:.1f} s",
+              flush=True)
+    if len(set(sums.values())) != 1:
+        raise AssertionError(f"spmv_bench at {g}²: checksums differ across modes: {sums}")
+    return kernel_ms
 
 
 def _time_ms(torch, fn, n=10):
@@ -462,6 +637,29 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
     return times
 
 
+def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
+    """K11 and the ELL kernel against their twins at G_BIG² on the stencil's operands made
+    on the card and a seeded random x, then timed against them; adds to ``times``."""
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.float64):
+        key = dname(dtype).replace("float", "f")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x = torch.rand(G_BIG * G_BIG, generator=gen, device=dev, dtype=dtype)
+        for name, mod, make in (("spmv_ell", ell, generate.make_stencil5_ell_device),
+                                ("spmv_dia", dia, generate.make_stencil5_dia_device)):
+            torch.cuda.empty_cache()
+            operand = make(G_BIG, DIAG, OFFDIAG, dtype=dtype, device=dev)
+            lab = f"{G_BIG}² stencil {dname(dtype)}"
+            compare_generic(torch, ell, dia, cmp,
+                            (operand, None) if name == "spmv_ell" else (None, operand), x, lab)
+            kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+            _time_pairs(torch, times, key, {name: (lambda: kern(*operand, x),
+                                                   lambda: plain(*operand, x))}, lab, smi)
+            del operand
+        del x
+    torch.cuda.empty_cache()
+
+
 def phase_profile(torch, smi):
     """Where a solve's time goes: one solve of each CG run of phase 5 under torch.profiler
     at G_BIG² (after two unprofiled ones), its device time split by kernel.  "idle" is wall
@@ -479,7 +677,7 @@ def phase_profile(torch, smi):
     groups.append(("final sums", re.compile(r"(?<![a-z_])final_sum_kernel")))
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
     tables = []
-    for label, (mode, extra, _iters) in CG_RUNS.items():
+    for label, (mode, extra, _iters, _needs) in CG_RUNS.items():
         dtype = torch.float64 if "--dtype=f64" in extra else torch.float32
         recompute = False if "--loop=classic" in extra else None
         op = ops.get_operator(mode, st, dtype=dtype, device="cuda")
@@ -524,7 +722,7 @@ def main() -> int:
     from tpusparse_torch.bench import sysinfo
     from tpusparse_torch.cli import cg_solver as cg_cli
     from tpusparse_torch.cli import spmv_bench as spmv_cli
-    from tpusparse_torch.kernels import blas1
+    from tpusparse_torch.kernels import blas1, dia, ell
     from tpusparse_torch.kernels import stencil5 as st5
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -532,10 +730,11 @@ def main() -> int:
     smi = phase_card(torch, sysinfo)
     phase_build(_build)
     cmp = Compare(torch)
-    phase_compare(torch, st5, blas1, cmp)
-    phase_checksum(torch, st5, generate)
-    results, launches = phase_main_path(torch, (st5, blas1), cg_cli, spmv_cli)
+    phase_compare(torch, st5, blas1, ell, dia, cmp)
+    phase_checksum(torch, st5, ell, dia, generate)
+    results, launches = phase_main_path(torch, (st5, blas1, ell, dia), cg_cli, spmv_cli)
     times = phase_full_size(torch, st5, blas1, cmp, smi)
+    phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times)
     phase_profile(torch, smi)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "

@@ -5,7 +5,9 @@ f64 on the CPU: the port's operators run their plain twins, the JAX solver runs 
 Pallas kernels in interpret mode.  Iteration counts must be identical; solutions agree to
 rtol 1e-10 (the bar of tests/test_kernels_stencil5.py's recompute-vs-classic parity).
 ``stencil5-bf16c`` runs in f32, its native state: iteration counts identical, x to rtol
-1e-5, and bit for bit equal to ``stencil5`` in f32.
+1e-5, and bit for bit equal to ``stencil5`` in f32.  The generic operators ``csr``,
+``dia`` and ``bcoo`` run the classic loop, f64: iteration counts identical to the JAX
+solver with the same mode, x to 1e-10.
 """
 
 import jax.numpy as jnp
@@ -13,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from tests import fixtures
 from tests.test_cg import reference_cg
+from tests.test_kernels_gather import _random_banded_csr
 from tpusparse import formats, generate
 from tpusparse import ops as jops
 from tpusparse.kernels import stencil5 as jst5
@@ -189,8 +193,9 @@ def test_unported_options_raise():
         cg.cg_solve(_port_op(8, "stencil5-const-xla"), b_is_ones=True, recompute_ap=True)
     with pytest.raises(ValueError, match="b_is_ones"):
         cg.cg_solve(op, x0=op.ones_b(), b_is_ones=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ops.get_operator("csr", _stencil(8), device="cpu")
+    with pytest.raises(ValueError, match="recompute_ap"):
+        cg.cg_solve(_port_op(8, "csr"), b_is_ones=True, recompute_ap=True)
+    assert ops.available_modes() == jops.available_modes()
 
 
 def test_operand_from_planes_and_csr():
@@ -206,3 +211,47 @@ def test_operand_from_planes_and_csr():
         convert.operand_from_stencil5(formats.Stencil5(9, planes))
     op = ops.get_operator("stencil5", formats.Stencil5(9, planes), device="cpu")
     assert op.planes[formats.C, 3, 3] == 7.0
+
+
+def _spd_banded(n=300, seed=3):
+    """A symmetric, diagonally dominant matrix with random entries in a band of 20
+    (symmetrized tests/test_kernels_gather.py generator): SPD, and not a stencil."""
+    d = _random_banded_csr(n, 20, 4, seed=seed).to_dense()
+    a = (d + d.T) / 2
+    a[np.diag_indices(n)] = np.abs(a).sum(axis=1) + 1.0
+    r, c = np.nonzero(a)
+    return formats.coo_to_csr(formats.COOMatrix(n, n, r.astype(np.int64), c.astype(np.int64),
+                                                a[r, c]))
+
+
+@pytest.mark.parametrize("mode", ["csr", "dia", "bcoo"])
+@pytest.mark.parametrize("matrix", ["stencil_16", "spd_banded"])
+def test_cg_generic_matches_jax(matrix, mode):
+    """The classic loop over the generic operators (the ELL and DIA twins, the sparse CSR
+    matvec) against the JAX solver over the same mode: the g = 16 stencil in its
+    planes-free form (the port makes its operands on the device) and an SPD banded
+    CSR."""
+    mat = _stencil(16) if matrix == "stencil_16" else _spd_banded()
+    n = mat.num_rows
+    jop = jops.get_operator(mode, mat, dtype=jnp.float64)
+    xj, sj = jcg.cg_solve(jop, jop.as_field(np.ones(n)).astype(jnp.float64))
+    op = ops.get_operator(mode, mat, dtype=torch.float64, device="cpu")
+    assert not cg.uses_recompute(op)
+    x, s = cg.cg_solve(op, b_is_ones=True)
+    assert s.converged and sj.converged
+    assert s.iterations == sj.iterations, (s.iterations, sj.iterations)
+    np.testing.assert_allclose(op.from_field(x).numpy(), np.asarray(jop.from_field(xj)),
+                               rtol=1e-10, atol=1e-12)
+
+
+def test_cg_on_a_matrix_without_a_grid():
+    """b = ones has num_cols elements, also for a .mtx-like CSR that is no g×g stencil
+    (grid_size 0): ones_b used to build a (grid_size, grid_size) field."""
+    csr = fixtures.tridiagonal(300)
+    assert csr.grid_size == 0
+    op = ops.get_operator("csr", csr, dtype=torch.float64, device="cpu")
+    b = op.ones_b()
+    assert b.shape == (300,) and torch.equal(b, torch.ones(300, dtype=torch.float64))
+    x, s = cg.cg_solve(op, b_is_ones=True, config=cg.CGConfig(max_iters=400))
+    assert s.converged
+    np.testing.assert_allclose(csr.to_dense() @ x.numpy(), np.ones(300), atol=1e-5)

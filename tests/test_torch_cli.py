@@ -2,9 +2,10 @@
 
 - ``cg_solver``: the same problem gives the same convergence, iteration count and solution
   checksums in the shared export schema.
-- ``spmv_bench``: every stencil mode gives the analytic Sum(y)/Norm2(y) of y = A·ones.
+- ``spmv_bench``: every mode gives the analytic Sum(y)/Norm2(y) of y = A·ones, on
+  ``gen:<g>`` and on a stencil .mtx.
 - ``bench.metrics``: the card's peak comes from the port's own table, never from the
-  shared TPU table.
+  shared TPU table; the ELL and DIA byte models read the port's operands.
 """
 
 import json
@@ -15,7 +16,7 @@ import pytest
 from tpusparse import formats
 from tpusparse.bench import metrics as jax_metrics
 from tpusparse.cli import cg_solver as jax_cli
-from tpusparse.generate import stencil5_spmv_checksums
+from tpusparse.generate import stencil5_spmv_checksums, write_matrix_market_stencil5
 from tpusparse_torch import ops
 from tpusparse_torch.bench import metrics
 from tpusparse_torch.cli import cg_solver, spmv_bench
@@ -65,8 +66,7 @@ def test_cli_refuses_what_is_not_ported(capsys):
                            "--loop=recompute"]) == 2
     assert cg_solver.main(["gen:8", "--device=cpu", "--mode=stencil5",
                            "--loop=recompute"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        cg_solver.main(["gen:8", "--device=cpu", "--mode=csr"])
+    assert cg_solver.main(["gen:8", "--device=cpu", "--mode=csr", "--loop=recompute"]) == 2
 
 
 def test_spmv_bench_checksums_agree(tmp_path, capsys):
@@ -103,7 +103,7 @@ def test_spmv_bench_resident_x_f64_and_refusals(tmp_path, capsys):
     assert res["benchmark"]["run_protocol"] == "device-resident" and res["dtype"] == "f64"
     assert res["benchmark"]["validation"]["sum_y"] == pytest.approx(
         stencil5_spmv_checksums(12)[0], rel=1e-12)
-    assert spmv_bench.main([*args, "--mode=stencil5,csr"]) == 2
+    assert spmv_bench.main([*args, "--mode=stencil5,csr-gather"]) == 2
     assert spmv_bench.main([*args, "--mode=nonsense"]) == 2
     assert "is not available" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
@@ -132,3 +132,47 @@ def test_metrics_take_the_cards_peak_not_the_tpus():
     xla = metrics.calculate_spmv_metrics(op, 1.0, dtype_itemsize=8, device_kind="cpu",
                                          mode="stencil5-const-xla")
     assert xla.bytes_moved == 2 * 64 * 64 * 8
+
+
+@pytest.mark.parametrize("mode,jmode", [("csr", "csr-xla"), ("dia", "dia"), ("bcoo", "bcoo")])
+def test_cli_generic_modes_match_jax_cli(tmp_path, capsys, mode, jmode):
+    """The generic modes through the CG CLI against the JAX CLI (its csr-xla for csr: the
+    XLA gather the port's twin ports, without the JAX csr kernel's interpret-mode cost).
+    The RMS-vs-ones heuristic is printed for the stencil modes only."""
+    common = ["gen:16", "--dtype=f64", "--runs=3", "--warmup=1"]
+    rc, port = _run(cg_solver.main, tmp_path, "port", [*common, f"--mode={mode}",
+                                                      "--device=cpu"])
+    out = capsys.readouterr().out
+    rc_j, ref = _run(jax_cli.main, tmp_path, "jax", [*common, f"--mode={jmode}"])
+    assert rc == rc_j == 0 and port["loop"] == "fused-classic"
+    assert port["convergence"]["iterations"] == ref["convergence"]["iterations"] == 16
+    for key in ("solution_sum", "solution_norm"):
+        np.testing.assert_allclose(port["validation"][key], ref["validation"][key],
+                                   rtol=1e-10)
+    assert port["matrix"] == ref["matrix"]
+    assert "Iterations:" in out and "RMS error" not in out
+
+
+def test_spmv_bench_generic_modes_on_mtx(tmp_path, capsys):
+    """csr, dia and bcoo on a stencil .mtx: the analytic checksums, and the port's byte
+    models (the shared csr/dia models read the JAX operator's _buffers, which the port's
+    operator does not have: AttributeError)."""
+    g = 12
+    mtx = tmp_path / "g12.mtx"
+    write_matrix_market_stencil5(str(mtx), g)
+    modes = ["csr", "dia", "bcoo", "csr-xla", "dia-xla"]
+    out = tmp_path / "spmv.json"
+    assert spmv_bench.main([str(mtx), "--device=cpu", f"--mode={','.join(modes)}",
+                            "--runs=3", "--warmup=1", f"--json={out}"]) == 0
+    n, nnz = g * g, 5 * g * g - 4 * g
+    want_bytes = {"csr": n * 5 * (4 + 4) + 2 * n * 4, "dia": (5 + 2) * n * 4,
+                  "bcoo": nnz * (4 + 4) + (n + 1) * 4 + 2 * n * 4}
+    want = stencil5_spmv_checksums(g)
+    for mode in modes:
+        b = json.loads((tmp_path / f"spmv_{mode}.json").read_text())["benchmark"]
+        assert b["matrix"] == {"name": "g12.mtx", "rows": n, "cols": n, "nnz": nnz,
+                               "grid_size": g}
+        assert (b["validation"]["sum_y"], b["validation"]["norm2_y"]) == pytest.approx(
+            want, rel=1e-12)
+        assert b["analysis"]["bytes_per_spmv"] == want_bytes[mode.removesuffix("-xla")]
+    assert capsys.readouterr().out.count("Sum(y)   = 192.0000000000000000") == len(modes)

@@ -9,16 +9,17 @@ there without the conftest:
 Tolerances, relative to the largest reference magnitude: f64 1e-12; f32 1e-5 for fields
 and 1e-4 for dots (the dots sum in another order).  CG: equal iteration counts, x to rtol
 1e-10.  Fields are also required to equal the twins' bit for bit where the kernels round
-every operation as PyTorch does (K4, K5, K7, K8).
+every operation as PyTorch does (K4, K5, K7, K8, K11 and the ELL kernel of K12/K13).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tpusparse import formats
 from tpusparse.formats import Stencil5
-from tpusparse_torch import generate, ops
-from tpusparse_torch.kernels import blas1
+from tpusparse_torch import convert, generate, ops
+from tpusparse_torch.kernels import blas1, dia, ell
 from tpusparse_torch.kernels import stencil5 as st5
 from tpusparse_torch.solvers import cg
 
@@ -156,7 +157,8 @@ def test_kernel_path_rejects_what_it_cannot_run(dev):
 
 @pytest.mark.parametrize("mode,loop", [("stencil5-const", "recompute"),
                                        ("stencil5-const", "classic"),
-                                       ("stencil5", "classic")])
+                                       ("stencil5", "classic"), ("csr", "classic"),
+                                       ("dia", "classic"), ("bcoo", "classic")])
 @pytest.mark.parametrize("x0", [False, True])
 def test_cg_on_card_matches_cpu(dev, mode, loop, x0):
     """The kernels' solve on the card against the plain twins' solve on the CPU, f64,
@@ -169,7 +171,8 @@ def test_cg_on_card_matches_cpu(dev, mode, loop, x0):
     for device in (dev, "cpu"):
         op = ops.get_operator(mode, st, dtype=torch.float64, device=device)
         b = op.ones_b()
-        res.append(cg.cg_solve(op, b, start, recompute_ap=recompute))
+        x0_field = None if start is None else start.reshape(op.field_shape)
+        res.append(cg.cg_solve(op, b, x0_field, recompute_ap=recompute))
     (x_c, s_c), (x, s) = res
     assert s_c.converged and s_c.iterations == s.iterations
     np.testing.assert_allclose(x_c.cpu().numpy(), x.numpy(), rtol=1e-10, atol=1e-12)
@@ -181,3 +184,84 @@ def test_bf16c_solution_equals_stencil5_f32_on_card(dev):
     x16, s16 = cg.cg_solve(ops.get_operator("stencil5-bf16c", st, device=dev), b_is_ones=True)
     assert s32.converged and s16.iterations == s32.iterations
     assert torch.equal(x16, x32)
+
+
+def _random_banded(n, bandwidth, max_row_nnz, seed):
+    """Random values at random columns of a band, 1..max_row_nnz entries a row (duplicates
+    kept: both kernel and twin sum them)."""
+    rng = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), rng.randint(1, max_row_nnz + 1, n))
+    cols = np.clip(rows + rng.randint(-bandwidth, bandwidth + 1, rows.size), 0, n - 1)
+    return formats.coo_to_csr(formats.COOMatrix(n, n, rows, cols, rng.randn(rows.size)))
+
+
+def _generic_operands(g, dtype, dev):
+    """{label: (ELL operand or None, DIA operand or None)}: the stencil's, made on the
+    card, and host packs of random banded and uniformly random sparsity."""
+    out = {f"stencil g={g}": (generate.make_stencil5_ell_device(g, dtype=dtype, device=dev),
+                              generate.make_stencil5_dia_device(g, dtype=dtype, device=dev))}
+    n = g * g
+    band = _random_banded(n, 40, 7, seed=g)
+    e, d = formats.csr_to_ell(band), formats.csr_to_dia(band)
+    out["random banded"] = (convert.ell_from_numpy(e.col, e.val, dtype, dev),
+                            convert.dia_from_numpy(d.data, d.offsets, dtype, dev))
+    rng = np.random.RandomState(g + 1)
+    rows = np.repeat(np.arange(n, dtype=np.int64), 3)
+    scattered = formats.coo_to_csr(formats.COOMatrix(n, n, rows, rng.randint(0, n, 3 * n),
+                                                     rng.randn(3 * n)))
+    e = formats.csr_to_ell(scattered)
+    out["scattered columns"] = (convert.ell_from_numpy(e.col, e.val, dtype, dev), None)
+    return out
+
+
+@pytest.mark.parametrize("g", [37, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_and_dia_match_twins_on_card(dev, g, dtype):
+    _, tol_dot = TOL[dtype]
+    x = _randn(torch.Generator(device=dev).manual_seed(g), dev, dtype, g * g)
+    for label, (ell_op, dia_op) in _generic_operands(g, dtype, dev).items():
+        for kern, plain, operand in ((ell.spmv_ell, ell.spmv_ell_plain, ell_op),
+                                     (dia.spmv_dia, dia.spmv_dia_plain, dia_op)):
+            if operand is None:
+                continue
+            y, d = kern(*operand, x, with_dot=True)
+            yp, dp = plain(*operand, x, with_dot=True)
+            assert torch.equal(y, yp), label
+            assert torch.equal(kern(*operand, x), yp), label
+            assert _rel(d, dp) <= tol_dot, label
+
+
+def test_generic_kernels_on_ones_give_the_analytic_checksums(dev):
+    g = 1000
+    want = generate.stencil5_spmv_checksums(g)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.ones(g * g, dtype=dtype, device=dev)
+        for y in (ell.spmv_ell(*generate.make_stencil5_ell_device(g, dtype=dtype, device=dev),
+                               x),
+                  dia.spmv_dia(*generate.make_stencil5_dia_device(g, dtype=dtype, device=dev),
+                               x)):
+            y = y.double()
+            np.testing.assert_allclose((float(y.sum()), float(torch.linalg.vector_norm(y))),
+                                       want, rtol=1e-12)
+
+
+def test_generic_wrappers_count_and_check(dev):
+    n = 4096
+    x = torch.rand(n, device=dev, dtype=torch.float64)
+    vals, cols = convert.ell_from_numpy(np.arange(n)[:, None], np.ones((n, 1)),
+                                        torch.float64, dev)
+    data, offsets = convert.dia_from_numpy(np.ones((1, n)), np.zeros(1), torch.float64, dev)
+    ell.reset_launches()
+    dia.reset_launches()
+    assert torch.equal(ell.spmv_ell(vals, cols, x), x)
+    ell.spmv_ell(vals, cols, x, with_dot=True)
+    ell.spmv_ell_plain(vals, cols, x)  # twins do not count
+    assert torch.equal(dia.spmv_dia(data, offsets, x), x)
+    dia.spmv_dia_plain(data, offsets, x)
+    assert ell.LAUNCHES == {"spmv_ell": 2} and dia.LAUNCHES == {"spmv_dia": 1}
+    with pytest.raises(ValueError, match="int32"):
+        ell.spmv_ell(vals, cols.long(), x)
+    with pytest.raises(ValueError, match="int64"):
+        dia.spmv_dia(data, offsets.int(), x)
+    with pytest.raises(ValueError, match="dtype|disagree|values"):
+        ell.spmv_ell(vals.float(), cols, x)

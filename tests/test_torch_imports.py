@@ -37,6 +37,7 @@ def test_no_module_imports_jax():
     assert not res["jax"], res
     for mod in ("tpusparse_torch.ops", "tpusparse_torch.solvers.cg",
                 "tpusparse_torch.kernels.stencil5", "tpusparse_torch.kernels.blas1",
+                "tpusparse_torch.kernels.ell", "tpusparse_torch.kernels.dia",
                 "tpusparse_torch.kernels._launch", "tpusparse_torch.cli.cg_solver",
                 "tpusparse_torch.cli.spmv_bench", "tpusparse_torch.bench.sysinfo",
                 "tpusparse_torch.bench.metrics", "tpusparse_torch.convert",

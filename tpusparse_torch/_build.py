@@ -33,7 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double
 # name -> (argtypes, restype) of every C function in csrc/: the kernel entry points return
-# a CUDA error code, the three size queries an int64, tps_error_string a C string
+# a CUDA error code, the size queries an int64, tps_error_string a C string
 _SIGNATURES = {
     "tps_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     "tps_stencil5_partials": ((_I, _I), _I),
@@ -47,12 +47,15 @@ _SIGNATURES = {
     **{f"tps_spmv_stencil5_{t}": ((_P, _P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
        for t in ("f32", "f64", "bf16_f32", "bf16_f64")},
     "tps_blas1_partials": ((_I,), _I),
+    "tps_row_partials": ((_I,), _I),
     **{f"tps_cg_update_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
        for t in ("f32", "f64")},
     **{f"tps_p_update_{t}": ((_P, _P, _P, _I, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_dot_{t}": ((_P, _P, _I, _P, _P, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_axpby_dot_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
        for t in ("f32", "f64")},
+    **{f"tps_spmv_{k}_{t}": ((_P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
+       for k in ("ell", "dia") for t in ("f32", "f64")},
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,14 @@
 """SpMV metrics of the port: GFLOPS, bytes, GB/s and the share of the card's peak.
 
 Counterpart of ``calculate_spmv_metrics`` in ``tpusparse/bench/metrics.py``.  The FLOP count
-(``spmv_flops``), the byte models (``BYTE_MODELS``) and the result type (``SpmvMetrics``)
-are shared with it; what differs is where the card's numbers come from:
+(``spmv_flops``), the stencil byte models (``BYTE_MODELS``) and the result type
+(``SpmvMetrics``) are shared with it.  What differs:
 
+  - the ELL, DIA and ``bcoo`` byte models are the port's own (``BYTE_MODELS_PORT``): the
+    shared ELL and DIA ones read the JAX operator's ``_buffers`` and count its TPU packs (x
+    windows, lane padding), and the shared ``bcoo`` one counts a COO row and column index
+    per entry, where the port's ``bcoo`` is CSR; these count what the port's operands
+    stream, from ``op.operand``;
   - the peak is ``sysinfo.gpu_peaks``, this package's table of NVIDIA cards.  The shared
     ``chip_peaks`` answers any name it does not know with a TPU v5e's 819 GB/s, which on an
     H100 would report a TPU roofline and flag every run as above peak.  A card missing
@@ -19,13 +24,38 @@ from __future__ import annotations
 
 from typing import Optional
 
-from tpusparse.bench.metrics import BYTE_MODELS, SpmvMetrics, spmv_flops
+from tpusparse.bench.metrics import (BYTE_MODELS, SpmvMetrics, bytes_csr, bytes_dia, bytes_ell,
+                                     spmv_flops)
 
 from .sysinfo import gpu_peaks
 
 # Below this per-apply time a chain of applies between two CUDA events is near the launch
 # rate (a few µs a launch), so the window measures launches more than the kernel.
 MIN_VALID_KERNEL_MS = 0.05
+
+
+def _bytes_ell_port(op, itemsize):
+    """Slot-major ELL (``kernels.ell``): W values and W int32 columns per row, x read once
+    (its other W - 1 reads hit the cache) and y written: W·n·(itemsize + 4) + 2·n·itemsize."""
+    return bytes_ell(op.num_rows, op.operand["cols"].shape[0], itemsize)
+
+
+def _bytes_dia_port(op, itemsize):
+    """DIA (``kernels.dia``): ndiag data words per row, stored zeros included, x read once
+    and y written: (ndiag + 2)·n·itemsize."""
+    return bytes_dia(op.num_rows, op.operand["offsets"].numel(), itemsize)
+
+
+def _bytes_bcoo_port(op, itemsize):
+    """``bcoo`` (a ``torch.sparse_csr_tensor``): the reference's CSR model, one column index
+    per entry plus the row pointers, at the tensor's own index width (int32 below 2^31)."""
+    return bytes_csr(op.nnz, op.num_rows, itemsize,
+                     op.operand["matrix"].col_indices().element_size())
+
+
+# the port's own models, looked up before the shared BYTE_MODELS
+BYTE_MODELS_PORT = {"csr": _bytes_ell_port, "ell": _bytes_ell_port, "dia": _bytes_dia_port,
+                    "bcoo": _bytes_bcoo_port}
 
 
 def calculate_spmv_metrics(op, time_ms: float, *, dtype_itemsize: int, device_kind: str,
@@ -79,10 +109,11 @@ def calculate_spmv_metrics(op, time_ms: float, *, dtype_itemsize: int, device_ki
 
 
 def _byte_model(mode):
-    """The shared byte model of a mode.  A plain-PyTorch ``*-xla`` oracle is held to its
-    kernel's model: the bytes the operator needs, not the extra passes the plain ops
-    make."""
-    for key in (mode, mode.removesuffix("-xla")):
-        if key in BYTE_MODELS:
-            return BYTE_MODELS[key]
+    """The byte model of a mode: the port's own, else the shared one.  A plain-PyTorch
+    ``*-xla`` oracle is held to its kernel's model: the bytes the operator needs, not the
+    extra passes the plain ops make."""
+    for models in (BYTE_MODELS_PORT, BYTE_MODELS):
+        for key in (mode, mode.removesuffix("-xla")):
+            if key in models:
+                return models[key]
     raise ValueError(f"no byte model for mode '{mode}'")

@@ -9,7 +9,8 @@ Counterpart of ``tpusparse/cli/spmv_bench.py`` (reference src/main/main.cu:48-55
 All modes are checked before the operand is loaded (main.cu:94-105); x = ones (:136-137);
 5 warm-ups and 10 timed runs with the shared statistics (:158-167); one export per mode,
 suffixed ``_<mode>`` (:200-241); Sum(y)/Norm2(y) checksums at 16 decimals (:245-248).
-``gen:<g>`` makes the stencil operand on the device, without a .mtx file.
+``gen:<g>`` makes the stencil operand on the device, without a .mtx file, in every mode
+but ``bcoo``, which builds its CSR on the host.
 
 The run times follow ``run_timed`` (upload x, apply, download y) or, with ``--resident-x``,
 ``run_timed_resident`` (x stays on the card); GFLOPS and GB/s come from the device time of

@@ -4,7 +4,9 @@
 x, r, p, halo rows, scalars) into tensors, so a test can start both packages from the
 same mid-solve state.  Of the shared ``tpusparse.formats.Stencil5``,
 ``operand_from_stencil5`` reads the constant coefficients and ``planes_from_numpy`` carries
-the host coefficient planes to the device.
+the host coefficient planes to the device.  ``ell_from_numpy`` and ``dia_from_numpy`` carry
+the shared host packs (``formats.csr_to_ell``/``stencil5_to_ell``, ``formats.csr_to_dia``/
+``stencil5_to_dia``) to the device in the layouts the generic kernels read.
 """
 
 from __future__ import annotations
@@ -66,3 +68,31 @@ def operand_from_stencil5(st: Stencil5):
             "the stencil5-const operator needs uniform coefficients; for general coefficient "
             "planes use mode 'stencil5' (the values-carrying operator)")
     return diag, offdiag
+
+
+def ell_from_numpy(col, val, dtype=torch.float32, device="cuda"):
+    """An ELL pack (``ELLMatrix.col``/``.val``, (n, W) each) as the slot-major operand of
+    ``kernels.ell``: values (W, n) in ``dtype`` and columns (W, n) int32, so that the
+    threads of a warp, on neighbouring rows, read neighbouring addresses.  Always
+    copies."""
+    col, val = np.asarray(col), np.asarray(val)
+    if col.ndim != 2 or col.shape != val.shape:
+        raise ValueError(f"expected (n, W) columns and values, got {col.shape} and {val.shape}")
+    if col.size and (col.min() < 0 or col.max() >= 2 ** 31):
+        raise ValueError("ELL columns must lie in [0, 2**31) for the int32 operand")
+    dev = resolve_device(device)
+    return (torch.tensor(np.ascontiguousarray(val.T), dtype=dtype, device=dev),
+            torch.tensor(np.ascontiguousarray(col.T, dtype=np.int32), device=dev))
+
+
+def dia_from_numpy(data, offsets, dtype=torch.float32, device="cuda"):
+    """A DIA pack (``DIAMatrix.data`` (ndiag, n), ``.offsets`` (ndiag,)) as the operand of
+    ``kernels.dia``: data in ``dtype`` and offsets int64, both on ``device``.  Always
+    copies."""
+    data, offsets = np.asarray(data), np.asarray(offsets)
+    if data.ndim != 2 or offsets.shape != (data.shape[0],):
+        raise ValueError(f"expected (ndiag, n) data and (ndiag,) offsets, got {data.shape} "
+                         f"and {offsets.shape}")
+    dev = resolve_device(device)
+    return (torch.tensor(data, dtype=dtype, device=dev),
+            torch.tensor(offsets, dtype=torch.int64, device=dev))

@@ -6,7 +6,11 @@ plain twin: what reaches them must be a CUDA tensor the kernels can take, or the
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from .. import _build
 
 # state dtypes the kernels take -> the suffix of their C entry points
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -70,3 +74,12 @@ def ptr(t):
 
 def stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the library's size query, asked once per size so that a launch makes one foreign call,
+# the kernel's own
+@functools.lru_cache(maxsize=64)
+def row_partials(n):
+    """The number of per-block partials a dot of the one-thread-per-row kernels
+    (csrc/rows.cuh: spmv_ell, spmv_dia) over n rows needs."""
+    return _build.lib().tps_row_partials(n)
