@@ -9,20 +9,23 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
   1. the card: nvidia-smi's name and power limit, torch's device properties;
   2. build the kernels of tpusparse_torch/csrc/ with nvcc (timed);
   3. each kernel against its plain PyTorch twin on the card, at g = 37, 1000 and 4096:
-     K1-K3 and K4-K7 in f32 and f64, K8 in its four planes/state pairs (f32/f32, f64/f64,
-     bf16/f32, bf16/f64), stencils with and without halo rows; K11 (DIA) and the ELL
+     K1-K3, K10 and K4-K7 in f32 and f64, K8 and K9 in their four planes/state pairs
+     (f32/f32, f64/f64, bf16/f32, bf16/f64), stencils with and without halo rows (K9 and
+     K10 for β = 0 with p = 0 and for β = 0.7, their fields bit for bit); K11 (DIA) and the ELL
      kernel of K12/K13 in f32 and f64 on the stencil's operands made on the card, and on
      host packs of five more matrices of about 10^6 rows: random banded with variable row
      lengths, uniformly random columns (ELL only: it has ~10^6 diagonals), a width-1
      diagonal, one with empty rows, and a DIA with offsets ±300 and ±1000 holding NaN
      where its diagonals leave the matrix (tolerances: f64 1e-12; f32 1e-5 for fields,
      1e-4 for dots, relative to the largest reference magnitude);
-  4. the SpMVs on ones at 20480² against the analytic checksums: K3 in f32 and f64, K8 in
-     f32, bf16c and f64, K11 and the ELL kernel in f32 and f64;
+  4. the SpMVs on ones at 20480² against the analytic checksums: K3 and K10 in f32 and
+     f64, K8 and K9 in f32, bf16c and f64, K11 and the ELL kernel in f32 and f64 (K9 and
+     K10 with β = 0, p = 0 and r = ones);
   5. the main paths, each read on its own: every launch count is set to 0 just before a
      path runs and read just after, and the path must have launched its own kernels (CG
      over stencil5-const recompute: K1, K2, K6; every classic CG: its SpMV, K4, K5, K6;
-     the seeded-x0 solve also K7; an SpMV CLI run: its mode's kernel).  The CG CLI at
+     the seeded-x0 solve also K7; a fused solve: K9 or K10, K4 and K6, and no K1, K2,
+     K3, K5 or K8; an SpMV CLI run: its mode's kernel).  The CG CLI at
      gen:20480 with mode stencil5-const (f64 recompute, exactly 14 iterations; f32
      recompute; f32 classic, through K3 + K4 + K5 + K6), mode stencil5 (f64, exactly 14
      iterations; f32), stencil5-bf16c (f32), csr (f64, exactly 14 iterations; f32) and dia
@@ -34,14 +37,25 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      operand) builds in well under a minute (each run's wall time, its operator's build
      included, is printed); the bf16c solution against the f32 stencil5 solution, bit for
      bit; one solve from a seeded nonzero x0 (K7), held with the x0 = 0 solve to the true
-     residual.  The kernels line's launches are the paths' counts summed; the counts of
-     each path go to chiprun_out/chip_smoke_launches.json;
+     residual; five fused p-update solves through cg.cg_solve(fused_pupdate=True), a
+     median over a few solves after a warm-up each (stencil5 f64, exactly 14 iterations
+     and the classic stencil5 f64 solution's Sum/Norm2 to 1e-10; stencil5 f32;
+     stencil5-bf16c f32, bit for bit the fused stencil5 f32 solution; stencil5-const f64,
+     exactly 14 iterations and the recompute solution's Sum/Norm2 to 1e-10;
+     stencil5-const f32).  The kernels line's launches are the paths' counts summed; the
+     counts of each path go to chiprun_out/chip_smoke_launches.json;
   6. each kernel against its plain twin at 20480² on seeded random fields at the main
      paths' shapes (same tolerances), then timed against it on those inputs (CUDA events,
-     plain/kernel/kernel/plain); the solves' median times, next to the card's name and
-     power limit;
-  7. one solve of each CG run of phase 5 under torch.profiler, its device time split by
-     kernel (PERF.md section 5).
+     plain/kernel/kernel/plain), and against the one PyTorch call that computes the same
+     function where there is one (kernel/library/library/kernel; held to it at 1e-5
+     relative, a yardstick, not an oracle): torch.dot for K6, torch.add(r, p, alpha=β) for
+     K5, F.conv2d with the 3×3 stencil for K3 (the ELL kernel's cuSPARSE yardstick,
+     ``bcoo``, runs at G_HOST² in phase 5).  Each kernel's
+     bound: the bytes its call must move (inputs read once, outputs written once) over
+     3.35 TB/s, or its operations over the data sheet's peak rate, whichever is larger;
+     the solves' median times, next to the card's name and power limit;
+  7. one solve of each CG run of phase 5, and of each fused solve, under torch.profiler,
+     its device time split by kernel (PERF.md section 5).
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
 record and then {"ok": true, "device": {...}}.  Exports go to chiprun_out/.
@@ -82,6 +96,11 @@ KERNELS = {
                   "tpusparse/kernels/blas1.py:117"),
     "spmv_stencil5": ("K8", "spmv_planes_kernel", "tpusparse_torch/csrc/stencil5.cu",
                       "tpusparse/kernels/stencil5.py:432"),
+    "spmv_stencil5_pupdate": ("K9", "pupdate_planes_kernel", "tpusparse_torch/csrc/stencil5.cu",
+                              "tpusparse/kernels/stencil5.py:564"),
+    "spmv_stencil5_const_pupdate": ("K10", "pupdate_spmv_kernel",
+                                    "tpusparse_torch/csrc/stencil5_const.cu",
+                                    "tpusparse/kernels/stencil5.py:1154"),
     "spmv_dia": ("K11", "spmv_dia_kernel", "tpusparse_torch/csrc/dia.cu",
                  "tpusparse/kernels/dia.py:84"),
     "spmv_ell": ("K12", "spmv_ell_kernel", "tpusparse_torch/csrc/ell.cu",
@@ -111,6 +130,23 @@ SPMV_NEEDS = {"stencil5": ("spmv_stencil5",), "stencil5-bf16c": ("spmv_stencil5"
               "dia": ("spmv_dia",), "csr-xla": (), "dia-xla": (), "bcoo": ()}
 SPMV_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr", "dia")
 HOST_MODES = ("csr", "csr-xla", "dia-xla", "bcoo")
+# the fused p-update solves: label -> (mode, dtype name, iterations required, their fused
+# pass); each must launch its fused pass, K4 and K6, and none of FUSED_FORBID
+FUSED_RUNS = {
+    "fused stencil5 f64": ("stencil5", "float64", 14, "spmv_stencil5_pupdate"),
+    "fused stencil5 f32": ("stencil5", "float32", None, "spmv_stencil5_pupdate"),
+    "fused bf16c f32": ("stencil5-bf16c", "float32", None, "spmv_stencil5_pupdate"),
+    "fused const f64": ("stencil5-const", "float64", 14, "spmv_stencil5_const_pupdate"),
+    "fused const f32": ("stencil5-const", "float32", None, "spmv_stencil5_const_pupdate"),
+}
+FUSED_FORBID = ("p_update", "spmv_stencil5", "spmv_stencil5_const",
+                "spmv_stencil5_const_pupdate_dot", "cg_const_update_recompute")
+FUSED_TIMED = 5  # timed solves of each, after one warm-up
+# the least time a call can take: its bytes over HBM's rate, or its operations over the
+# peak rate of their type, whichever is larger (NVIDIA's H100 SXM data sheet, dense,
+# outside the tensor cores, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
 
 
 def rel(a, b) -> float:
@@ -136,7 +172,7 @@ class PathCounts:
         self.counters = counters
         self.by_path = {}
 
-    def run(self, label, needs, fn):
+    def run(self, label, needs, fn, forbid=()):
         for counter in self.counters:
             counter.reset_launches()
         out = fn()
@@ -149,6 +185,9 @@ class PathCounts:
         missing = [f"{KERNELS[n][0]} {n}" for n in needs if counts.get(n, 0) <= 0]
         if missing:
             raise AssertionError(f"{label}: kernels of this path never launched: {missing}")
+        stray = [f"{KERNELS[n][0]} {n}" for n in forbid if counts.get(n, 0)]
+        if stray:
+            raise AssertionError(f"{label}: kernels of another path launched: {stray}")
         return out
 
     def totals(self):
@@ -166,11 +205,12 @@ class Compare:
         self.max_rel = {name: 0.0 for name in KERNELS}
 
     def check(self, name, label, dtype, pairs):
-        """pairs: [(what, kernel tensor, plain tensor, "field"|"dot"), ...]."""
+        """pairs: [(what, kernel tensor, plain tensor, "field"|"exact"|"dot"), ...]; an
+        "exact" field must equal the plain one bit for bit."""
         field_tol, dot_tol = self.tol[dtype]
         parts = []
         for what, k, p, kind in pairs:
-            tol = field_tol if kind == "field" else dot_tol
+            tol = {"field": field_tol, "exact": 0.0, "dot": dot_tol}[kind]
             e = rel(k, p)
             self.max_abs[name] = max(self.max_abs[name], abs_err(k, p))
             self.max_rel[name] = max(self.max_rel[name], e)
@@ -261,6 +301,38 @@ def compare_const(torch, st5, cmp, g, dtype, randn):
               [("x'", xk, xp, "field"), ("r'", rk, rp, "field"), ("<r',r'>", dk, dp, "dot")])
 
 
+def compare_fused(torch, st5, cmp, g, dtype, randn):
+    """K9 in its two planes dtypes for this state dtype and K10 against their twins, on a
+    g-wide grid for β = 0 with p = 0 (the first iteration) and on a band with halo rows
+    for β = 0.7: p' and y bit for bit, the dot to tolerance, p left as it was."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    dev = torch.device("cuda")
+    band = g // 2 + 1
+    for beta, rows, halos in ((0.0, g, ()), (0.7, band, (randn(1, g), randn(1, g)))):
+        r = randn(rows, g)
+        p = torch.zeros_like(r) if beta == 0.0 else randn(rows, g)
+        p_before = p.clone()
+        b = torch.tensor(beta, dtype=dtype, device=dev)
+        lab = f"g={g} {dname(dtype)} beta={beta} rows={rows}" + (" + halos" if halos else "")
+        runs = [("spmv_stencil5_const_pupdate", lab,
+                 lambda: st5.spmv_stencil5_const_pupdate(b, r, p, *halos, **kw),
+                 lambda: st5.spmv_stencil5_const_pupdate_plain(b, r, p, *halos, **kw))]
+        for pdt in (dtype, torch.bfloat16):
+            planes = randn(5, rows, g).to(pdt)
+            runs.append(("spmv_stencil5_pupdate", f"{lab} planes {dname(pdt)}",
+                         lambda planes=planes: st5.spmv_stencil5_pupdate(planes, b, r, p,
+                                                                         *halos),
+                         lambda planes=planes: st5.spmv_stencil5_pupdate_plain(planes, b, r,
+                                                                               p, *halos)))
+        for name, label, kern, plain in runs:
+            pk, yk, dk = kern()
+            if not torch.equal(p, p_before):
+                raise AssertionError(f"{KERNELS[name][0]} {label}: the kernel changed p")
+            pp, yp, dp = plain()
+            cmp.check(name, label, dtype, [("p'", pk, pp, "exact"), ("y", yk, yp, "exact"),
+                                           ("<p',y>", dk, dp, "dot")])
+
+
 def compare_k8(torch, st5, cmp, planes, x, halos, label):
     """K8 against its twin on the given operands, with and without the dot."""
     y = st5.spmv_stencil5(planes, x, *halos)
@@ -314,7 +386,7 @@ def generic_matrices():
     {label: (ELLMatrix or None, DIAMatrix or None)}."""
     import numpy as np
 
-    from tpusparse import formats
+    from tpusparse_torch import formats
 
     n = 1_000_000
     rng = np.random.RandomState(11)
@@ -361,6 +433,7 @@ def phase_compare(torch, st5, blas1, ell, dia, cmp):
                 return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
 
             compare_const(torch, st5, cmp, g, dtype, randn)
+            compare_fused(torch, st5, cmp, g, dtype, randn)
             lab = f"g={g} {dname(dtype)}"
             compare_blas1(torch, blas1, cmp, *(randn(g, g) for _ in range(4)), lab)
             band = g // 2 + 1
@@ -405,14 +478,20 @@ def phase_checksum(torch, st5, ell, dia, generate):
 
     for dtype in (torch.float32, torch.float64):
         x = generate.ones_field(G_BIG, dtype, "cuda")
+        zero = torch.zeros_like(x)
         check(f"K3 {G_BIG}² {dname(dtype)}",
               st5.spmv_stencil5_const(x, diag=DIAG, offdiag=OFFDIAG))
+        check(f"K10 {G_BIG}² {dname(dtype)} beta=0 p=0",
+              st5.spmv_stencil5_const_pupdate(0.0, x, zero, diag=DIAG, offdiag=OFFDIAG)[1])
         for pdt in (dtype, torch.bfloat16) if dtype == torch.float32 else (dtype,):
             planes = generate.make_stencil5_planes_device(G_BIG, DIAG, OFFDIAG, dtype=pdt,
                                                           device="cuda")
             check(f"K8 {G_BIG}² planes {dname(pdt)} state {dname(dtype)}",
                   st5.spmv_stencil5(planes, x))
+            check(f"K9 {G_BIG}² planes {dname(pdt)} state {dname(dtype)} beta=0 p=0",
+                  st5.spmv_stencil5_pupdate(planes, 0.0, x, zero)[1])
             del planes
+        del zero
         for short, spmv, make in (("ELL", ell.spmv_ell, generate.make_stencil5_ell_device),
                                   ("K11", dia.spmv_dia, generate.make_stencil5_dia_device)):
             operand = make(G_BIG, DIAG, OFFDIAG, dtype=dtype, device="cuda")
@@ -425,9 +504,10 @@ def phase_checksum(torch, st5, ell, dia, generate):
 
 def phase_main_path(torch, counters, cg_cli, spmv_cli):
     """The main paths through the entry points a user calls, each with its own launch
-    counts.  Returns ({label: CG export}, {wrapper: launches summed over the paths})."""
-    from tpusparse.formats import Stencil5
+    counts.  Returns ({label: CG export}, {label: fused solve's median ms, iterations},
+    {wrapper: launches summed over the paths})."""
     from tpusparse_torch import ops
+    from tpusparse_torch.formats import Stencil5
     from tpusparse_torch.kernels import stencil5 as st5
     from tpusparse_torch.solvers import cg
 
@@ -506,18 +586,80 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
     del x, x_zero
     torch.cuda.empty_cache()
 
+    fused = phase_fused(torch, counts, st, results)
     launches = counts.totals()
     (OUT / "chip_smoke_launches.json").write_text(json.dumps(counts.by_path, indent=1))
     missing = [f"{KERNELS[n][0]} {n}" for n in KERNELS if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
-    return results, launches
+    return results, fused, launches
+
+
+def phase_fused(torch, counts, st, results):
+    """The fused p-update solves through cg.cg_solve(fused_pupdate=True), each path with
+    its own launch counts: one warm-up, then FUSED_TIMED timed solves (the port's stats:
+    the median).  Returns {label: (median ms, iterations)}."""
+    from tpusparse_torch import ops
+    from tpusparse_torch.bench import stats
+    from tpusparse_torch.solvers import cg
+
+    out, x_f32 = {}, None
+    for label, (mode, dtype_name, iters, fused_pass) in FUSED_RUNS.items():
+        dtype = getattr(torch, dtype_name)
+        op = ops.get_operator(mode, st, dtype=dtype, device="cuda")
+
+        def solve():
+            t0 = time.perf_counter()
+            x, s = cg.cg_solve(op, b_is_ones=True, fused_pupdate=True)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, (x, s)
+
+        bench, (x, s) = counts.run(
+            label, (fused_pass, "cg_update", "dot"),
+            lambda: stats.benchmark_solver_with_stats(solve, num_runs=FUSED_TIMED, warmup=1),
+            forbid=FUSED_FORBID)
+        op.free()
+        del op
+        xd = x.double()
+        check = {"solution_sum": float(xd.sum()),
+                 "solution_norm": float(torch.linalg.vector_norm(xd))}
+        del xd
+        print(f"[cg] {label} {G_BIG}²: converged {s.converged}, {s.iterations} iterations, "
+              f"median {bench.median_ms!r} ms over {bench.valid_runs}/{bench.total_runs} "
+              f"runs, Sum {check['solution_sum']!r} Norm2 {check['solution_norm']!r}",
+              flush=True)
+        if not s.converged or (iters is not None and s.iterations != iters):
+            raise AssertionError(f"{label}: converged {s.converged} in {s.iterations} "
+                                 f"iterations, not {iters}")
+        ref_label = {"fused stencil5 f64": "stencil5 f64",
+                     "fused const f64": "const f64 recompute"}.get(label)
+        if ref_label:
+            ref = results[ref_label]["validation"]
+            errs = {k: abs(check[k] - ref[k]) / abs(ref[k]) for k in check}
+            print(f"[cg] {label} against the {ref_label} solution: Sum rel "
+                  f"{errs['solution_sum']:.3e}, Norm2 rel {errs['solution_norm']:.3e} "
+                  f"(tol 1e-10)", flush=True)
+            if not max(errs.values()) <= 1e-10:
+                raise AssertionError(f"{label} differs from {ref_label}: {errs}")
+        if label == "fused stencil5 f32":
+            x_f32 = x
+        elif label == "fused bf16c f32":
+            if not torch.equal(x, x_f32):
+                raise AssertionError("fused stencil5-bf16c's x differs from fused stencil5 "
+                                     "f32's x")
+            print(f"[cg] fused stencil5-bf16c x equals fused stencil5 f32 x bit for bit at "
+                  f"{G_BIG}²", flush=True)
+            x_f32 = None
+        out[label] = (bench.median_ms, s.iterations)
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_spmv_cli(spmv_cli, counts, g, modes, name):
     """The SpMV CLI at gen:g, f32, one run per mode, each with its own launch counts; the
-    wall time of a run includes its operator's build (for bcoo, the host CSR).  Raises unless every mode gives the same checksums.  Returns {mode: kernel
-    ms}."""
+    wall time of a run includes its operator's build (for bcoo, the host CSR).  Raises
+    unless every mode gives the same checksums.  Returns {mode: kernel ms}."""
     spmv_json = OUT / name
     sums, kernel_ms = {}, {}
     for mode in modes:
@@ -553,23 +695,60 @@ def _time_ms(torch, fn, n=10):
     return start.elapsed_time(end) / n
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(work, key):
+    """(ms, "bytes"|"operations"): the least time of a call that moves work[0] bytes (each
+    input read once, each output written once) and does work[1] operations of the state
+    type of ``key`` ("f32", "f64", "bf16_f32", ...)."""
+    nb, ops = work
+    t_bytes = nb / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[key[-3:]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _time_pairs(torch, times, key, pairs, label, smi):
-    """Time each (kernel, plain) pair in the order plain/kernel/kernel/plain; keep the
-    best of each."""
-    for name, (kern, plain) in pairs.items():
+    """Time each kernel against its plain twin (plain/kernel/kernel/plain) and, where it
+    has one, against its library call (kernel/library/library/kernel); keep the best of
+    each, beside the kernel's bound.  pairs: {name: (kernel, plain, (bytes, operations),
+    library call or None)}."""
+    for name, (kern, plain, work, lib) in pairs.items():
         t_p1, t_k1, t_k2, t_p2 = (_time_ms(torch, f) for f in (plain, kern, kern, plain))
-        times[name][key] = (min(t_k1, t_k2), min(t_p1, t_p2))
-        print(f"[time] {KERNELS[name][0]} {name} {label}: kernel {times[name][key][0]!r} ms, "
-              f"plain {times[name][key][1]!r} ms [{smi}]", flush=True)
+        e = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2), "library_ms": None}
+        if lib is not None:
+            t_k3, t_l1, t_l2, t_k4 = (_time_ms(torch, f) for f in (kern, lib, lib, kern))
+            e["ms"], e["library_ms"] = min(e["ms"], t_k3, t_k4), min(t_l1, t_l2)
+        e["bound_ms"], e["bound_by"] = bound(work, key)
+        times[name][key] = e
+        lib_txt = "" if lib is None else f", library {e['library_ms']!r} ms"
+        print(f"[time] {KERNELS[name][0]} {name} {label}: kernel {e['ms']!r} ms, plain "
+              f"{e['plain_ms']!r} ms{lib_txt}, bound {e['bound_ms']!r} ms ({e['bound_by']}; "
+              f"kernel at {100 * e['bound_ms'] / e['ms']:.1f}% of it) [{smi}]", flush=True)
+
+
+def check_library(name, label, got, want):
+    """A library call against the kernel: a yardstick held to 1e-5 relative, not an
+    oracle (it sums in another order)."""
+    e = rel(got.reshape(want.shape), want)
+    print(f"[library] {KERNELS[name][0]} {label}: rel err {e:.3e} against the kernel "
+          f"(tol 1e-05)", flush=True)
+    if not e <= 1e-5:
+        raise AssertionError(f"library call of {name} {label}: rel err {e:.3e}")
 
 
 def phase_full_size(torch, st5, blas1, cmp, smi):
     """Each kernel against its twin at G_BIG² on seeded random fields, at the main paths'
-    shapes (no halo rows, β ≠ 0), then timed against it on the same inputs.  Returns
-    {wrapper: {key: (kernel ms, plain ms)}}, key "f32"/"f64" (K8 also "bf16_f32",
-    "bf16_f64": planes_state)."""
+    shapes (no halo rows, β ≠ 0), then timed against it, and against its library call,
+    on the same inputs.  Returns {wrapper: {key: {"ms", "plain_ms", "library_ms",
+    "bound_ms", "bound_by"}}}, key "f32"/"f64" (K8 and K9 also "bf16_f32", "bf16_f64":
+    planes_state)."""
+    import torch.nn.functional as F
+
     dev = torch.device("cuda")
     kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    n = G_BIG * G_BIG
     times = {name: {} for name in KERNELS}
     for dtype in (torch.float32, torch.float64):
         torch.cuda.empty_cache()
@@ -586,6 +765,14 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
         cmp.check("spmv_stencil5_const", lab + " with dot", dtype,
                   [("y", y, yp, "field"), ("dot", d, dp, "dot")])
         del yp
+        # the 3×3 stencil as a convolution with zero padding: the constant operator
+        w = torch.tensor([[0.0, OFFDIAG, 0.0], [OFFDIAG, DIAG, OFFDIAG], [0.0, OFFDIAG, 0.0]],
+                         dtype=dtype, device=dev).reshape(1, 1, 3, 3)
+
+        def conv():
+            return F.conv2d(x.reshape(1, 1, G_BIG, G_BIG), w, padding=1)
+
+        check_library("spmv_stencil5_const", f"F.conv2d {lab}", conv(), y)
         p_before = p.clone()
         pk, dk = st5.spmv_stencil5_const_pupdate_dot(s, r, p, out=pout, **kw)
         if not torch.equal(p, p_before):
@@ -595,6 +782,11 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
         cmp.check("spmv_stencil5_const_pupdate_dot", f"{lab} beta=0.37", dtype,
                   [("p'", pk, pp, "field"), ("<p',Ap'>", dk, dp, "dot")])
         del pp
+        pk, yk, dk = st5.spmv_stencil5_const_pupdate(s, r, p, out=pout, **kw)
+        pp, yp, dp = st5.spmv_stencil5_const_pupdate_plain(s, r, p, **kw)
+        cmp.check("spmv_stencil5_const_pupdate", f"{lab} beta=0.37", dtype,
+                  [("p'", pk, pp, "exact"), ("y", yk, yp, "exact"), ("<p',y>", dk, dp, "dot")])
+        del pp, yp, yk
         xk, rk, dk = st5.cg_const_update_recompute(s, x.clone(), r.clone(), p, **kw)
         xp, rp, dp = st5.cg_const_update_recompute_plain(s, x.clone(), r.clone(), p, **kw)
         cmp.check("cg_const_update_recompute", lab, dtype,
@@ -603,43 +795,71 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
         del xk, rk, xp, rp
         # y = A·x stands in for Ap in the classic loop's K4
         compare_blas1(torch, blas1, cmp, x, r, p, y, lab)
+        check_library("p_update", f"torch.add {lab}", torch.add(r, p, alpha=0.37),
+                      blas1.p_update(s, r, p.clone()))
+        check_library("dot", f"torch.dot {lab}", torch.dot(x.reshape(-1), r.reshape(-1)),
+                      blas1.dot(x, r))
 
+        f = nbytes(x)  # one field
         _time_pairs(torch, times, key, {
             "spmv_stencil5_const": (
                 lambda: st5.spmv_stencil5_const(x, **kw),
-                lambda: st5.spmv_stencil5_const_plain(x, **kw)),
+                lambda: st5.spmv_stencil5_const_plain(x, **kw), (2 * f, 6 * n), conv),
             "spmv_stencil5_const_pupdate_dot": (
                 lambda: st5.spmv_stencil5_const_pupdate_dot(s, r, p, out=pout, **kw),
-                lambda: st5.spmv_stencil5_const_pupdate_dot_plain(s, r, p, out=pout, **kw)),
+                lambda: st5.spmv_stencil5_const_pupdate_dot_plain(s, r, p, out=pout, **kw),
+                (3 * f, 10 * n), None),
+            "spmv_stencil5_const_pupdate": (
+                lambda: st5.spmv_stencil5_const_pupdate(s, r, p, out=pout, **kw),
+                lambda: st5.spmv_stencil5_const_pupdate_plain(s, r, p, out=pout, **kw),
+                (4 * f, 10 * n), None),
             "cg_const_update_recompute": (
                 lambda: st5.cg_const_update_recompute(s, x, r, p, **kw),
-                lambda: st5.cg_const_update_recompute_plain(s, x, r, p, **kw)),
+                lambda: st5.cg_const_update_recompute_plain(s, x, r, p, **kw),
+                (5 * f, 12 * n), None),
             "cg_update": (lambda: blas1.cg_update(s, x, r, p, y),
-                          lambda: blas1.cg_update_plain(s, x, r, p, y)),
-            "p_update": (lambda: blas1.p_update(s, r, p), lambda: blas1.p_update_plain(s, r, p)),
-            "dot": (lambda: blas1.dot(x, r), lambda: blas1.dot_plain(x, r)),
+                          lambda: blas1.cg_update_plain(s, x, r, p, y), (6 * f, 6 * n), None),
+            "p_update": (lambda: blas1.p_update(s, r, p), lambda: blas1.p_update_plain(s, r, p),
+                         (3 * f, 2 * n), lambda: torch.add(r, p, alpha=0.37)),
+            "dot": (lambda: blas1.dot(x, r), lambda: blas1.dot_plain(x, r), (2 * f, 2 * n),
+                    lambda: torch.dot(x.reshape(-1), r.reshape(-1))),
             "axpby_dot": (lambda: blas1.axpby_dot(1.0, x, -1.0, r),
-                          lambda: blas1.axpby_dot_plain(1.0, x, -1.0, r)),
+                          lambda: blas1.axpby_dot_plain(1.0, x, -1.0, r), (3 * f, 5 * n), None),
         }, lab, smi)
-        del pout, y, pk
+        del y, pk
         for pdt in (dtype, torch.bfloat16):
             torch.cuda.empty_cache()
             planes = torch.rand(5, G_BIG, G_BIG, generator=gen, device=dev, dtype=dtype).to(pdt)
             pl = f"{G_BIG}² planes {dname(pdt)} state {dname(dtype)}"
             compare_k8(torch, st5, cmp, planes, x, (), pl)
+            pk, yk, dk = st5.spmv_stencil5_pupdate(planes, s, r, p, out=pout)
+            pp, yp, dp = st5.spmv_stencil5_pupdate_plain(planes, s, r, p)
+            cmp.check("spmv_stencil5_pupdate", f"{pl} beta=0.37", dtype,
+                      [("p'", pk, pp, "exact"), ("y", yk, yp, "exact"),
+                       ("<p',y>", dk, dp, "dot")])
+            del pk, yk, pp, yp
             pkey = key if pdt == dtype else f"bf16_{key}"
-            _time_pairs(torch, times, pkey, {"spmv_stencil5": (
-                lambda: st5.spmv_stencil5(planes, x),
-                lambda: st5.spmv_stencil5_plain(planes, x))}, pl, smi)
+            _time_pairs(torch, times, pkey, {
+                "spmv_stencil5": (lambda: st5.spmv_stencil5(planes, x),
+                                  lambda: st5.spmv_stencil5_plain(planes, x),
+                                  (nbytes(planes) + 2 * f, 9 * n), None),
+                "spmv_stencil5_pupdate": (
+                    lambda: st5.spmv_stencil5_pupdate(planes, s, r, p, out=pout),
+                    lambda: st5.spmv_stencil5_pupdate_plain(planes, s, r, p, out=pout),
+                    (nbytes(planes) + 4 * f, 13 * n), None),
+            }, pl, smi)
             del planes
-        del x, r, p
+        del x, r, p, pout
     torch.cuda.empty_cache()
     return times
 
 
 def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
     """K11 and the ELL kernel against their twins at G_BIG² on the stencil's operands made
-    on the card and a seeded random x, then timed against them; adds to ``times``."""
+    on the card and a seeded random x, then timed against them; adds to ``times``.  No
+    library call is timed here: the matvec of a torch.sparse_csr_tensor (cuSPARSE)
+    returned a wrong y for the 2.1e9 entries of this matrix, with int32 and with int64
+    indices; phase 5 times it (``bcoo``) against the ELL kernel (``csr``) at G_HOST²."""
     dev = torch.device("cuda")
     for dtype in (torch.float32, torch.float64):
         key = dname(dtype).replace("float", "f")
@@ -653,23 +873,27 @@ def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
             compare_generic(torch, ell, dia, cmp,
                             (operand, None) if name == "spmv_ell" else (None, operand), x, lab)
             kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+            # the operations this matrix needs: 2 per stored nonzero
+            work = (nbytes(*operand, x, x), 2 * int(torch.count_nonzero(operand[0])))
             _time_pairs(torch, times, key, {name: (lambda: kern(*operand, x),
-                                                   lambda: plain(*operand, x))}, lab, smi)
+                                                   lambda: plain(*operand, x), work, None)},
+                        lab, smi)
             del operand
         del x
     torch.cuda.empty_cache()
 
 
 def phase_profile(torch, smi):
-    """Where a solve's time goes: one solve of each CG run of phase 5 under torch.profiler
-    at G_BIG² (after two unprofiled ones), its device time split by kernel.  "idle" is wall
+    """Where a solve's time goes: one solve of each CG run and each fused solve of phase 5
+    under torch.profiler at G_BIG² (after two unprofiled ones), its device time split by
+    kernel.  "idle" is wall
     time minus the summed device time of the solve's kernels, memsets and copies, not a
     timeline.  The full tables go to chiprun_out/profile.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpusparse.formats import Stencil5
     from tpusparse_torch import ops
+    from tpusparse_torch.formats import Stencil5
     from tpusparse_torch.solvers import cg
 
     groups = [(short, re.compile(rf"(?<![a-z_]){fn}")) for short, fn, _s, _r in
@@ -677,16 +901,19 @@ def phase_profile(torch, smi):
     groups.append(("final sums", re.compile(r"(?<![a-z_])final_sum_kernel")))
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
     tables = []
-    for label, (mode, extra, _iters, _needs) in CG_RUNS.items():
-        dtype = torch.float64 if "--dtype=f64" in extra else torch.float32
-        recompute = False if "--loop=classic" in extra else None
+    solves = [(label, mode, torch.float64 if "--dtype=f64" in extra else torch.float32,
+               {"recompute_ap": False if "--loop=classic" in extra else None})
+              for label, (mode, extra, _iters, _needs) in CG_RUNS.items()]
+    solves += [(label, mode, getattr(torch, dtype_name), {"fused_pupdate": True})
+               for label, (mode, dtype_name, _iters, _pass) in FUSED_RUNS.items()]
+    for label, mode, dtype, kwargs in solves:
         op = ops.get_operator(mode, st, dtype=dtype, device="cuda")
         for _ in range(2):
-            cg.cg_solve(op, b_is_ones=True, recompute_ap=recompute)
+            cg.cg_solve(op, b_is_ones=True, **kwargs)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            x, stats = cg.cg_solve(op, b_is_ones=True, recompute_ap=recompute)
+            x, stats = cg.cg_solve(op, b_is_ones=True, **kwargs)
             wall = (time.perf_counter() - t0) * 1e3
         del x
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -718,7 +945,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test needs a "
               "CUDA card", file=sys.stderr)
         return 1
-    from tpusparse_torch import _build, generate
+    from tpusparse_torch import _build, generate, native
     from tpusparse_torch.bench import sysinfo
     from tpusparse_torch.cli import cg_solver as cg_cli
     from tpusparse_torch.cli import spmv_bench as spmv_cli
@@ -729,10 +956,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card(torch, sysinfo)
     phase_build(_build)
+    print(f"[build] host Matrix Market library (g++): "
+          f"{'in use' if native.available() else 'absent, the numpy readers run'}", flush=True)
     cmp = Compare(torch)
     phase_compare(torch, st5, blas1, ell, dia, cmp)
     phase_checksum(torch, st5, ell, dia, generate)
-    results, launches = phase_main_path(torch, (st5, blas1, ell, dia), cg_cli, spmv_cli)
+    results, fused, launches = phase_main_path(torch, (st5, blas1, ell, dia), cg_cli,
+                                               spmv_cli)
     times = phase_full_size(torch, st5, blas1, cmp, smi)
     phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times)
     phase_profile(torch, smi)
@@ -741,8 +971,13 @@ def main() -> int:
               f"{res['convergence']['iterations']} iterations, "
               f"{res['statistics']['valid_runs']}/{res['statistics']['total_runs']} valid "
               f"runs [{smi}]")
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    for label, (median_ms, iterations) in fused.items():
+        print(f"[solve] {label} {G_BIG}²: median {median_ms!r} ms, {iterations} iterations, "
+              f"{FUSED_TIMED} timed runs [{smi}]")
+    imported = sorted(m for m in sys.modules if m in ("jax", "tpusparse")
+                      or m.startswith(("jax.", "tpusparse.")))
+    if imported:
+        raise AssertionError(f"the port imported {imported}")
 
     record = {"kernels": []}
     for name, (short, _fn, source, replaces) in KERNELS.items():
@@ -750,10 +985,10 @@ def main() -> int:
         entry = {"name": name, "short": short, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": cmp.max_abs[name], "max_rel_err": cmp.max_rel[name],
-                 "ms": t["f32"][0], "plain_ms": t["f32"][1]}
-        for key, (ms, plain_ms) in t.items():
+                 **t["f32"]}
+        for key, e in t.items():
             if key != "f32":
-                entry[f"ms_{key}"], entry[f"plain_ms_{key}"] = ms, plain_ms
+                entry.update({f"{k}_{key}": v for k, v in e.items() if k != "bound_by"})
         record["kernels"].append(entry)
     print(f"nvidia-smi: {smi}")
     print(json.dumps(record))

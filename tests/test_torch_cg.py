@@ -18,6 +18,7 @@ import torch
 from tests import fixtures
 from tests.test_cg import reference_cg
 from tests.test_kernels_gather import _random_banded_csr
+from tests.test_torch_host import carry
 from tpusparse import formats, generate
 from tpusparse import ops as jops
 from tpusparse.kernels import stencil5 as jst5
@@ -33,7 +34,7 @@ def _stencil(g):
 
 
 def _port_op(g, mode="stencil5-const"):
-    return ops.get_operator(mode, _stencil(g), dtype=torch.float64, device="cpu")
+    return ops.get_operator(mode, carry(_stencil(g)), dtype=torch.float64, device="cpu")
 
 
 @pytest.mark.parametrize("g", [8, 16, 33])
@@ -86,7 +87,7 @@ def test_cg_values_carrying_matches_jax_and_reference(g, mode, blas1):
     jdt, tdt = (jnp.float32, torch.float32) if f32 else (jnp.float64, torch.float64)
     jop = jops.get_operator(mode, _stencil(g), dtype=jdt)
     xj, sj = jcg.cg_solve(jop, jnp.ones((g, g), jdt), use_pallas_blas1=blas1)
-    op = ops.get_operator(mode, _stencil(g), dtype=tdt, device="cpu")
+    op = ops.get_operator(mode, carry(_stencil(g)), dtype=tdt, device="cpu")
     x, s = cg.cg_solve(op, b_is_ones=True, use_pallas_blas1=blas1)
     assert x.dtype == tdt and s.converged and sj.converged
     assert s.iterations == sj.iterations == iters_ref, (s.iterations, sj.iterations, iters_ref)
@@ -100,9 +101,10 @@ def test_bf16c_solution_equals_stencil5_f32_bitwise(blas1):
     """tests/test_cg.py's property, for the port: bf16 planes holding 5/−1/0 give the f32
     planes' solution bit for bit."""
     g = 24
-    x32, s32 = cg.cg_solve(ops.get_operator("stencil5", _stencil(g), device="cpu"),
+    x32, s32 = cg.cg_solve(ops.get_operator("stencil5", carry(_stencil(g)), device="cpu"),
                            b_is_ones=True, use_pallas_blas1=blas1)
-    x16, s16 = cg.cg_solve(ops.get_operator("stencil5-bf16c", _stencil(g), device="cpu"),
+    x16, s16 = cg.cg_solve(ops.get_operator("stencil5-bf16c", carry(_stencil(g)),
+                                            device="cpu"),
                            b_is_ones=True, use_pallas_blas1=blas1)
     assert s16.iterations == s32.iterations and s32.converged
     assert torch.equal(x16, x32)
@@ -186,9 +188,18 @@ def test_max_iters_cap(loop):
 
 
 def test_unported_options_raise():
+    """The options a solve refuses, as the JAX solver refuses them: the fused loop on an
+    operator without a fused pass (ValueError, also in the JAX package), the fused loop
+    together with the recompute loop, the recompute loop without its passes."""
     op = _port_op(8)
-    with pytest.raises(NotImplementedError, match="K9/K10"):
-        cg.cg_solve(op, b_is_ones=True, fused_pupdate=True)
+    for mode in ("stencil5-xla", "stencil5-const-xla", "csr", "dia"):
+        with pytest.raises(ValueError, match="run_fused_pupdate_op"):
+            cg.cg_solve(_port_op(8, mode), b_is_ones=True, fused_pupdate=True)
+    with pytest.raises(ValueError, match="fused_pupdate requested"):
+        jcg.cg_solve(jops.get_operator("stencil5-xla", _stencil(8), dtype=jnp.float64),
+                     jnp.ones((8, 8), jnp.float64), fused_pupdate=True)
+    with pytest.raises(ValueError, match="exclude each other"):
+        cg.cg_solve(op, b_is_ones=True, fused_pupdate=True, recompute_ap=True)
     with pytest.raises(ValueError, match="recompute_ap"):
         cg.cg_solve(_port_op(8, "stencil5-const-xla"), b_is_ones=True, recompute_ap=True)
     with pytest.raises(ValueError, match="b_is_ones"):
@@ -201,7 +212,7 @@ def test_unported_options_raise():
 def test_operand_from_planes_and_csr():
     st = generate.make_stencil5(9, 4.0, -0.5)
     assert convert.operand_from_stencil5(formats.Stencil5(9, st.planes)) == (4.0, -0.5)
-    op = ops.get_operator("stencil5-const", formats.stencil5_to_csr(st), device="cpu")
+    op = ops.get_operator("stencil5-const", carry(formats.stencil5_to_csr(st)), device="cpu")
     y = op.run_device(op.ones_b())
     np.testing.assert_allclose(op.from_field(y).numpy(),
                                formats.stencil5_to_csr(st).to_dense() @ np.ones(81), rtol=1e-6)
@@ -209,7 +220,7 @@ def test_operand_from_planes_and_csr():
     planes[formats.C, 3, 3] = 7.0
     with pytest.raises(ValueError, match="use mode 'stencil5'"):
         convert.operand_from_stencil5(formats.Stencil5(9, planes))
-    op = ops.get_operator("stencil5", formats.Stencil5(9, planes), device="cpu")
+    op = ops.get_operator("stencil5", carry(formats.Stencil5(9, planes)), device="cpu")
     assert op.planes[formats.C, 3, 3] == 7.0
 
 
@@ -235,7 +246,7 @@ def test_cg_generic_matches_jax(matrix, mode):
     n = mat.num_rows
     jop = jops.get_operator(mode, mat, dtype=jnp.float64)
     xj, sj = jcg.cg_solve(jop, jop.as_field(np.ones(n)).astype(jnp.float64))
-    op = ops.get_operator(mode, mat, dtype=torch.float64, device="cpu")
+    op = ops.get_operator(mode, carry(mat), dtype=torch.float64, device="cpu")
     assert not cg.uses_recompute(op)
     x, s = cg.cg_solve(op, b_is_ones=True)
     assert s.converged and sj.converged
@@ -249,9 +260,84 @@ def test_cg_on_a_matrix_without_a_grid():
     (grid_size 0): ones_b used to build a (grid_size, grid_size) field."""
     csr = fixtures.tridiagonal(300)
     assert csr.grid_size == 0
-    op = ops.get_operator("csr", csr, dtype=torch.float64, device="cpu")
+    op = ops.get_operator("csr", carry(csr), dtype=torch.float64, device="cpu")
     b = op.ones_b()
     assert b.shape == (300,) and torch.equal(b, torch.ones(300, dtype=torch.float64))
     x, s = cg.cg_solve(op, b_is_ones=True, config=cg.CGConfig(max_iters=400))
     assert s.converged
     np.testing.assert_allclose(csr.to_dense() @ x.numpy(), np.ones(300), atol=1e-5)
+
+
+FUSED_MODES = ["stencil5-const", "stencil5", "stencil5-bf16c"]
+
+
+@pytest.mark.parametrize("g", [8, 16, 33])
+@pytest.mark.parametrize("mode", FUSED_MODES)
+@pytest.mark.parametrize("blas1", [True, False])
+def test_fused_cg_matches_jax_fused_and_unfused(g, mode, blas1):
+    """The fused p-update loop (K10's twin on stencil5-const, K9's on stencil5 and
+    stencil5-bf16c, then K4's twin or the plain update) against the JAX solver's fused
+    loop and the port's own default loop: the same iteration counts, x to 1e-10 in f64
+    (1e-5 for stencil5-bf16c, in f32)."""
+    f32 = mode == "stencil5-bf16c"
+    jdt, tdt = (jnp.float32, torch.float32) if f32 else (jnp.float64, torch.float64)
+    jop = jops.get_operator(mode, _stencil(g), dtype=jdt)
+    xj, sj = jcg.cg_solve(jop, jnp.ones((g, g), jdt), fused_pupdate=True)
+    op = ops.get_operator(mode, carry(_stencil(g)), dtype=tdt, device="cpu")
+    x, s = cg.cg_solve(op, b_is_ones=True, fused_pupdate=True, use_pallas_blas1=blas1)
+    x_u, s_u = cg.cg_solve(op, b_is_ones=True, use_pallas_blas1=blas1)
+    assert x.dtype == tdt and s.converged and sj.converged
+    assert s.iterations == sj.iterations == s_u.iterations, (s.iterations, sj.iterations,
+                                                             s_u.iterations)
+    rtol, atol = (1e-5, 1e-6) if f32 else (1e-10, 1e-12)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(x.numpy(), x_u.numpy(), rtol=rtol, atol=atol)
+
+
+def test_fused_cg_bf16c_equals_stencil5_f32_and_counts_nothing_on_the_cpu():
+    """bf16 planes holding 5/−1/0 give the f32 planes' fused solution bit for bit; on CPU
+    tensors the wrappers run their twins, so no launch is counted."""
+    from tpusparse_torch.kernels import blas1, stencil5 as st5
+
+    st5.reset_launches()
+    blas1.reset_launches()
+    g = 24
+    x32, s32 = cg.cg_solve(ops.get_operator("stencil5", carry(_stencil(g)), device="cpu"),
+                           b_is_ones=True, fused_pupdate=True)
+    x16, s16 = cg.cg_solve(ops.get_operator("stencil5-bf16c", carry(_stencil(g)),
+                                            device="cpu"), b_is_ones=True, fused_pupdate=True)
+    assert s32.converged and s16.iterations == s32.iterations and torch.equal(x16, x32)
+    assert st5.LAUNCHES == dict.fromkeys(st5.LAUNCHES, 0)
+    assert blas1.LAUNCHES == dict.fromkeys(blas1.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("mode", ["stencil5-const", "stencil5"])
+def test_fused_cg_nonzero_x0_matches_jax(mode):
+    """r0 = b − A·x0 (K7's twin) then the fused loop, against the JAX fused solve."""
+    g = 12
+    x0 = np.random.RandomState(2).randn(g, g)
+    jop = jops.get_operator(mode, _stencil(g), dtype=jnp.float64)
+    xj, sj = jcg.cg_solve(jop, jnp.ones((g, g), jnp.float64), jnp.asarray(x0),
+                          fused_pupdate=True)
+    op = _port_op(g, mode)
+    x, s = cg.cg_solve(op, op.ones_b(), convert.fields_from_numpy(x0, "cpu"),
+                       fused_pupdate=True)
+    assert s.converged and s.iterations == sj.iterations
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", jops.available_modes())
+def test_fused_pass_exists_where_jax_has_it(mode):
+    """run_fused_pupdate_op on the modes whose JAX operator has one and on no other; with
+    β = 0 and p = 0 it gives (r, A·r, <r, A·r>); free() drops it."""
+    jop = jops.get_operator(mode, _stencil(8), dtype=jnp.float64)
+    op = _port_op(8, mode)
+    has = getattr(jop, "run_fused_pupdate_op", None) is not None
+    assert (op.run_fused_pupdate_op is not None) == has == (op.name in FUSED_MODES)
+    if has:
+        r = op.ones_b()
+        p, ap, pap = op.run_fused_pupdate_op(0.0, r, torch.zeros_like(r))
+        assert torch.equal(p, r) and torch.equal(ap, op.run_device(r))
+        assert float(pap) == pytest.approx(float((r * ap).sum()), rel=1e-14)
+    op.free()
+    assert op.run_fused_pupdate_op is None

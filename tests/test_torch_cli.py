@@ -13,6 +13,7 @@ import json
 import numpy as np
 import pytest
 
+from tests.test_torch_host import carry
 from tpusparse import formats
 from tpusparse.bench import metrics as jax_metrics
 from tpusparse.cli import cg_solver as jax_cli
@@ -112,7 +113,8 @@ def test_spmv_bench_resident_x_f64_and_refusals(tmp_path, capsys):
 
 def test_metrics_take_the_cards_peak_not_the_tpus():
     """The shared table answers an H100 with a v5e's 819 GB/s; the port's does not."""
-    op = ops.get_operator("stencil5", formats.Stencil5(64, None, (5.0, -1.0)), device="cpu")
+    op = ops.get_operator("stencil5", carry(formats.Stencil5(64, None, (5.0, -1.0))),
+                          device="cpu")
     nbytes = 7 * 64 * 64 * 4
     assert jax_metrics.chip_peaks("NVIDIA H100 80GB HBM3")[0] == 819.0  # the trap
     m = metrics.calculate_spmv_metrics(op, nbytes / 2.0e12 * 1e3, dtype_itemsize=4,

@@ -9,16 +9,17 @@ there without the conftest:
 Tolerances, relative to the largest reference magnitude: f64 1e-12; f32 1e-5 for fields
 and 1e-4 for dots (the dots sum in another order).  CG: equal iteration counts, x to rtol
 1e-10.  Fields are also required to equal the twins' bit for bit where the kernels round
-every operation as PyTorch does (K4, K5, K7, K8, K11 and the ELL kernel of K12/K13).
+every operation as PyTorch does (K4, K5, K7, K8, K9, K10, K11 and the ELL kernel of
+K12/K13).  The matrices come from the port's own ``formats`` and ``generate``: this file
+imports nothing of the JAX package.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpusparse import formats
-from tpusparse.formats import Stencil5
-from tpusparse_torch import convert, generate, ops
+from tpusparse_torch import convert, formats, generate, ops
+from tpusparse_torch.formats import Stencil5
 from tpusparse_torch.kernels import blas1, dia, ell
 from tpusparse_torch.kernels import stencil5 as st5
 from tpusparse_torch.solvers import cg
@@ -92,6 +93,34 @@ def test_k8_matches_twin_on_card(dev, g, pdt, dtype):
         assert torch.equal(st5.spmv_stencil5(planes, x, *hs), yp)
 
 
+@pytest.mark.parametrize("g", [37, 1000])
+@pytest.mark.parametrize("pdt,dtype", K8_PAIRS)
+def test_fused_pupdate_kernels_match_twins_on_card(dev, g, pdt, dtype):
+    """K9 in each planes/state pair and K10 in the state's dtype, for β = 0 with p = 0 and
+    for β = 0.7 on a band with halo rows: p' and y bit for bit, the dot to tolerance, and
+    p left as it was."""
+    _, tol_dot = TOL[dtype]
+    gen = torch.Generator(device=dev).manual_seed(g + 2)
+    band = g // 2 + 1
+    for beta, rows, halos in ((0.0, g, False), (0.7, band, True)):
+        r = _randn(gen, dev, dtype, rows, g)
+        p = torch.zeros_like(r) if beta == 0.0 else _randn(gen, dev, dtype, rows, g)
+        hs = (_randn(gen, dev, dtype, 1, g), _randn(gen, dev, dtype, 1, g)) if halos else ()
+        b = torch.tensor(beta, dtype=dtype, device=dev)
+        planes = _randn(gen, dev, dtype, 5, rows, g).to(pdt)
+        pairs = [(st5.spmv_stencil5_pupdate(planes, b, r, p, *hs),
+                  st5.spmv_stencil5_pupdate_plain(planes, b, r, p, *hs))]
+        if pdt == dtype:  # K10 once per state dtype
+            pairs.append((st5.spmv_stencil5_const_pupdate(b, r, p, *hs, **KW),
+                          st5.spmv_stencil5_const_pupdate_plain(b, r, p, *hs, **KW)))
+        p0 = p.clone()
+        for (pk, yk, dk), (pp, yp, dp) in pairs:
+            assert torch.equal(p, p0)  # p' went to its own buffer
+            assert pk.dtype == yk.dtype == dtype
+            assert torch.equal(pk, pp) and torch.equal(yk, yp)
+            assert _rel(dk, dp) <= tol_dot
+
+
 def test_k8_on_ones_gives_the_analytic_checksums(dev):
     g = 1000
     want = generate.stencil5_spmv_checksums(g)
@@ -132,10 +161,14 @@ def test_each_wrapper_counts_its_launches(dev):
     st5.cg_const_update_recompute(a, x, r, p, **KW)
     st5.spmv_stencil5_const_plain(x, **KW)  # twins do not count
     st5.cg_const_update_recompute_plain(a, x, r, p, **KW)
-    st5.spmv_stencil5(torch.rand(5, g, g, device=dev, dtype=torch.float64), x)
-    assert st5.LAUNCHES == {"spmv_stencil5": 1, "spmv_stencil5_const": 2,
-                            "spmv_stencil5_const_pupdate_dot": 1,
-                            "cg_const_update_recompute": 1}
+    planes = torch.rand(5, g, g, device=dev, dtype=torch.float64)
+    st5.spmv_stencil5(planes, x)
+    st5.spmv_stencil5_pupdate(planes, a, r, p)
+    st5.spmv_stencil5_const_pupdate(a, r, p, out=x.clone(), **KW)
+    st5.spmv_stencil5_const_pupdate_plain(a, r, p, **KW)
+    assert st5.LAUNCHES == {"spmv_stencil5": 1, "spmv_stencil5_pupdate": 1,
+                            "spmv_stencil5_const": 2, "spmv_stencil5_const_pupdate_dot": 1,
+                            "cg_const_update_recompute": 1, "spmv_stencil5_const_pupdate": 1}
     blas1.reset_launches()
     blas1.cg_update(a, x, r, p, p.clone())
     blas1.p_update(a, r, p)
@@ -153,6 +186,11 @@ def test_kernel_path_rejects_what_it_cannot_run(dev):
         st5.spmv_stencil5_const(x.half(), **KW)
     with pytest.raises(ValueError, match="overlap p"):
         st5.spmv_stencil5_const_pupdate_dot(0.5, x.clone(), x, out=x, **KW)
+    with pytest.raises(ValueError, match="overlap r"):
+        st5.spmv_stencil5_const_pupdate(0.5, x, x.clone(), out=x, **KW)
+    with pytest.raises(ValueError, match="planes"):
+        st5.spmv_stencil5_pupdate(torch.rand(5, 8, 16, device=dev, dtype=torch.float64), 0.5,
+                                  x, x.clone())
 
 
 @pytest.mark.parametrize("mode,loop", [("stencil5-const", "recompute"),
@@ -176,6 +214,29 @@ def test_cg_on_card_matches_cpu(dev, mode, loop, x0):
     (x_c, s_c), (x, s) = res
     assert s_c.converged and s_c.iterations == s.iterations
     np.testing.assert_allclose(x_c.cpu().numpy(), x.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode,dtype", [("stencil5-const", torch.float64),
+                                        ("stencil5", torch.float64),
+                                        ("stencil5-bf16c", torch.float32)])
+def test_fused_cg_on_card(dev, mode, dtype):
+    """The fused p-update loop (K9 or K10, K4, K6) on the card: its iteration count equals
+    the classic solve's, and x the plain twins' fused solve on the CPU."""
+    g = 64
+    st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator(mode, st, dtype=dtype, device=dev)
+    st5.reset_launches()
+    x, s = cg.cg_solve(op, b_is_ones=True, fused_pupdate=True)
+    fused = ("spmv_stencil5_const_pupdate" if mode == "stencil5-const"
+             else "spmv_stencil5_pupdate")
+    assert st5.LAUNCHES[fused] == s.iterations
+    assert st5.LAUNCHES["spmv_stencil5"] == st5.LAUNCHES["spmv_stencil5_const"] == 0
+    _, s_classic = cg.cg_solve(op, b_is_ones=True, recompute_ap=False)
+    cpu = ops.get_operator(mode, st, dtype=dtype, device="cpu")
+    x_c, s_c = cg.cg_solve(cpu, b_is_ones=True, fused_pupdate=True)
+    assert s.converged and s.iterations == s_classic.iterations == s_c.iterations
+    rtol, atol = (1e-10, 1e-12) if dtype == torch.float64 else (1e-5, 1e-6)
+    np.testing.assert_allclose(x.cpu().numpy(), x_c.numpy(), rtol=rtol, atol=atol)
 
 
 def test_bf16c_solution_equals_stencil5_f32_on_card(dev):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tests import fixtures
+from tests.test_torch_host import carry
 from tpusparse import formats
 from tpusparse import ops as jops
 from tpusparse.kernels import dia as jdia
@@ -74,7 +75,7 @@ def test_operator_matches_jax_operator(name, jmode):
     jop = jops.get_operator(jmode, mat, dtype=jnp.float64)
     yj, dj = jop.run_device_dot(jop.as_field(x).astype(jnp.float64))
     for mode in ("dia", "dia-xla"):
-        op = ops.get_operator(mode, mat, dtype=torch.float64, device="cpu")
+        op = ops.get_operator(mode, carry(mat), dtype=torch.float64, device="cpu")
         assert op.nnz == jop.nnz and op.num_rows == jop.num_rows
         y, d = op.run_device_dot(op.as_field(x))
         np.testing.assert_allclose(op.from_field(y).numpy(),

@@ -25,6 +25,7 @@ import torch
 
 from tests import fixtures
 from tests.test_kernels_gather import _random_banded_csr
+from tests.test_torch_host import carry
 from tpusparse import formats
 from tpusparse import ops as jops
 from tpusparse.kernels import gather_ell as jgell
@@ -109,7 +110,7 @@ def test_operator_matches_jax_operator(name, jmode):
     jop = jops.get_operator(jmode, csr, dtype=jnp.float64)
     yj, dj = jop.run_device_dot(jop.as_field(x).astype(jnp.float64))
     for mode in ("csr", "csr-xla"):
-        op = ops.get_operator(mode, csr, dtype=torch.float64, device="cpu")
+        op = ops.get_operator(mode, carry(csr), dtype=torch.float64, device="cpu")
         y, d = op.run_device_dot(op.as_field(x))
         assert y.shape == (csr.num_rows,)
         np.testing.assert_allclose(op.from_field(y).numpy(),
@@ -153,7 +154,7 @@ def test_width_one_empty_rows_and_the_dot():
     keep = d != 0.0
     i = np.arange(n, dtype=np.int64)[keep]
     csr = formats.coo_to_csr(formats.COOMatrix(n, n, i, i, d[keep]))
-    op = ops.get_operator("csr", csr, dtype=torch.float64, device="cpu")
+    op = ops.get_operator("csr", carry(csr), dtype=torch.float64, device="cpu")
     assert op.operand["cols"].shape == (1, n)
     x = np.random.RandomState(3).randn(n)
     y, dot = op.run_device_dot(op.as_field(x))
@@ -163,4 +164,4 @@ def test_width_one_empty_rows_and_the_dot():
                                                 np.ones(3)))
     for mode in ("csr", "dia", "bcoo"):
         with pytest.raises(ValueError, match="share one field"):
-            ops.get_operator(mode, rect, device="cpu")
+            ops.get_operator(mode, carry(rect), device="cpu")

@@ -1,12 +1,16 @@
 """The port stands apart from JAX and never falls back to the CPU silently.
 
-- Importing every module of tpusparse_torch, in a fresh interpreter, leaves ``jax`` out
-  of ``sys.modules``.
+- Importing every module of tpusparse_torch, in a fresh interpreter, leaves ``jax`` and
+  the JAX package (``tpusparse``, ``tpusparse.*``) out of ``sys.modules``.
+- No source file of the port, nor chip_smoke.py, nor the card's test file, has an
+  ``import tpusparse...`` or ``from tpusparse... import``: the port keeps its own copies
+  of the host code it needs.
 - A CUDA device requested where there is no CUDA raises.
 - A kernel build without nvcc raises.
 - chip_smoke.py exits non-zero, and prints no result, without a CUDA card.
 """
 
+import ast
 import json
 import pathlib
 import subprocess
@@ -26,7 +30,9 @@ mods = sorted(m.name for m in pkgutil.walk_packages(tpusparse_torch.__path__,
                                                     "tpusparse_torch."))
 for m in mods:
     importlib.import_module(m)
-print(json.dumps({"mods": mods, "jax": "jax" in sys.modules}))
+print(json.dumps({"mods": mods, "jax": "jax" in sys.modules,
+                  "tpusparse": sorted(m for m in sys.modules
+                                      if m == "tpusparse" or m.startswith("tpusparse."))}))
 """
 
 
@@ -35,14 +41,45 @@ def test_no_module_imports_jax():
                          text=True, timeout=300, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert not res["jax"], res
+    assert res["tpusparse"] == [], res["tpusparse"]
     for mod in ("tpusparse_torch.ops", "tpusparse_torch.solvers.cg",
                 "tpusparse_torch.kernels.stencil5", "tpusparse_torch.kernels.blas1",
                 "tpusparse_torch.kernels.ell", "tpusparse_torch.kernels.dia",
                 "tpusparse_torch.kernels._launch", "tpusparse_torch.cli.cg_solver",
                 "tpusparse_torch.cli.spmv_bench", "tpusparse_torch.bench.sysinfo",
                 "tpusparse_torch.bench.metrics", "tpusparse_torch.convert",
-                "tpusparse_torch.generate"):
+                "tpusparse_torch.generate", "tpusparse_torch.formats",
+                "tpusparse_torch.io_mtx", "tpusparse_torch.native",
+                "tpusparse_torch.bench.stats", "tpusparse_torch.bench.export",
+                "tpusparse_torch.cli.generate_matrix"):
         assert mod in res["mods"]
+
+
+def _imports_of_the_jax_package(path):
+    """(line, module) of every import of ``tpusparse`` or ``tpusparse.*`` in a file,
+    wherever it stands (top level or inside a function)."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n == "tpusparse" or n.startswith("tpusparse.")]
+    return found
+
+
+def test_no_file_of_the_port_imports_the_jax_package():
+    files = sorted((ROOT / "tpusparse_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    assert len(files) > 20
+    bad = {str(f.relative_to(ROOT)): imp for f in files if (imp := _imports_of_the_jax_package(f))}
+    assert bad == {}
+    # the scan sees what it looks for: the CPU parity tests do import the JAX package
+    found = dict(_imports_of_the_jax_package(ROOT / "tests" / "test_torch_cg.py")).values()
+    assert {"tpusparse", "tpusparse.kernels", "tpusparse.solvers"} <= set(found)
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):

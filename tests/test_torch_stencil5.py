@@ -126,12 +126,50 @@ def test_f32_matches_pallas(kernel):
         _close(a, b, tol=1e-5)
 
 
+@pytest.mark.parametrize("g", [13, 16, 24])
+@pytest.mark.parametrize("beta", [0.0, 0.7])
+@pytest.mark.parametrize("halos", [False, True])
+def test_const_pupdate_matches_pallas(g, beta, halos):
+    """K10's twin (``spmv_stencil5_const_pupdate``) against
+    ``spmv_stencil5_const_pupdate_pipelined`` in interpret mode: p' = r + β·p, y = A·p'
+    and <p', y>, for β = 0 with p = 0 and β = 0.7, on a full grid or a band with halo
+    rows; f64 to 1e-12.  Its p' and y equal K1's p' and K3's y of that p', bit for bit."""
+    rows = g if not halos else g // 2 + 3
+    r, p = _fields(g + 4, 2, (rows, g))
+    if beta == 0.0:
+        p = np.zeros_like(p)
+    hs = _fields(g + 5, 2, (1, g)) if halos else [None, None]
+    ref = jst5.spmv_stencil5_const_pupdate_pipelined(
+        beta, _j(r), _j(p), *(None if h is None else _j(h) for h in hs), **JKW)
+    ths = [None if h is None else _t(h) for h in hs]
+    pt = _t(p)
+    got = st5.spmv_stencil5_const_pupdate(beta, _t(r), pt, *ths, **KW)
+    for a, b in zip(got, ref):
+        _close(a, b)
+    np.testing.assert_array_equal(pt.numpy(), p)
+    pn, y, dot = got
+    pk1, dk1 = st5.spmv_stencil5_const_pupdate_dot(beta, _t(r), pt, *ths, **KW)
+    assert torch.equal(pn, pk1) and torch.equal(dot, dk1)
+    assert torch.equal(y, st5.spmv_stencil5_const(pn, *ths, **KW))
+
+
+def test_const_pupdate_f32_matches_pallas():
+    g = 16
+    r, p = (a.astype(np.float32) for a in _fields(10, 2, (g, g)))
+    ref = jst5.spmv_stencil5_const_pupdate_pipelined(0.7, _j(r), _j(p), **JKW)
+    got = st5.spmv_stencil5_const_pupdate(0.7, _t(r), _t(p), **KW)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        _close(a, b, tol=1e-5)
+
+
 def test_plain_twins_do_not_count_launches():
     st5.reset_launches()
     (x,) = _fields(1, 1, (8, 8))
     st5.spmv_stencil5_const(_t(x), with_dot=True, **KW)
     st5.spmv_stencil5_const_pupdate_dot(0.5, _t(x), _t(x.copy()), **KW)
     st5.cg_const_update_recompute(0.5, _t(x.copy()), _t(x.copy()), _t(x), **KW)
+    st5.spmv_stencil5_const_pupdate(0.5, _t(x), _t(x.copy()), **KW)
     assert st5.LAUNCHES == dict.fromkeys(st5.LAUNCHES, 0)
 
 
@@ -145,6 +183,8 @@ def test_non_cpu_tensor_never_reaches_the_twin():
         st5.spmv_stencil5_const_pupdate_dot(0.5, x, x, **KW)
     with pytest.raises(ValueError, match="CUDA"):
         st5.cg_const_update_recompute(0.5, x, x, x, **KW)
+    with pytest.raises(ValueError, match="CUDA"):
+        st5.spmv_stencil5_const_pupdate(0.5, x, x, **KW)
 
 
 def test_pupdate_out_must_not_alias_p():
@@ -153,4 +193,8 @@ def test_pupdate_out_must_not_alias_p():
         st5.spmv_stencil5_const_pupdate_dot(0.5, r, p, out=p, **KW)
     out = torch.empty_like(p)
     pn, _ = st5.spmv_stencil5_const_pupdate_dot(0.5, r, p, out=out, **KW)
+    assert pn is out
+    with pytest.raises(ValueError, match="overlap r"):
+        st5.spmv_stencil5_const_pupdate(0.5, r, p, out=r, **KW)
+    pn, _, _ = st5.spmv_stencil5_const_pupdate(0.5, r, p, out=out, **KW)
     assert pn is out

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_host import carry
 from tpusparse import formats, io_mtx
 from tpusparse import generate as jgen
 from tpusparse import ops as jops
@@ -87,6 +88,60 @@ def test_band_with_halo_rows(ref):
         _close(a, b)
 
 
+@pytest.mark.parametrize("g", [13, 16, 24])
+@pytest.mark.parametrize("beta", [0.0, 0.7])
+@pytest.mark.parametrize("halos", [False, True])
+@pytest.mark.parametrize("pdt", ["f64", "bf16"])
+def test_pupdate_matches_jax(g, beta, halos, pdt):
+    """K9's twin (``spmv_stencil5_pupdate``) against ``spmv_stencil5_pupdate_pipelined``
+    in interpret mode: p' = r + β·p, y = A·p' and <p', y>, for β = 0 with p = 0 (the first
+    iteration) and β = 0.7, on a full grid or a band with halo rows.  f64 planes with f64
+    state to 1e-12; bf16 planes with f32 state to 1e-5 (both round each coefficient to bf16
+    once, then compute in f32).  p is left as it was."""
+    rows = g if not halos else g // 2 + 3
+    planes = _planes(g, rows, g)
+    rng = np.random.RandomState(g + 5)
+    r = rng.randn(rows, g)
+    p = np.zeros((rows, g)) if beta == 0.0 else rng.randn(rows, g)
+    hs = (rng.randn(1, g), rng.randn(1, g)) if halos else (None, None)
+    tol = 1e-12
+    if pdt == "bf16":
+        r, p = r.astype(np.float32), p.astype(np.float32)
+        hs = tuple(h.astype(np.float32) for h in hs) if halos else hs
+        jplanes, tplanes = jnp.asarray(planes, jnp.bfloat16), _t(planes).to(torch.bfloat16)
+        tol = 1e-5
+    else:
+        jplanes, tplanes = jnp.asarray(planes), _t(planes)
+    want = jst5.spmv_stencil5_pupdate_pipelined(
+        jplanes, beta, jnp.asarray(r), jnp.asarray(p),
+        *(None if h is None else jnp.asarray(h) for h in hs), **JKW)
+    pt = _t(p)
+    got = st5.spmv_stencil5_pupdate(tplanes, beta, _t(r), pt,
+                                    *(None if h is None else _t(h) for h in hs))
+    for a, b in zip(got, want):
+        assert a.dtype == pt.dtype
+        _close(a, b, tol=tol)
+    np.testing.assert_array_equal(pt.numpy(), p)
+    pn, y, _ = got
+    assert torch.equal(y, st5.spmv_stencil5(tplanes, pn, *(None if h is None else _t(h)
+                                                          for h in hs)))
+
+
+def test_pupdate_out_and_launch_counts():
+    """``out`` receives p' and may overlap neither r nor p; the twin counts no launch."""
+    st5.reset_launches()
+    g = 8
+    planes = _t(_planes(1, g, g))
+    r, p = _t(_rand(2, g, g)), _t(_rand(3, g, g))
+    out = torch.empty_like(p)
+    pn, y, d = st5.spmv_stencil5_pupdate(planes, 0.5, r, p, out=out)
+    assert pn is out and torch.equal(pn, r + 0.5 * p)
+    for bad, name in ((p, "p"), (r, "r")):
+        with pytest.raises(ValueError, match=f"overlap {name}"):
+            st5.spmv_stencil5_pupdate(planes, 0.5, r, p, out=bad)
+    assert st5.LAUNCHES == dict.fromkeys(st5.LAUNCHES, 0)
+
+
 def test_planes_from_the_mtx_route(tmp_path):
     """A .mtx file through formats.csr_to_stencil5, then the same matrix with two
     coefficients changed (no longer a constant stencil): the operator's SpMV equals the
@@ -100,7 +155,7 @@ def test_planes_from_the_mtx_route(tmp_path):
     planes[formats.E, 5, 0] = -0.5
     x = _rand(7, g, g)
     for mat in (csr, formats.stencil5_to_csr(formats.Stencil5(g, planes))):
-        op = ops.get_operator("stencil5", mat, dtype=torch.float64, device="cpu")
+        op = ops.get_operator("stencil5", carry(mat), dtype=torch.float64, device="cpu")
         jop = jops.get_operator("stencil5", mat, dtype=jnp.float64)
         y = op.run_device(op.as_field(x.ravel()))
         _close(y, jop.run_device(jnp.asarray(x)))
@@ -128,7 +183,7 @@ def test_bf16c_general_planes_round_as_jax():
     planes = _planes(8, g, g)
     st = formats.Stencil5(g, planes)
     x = _rand(9, g, g).astype(np.float32)
-    op = ops.get_operator("stencil5-bf16c", st, dtype=torch.float32, device="cpu")
+    op = ops.get_operator("stencil5-bf16c", carry(st), dtype=torch.float32, device="cpu")
     jop = jops.get_operator("stencil5-bf16c", st, dtype=jnp.float32)
     assert op.planes.dtype == torch.bfloat16
     np.testing.assert_array_equal(op.planes.float().numpy(),
@@ -160,7 +215,7 @@ def test_planes_from_numpy_copies_and_checks():
 
 
 def test_operator_holds_and_frees_its_planes():
-    st = formats.Stencil5(grid_size=10, planes=None, constant=(5.0, -1.0))
+    st = carry(formats.Stencil5(grid_size=10, planes=None, constant=(5.0, -1.0)))
     op = ops.get_operator("stencil5", st, dtype=torch.float64, device="cpu")
     assert op.planes.shape == (5, 10, 10) and op.planes.dtype == torch.float64
     y, ms = op.run_timed(np.ones(100))

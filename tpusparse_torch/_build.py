@@ -44,7 +44,13 @@ _SIGNATURES = {
                                                 _P, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_cg_const_update_recompute_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,
                                                _P, _P), ctypes.c_int) for t in ("f32", "f64")},
+    **{f"tps_stencil5_const_pupdate_spmv_{t}": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D,
+                                                 _P, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64")},
     **{f"tps_spmv_stencil5_{t}": ((_P, _P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64", "bf16_f32", "bf16_f64")},
+    **{f"tps_spmv_stencil5_pupdate_{t}": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+                                          ctypes.c_int)
        for t in ("f32", "f64", "bf16_f32", "bf16_f64")},
     "tps_blas1_partials": ((_I,), _I),
     "tps_row_partials": ((_I,), _I),

@@ -1,31 +1,25 @@
 """SpMV metrics of the port: GFLOPS, bytes, GB/s and the share of the card's peak.
 
-Counterpart of ``calculate_spmv_metrics`` in ``tpusparse/bench/metrics.py``.  The FLOP count
-(``spmv_flops``), the stencil byte models (``BYTE_MODELS``) and the result type
-(``SpmvMetrics``) are shared with it.  What differs:
+The port's own counterpart of ``tpusparse/bench/metrics.py`` (reference
+src/spmv/spmv_metrics.cu): GFLOPS = 2·nnz / t (:63-65), a byte model per mode (:76-95),
+arithmetic intensity and the memory/balanced/compute-bound class (:147-167).  What differs
+from the JAX module:
 
-  - the ELL, DIA and ``bcoo`` byte models are the port's own (``BYTE_MODELS_PORT``): the
-    shared ELL and DIA ones read the JAX operator's ``_buffers`` and count its TPU packs (x
-    windows, lane padding), and the shared ``bcoo`` one counts a COO row and column index
-    per entry, where the port's ``bcoo`` is CSR; these count what the port's operands
-    stream, from ``op.operand``;
-  - the peak is ``sysinfo.gpu_peaks``, this package's table of NVIDIA cards.  The shared
-    ``chip_peaks`` answers any name it does not know with a TPU v5e's 819 GB/s, which on an
-    H100 would report a TPU roofline and flag every run as above peak.  A card missing
-    from the table reports no roofline share (None), no bound classification and no
-    above-peak flag;
-  - the on-chip knee is the card's L2 size (``sysinfo``'s ``l2_cache_bytes``, from
-    ``torch.cuda.get_device_properties``), not the shared module's 128 MiB, which was
-    measured on a v5e.  A working set below it can stay in L2 across chained applies, so
-    its GB/s is an L2 figure, not an HBM one.
+  - one byte-model table (``BYTE_MODELS``) of what the port's operands stream: the stencil
+    models count coefficient planes, x and y; the ELL, DIA and ``bcoo`` models read the
+    operator's ``operand`` (slot-major ELL, DIA data with its stored zeros, a CSR sparse
+    tensor), where the JAX models count its TPU packs;
+  - the peak is ``sysinfo.gpu_peaks``, this package's table of NVIDIA cards.  A card missing
+    from it reports no roofline share (None), no bound class and no above-peak flag;
+  - the cache knee is the card's L2 size (``sysinfo``'s ``l2_cache_bytes``).  A working set
+    below it can stay in L2 across chained applies, so its GB/s is an L2 figure, not an HBM
+    one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
-
-from tpusparse.bench.metrics import (BYTE_MODELS, SpmvMetrics, bytes_csr, bytes_dia, bytes_ell,
-                                     spmv_flops)
 
 from .sysinfo import gpu_peaks
 
@@ -34,28 +28,87 @@ from .sysinfo import gpu_peaks
 MIN_VALID_KERNEL_MS = 0.05
 
 
-def _bytes_ell_port(op, itemsize):
+def spmv_flops(nnz: int) -> int:
+    return 2 * nnz  # one multiply + one add per stored nonzero (spmv_metrics.cu:63-65)
+
+
+def bytes_csr(nnz: int, rows: int, itemsize: int, idxsize: int = 4) -> int:
+    """The reference's CSR model (spmv_metrics.cu:76-95): values, column indices, row
+    pointers, x read and y written."""
+    return nnz * itemsize + nnz * idxsize + (rows + 1) * idxsize + 2 * rows * itemsize
+
+
+def bytes_ell(rows: int, width: int, itemsize: int, idxsize: int = 4) -> int:
+    return rows * width * (itemsize + idxsize) + 2 * rows * itemsize
+
+
+def bytes_stencil5(rows: int, itemsize: int) -> int:
+    """Values-carrying stencil: 5 coefficients, x and y per row, no index traffic (the
+    reference's 48 B/row in f64, docs/PROFILING_ANALYSIS.md)."""
+    return 7 * rows * itemsize
+
+
+def bytes_stencil5_const(rows: int, itemsize: int) -> int:
+    """Constant-coefficient stencil: x and y only (16 B/row in f64)."""
+    return 2 * rows * itemsize
+
+
+def bytes_dia(rows: int, ndiag: int, itemsize: int) -> int:
+    return (ndiag + 2) * rows * itemsize
+
+
+def _bytes_ell_op(op, itemsize):
     """Slot-major ELL (``kernels.ell``): W values and W int32 columns per row, x read once
     (its other W - 1 reads hit the cache) and y written: W·n·(itemsize + 4) + 2·n·itemsize."""
     return bytes_ell(op.num_rows, op.operand["cols"].shape[0], itemsize)
 
 
-def _bytes_dia_port(op, itemsize):
+def _bytes_dia_op(op, itemsize):
     """DIA (``kernels.dia``): ndiag data words per row, stored zeros included, x read once
     and y written: (ndiag + 2)·n·itemsize."""
     return bytes_dia(op.num_rows, op.operand["offsets"].numel(), itemsize)
 
 
-def _bytes_bcoo_port(op, itemsize):
-    """``bcoo`` (a ``torch.sparse_csr_tensor``): the reference's CSR model, one column index
-    per entry plus the row pointers, at the tensor's own index width (int32 below 2^31)."""
+def _bytes_bcoo_op(op, itemsize):
+    """``bcoo`` (a ``torch.sparse_csr_tensor``): the reference's CSR model at the tensor's
+    own index width (int32 below 2^31)."""
     return bytes_csr(op.nnz, op.num_rows, itemsize,
                      op.operand["matrix"].col_indices().element_size())
 
 
-# the port's own models, looked up before the shared BYTE_MODELS
-BYTE_MODELS_PORT = {"csr": _bytes_ell_port, "ell": _bytes_ell_port, "dia": _bytes_dia_port,
-                    "bcoo": _bytes_bcoo_port}
+# mode -> bytes of one apply; a plain ``*-xla`` oracle is held to its kernel's model: the
+# bytes the operator needs, not the extra passes the plain ops make
+BYTE_MODELS = {
+    "csr": _bytes_ell_op,
+    "ell": _bytes_ell_op,
+    "dia": _bytes_dia_op,
+    "bcoo": _bytes_bcoo_op,
+    "stencil5": lambda op, itemsize: bytes_stencil5(op.num_rows, itemsize),
+    # bf16 coefficient planes: 5 planes at 2 B, x and y at the state's itemsize
+    "stencil5-bf16c": lambda op, itemsize: op.num_rows * (5 * 2 + 2 * itemsize),
+    "stencil5-const": lambda op, itemsize: bytes_stencil5_const(op.num_rows, itemsize),
+}
+
+
+@dataclasses.dataclass
+class SpmvMetrics:
+    """Parity with the reference's SpmvMetrics (include/spmv.h, spmv_metrics.cu)."""
+
+    time_ms: float
+    gflops: float
+    bandwidth_gbs: float
+    arithmetic_intensity: float
+    roofline_fraction: Optional[float]  # achieved GB/s / the card's data-sheet peak
+    bound: str  # "memory-bound" | "balanced" | "compute-bound" | "unknown (...)"
+    bytes_moved: int
+    nnz: int
+    rows: int
+    dtype: str
+    # against a measured streaming ceiling (--ceiling-from), when one was given
+    achievable_gbs: Optional[float] = None
+    roofline_fraction_achievable: Optional[float] = None
+    # non-empty: the GB/s and GFLOPS above are not valid roofline claims
+    timing_flags: tuple = ()
 
 
 def calculate_spmv_metrics(op, time_ms: float, *, dtype_itemsize: int, device_kind: str,
@@ -109,11 +162,15 @@ def calculate_spmv_metrics(op, time_ms: float, *, dtype_itemsize: int, device_ki
 
 
 def _byte_model(mode):
-    """The byte model of a mode: the port's own, else the shared one.  A plain-PyTorch
-    ``*-xla`` oracle is held to its kernel's model: the bytes the operator needs, not the
-    extra passes the plain ops make."""
-    for models in (BYTE_MODELS_PORT, BYTE_MODELS):
-        for key in (mode, mode.removesuffix("-xla")):
-            if key in models:
-                return models[key]
+    for key in (mode, mode.removesuffix("-xla")):
+        if key in BYTE_MODELS:
+            return BYTE_MODELS[key]
     raise ValueError(f"no byte model for mode '{mode}'")
+
+
+def cg_gflops(nnz: int, iterations: int, spmv_time_ms: float) -> float:
+    """The reference's performance{gflops_spmv} (cg_metrics.cu:~120): 2·nnz·iterations over
+    the SpMV time."""
+    if spmv_time_ms <= 0:
+        return 0.0
+    return 2.0 * nnz * iterations / (spmv_time_ms / 1e3) / 1e9

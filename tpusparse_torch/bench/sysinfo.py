@@ -1,9 +1,10 @@
 """Device and system provenance for the port's benchmark exports.
 
 Counterpart of ``tpusparse/bench/sysinfo.py``, with the reference's own sources
-(gpu_detection.cu): CUDA device properties (:76-108) and the ``nvidia-smi`` query
-(:41-74).  The card's power limit is recorded because a card set below its maximum runs
-slower under load: every number the port reports carries it.
+(gpu_detection.cu): CUDA device properties (:76-108), the ``nvidia-smi`` query (:41-74),
+the CPU model (:9-33) and the RAM (:35-39).  The card's power limit is recorded because a
+card set below its maximum runs slower under load: every number the port reports carries
+it.
 
 Peak figures come from this module's own table of NVIDIA cards (data sheets, dense, no
 sparsity).  A card missing from the table reports no peak rather than a guessed one.
@@ -11,6 +12,7 @@ sparsity).  A card missing from the table reports no peak rather than a guessed 
 
 from __future__ import annotations
 
+import os
 import platform
 import shutil
 import subprocess
@@ -18,13 +20,31 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from tpusparse.bench.sysinfo import _cpu_model, _ram_gb
-
 # The cards the port has run on.  Device name (as torch.cuda.get_device_name reports it)
 # -> (HBM GB/s, f32 GFLOP/s without tensor cores).
 GPU_SPECS = {
     "NVIDIA H100 80GB HBM3": (3350.0, 67_000.0),  # H100 SXM5
 }
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name from /proc/cpuinfo (reference gpu_detection.cu:9-33)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor() or "unknown"
+
+
+def _ram_gb() -> float:
+    """The host's RAM in GB (reference gpu_detection.cu:35-39)."""
+    try:
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") / 1e9
+    except (ValueError, OSError):
+        return 0.0
 
 
 def gpu_peaks(device_kind: str) -> Tuple[Optional[float], Optional[float]]:

@@ -29,13 +29,11 @@ import time
 
 import numpy as np
 
-from tpusparse.bench import export, metrics, stats
-from tpusparse.cli.spmv_bench import load_operand
-
 from .. import ops
 from .._device import resolve_device, resolve_dtype
-from ..bench import sysinfo
+from ..bench import export, metrics, stats, sysinfo
 from ..solvers import cg
+from .spmv_bench import load_operand
 
 
 def build_parser():

@@ -7,8 +7,9 @@ Counterpart of ``tpusparse/cli/spmv_bench.py`` (reference src/main/main.cu:48-55
         [--resident-x] [--ceiling-from=<probe.json>] [--device=cuda|cpu]
 
 All modes are checked before the operand is loaded (main.cu:94-105); x = ones (:136-137);
-5 warm-ups and 10 timed runs with the shared statistics (:158-167); one export per mode,
-suffixed ``_<mode>`` (:200-241); Sum(y)/Norm2(y) checksums at 16 decimals (:245-248).
+5 warm-ups and 10 timed runs with the reference's statistics (``bench.stats``, :158-167);
+one export per mode, suffixed ``_<mode>`` (:200-241); Sum(y)/Norm2(y) checksums at 16
+decimals (:245-248).
 ``gen:<g>`` makes the stencil operand on the device, without a .mtx file, in every mode
 but ``bcoo``, which builds its CSR on the host.
 
@@ -29,12 +30,21 @@ import sys
 
 import numpy as np
 
-from tpusparse.bench import export, stats
-from tpusparse.cli.spmv_bench import load_operand
-
-from .. import ops
+from .. import formats, io_mtx, ops
 from .._device import resolve_device, resolve_dtype
-from ..bench import metrics, sysinfo
+from ..bench import export, metrics, stats, sysinfo
+
+
+def load_operand(spec: str):
+    """(matrix, display name) of a CLI operand: ``gen:<g>`` is the planes-free constant
+    stencil (diag 5, offdiag −1), whose operands the stencil, ELL and DIA operators make on
+    the device; any other spec is a .mtx file, read into sorted CSR."""
+    if spec.startswith("gen:"):
+        g = int(spec[4:])
+        return (formats.Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0)),
+                f"stencil5-{g}x{g}")
+    coo = io_mtx.load_matrix_market(spec)
+    return formats.coo_to_csr(coo), os.path.basename(spec)
 
 
 def build_parser():
@@ -112,7 +122,7 @@ def main(argv=None) -> int:
             sum_y=float(y.sum()), norm2_y=float(np.linalg.norm(y)), kernel_ms=kernel_ms,
             run_protocol="device-resident" if args.resident_x else "transfer-inclusive")
         result["dtype"] = args.dtype
-        _print_human(result)
+        export.print_human_spmv(result)
         print()
         if args.json:
             base, ext = os.path.splitext(args.json)
@@ -124,16 +134,6 @@ def main(argv=None) -> int:
         op.free()
         del op
     return 0
-
-
-def _print_human(result):
-    """The shared report; a device without a peak prints its roofline share as nan (the
-    export keeps it null)."""
-    perf = result["benchmark"]["performance"]
-    if perf["roofline_fraction"] is None:
-        result = {**result, "benchmark": {**result["benchmark"], "performance": {
-            **perf, "roofline_fraction": float("nan")}}}
-    export.print_human_spmv(result)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
-"""Carry operands and solver state across from the JAX package.
+"""Carry matrices, operands and solver state into the port.
 
-``fields_from_numpy`` turns numpy arrays (as ``np.asarray`` gives them from JAX arrays:
-x, r, p, halo rows, scalars) into tensors, so a test can start both packages from the
-same mid-solve state.  Of the shared ``tpusparse.formats.Stencil5``,
-``operand_from_stencil5`` reads the constant coefficients and ``planes_from_numpy`` carries
-the host coefficient planes to the device.  ``ell_from_numpy`` and ``dia_from_numpy`` carry
-the shared host packs (``formats.csr_to_ell``/``stencil5_to_ell``, ``formats.csr_to_dia``/
-``stencil5_to_dia``) to the device in the layouts the generic kernels read.
+``stencil5_from_numpy`` and ``csr_from_numpy`` build the port's own ``formats.Stencil5`` and
+``formats.CSRMatrix`` from numpy arrays: the way a matrix of another package (the JAX
+package's, in the tests) comes in.  ``fields_from_numpy`` turns numpy arrays (x, r, p, halo
+rows, scalars) into tensors, so a test can start two solvers from the same mid-solve state.
+Of a ``Stencil5``, ``operand_from_stencil5`` reads the constant coefficients and
+``planes_from_numpy`` carries the host coefficient planes to the device.  ``ell_from_numpy``
+and ``dia_from_numpy`` carry the host packs (``formats.csr_to_ell``/``stencil5_to_ell``,
+``formats.csr_to_dia``/``stencil5_to_dia``) to the device in the layouts the generic kernels
+read.
 """
 
 from __future__ import annotations
@@ -14,10 +16,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpusparse.formats import C, N, Stencil5
-from tpusparse.generate import make_stencil5
-
 from ._device import resolve_device
+from .formats import C, N, CSRMatrix, Stencil5
+from .generate import make_stencil5
+
+
+def stencil5_from_numpy(grid_size, planes=None, constant=None) -> Stencil5:
+    """A ``Stencil5`` of the port: coefficient planes (5, g, g) in the order N, W, C, E, S
+    (copied, in their own dtype), or planes-free with ``constant`` = (diag, offdiag), or
+    both."""
+    g = int(grid_size)
+    if planes is not None:
+        planes = np.array(planes)
+        if planes.shape != (5, g, g):
+            raise ValueError(f"expected planes of shape (5, {g}, {g}), got {planes.shape}")
+    elif constant is None:
+        raise ValueError("a Stencil5 needs planes or constant coefficients")
+    if constant is not None:
+        constant = (float(constant[0]), float(constant[1]))
+    return Stencil5(grid_size=g, planes=planes, constant=constant)
+
+
+def csr_from_numpy(num_rows, num_cols, row_ptr, col_idx, values, grid_size=0) -> CSRMatrix:
+    """A ``CSRMatrix`` of the port from its arrays (copied; int64 indices, float64 values),
+    rows sorted by column as the stencil extraction needs."""
+    row_ptr = np.array(row_ptr, dtype=np.int64)
+    col_idx = np.array(col_idx, dtype=np.int64)
+    values = np.array(values, dtype=np.float64)
+    n, m = int(num_rows), int(num_cols)
+    if row_ptr.shape != (n + 1,) or col_idx.shape != values.shape or row_ptr[-1] != col_idx.size:
+        raise ValueError(f"inconsistent CSR: row_ptr {row_ptr.shape}, col_idx {col_idx.shape}, "
+                         f"values {values.shape} for {n} rows")
+    return CSRMatrix(num_rows=n, num_cols=m, row_ptr=row_ptr, col_idx=col_idx, val=values,
+                     grid_size=int(grid_size))
 
 
 def fields_from_numpy(arrays, device="cuda", dtype=None):
@@ -38,7 +69,7 @@ def fields_from_numpy(arrays, device="cuda", dtype=None):
 
 
 def planes_from_numpy(planes, dtype=torch.float32, device="cuda"):
-    """A Stencil5's host planes (5, g, g) (as ``make_stencil5`` or, from a .mtx,
+    """A Stencil5's host planes (5, g, g) (as ``generate.make_stencil5`` or, from a .mtx,
     ``formats.csr_to_stencil5`` gives them) as a contiguous tensor in ``dtype`` on
     ``device``; bfloat16 rounds each coefficient once, from the host's precision.  Always
     copies."""

@@ -1,5 +1,5 @@
-// The tiling and the neighbour gather that the 5-point stencil kernels share
-// (stencil5_const.cu: K1-K3; stencil5.cu: K8).
+// The tiling, the stencil's input fields and the neighbour gather that the 5-point stencil
+// kernels share (stencil5_const.cu: K1-K3, K10; stencil5.cu: K8, K9).
 //
 // A block of kTX x kTY threads covers kTX columns by kTileRows rows of a (rows, g) band;
 // each thread walks kTileRows / kTY rows, kTY apart, so a warp reads 32 consecutive
@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "reduce.cuh"
+
 namespace {
 
 constexpr int kTX = 32;        // block width: columns
@@ -32,6 +34,19 @@ template <typename T>
 struct Field {
   const T* v;
   __device__ __forceinline__ T operator()(int64_t k) const { return v[k]; }
+};
+
+// The stencil input formed on the fly as p' = r + beta*p (K1, K9, K10), rounded as
+// PyTorch's `r + beta * p` rounds it.  A block forms its neighbours' p' from r and p too,
+// so p' must never be written over p: another block may still read that p.
+template <typename T>
+struct PUpdated {
+  const T* r;
+  const T* p;
+  T beta;
+  __device__ __forceinline__ T operator()(int64_t k) const {
+    return add_rn(r[k], mul_rn(beta, p[k]));
+  }
 };
 
 // f at (i, j) and its four neighbours, zero (or the halo row) off the band.

@@ -1,10 +1,12 @@
 """Operand and vector synthesis for the port.
 
-The host generators and the analytic checksums are shared with ``tpusparse.generate``
-(plain numpy) and re-exported here.  ``make_stencil5_planes_device`` builds the stencil's
-coefficient planes, ``make_stencil5_ell_device`` and ``make_stencil5_dia_device`` its ELL
-and DIA operands, and ``ones_field`` the canonical x = ones / b = ones field, directly on
-the target device in the target dtype.
+The host half is the port's own copy of ``tpusparse/generate.py``'s (plain numpy):
+``make_stencil5`` (the host Stencil5 with its planes), ``write_matrix_market_stencil5``
+(the reference's stencil .mtx writer) and ``stencil5_spmv_checksums`` (the analytic Sum and
+Norm2 of y = A·ones).  The device half builds the stencil's coefficient planes
+(``make_stencil5_planes_device``), its ELL and DIA operands (``make_stencil5_ell_device``,
+``make_stencil5_dia_device``) and the canonical x = ones / b = ones field (``ones_field``)
+directly on the target device in the target dtype.
 """
 
 from __future__ import annotations
@@ -12,16 +14,98 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpusparse.formats import C, E, N, S, W
-from tpusparse.generate import (  # noqa: F401  (re-exported)
-    DEFAULT_DIAG,
-    DEFAULT_OFFDIAG,
-    make_stencil5,
-    stencil5_nnz,
-    stencil5_spmv_checksums,
-)
-
 from ._device import resolve_device
+from .formats import C, E, N, S, Stencil5, W
+
+# the reference generator's coefficients (src/io/io.cu:375): Laplacian + mass term
+DEFAULT_DIAG = 5.0
+DEFAULT_OFFDIAG = -1.0
+
+
+def stencil5_nnz(grid_size: int) -> int:
+    """Exact nnz of the 5-point stencil matrix (reference precount io.cu:327-340)."""
+    g = grid_size
+    return 5 * g * g - 4 * g
+
+
+def make_stencil5(grid_size: int, diag: float = DEFAULT_DIAG, offdiag: float = DEFAULT_OFFDIAG,
+                  dtype=np.float64) -> Stencil5:
+    """The host Stencil5: coefficient planes with Dirichlet-zero coefficients where a
+    neighbour falls off the grid."""
+    g = int(grid_size)
+    if g < 1:
+        raise ValueError("grid_size must be >= 1")
+    planes = np.zeros((5, g, g), dtype=dtype)
+    planes[C] = diag
+    planes[N, 1:, :] = offdiag  # row 0 has no north neighbour
+    planes[S, :-1, :] = offdiag  # the last row has no south neighbour
+    planes[W, :, 1:] = offdiag  # column 0 has no west neighbour
+    planes[E, :, :-1] = offdiag  # the last column has no east neighbour
+    return Stencil5(grid_size=g, planes=planes, constant=(float(diag), float(offdiag)))
+
+
+def write_matrix_market_stencil5(path: str, grid_size: int, diag: float = DEFAULT_DIAG,
+                                 offdiag: float = DEFAULT_OFFDIAG, chunk_rows: int = 512) -> int:
+    """Write the stencil matrix as a 1-based .mtx with the reference's header
+    (src/io/io.cu:322-399).  Returns the nnz written.  The native writer when its library
+    is available, else the Python one.
+
+    The native writer emits each grid point's entries in the reference's C, N, S, W, E
+    order (io.cu:373-391); the Python writer groups them by kind per chunk of grid rows.
+    Both files parse to the same matrix (the readers sort each row), but they differ line
+    by line."""
+    from . import native
+
+    if native.available():
+        return native.write_stencil5_mtx(path, grid_size, diag, offdiag)
+    return _write_stencil5_python(path, grid_size, diag, offdiag, chunk_rows)
+
+
+def _write_stencil5_python(path, grid_size, diag, offdiag, chunk_rows=512) -> int:
+    g = int(grid_size)
+    nnz = stencil5_nnz(g)
+    n = g * g
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"% STENCIL_GRID_SIZE {g}\n")
+        f.write(f"{n} {n} {nnz}\n")
+        jj = np.arange(g, dtype=np.int64)
+        for i0 in range(0, g, chunk_rows):
+            lines = []
+            for i in range(i0, min(i0 + chunk_rows, g)):
+                base = i * g + jj + 1  # 1-based row index
+                recs = [(base, base, np.full(g, diag))]
+                if i > 0:
+                    recs.append((base, base - g, np.full(g, offdiag)))
+                if i < g - 1:
+                    recs.append((base, base + g, np.full(g, offdiag)))
+                recs.append((base[1:], base[1:] - 1, np.full(g - 1, offdiag)))
+                recs.append((base[:-1], base[:-1] + 1, np.full(g - 1, offdiag)))
+                for r, c, v in recs:
+                    lines.extend(f"{rr} {cc} {vv:.17g}\n" for rr, cc, vv in zip(r, c, v))
+            f.write("".join(lines))
+    return nnz
+
+
+def stencil5_spmv_checksums(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_OFFDIAG):
+    """The exact (Sum(y), Norm2(y)) of y = A·ones, in float64: y at a point is diag +
+    offdiag × its number of neighbours (the oracle of the reference's tests,
+    tests/test_wrapper_basic.cpp:115-121)."""
+    g = grid_size
+    # neighbour counts: 4 interior, 3 edge, 2 corner (the smallest grids by hand)
+    if g == 1:
+        counts = {0: 1}
+    elif g == 2:
+        counts = {2: 4}
+    else:
+        counts = {2: 4, 3: 4 * (g - 2), 4: (g - 2) ** 2}
+    sum_y = 0.0
+    norm2 = 0.0
+    for nb, count in counts.items():
+        yv = diag + offdiag * nb
+        sum_y += count * yv
+        norm2 += count * yv * yv
+    return sum_y, float(np.sqrt(norm2))
 
 
 def ones_field(grid_size: int, dtype=torch.float32, device="cuda"):

@@ -2,18 +2,21 @@
 
 Counterpart of ``tpusparse/kernels/stencil5.py``.  The operators act on a (rows, g) row
 band of a g-wide grid; N/S of the band's first and last rows come from the optional
-(1, g) halo rows (``None`` = zero, the grid edge); W/E at the side columns are zero.  Four
-wrappers, one per Pallas kernel on the port's paths:
+(1, g) halo rows (``None`` = zero, the grid edge); W/E at the side columns are zero.  Six
+wrappers, one per Pallas kernel:
 
   ``spmv_stencil5``                    K8, y = A·x with coefficient planes, optionally <x, A·x>
+  ``spmv_stencil5_pupdate``            K9, fused CG pass: p' = r + β·p, y = A·p' (planes),
+                                       <p', y>
   ``spmv_stencil5_const``              K3, y = A·x for diag·x + offdiag·(N + S + W + E)
   ``spmv_stencil5_const_pupdate_dot``  K1, recompute-CG pass A: p' = r + β·p, <p', A·p'>
   ``cg_const_update_recompute``        K2, recompute-CG pass B: x += α·p, r -= α·A·p, <r, r>
+  ``spmv_stencil5_const_pupdate``      K10, K9 for the constant stencil
 
 Each has a ``*_plain`` twin of the same signature in plain PyTorch.  A wrapper given CPU
 tensors runs the twin; given CUDA tensors it launches the kernel from
-``tpusparse_torch/csrc/stencil5.cu`` (K8) or ``stencil5_const.cu`` (K1-K3) or raises; there
-is no fallback between the two.  Kernel and twin round every field operation alike, so
+``tpusparse_torch/csrc/stencil5.cu`` (K8, K9) or ``stencil5_const.cu`` (K1-K3, K10) or
+raises; there is no fallback between the two.  Kernel and twin round every field operation alike, so
 their fields agree bit for bit; the dots differ only in summation order.  Dots come back as
 0-d tensors in the state's dtype; α and β are 0-d tensors (or Python floats) that the
 kernels read through a device pointer.
@@ -27,20 +30,21 @@ import functools
 
 import torch
 
-from tpusparse.formats import C, E, N, S, W
-
 from .. import _build
+from ..formats import C, E, N, S, W
 from ._launch import (SUFFIX, check_apart, check_field, dot_buffers, overlaps, ptr,
                       scalar, stream)
 
 LAUNCHES = {
     "spmv_stencil5": 0,
+    "spmv_stencil5_pupdate": 0,
     "spmv_stencil5_const": 0,
     "spmv_stencil5_const_pupdate_dot": 0,
     "cg_const_update_recompute": 0,
+    "spmv_stencil5_const_pupdate": 0,
 }
 
-# planes dtype -> the part of the K8 entry point's suffix before the state's
+# planes dtype -> the part of the K8/K9 entry points' suffix before the state's
 _PLANES_SUFFIX = {torch.float32: "", torch.float64: "", torch.bfloat16: "bf16_"}
 
 
@@ -92,15 +96,36 @@ def spmv_stencil5_const_plain(x, halo_prev=None, halo_next=None, *, diag, offdia
 
 def spmv_stencil5_const_pupdate_dot_plain(beta, r, p, halo_prev=None, halo_next=None, *,
                                           diag, offdiag, out=None):
-    """Plain twin of ``spmv_stencil5_const_pupdate_dot``."""
-    beta = scalar(beta, r)
-    pnew = r + beta * p
-    y = spmv_stencil5_const_plain(pnew, halo_prev, halo_next, diag=diag, offdiag=offdiag)
+    """Plain twin of ``spmv_stencil5_const_pupdate_dot``: K10's twin without y."""
+    pnew, _, dot = spmv_stencil5_const_pupdate_plain(beta, r, p, halo_prev, halo_next,
+                                                     diag=diag, offdiag=offdiag, out=out)
+    return pnew, dot
+
+
+def _pupdate_plain(spmv, beta, r, p, out):
+    """p' = r + β·p, y = spmv(p') and <p', y>, p' copied into ``out`` when given."""
+    pnew = r + scalar(beta, r) * p
+    y = spmv(pnew)
     dot = _dot(pnew, y)
     if out is not None:
         _check_out(out, r, p)
         pnew = out.copy_(pnew)
-    return pnew, dot
+    return pnew, y, dot
+
+
+def spmv_stencil5_pupdate_plain(planes, beta, r, p, halo_prev=None, halo_next=None, *,
+                                out=None):
+    """Plain twin of ``spmv_stencil5_pupdate``."""
+    return _pupdate_plain(lambda f: spmv_stencil5_plain(planes, f, halo_prev, halo_next),
+                          beta, r, p, out)
+
+
+def spmv_stencil5_const_pupdate_plain(beta, r, p, halo_prev=None, halo_next=None, *, diag,
+                                      offdiag, out=None):
+    """Plain twin of ``spmv_stencil5_const_pupdate``."""
+    return _pupdate_plain(lambda f: spmv_stencil5_const_plain(f, halo_prev, halo_next,
+                                                              diag=diag, offdiag=offdiag),
+                          beta, r, p, out)
 
 
 def cg_const_update_recompute_plain(alpha, x, r, p, halo_prev=None, halo_next=None, *,
@@ -143,6 +168,34 @@ def spmv_stencil5(planes, x, halo_prev=None, halo_next=None, *, with_dot=False):
     return (y, dot) if with_dot else y
 
 
+def spmv_stencil5_pupdate(planes, beta, r, p, halo_prev=None, halo_next=None, *, out=None):
+    """(p', A·p', <p', A·p'>) with p' = r + β·p and the coefficient planes of
+    ``spmv_stencil5``: the fused top of a CG iteration.  β = 0 with p = 0 gives the first
+    iteration (p' = r).
+
+    Replaces the Pallas kernel ``spmv_stencil5_pupdate_pipelined``.  p' never overwrites
+    p: pass ``out`` (a field that overlaps neither r nor p) to reuse a buffer, else a new
+    one is allocated; y is always new.  Halo rows are the neighbours' p' rows."""
+    if r.device.type == "cpu":
+        return spmv_stencil5_pupdate_plain(planes, beta, r, p, halo_prev, halo_next, out=out)
+    rows, g = _check_band(r, r)
+    check_field(p, r)
+    _check_planes(planes, r)
+    _check_halos(halo_prev, halo_next, r)
+    out = _pupdate_out(out, r, p)
+    y = torch.empty_like(r)
+    beta = scalar(beta, r)
+    dot, part = dot_buffers(r, _partials(rows, g))
+    suffix = _PLANES_SUFFIX[planes.dtype] + SUFFIX[r.dtype]
+    fn = getattr(_build.lib(), f"tps_spmv_stencil5_pupdate_{suffix}")
+    _build.check(fn(beta.data_ptr(), planes.data_ptr(), r.data_ptr(), p.data_ptr(),
+                    ptr(halo_prev), ptr(halo_next), out.data_ptr(), y.data_ptr(), rows, g,
+                    part.data_ptr(), dot.data_ptr(), stream(r)),
+                 "spmv_stencil5_pupdate")
+    LAUNCHES["spmv_stencil5_pupdate"] += 1
+    return out, y, dot
+
+
 def spmv_stencil5_const(x, halo_prev=None, halo_next=None, *, diag, offdiag,
                         with_dot=False):
     """y = A·x, or (y, <x, A·x>) when ``with_dot``.
@@ -178,11 +231,7 @@ def spmv_stencil5_const_pupdate_dot(beta, r, p, halo_prev=None, halo_next=None, 
     rows, g = _check_band(r, r)
     check_field(p, r)
     _check_halos(halo_prev, halo_next, r)
-    if out is None:
-        out = torch.empty_like(r)
-    else:
-        check_field(out, r)
-        _check_out(out, r, p)
+    out = _pupdate_out(out, r, p)
     beta = scalar(beta, r)
     dot, part = dot_buffers(r, _partials(rows, g))
     fn = getattr(_build.lib(), f"tps_stencil5_const_pupdate_dot_{SUFFIX[r.dtype]}")
@@ -192,6 +241,32 @@ def spmv_stencil5_const_pupdate_dot(beta, r, p, halo_prev=None, halo_next=None, 
                  "spmv_stencil5_const_pupdate_dot")
     LAUNCHES["spmv_stencil5_const_pupdate_dot"] += 1
     return out, dot
+
+
+def spmv_stencil5_const_pupdate(beta, r, p, halo_prev=None, halo_next=None, *, diag,
+                                offdiag, out=None):
+    """(p', A·p', <p', A·p'>) with p' = r + β·p: ``spmv_stencil5_pupdate`` for the
+    constant stencil, and K1 with A·p' stored.
+
+    Replaces the Pallas kernel ``spmv_stencil5_const_pupdate_pipelined``.  ``out``, y and
+    the halo rows as in ``spmv_stencil5_pupdate``."""
+    if r.device.type == "cpu":
+        return spmv_stencil5_const_pupdate_plain(beta, r, p, halo_prev, halo_next, diag=diag,
+                                                 offdiag=offdiag, out=out)
+    rows, g = _check_band(r, r)
+    check_field(p, r)
+    _check_halos(halo_prev, halo_next, r)
+    out = _pupdate_out(out, r, p)
+    y = torch.empty_like(r)
+    beta = scalar(beta, r)
+    dot, part = dot_buffers(r, _partials(rows, g))
+    fn = getattr(_build.lib(), f"tps_stencil5_const_pupdate_spmv_{SUFFIX[r.dtype]}")
+    _build.check(fn(beta.data_ptr(), r.data_ptr(), p.data_ptr(), ptr(halo_prev),
+                    ptr(halo_next), out.data_ptr(), y.data_ptr(), rows, g, float(diag),
+                    float(offdiag), part.data_ptr(), dot.data_ptr(), stream(r)),
+                 "spmv_stencil5_const_pupdate")
+    LAUNCHES["spmv_stencil5_const_pupdate"] += 1
+    return out, y, dot
 
 
 def cg_const_update_recompute(alpha, x, r, p, halo_prev=None, halo_next=None, *, diag,
@@ -264,6 +339,15 @@ def _check_out(out, r, p):
         if overlaps(out, t):
             raise ValueError(f"out must not overlap {name}: neighbouring blocks still read "
                              f"{name} while p' is written")
+
+
+def _pupdate_out(out, r, p):
+    """The p' buffer of K1, K9 and K10: ``out`` once checked, else a new field."""
+    if out is None:
+        return torch.empty_like(r)
+    check_field(out, r)
+    _check_out(out, r, p)
+    return out
 
 
 # the library's size queries, asked once per library and shape so that a launch makes

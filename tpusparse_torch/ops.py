@@ -6,7 +6,8 @@ registry is ported.  The stencil modes take a ``Stencil5`` (a CSR or COO matrix 
 one, ``formats.csr_to_stencil5``):
 
   - ``"stencil5"``           values-carrying stencil: five coefficient planes on the
-                             device, SpMV through the CUDA kernel K8 (``kernels/stencil5.py``);
+                             device, SpMV through the CUDA kernel K8 and the fused
+                             p-update pass through K9 (``kernels/stencil5.py``);
                              ``"stencil5-csr"`` is the reference's alias for it;
   - ``"stencil5-bf16c"``     the same with bfloat16 planes and f32/f64 state: plane traffic
                              halves (28 -> 18 B/pt in f32), bit-identical results for
@@ -14,7 +15,8 @@ one, ``formats.csr_to_stencil5``):
   - ``"stencil5-xla"``       the planes operator in plain PyTorch (K8's twin), as the JAX
                              package left it to XLA: oracle and baseline;
   - ``"stencil5-const"``     values-free constant-coefficient stencil through the CUDA
-                             kernels K1-K3, with the two recompute-CG passes;
+                             kernels K1-K3, with the two recompute-CG passes, and the
+                             fused p-update pass through K10;
   - ``"stencil5-const-xla"`` the same operator in plain PyTorch.
 
 The generic modes take any square ``CSRMatrix``, ``COOMatrix`` or ``Stencil5``:
@@ -33,8 +35,10 @@ A generic operator's field is the vector itself, ``num_rows`` elements: the JAX 
 128-lane padding is a TPU answer and has no counterpart.  x and y share that field, so a
 non-square matrix raises ``ValueError``.  A planes-free constant ``Stencil5`` (``gen:<g>``)
 gets its ELL and DIA operands made on the device (``generate.make_stencil5_ell_device``,
-``make_stencil5_dia_device``); every other matrix goes through the shared host packs
-(``formats.csr_to_ell``/``stencil5_to_ell``, ``csr_to_dia``/``stencil5_to_dia``).  PyTorch
+``make_stencil5_dia_device``); every other matrix goes through the host packs
+(``formats.csr_to_ell``/``stencil5_to_ell``, ``csr_to_dia``/``stencil5_to_dia``).  The
+matrices are the port's own classes (``formats``); ``convert.stencil5_from_numpy`` and
+``csr_from_numpy`` carry another package's in.  PyTorch
 runs eagerly, so the JAX package's explicit-operand machinery for ``jax.jit``
 (``operands``, ``_wrap_ops``) has no counterpart here.
 """
@@ -50,11 +54,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from tpusparse import formats
-from tpusparse.formats import CSRMatrix, Stencil5
-
-from . import convert
+from . import convert, formats
 from ._device import resolve_device, resolve_dtype
+from .formats import CSRMatrix, Stencil5
 from .generate import (make_stencil5_dia_device, make_stencil5_ell_device,
                        make_stencil5_planes_device, stencil5_dia_device_ok,
                        stencil5_ell_device_ok)
@@ -73,6 +75,9 @@ class DeviceOperator:
     - optional recompute-Ap CG passes (8 words/point/iteration, Ap never stored):
       ``run_pupdate_dot_op(beta, r, p, out=None) -> (p', <p', A·p'>)`` and
       ``run_update_recompute_op(alpha, x, r, p) -> (x, r, <r, r>)`` (x, r in place);
+    - optional fused p-update pass of ``cg_solve(fused_pupdate=True)``:
+      ``run_fused_pupdate_op(beta, r, p, out=None) -> (p', A·p', <p', A·p'>)`` with
+      p' = r + β·p (K9 on ``stencil5``/``stencil5-bf16c``, K10 on ``stencil5-const``);
     - ``planes``: the coefficient planes of the values-carrying modes, else None;
     - ``operand``: the generic modes' device operand by name (ELL ``vals``/``cols``, DIA
       ``data``/``offsets``, the ``bcoo`` sparse ``matrix``), else None;
@@ -90,6 +95,7 @@ class DeviceOperator:
     run_device_dot: Callable
     run_pupdate_dot_op: Optional[Callable] = None
     run_update_recompute_op: Optional[Callable] = None
+    run_fused_pupdate_op: Optional[Callable] = None
     planes: Optional[torch.Tensor] = None
     operand: Optional[dict] = None
 
@@ -177,6 +183,7 @@ class DeviceOperator:
         self.run_device_dot = _freed
         self.run_pupdate_dot_op = None
         self.run_update_recompute_op = None
+        self.run_fused_pupdate_op = None
         self.planes = None
         self.operand = None
 
@@ -213,11 +220,11 @@ def _planes_device(st: Stencil5, dtype, device):
 
 
 def _init_stencil5(st: Stencil5, dtype, device, coeff_dtype=None, name="stencil5",
-                   spmv=_st5.spmv_stencil5) -> DeviceOperator:
-    """Values-carrying stencil through K8.  ``coeff_dtype`` (mode ``stencil5-bf16c``):
-    bfloat16 planes while the state stays ``dtype``.  Mode ``stencil5-xla`` passes K8's
-    plain twin as ``spmv``: the port of the JAX package's pure-XLA operator, the kernel's
-    oracle and baseline."""
+                   spmv=_st5.spmv_stencil5, fused=_st5.spmv_stencil5_pupdate) -> DeviceOperator:
+    """Values-carrying stencil through K8, with the fused p-update pass through K9.
+    ``coeff_dtype`` (mode ``stencil5-bf16c``): bfloat16 planes while the state stays
+    ``dtype``.  Mode ``stencil5-xla`` passes K8's plain twin as ``spmv`` and no fused pass,
+    as the JAX package's pure-XLA operator has none: the kernel's oracle and baseline."""
     g = st.grid_size
     planes = _planes_device(st, coeff_dtype or dtype, device)
 
@@ -227,10 +234,16 @@ def _init_stencil5(st: Stencil5, dtype, device, coeff_dtype=None, name="stencil5
     def run_device_dot(x):
         return spmv(planes, x, with_dot=True)
 
+    def run_fused_pupdate_op(beta, r, p, out=None):
+        """(p', A·p', <p', A·p'>) with p' = r + β·p in one pass (kernel K9)."""
+        return fused(planes, beta, r, p, out=out)
+
     return DeviceOperator(
         name=name, num_rows=g * g, num_cols=g * g, nnz=st.nnz, grid_size=g,
         field_shape=(g, g), device=device, dtype=dtype, run_device=run_device,
-        run_device_dot=run_device_dot, planes=planes,
+        run_device_dot=run_device_dot,
+        run_fused_pupdate_op=run_fused_pupdate_op if fused is not None else None,
+        planes=planes,
     )
 
 
@@ -253,11 +266,17 @@ def _init_stencil5_const(st: Stencil5, dtype, device) -> DeviceOperator:
         """Pass B: (x', r', <r', r'>) with A·p recomputed from p (kernel K2)."""
         return _st5.cg_const_update_recompute(alpha, x, r, p, diag=diag, offdiag=offdiag)
 
+    def run_fused_pupdate_op(beta, r, p, out=None):
+        """(p', A·p', <p', A·p'>) with p' = r + β·p in one pass (kernel K10)."""
+        return _st5.spmv_stencil5_const_pupdate(beta, r, p, diag=diag, offdiag=offdiag,
+                                                out=out)
+
     return DeviceOperator(
         name="stencil5-const", num_rows=g * g, num_cols=g * g, nnz=st.nnz, grid_size=g,
         field_shape=(g, g), device=device, dtype=dtype, run_device=run_device,
         run_device_dot=run_device_dot, run_pupdate_dot_op=run_pupdate_dot_op,
         run_update_recompute_op=run_update_recompute_op,
+        run_fused_pupdate_op=run_fused_pupdate_op,
     )
 
 
@@ -412,7 +431,7 @@ _REGISTRY = {
     "stencil5-bf16c": _stencil(_init_stencil5, coeff_dtype=torch.bfloat16,
                                name="stencil5-bf16c"),
     "stencil5-xla": _stencil(_init_stencil5, name="stencil5-xla",
-                             spmv=_st5.spmv_stencil5_plain),
+                             spmv=_st5.spmv_stencil5_plain, fused=None),
     "stencil5-const": _stencil(_init_stencil5_const),
     "stencil5-const-xla": _stencil(_init_stencil5_const_xla),
     "csr": _init_ell,

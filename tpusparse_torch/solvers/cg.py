@@ -7,12 +7,17 @@ Counterpart of ``tpusparse/solvers/cg.py``, same algorithm and iteration-count s
     loop:  Ap = A·p ; α = rr / <p, Ap> ; x += α·p ; r -= α·Ap ; rr' = <r, r>
            β = rr' / rr ; p = r + β·p
 
-Two loops, as in the JAX package:
+Three loops, as in the JAX package:
 
   - recompute-Ap (default when the operator has both passes): pass A forms p' = r + β·p
     and <p', A·p'> (kernel K1), pass B forms x', r' and <r', r'> recomputing A·p' from p'
     (kernel K2).  Ap never reaches device memory: 8 words per point per iteration.  Pass A
     writes p' into a second buffer, and the two p buffers swap every iteration.
+  - fused p-update (``fused_pupdate=True``, opt-in): the operator's fused pass forms
+    p' = r + β·p, A·p' and <p', A·p'> in one pass (K9 with planes, K10 for the constant
+    stencil), then K4 forms x', r' and <r', r'>; β = 0 with p = 0 on the first iteration.
+    9 + 6 = 15 words per point with K9, 4 + 6 = 10 with K10.  p' goes to a second buffer
+    and the two swap, as in the recompute loop.
   - classic: ``run_device_dot`` (the operator's SpMV with its fused dot: K3, or K8 with
     planes), then the BLAS1 kernels: K4 (x, r and <r, r> in one pass) and K5 (p).  With
     K3 that is 2 + 6 + 3 = 11 words per point per iteration, with K8 7 + 6 + 3 = 16.
@@ -98,21 +103,26 @@ def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
       recompute_ap: None uses the recompute-Ap loop when the operator provides both passes;
         False forces the classic loop; True raises if the operator lacks the passes.
       use_pallas_blas1: True or None runs the BLAS1 kernels K4-K7 (the start's dots and
-        r0, the classic loop's updates); False runs those steps as plain PyTorch ops.
+        r0, the classic and fused loops' updates); False runs those steps as plain PyTorch
+        ops.
         None means True here, unlike the JAX package, whose accelerator default was XLA:
         XLA fused those updates into single passes, eager PyTorch does not.
-      fused_pupdate: the operator's fused p-update + SpMV pass (K9/K10) is not ported yet,
-        so True raises; None and False run without it, as the JAX package's default.
+      fused_pupdate: True runs the fused p-update loop through the operator's
+        ``run_fused_pupdate_op`` (ValueError if it has none, or with ``recompute_ap=True``);
+        None and False leave it off, as the JAX package's default.
     """
     config = config or CGConfig()
-    if fused_pupdate:
-        raise NotImplementedError("fused_pupdate needs the fused p-update + SpMV kernels K9/K10 "
-                                  "(tpusparse/kernels/stencil5.py), not ported yet "
-                                  "(ROADMAP Queue 2)")
+    fused = bool(fused_pupdate)
+    if fused and op.run_fused_pupdate_op is None:
+        raise ValueError(f"fused_pupdate requested but operator '{op.name}' has no "
+                         "run_fused_pupdate_op")
+    if fused and recompute_ap is True:
+        raise ValueError("recompute_ap and fused_pupdate exclude each other")
     kernels = use_pallas_blas1 is not False
     if b_is_ones and x0 is not None:
         raise ValueError("b_is_ones implies x0 = 0")
-    recompute = uses_recompute(op, recompute_ap)
+    recompute = not fused and uses_recompute(op, recompute_ap)
+    cg_update = blas1.cg_update if kernels else blas1.cg_update_plain
 
     t0 = time.perf_counter()
     if not b_is_ones:
@@ -138,7 +148,7 @@ def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
     tol2 = (config.tolerance * config.tolerance) * bb
 
     k = 0
-    if recompute:
+    if recompute or fused:
         p_prev = torch.zeros_like(r)
         p_buf = torch.empty_like(r)
         rr_prev = torch.ones_like(rr)
@@ -146,14 +156,17 @@ def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
         # strict >: a zero right-hand side (rr0 = 0 = tol2) runs no 0/0 step
         while k < config.max_iters and bool(rr > tol2):
             beta = zero if k == 0 else rr / rr_prev
-            p, pap = op.run_pupdate_dot_op(beta, r, p_prev, out=p_buf)
-            alpha = rr / pap
-            x, r, rr_new = op.run_update_recompute_op(alpha, x, r, p)
+            if fused:
+                p, ap, pap = op.run_fused_pupdate_op(beta, r, p_prev, out=p_buf)
+                x, r, rr_new = cg_update(rr / pap, x, r, p, ap)
+                del ap
+            else:
+                p, pap = op.run_pupdate_dot_op(beta, r, p_prev, out=p_buf)
+                x, r, rr_new = op.run_update_recompute_op(rr / pap, x, r, p)
             p_buf, p_prev = p_prev, p
             rr_prev, rr = rr, rr_new
             k += 1
     else:
-        cg_update = blas1.cg_update if kernels else blas1.cg_update_plain
         p_update = blas1.p_update if kernels else blas1.p_update_plain
         # its own buffer: K4 updates r in place while it reads p (in the JAX loop p *is*
         # r on the first iteration)
