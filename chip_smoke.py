@@ -17,7 +17,9 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      lengths, uniformly random columns (ELL only: it has ~10^6 diagonals), a width-1
      diagonal, one with empty rows, and a DIA with offsets ±300 and ±1000 holding NaN
      where its diagonals leave the matrix (tolerances: f64 1e-12; f32 1e-5 for fields,
-     1e-4 for dots, relative to the largest reference magnitude);
+     1e-4 for dots, relative to the largest reference magnitude); K5 (p bit for bit) and
+     K6 also on fields of 1, 3, 1369 and 10^6 elements, aligned and offset by one element
+     in one operand or both, so that both bodies and the vector body's head and tail run;
   4. the SpMVs on ones at 20480² against the analytic checksums: K3 and K10 in f32 and
      f64, K8 and K9 in f32, bf16c and f64, K11 and the ELL kernel in f32 and f64 (K9 and
      K10 with β = 0, p = 0 and r = ones);
@@ -28,14 +30,15 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      K3, K5 or K8; an SpMV CLI run: its mode's kernel).  The CG CLI at
      gen:20480 with mode stencil5-const (f64 recompute, exactly 14 iterations; f32
      recompute; f32 classic, through K3 + K4 + K5 + K6), mode stencil5 (f64, exactly 14
-     iterations; f32), stencil5-bf16c (f32), csr (f64, exactly 14 iterations; f32) and dia
-     (f64, exactly 14 iterations), the csr and dia f64 solutions held to stencil5 f64's
-     (Sum/Norm2 to 1e-10 relative); the SpMV CLI, one run per mode, over stencil5,
-     stencil5-bf16c, stencil5-const, csr and dia with equal checksums, and the
-     csr-to-stencil5 kernel time ratio (the reference's 2.07×); the SpMV CLI over csr,
-     csr-xla, dia-xla and bcoo (cuSPARSE) at G_HOST², the grid whose host CSR (bcoo's
-     operand) builds in well under a minute (each run's wall time, its operator's build
-     included, is printed); the bf16c solution against the f32 stencil5 solution, bit for
+     iterations; f32), stencil5-bf16c (f32), csr (f64, exactly 14 iterations; f32), dia
+     (f64, exactly 14 iterations) and bcoo (cuSPARSE in row bands over the CSR made on
+     the card; f64, exactly 14 iterations), the csr, dia and bcoo f64 solutions held to
+     stencil5 f64's (Sum/Norm2 to 1e-10 relative); the SpMV CLI, one run per mode, over
+     stencil5, stencil5-bf16c, stencil5-const, csr, dia and bcoo in f32 and bcoo in f64,
+     each with the analytic checksums, and the csr-to-stencil5 kernel time ratio (the
+     reference's 2.07×); the SpMV CLI over csr and the plain twins csr-xla and dia-xla at
+     G_HOST² (each run's wall time, its operator's build included, is printed); the bf16c
+     solution against the f32 stencil5 solution, bit for
      bit; one solve from a seeded nonzero x0 (K7), held with the x0 = 0 solve to the true
      residual; five fused p-update solves through cg.cg_solve(fused_pupdate=True), a
      median over a few solves after a warm-up each (stencil5 f64, exactly 14 iterations
@@ -49,13 +52,13 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      plain/kernel/kernel/plain), and against the one PyTorch call that computes the same
      function where there is one (kernel/library/library/kernel; held to it at 1e-5
      relative, a yardstick, not an oracle): torch.dot for K6, torch.add(r, p, alpha=β) for
-     K5, F.conv2d with the 3×3 stencil for K3 (the ELL kernel's cuSPARSE yardstick,
-     ``bcoo``, runs at G_HOST² in phase 5).  Each kernel's
+     K5, F.conv2d with the 3×3 stencil for K3, bcoo's banded cuSPARSE matvec for the ELL
+     kernel.  Each kernel's
      bound: the bytes its call must move (inputs read once, outputs written once) over
      3.35 TB/s, or its operations over the data sheet's peak rate, whichever is larger;
      the solves' median times, next to the card's name and power limit;
-  7. one solve of each CG run of phase 5, and of each fused solve, under torch.profiler,
-     its device time split by kernel (PERF.md section 5).
+  7. one solve of each CG run of phase 5 (bcoo f64 included), and of each fused solve,
+     under torch.profiler, its device time split by kernel (PERF.md section 5).
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
 record and then {"ok": true, "device": {...}}.  Exports go to chiprun_out/.
@@ -75,8 +78,8 @@ G_BIG = 20480
 G_HOST = 10240
 GRIDS = (37, 1000, 4096)
 DIAG, OFFDIAG = 5.0, -1.0
-# wrapper name -> (short name, kernel function in the CUDA source, source, the Pallas
-# wrapper it replaces), in the order of the kernels line
+# wrapper name -> (short name, kernel functions in the CUDA source as a regex, source, the
+# Pallas wrapper it replaces), in the order of the kernels line
 KERNELS = {
     "spmv_stencil5_const_pupdate_dot": ("K1", "pupdate_dot_kernel",
                                         "tpusparse_torch/csrc/stencil5_const.cu",
@@ -88,9 +91,9 @@ KERNELS = {
                             "tpusparse/kernels/stencil5.py:718"),
     "cg_update": ("K4", "cg_update_kernel", "tpusparse_torch/csrc/blas1.cu",
                   "tpusparse/kernels/blas1.py:162"),
-    "p_update": ("K5", "p_update_kernel", "tpusparse_torch/csrc/blas1.cu",
+    "p_update": ("K5", "p_update_(vec_)?kernel", "tpusparse_torch/csrc/blas1.cu",
                  "tpusparse/kernels/blas1.py:199"),
-    "dot": ("K6", "dot_kernel", "tpusparse_torch/csrc/blas1.cu",
+    "dot": ("K6", "dot_(vec_)?kernel", "tpusparse_torch/csrc/blas1.cu",
             "tpusparse/kernels/blas1.py:80"),
     "axpby_dot": ("K7", "axpby_dot_kernel", "tpusparse_torch/csrc/blas1.cu",
                   "tpusparse/kernels/blas1.py:117"),
@@ -123,13 +126,22 @@ CG_RUNS = {
     "csr f64": ("csr", ["--dtype=f64"], 14, ("spmv_ell",) + CLASSIC),
     "csr f32": ("csr", ["--dtype=f32"], None, ("spmv_ell",) + CLASSIC),
     "dia f64": ("dia", ["--dtype=f64"], 14, ("spmv_dia",) + CLASSIC),
+    "bcoo f64": ("bcoo", ["--dtype=f64"], 14, CLASSIC),
 }
+# the f64 solves whose solution must equal stencil5 f64's (Sum/Norm2 to 1e-10)
+HELD_TO_STENCIL5 = ("csr f64", "dia f64", "bcoo f64")
 # the SpMV CLI's modes: mode -> kernels required (the plain twins and cuSPARSE need none)
 SPMV_NEEDS = {"stencil5": ("spmv_stencil5",), "stencil5-bf16c": ("spmv_stencil5",),
               "stencil5-const": ("spmv_stencil5_const",), "csr": ("spmv_ell",),
               "dia": ("spmv_dia",), "csr-xla": (), "dia-xla": (), "bcoo": ()}
-SPMV_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr", "dia")
-HOST_MODES = ("csr", "csr-xla", "dia-xla", "bcoo")
+SPMV_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr", "dia", "bcoo")
+# the plain twins of the generic kernels, at a grid where they take seconds
+HOST_MODES = ("csr", "csr-xla", "dia-xla")
+# K5/K6 fields of these sizes and (r, p) offsets in elements into their storage: both
+# on a 16-byte boundary (the vector body), one view one element in (the scalar body),
+# both one element in (a scalar head before the vectors)
+SMALL_N = (1, 3, 1369, 10 ** 6)
+ALIGNMENTS = {"aligned": (0, 0), "one offset": (1, 0), "both offset": (1, 1)}
 # the fused p-update solves: label -> (mode, dtype name, iterations required, their fused
 # pass); each must launch its fused pass, K4 and K6, and none of FUSED_FORBID
 FUSED_RUNS = {
@@ -356,12 +368,42 @@ def compare_blas1(torch, blas1, cmp, x, r, p, ap, label):
     del xk, rk, xp, rp
     pk = blas1.p_update(a, r, p.clone())
     cmp.check("p_update", label, dtype, [("p'", pk, blas1.p_update_plain(a, r, p.clone()),
-                                          "field")])
+                                          "exact")])
     del pk
     cmp.check("dot", label, dtype, [("<x,r>", blas1.dot(x, r), blas1.dot_plain(x, r), "dot")])
     zk, dk = blas1.axpby_dot(1.0, x, -1.0, r)
     zp, dp = blas1.axpby_dot_plain(1.0, x, -1.0, r)
     cmp.check("axpby_dot", label, dtype, [("z", zk, zp, "field"), ("<z,z>", dk, dp, "dot")])
+
+
+def offset_copy(torch, t, offset):
+    """A copy of the 1-D field t that lies ``offset`` elements into its own storage."""
+    out = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:]
+    return out.copy_(t)
+
+
+def compare_k5_k6_alignments(torch, blas1, cmp):
+    """K5 (p bit for bit) and K6 against their twins on fields of SMALL_N elements at each
+    of ALIGNMENTS, so that both bodies, and the vector body's head and tail, run."""
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        beta = torch.tensor(0.37, dtype=dtype, device=dev)
+        for n in SMALL_N:
+            for align, (off_r, off_p) in ALIGNMENTS.items():
+                r = offset_copy(torch, torch.randn(n, generator=gen, device=dev, dtype=dtype),
+                                off_r)
+                p = offset_copy(torch, torch.randn(n, generator=gen, device=dev, dtype=dtype),
+                                off_p)
+                body = "vector" if (r.data_ptr() - p.data_ptr()) % 16 == 0 else "scalar"
+                if (body == "vector") != (align != "one offset"):
+                    raise AssertionError(f"K5/K6 n={n} {align}: unexpected {body} body")
+                lab = f"n={n} {align} ({body} body) {dname(dtype)}"
+                pk = blas1.p_update(beta, r, offset_copy(torch, p, off_p))
+                cmp.check("p_update", lab, dtype,
+                          [("p'", pk, blas1.p_update_plain(beta, r, p.clone()), "exact")])
+                cmp.check("dot", lab, dtype,
+                          [("<r,p>", blas1.dot(r, p), blas1.dot_plain(r, p), "dot")])
 
 
 def compare_generic(torch, ell, dia, cmp, operands, x, label):
@@ -446,6 +488,7 @@ def phase_compare(torch, st5, blas1, ell, dia, cmp):
                 generate.make_stencil5_ell_device(g, DIAG, OFFDIAG, dtype=dtype, device=dev),
                 generate.make_stencil5_dia_device(g, DIAG, OFFDIAG, dtype=dtype, device=dev)),
                 randn(g * g), f"stencil {lab}")
+    compare_k5_k6_alignments(torch, blas1, cmp)
     t0 = time.perf_counter()
     mats = generic_matrices()
     print(f"[compare] host matrices of 10^6 rows built in {time.perf_counter() - t0:.1f} s",
@@ -533,7 +576,7 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
                              f"{results['bf16c f32']['validation']} vs "
                              f"{results['stencil5 f32']['validation']}")
     ref = results["stencil5 f64"]["validation"]
-    for label in ("csr f64", "dia f64"):
+    for label in HELD_TO_STENCIL5:
         v = results[label]["validation"]
         errs = {k: abs(v[k] - ref[k]) / abs(ref[k]) for k in ("solution_sum", "solution_norm")}
         print(f"[cg] {label} solution against stencil5 f64: Sum rel {errs['solution_sum']:.3e}, "
@@ -544,7 +587,9 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
     kernel_ms = run_spmv_cli(spmv_cli, counts, G_BIG, SPMV_MODES, "chip_smoke_spmv.json")
     print(f"[spmv] csr / stencil5 SpMV kernel time at {G_BIG}² f32: "
           f"{kernel_ms['csr'] / kernel_ms['stencil5']!r} (the reference's CSR / STENCIL5: "
-          f"2.07 on its A100)", flush=True)
+          f"2.07 on its A100); bcoo (cuSPARSE) / csr: "
+          f"{kernel_ms['bcoo'] / kernel_ms['csr']!r}", flush=True)
+    run_spmv_cli(spmv_cli, counts, G_BIG, ("bcoo",), "chip_smoke_spmv_f64.json", "f64")
     run_spmv_cli(spmv_cli, counts, G_HOST, HOST_MODES, "chip_smoke_spmv_host.json")
 
     # the values-carrying solves' solutions, bit for bit: bf16 planes against f32 planes
@@ -656,16 +701,21 @@ def phase_fused(torch, counts, st, results):
     return out
 
 
-def run_spmv_cli(spmv_cli, counts, g, modes, name):
-    """The SpMV CLI at gen:g, f32, one run per mode, each with its own launch counts; the
-    wall time of a run includes its operator's build (for bcoo, the host CSR).  Raises
-    unless every mode gives the same checksums.  Returns {mode: kernel ms}."""
+def run_spmv_cli(spmv_cli, counts, g, modes, name, dtype="f32"):
+    """The SpMV CLI at gen:g in ``dtype``, one run per mode, each with its own launch
+    counts; the wall time of a run includes its operator's build.  Raises unless every
+    mode gives the same checksums, and those of y = A·ones to 1e-12 (``generate.
+    stencil5_spmv_checksums``).  Returns {mode: kernel ms}."""
+    from tpusparse_torch import generate
+
+    want = generate.stencil5_spmv_checksums(g, DIAG, OFFDIAG)
     spmv_json = OUT / name
     sums, kernel_ms = {}, {}
     for mode in modes:
         t0 = time.perf_counter()
-        rc = counts.run(f"spmv {mode} {g}²", SPMV_NEEDS[mode], lambda: spmv_cli.main(
-            [f"gen:{g}", f"--mode={mode}", "--runs=3", "--warmup=1", f"--json={spmv_json}"]))
+        rc = counts.run(f"spmv {mode} {g}² {dtype}", SPMV_NEEDS[mode], lambda: spmv_cli.main(
+            [f"gen:{g}", f"--mode={mode}", f"--dtype={dtype}", "--runs=3", "--warmup=1",
+             f"--json={spmv_json}"]))
         wall = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"spmv_bench --mode={mode} at {g}²: rc {rc}")
@@ -674,11 +724,14 @@ def run_spmv_cli(spmv_cli, counts, g, modes, name):
         sums[mode] = (b["validation"]["sum_y"], b["validation"]["norm2_y"])
         p = b["performance"]
         kernel_ms[mode] = p["time_kernel_ms"]
-        print(f"[spmv] {mode} {g}²: kernel {p['time_kernel_ms']!r} ms, "
+        print(f"[spmv] {mode} {g}² {dtype}: kernel {p['time_kernel_ms']!r} ms, "
               f"{p['bandwidth_gbs']!r} GB/s (roofline share {p['roofline_fraction']!r}), "
               f"run median {p['time_median_ms']!r} ms, sum {sums[mode][0]!r} norm "
-              f"{sums[mode][1]!r}; the CLI run with its operator's build {wall:.1f} s",
-              flush=True)
+              f"{sums[mode][1]!r} (analytic {want[0]!r} {want[1]!r}); the CLI run with its "
+              f"operator's build {wall:.1f} s", flush=True)
+        if max(abs(a - b) / abs(b) for a, b in zip(sums[mode], want)) > 1e-12:
+            raise AssertionError(f"spmv_bench --mode={mode} at {g}² {dtype}: checksums "
+                                 f"{sums[mode]} against the analytic {want}")
     if len(set(sums.values())) != 1:
         raise AssertionError(f"spmv_bench at {g}²: checksums differ across modes: {sums}")
     return kernel_ms
@@ -709,6 +762,13 @@ def bound(work, key):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _time_library(torch, e, kern, lib):
+    """Time a kernel against its library call (kernel/library/library/kernel) into the
+    timing entry e: the best library time, and the kernel's best of these and e's."""
+    t_k1, t_l1, t_l2, t_k2 = (_time_ms(torch, f) for f in (kern, lib, lib, kern))
+    e["ms"], e["library_ms"] = min(e["ms"], t_k1, t_k2), min(t_l1, t_l2)
+
+
 def _time_pairs(torch, times, key, pairs, label, smi):
     """Time each kernel against its plain twin (plain/kernel/kernel/plain) and, where it
     has one, against its library call (kernel/library/library/kernel); keep the best of
@@ -718,8 +778,7 @@ def _time_pairs(torch, times, key, pairs, label, smi):
         t_p1, t_k1, t_k2, t_p2 = (_time_ms(torch, f) for f in (plain, kern, kern, plain))
         e = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2), "library_ms": None}
         if lib is not None:
-            t_k3, t_l1, t_l2, t_k4 = (_time_ms(torch, f) for f in (kern, lib, lib, kern))
-            e["ms"], e["library_ms"] = min(e["ms"], t_k3, t_k4), min(t_l1, t_l2)
+            _time_library(torch, e, kern, lib)
         e["bound_ms"], e["bound_by"] = bound(work, key)
         times[name][key] = e
         lib_txt = "" if lib is None else f", library {e['library_ms']!r} ms"
@@ -856,11 +915,14 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
 
 def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
     """K11 and the ELL kernel against their twins at G_BIG² on the stencil's operands made
-    on the card and a seeded random x, then timed against them; adds to ``times``.  No
-    library call is timed here: the matvec of a torch.sparse_csr_tensor (cuSPARSE)
-    returned a wrong y for the 2.1e9 entries of this matrix, with int32 and with int64
-    indices; phase 5 times it (``bcoo``) against the ELL kernel (``csr``) at G_HOST²."""
+    on the card and a seeded random x, then timed against them; adds to ``times``.  The
+    ELL kernel's library call is ``bcoo``'s matvec, cuSPARSE over the stencil's CSR made on
+    the card in row bands (``ops.BCOO_BAND_ENTRIES``), held to the kernel's y at 1e-5."""
+    from tpusparse_torch import ops
+    from tpusparse_torch.formats import Stencil5
+
     dev = torch.device("cuda")
+    st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
     for dtype in (torch.float32, torch.float64):
         key = dname(dtype).replace("float", "f")
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -878,6 +940,18 @@ def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
             _time_pairs(torch, times, key, {name: (lambda: kern(*operand, x),
                                                    lambda: plain(*operand, x), work, None)},
                         lab, smi)
+            if name == "spmv_ell":  # the twin's temporaries are gone before bcoo's CSR
+                torch.cuda.empty_cache()
+                bcoo = ops.get_operator("bcoo", st, dtype=dtype, device=dev)
+                check_library(name, f"cuSPARSE bcoo {lab}, {len(bcoo.operand['bands'])} row "
+                              f"bands of at most {ops.BCOO_BAND_ENTRIES} entries",
+                              bcoo.run_device(x), kern(*operand, x))
+                e = times[name][key]
+                _time_library(torch, e, lambda: kern(*operand, x), lambda: bcoo.run_device(x))
+                print(f"[time] {KERNELS[name][0]} {name} {lab}: kernel {e['ms']!r} ms, library "
+                      f"(cuSPARSE bcoo) {e['library_ms']!r} ms [{smi}]", flush=True)
+                bcoo.free()
+                del bcoo
             del operand
         del x
     torch.cuda.empty_cache()
@@ -899,6 +973,7 @@ def phase_profile(torch, smi):
     groups = [(short, re.compile(rf"(?<![a-z_]){fn}")) for short, fn, _s, _r in
               KERNELS.values()]
     groups.append(("final sums", re.compile(r"(?<![a-z_])final_sum_kernel")))
+    groups.append(("cuSPARSE", re.compile(r"cusparse|csrmv", re.IGNORECASE)))
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
     tables = []
     solves = [(label, mode, torch.float64 if "--dtype=f64" in extra else torch.float32,

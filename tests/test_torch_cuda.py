@@ -10,17 +10,21 @@ Tolerances, relative to the largest reference magnitude: f64 1e-12; f32 1e-5 for
 and 1e-4 for dots (the dots sum in another order).  CG: equal iteration counts, x to rtol
 1e-10.  Fields are also required to equal the twins' bit for bit where the kernels round
 every operation as PyTorch does (K4, K5, K7, K8, K9, K10, K11 and the ELL kernel of
-K12/K13).  The matrices come from the port's own ``formats`` and ``generate``: this file
-imports nothing of the JAX package.
+K12/K13).  K5 and K6 are also held on fields of 1, 3, 1369 and 10^6 elements, aligned and
+offset by one element, and K6 to be bitwise repeatable over 1000 calls and on two streams.
+``bcoo`` runs in row bands on the stencil CSR made on the card.  The matrices come from
+the port's own ``formats`` and ``generate``: this file imports nothing of the JAX package.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from tpusparse_torch import convert, formats, generate, ops
 from tpusparse_torch.formats import Stencil5
-from tpusparse_torch.kernels import blas1, dia, ell
+from tpusparse_torch.kernels import _launch, blas1, dia, ell
 from tpusparse_torch.kernels import stencil5 as st5
 from tpusparse_torch.solvers import cg
 
@@ -176,6 +180,90 @@ def test_each_wrapper_counts_its_launches(dev):
     blas1.axpby_dot(a, x, a, r)
     blas1.dot_plain(x, r)  # twins do not count
     assert blas1.LAUNCHES == {"cg_update": 1, "p_update": 1, "dot": 1, "axpby_dot": 1}
+    # one K6 call is one launch on the card: the last block adds the partials
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        blas1.dot(x, r)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and kernels[0][1] == 1 and "dot_vec_kernel" in kernels[0][0], \
+        kernels
+
+
+def _offset_copy(t, offset):
+    """A copy of the 1-D field t that lies ``offset`` elements into its own storage."""
+    out = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:]
+    return out.copy_(t)
+
+
+# (r or a, p or b) elements into their storage: both at 16-byte boundaries (the main
+# path's fresh fields), one a view one element in, both one element in
+ALIGNMENTS = {"aligned": (0, 0), "one offset": (1, 0), "both offset": (1, 1)}
+
+
+@pytest.mark.parametrize("n", [1, 3, 1369, 10 ** 6])
+@pytest.mark.parametrize("align", list(ALIGNMENTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_k6_any_size_and_alignment(dev, n, align, dtype):
+    """K5's p bit for bit and K6 within TOL, in the vector body (both operands at one
+    offset mod 16 bytes: a scalar head, vectors, a scalar tail) and in the scalar body."""
+    _, tol_dot = TOL[dtype]
+    gen = torch.Generator(device=dev).manual_seed(n)
+    off_r, off_p = ALIGNMENTS[align]
+    r = _offset_copy(_randn(gen, dev, dtype, n), off_r)
+    p = _offset_copy(_randn(gen, dev, dtype, n), off_p)
+    assert ((r.data_ptr() - p.data_ptr()) % 16 == 0) == (align != "one offset")
+    beta = torch.tensor(0.37, dtype=dtype, device=dev)
+    pk = blas1.p_update(beta, r, _offset_copy(p, off_p))
+    assert torch.equal(pk, blas1.p_update_plain(beta, r, p.clone()))
+    assert _rel(blas1.dot(r, p), blas1.dot_plain(r, p)) <= tol_dot
+    assert _rel(blas1.dot(r, r), blas1.dot_plain(r, r)) <= tol_dot
+
+
+def test_k6_is_bitwise_repeatable_across_calls_and_streams(dev):
+    """1000 calls in a row, then calls on two streams at once, each with its own ticket
+    counter: every dot equal bit for bit, and every counter back at 0."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for dtype in (torch.float32, torch.float64):
+        a, b = (_randn(gen, dev, dtype, 10 ** 6 + 5) for _ in range(2))
+        want = blas1.dot(a, b)
+        outs = [blas1.dot(a, b) for _ in range(1000)]
+        streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+        torch.cuda.synchronize()
+        for _ in range(20):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    outs.append(blas1.dot(a, b))
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+        assert _rel(want, blas1.dot_plain(a, b)) <= TOL[dtype][1]
+    keys = {(a.device, s.cuda_stream) for s in streams}
+    assert keys <= set(_launch._TICKETS)
+    assert all(int(t) == 0 for t in _launch._TICKETS.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bcoo_bands_on_card(dev, monkeypatch, dtype):
+    """``bcoo`` on the g = 200 stencil's CSR made on the card, in bands of at most 50,000
+    entries (4 bands), against the ELL kernel's y and the one-band y; CG over the bands in
+    the CPU solve's iteration count."""
+    tol_field, tol_dot = TOL[dtype]
+    g = 200
+    st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
+    x = _randn(torch.Generator(device=dev).manual_seed(g), dev, dtype, g * g)
+    y_ell = ell.spmv_ell(*generate.make_stencil5_ell_device(g, dtype=dtype, device=dev), x)
+    y_one = ops.get_operator("bcoo", st, dtype=dtype, device=dev).run_device(x)
+    monkeypatch.setattr(ops, "BCOO_BAND_ENTRIES", 50_000)
+    op = ops.get_operator("bcoo", st, dtype=dtype, device=dev)
+    assert len(op.operand["bands"]) == 4
+    y, d = op.run_device_dot(x)
+    assert _rel(y, y_ell) <= tol_field and _rel(y_one, y_ell) <= tol_field
+    assert _rel(d, blas1.dot_plain(x, y_ell)) <= tol_dot
+    x_card, s = cg.cg_solve(op, b_is_ones=True)
+    x_cpu, s_cpu = cg.cg_solve(ops.get_operator("bcoo", st, dtype=dtype, device="cpu"),
+                               b_is_ones=True)
+    assert s.converged and s.iterations == s_cpu.iterations
+    assert _rel(x_card.cpu(), x_cpu) <= tol_field
 
 
 def test_kernel_path_rejects_what_it_cannot_run(dev):

@@ -57,7 +57,7 @@ _SIGNATURES = {
     **{f"tps_cg_update_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
        for t in ("f32", "f64")},
     **{f"tps_p_update_{t}": ((_P, _P, _P, _I, _P), ctypes.c_int) for t in ("f32", "f64")},
-    **{f"tps_dot_{t}": ((_P, _P, _I, _P, _P, _P), ctypes.c_int) for t in ("f32", "f64")},
+    **{f"tps_dot_{t}": ((_P, _P, _I, _P, _P, _P, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_axpby_dot_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
        for t in ("f32", "f64")},
     **{f"tps_spmv_{k}_{t}": ((_P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)

@@ -70,10 +70,9 @@ def _bytes_dia_op(op, itemsize):
 
 
 def _bytes_bcoo_op(op, itemsize):
-    """``bcoo`` (a ``torch.sparse_csr_tensor``): the reference's CSR model at the tensor's
-    own index width (int32 below 2^31)."""
-    return bytes_csr(op.nnz, op.num_rows, itemsize,
-                     op.operand["matrix"].col_indices().element_size())
+    """``bcoo`` (row bands of ``torch.sparse_csr_tensor``): the reference's CSR model at
+    the operand's column index width (int32)."""
+    return bytes_csr(op.nnz, op.num_rows, itemsize, op.operand["col"].element_size())
 
 
 # mode -> bytes of one apply; a plain ``*-xla`` oracle is held to its kernel's model: the

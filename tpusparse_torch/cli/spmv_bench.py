@@ -10,8 +10,7 @@ All modes are checked before the operand is loaded (main.cu:94-105); x = ones (:
 5 warm-ups and 10 timed runs with the reference's statistics (``bench.stats``, :158-167);
 one export per mode, suffixed ``_<mode>`` (:200-241); Sum(y)/Norm2(y) checksums at 16
 decimals (:245-248).
-``gen:<g>`` makes the stencil operand on the device, without a .mtx file, in every mode
-but ``bcoo``, which builds its CSR on the host.
+``gen:<g>`` makes the stencil operand on the device, without a .mtx file, in every mode.
 
 The run times follow ``run_timed`` (upload x, apply, download y) or, with ``--resident-x``,
 ``run_timed_resident`` (x stays on the card); GFLOPS and GB/s come from the device time of
@@ -37,8 +36,8 @@ from ..bench import export, metrics, stats, sysinfo
 
 def load_operand(spec: str):
     """(matrix, display name) of a CLI operand: ``gen:<g>`` is the planes-free constant
-    stencil (diag 5, offdiag −1), whose operands the stencil, ELL and DIA operators make on
-    the device; any other spec is a .mtx file, read into sorted CSR."""
+    stencil (diag 5, offdiag −1), whose operands the stencil, ELL, DIA and CSR operators
+    make on the device; any other spec is a .mtx file, read into sorted CSR."""
     if spec.startswith("gen:"):
         g = int(spec[4:])
         return (formats.Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0)),

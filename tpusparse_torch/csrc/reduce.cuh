@@ -7,10 +7,11 @@
 // bit, and two kernels that compute the same expression agree bit for bit.
 //
 // Dots: each block reduces its threads' running sums in a fixed order (shuffle tree, then
-// the warps' sums in order) and writes one partial; final_sum_kernel, one block, adds the
-// partials in a fixed order.  No float atomics, so equal inputs give equal dots, and equal
-// CG iteration counts, from run to run.  Partials accumulate in the state's precision (f32
-// for f32, f64 for f64).
+// the warps' sums in order) and writes one partial; the partials are then added in a fixed
+// order, either by final_sum_kernel, one block launched after the kernel (finish_dot), or
+// in the same launch by the block that finishes last (store_partial_and_finish).  No
+// float atomics, so equal inputs give equal dots, and equal CG iteration counts, from run
+// to run.  Partials accumulate in the state's precision (f32 for f32, f64 for f64).
 //
 // Everything here has internal linkage (anonymous namespace): each .cu file that includes
 // it gets its own copy, and the one library links them side by side.
@@ -62,34 +63,74 @@ __device__ __forceinline__ void store_partial(T acc, T* partials) {
   }
 }
 
-// out[0] = sum of partials[0..n), in a fixed order.  Each thread keeps kLanes running
-// sums and issues kLanes loads before adding any, so that kLanes loads are in flight at
-// once: with one load in flight the kernel waited out one L2 latency per partial (152 us
-// for the 409,600 partials of a 20480^2 dot on the H100, 5% of a CG solve).
+// The sum of partials[0..n) over the block, in a fixed order; valid in thread 0, and every
+// thread of the block must call it.  Each thread keeps kLanes running sums and issues
+// kLanes loads before adding any, so that kLanes loads are in flight at once: with one
+// load in flight the final sum waited out one L2 latency per partial (152 us for the
+// 409,600 partials of a 20480^2 dot on the H100, 5% of a CG solve).  Loads go through L2
+// (__ldcg): partials written by other blocks of the same launch are never in this SM's L1.
+template <typename T>
+__device__ __forceinline__ T sum_partials(const T* __restrict__ partials, int64_t n) {
+  constexpr int kLanes = 8;
+  T acc[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) acc[l] = T(0);
+  const int64_t step = blockDim.x * blockDim.y;
+  int64_t k = threadIdx.y * blockDim.x + threadIdx.x;
+  for (; k + (kLanes - 1) * step < n; k += kLanes * step) {
+    T v[kLanes];  // all loads issued before the first add needs one
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) v[l] = __ldcg(partials + k + l * step);
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) acc[l] += v[l];
+  }
+  for (; k < n; k += step) acc[0] += __ldcg(partials + k);
+  T s = T(0);
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) s += acc[l];
+  return block_sum(s);
+}
+
+// out[0] = sum of partials[0..n), in a fixed order, in a launch of its own.
 // One block runs alone, so it may take the whole register file (minBlocks = 1): capped
 // at 32 registers for two resident blocks, ptxas serialised the f64 loads again.
 template <typename T>
 __global__ void __launch_bounds__(kFinalThreads, 1)
 final_sum_kernel(const T* __restrict__ partials, int64_t n, T* __restrict__ out) {
-  constexpr int kLanes = 8;
-  T acc[kLanes];
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) acc[l] = T(0);
-  const int64_t step = blockDim.x;
-  int64_t k = threadIdx.x;
-  for (; k + (kLanes - 1) * step < n; k += kLanes * step) {
-    T v[kLanes];  // all loads issued before the first add needs one
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) v[l] = partials[k + l * step];
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) acc[l] += v[l];
-  }
-  for (; k < n; k += step) acc[0] += partials[k];
-  T s = T(0);
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) s += acc[l];
-  s = block_sum(s);
+  const T s = sum_partials(partials, n);
   if (threadIdx.x == 0) out[0] = s;
+}
+
+// The one-launch finish of a dot: store this block's partial, then the block that
+// finishes last adds every partial and writes out[0].  Every thread of every block must
+// call it, as the kernel's last statement.
+//
+// Thread 0 stores the partial, fences it to device scope, then draws a ticket with an
+// integer atomicAdd on *tickets.  The block that draws ticket nblocks - 1 knows every other
+// partial is visible; it sums them with sum_partials, in index order, so the dot does not
+// depend on which block finished last and is bitwise repeatable.  It then resets *tickets
+// to 0, so the next launch on the stream (or a replay of a CUDA graph) finds it zeroed
+// without a host-side reset.  Launches that may run at once (other streams) need counters
+// of their own.  It saves finish_dot's second launch.
+template <typename T>
+__device__ __forceinline__ void store_partial_and_finish(T acc, T* partials,
+                                                         unsigned int* tickets, T* out) {
+  __shared__ bool last;
+  const T s = block_sum(acc);
+  const unsigned int nblocks = gridDim.x * gridDim.y;
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    partials[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
+    __threadfence();
+    last = atomicAdd(tickets, 1u) == nblocks - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  const T total = sum_partials((const T*)partials, nblocks);
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    out[0] = total;
+    *tickets = 0u;
+  }
 }
 
 // After a kernel that wrote nparts partials: check its launch, then (when dot is not null)

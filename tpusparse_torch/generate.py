@@ -4,9 +4,10 @@ The host half is the port's own copy of ``tpusparse/generate.py``'s (plain numpy
 ``make_stencil5`` (the host Stencil5 with its planes), ``write_matrix_market_stencil5``
 (the reference's stencil .mtx writer) and ``stencil5_spmv_checksums`` (the analytic Sum and
 Norm2 of y = A·ones).  The device half builds the stencil's coefficient planes
-(``make_stencil5_planes_device``), its ELL and DIA operands (``make_stencil5_ell_device``,
-``make_stencil5_dia_device``) and the canonical x = ones / b = ones field (``ones_field``)
-directly on the target device in the target dtype.
+(``make_stencil5_planes_device``), its ELL, DIA and CSR operands
+(``make_stencil5_ell_device``, ``make_stencil5_dia_device``, ``make_stencil5_csr_device``)
+and the canonical x = ones / b = ones field (``ones_field``) directly on the target device
+in the target dtype.
 """
 
 from __future__ import annotations
@@ -204,6 +205,49 @@ def make_stencil5_ell_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_
     cols[:, edge] = ecol.T.to(torch.int32)
     vals[:, edge] = evals.T
     return vals, cols
+
+
+def make_stencil5_csr_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_OFFDIAG,
+                             dtype=torch.float32, device="cuda", chunk_points=2 ** 22):
+    """The sorted CSR of the constant g×g stencil, made on the device: row_ptr (g² + 1,)
+    int32, col (nnz,) int32 and val (nnz,) in ``dtype``, equal array for array to
+    ``formats.stencil5_to_csr`` of ``Stencil5(g, None, (diag, offdiag))``: each row's
+    columns ascending (N, W, C, E, S), no entry where a neighbour is off the grid or its
+    coefficient is 0 (the host CSR drops zeros), values rounded through float32 as the host
+    planes store them.  ValueError when nnz does not fit int32 row pointers.
+
+    Built ``chunk_points`` grid points at a time, with 64-bit index arithmetic (5·g² reaches
+    2.1e9 at 20480²), so the peak stays near the output: 18.5 GB in f32 at 20480² (26.8 GB
+    in f64), where the host CSR is 25 GB and takes minutes."""
+    g = int(grid_size)
+    if g < 1:
+        raise ValueError("grid_size must be >= 1")
+    n = g * g
+    d32, o32 = float(np.float32(diag)), float(np.float32(offdiag))
+    nnz = n * (d32 != 0.0) + 4 * g * (g - 1) * (o32 != 0.0)
+    if nnz >= 2 ** 31:
+        raise ValueError(f"grid {g}: {nnz} entries do not fit int32 row pointers")
+    dev = resolve_device(device)
+    row_ptr = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    row_ptr[0] = 0
+    col = torch.empty(nnz, dtype=torch.int32, device=dev)
+    val = torch.empty(nnz, dtype=dtype, device=dev)
+    vals5 = torch.tensor([o32, o32, d32, o32, o32], dtype=dtype, device=dev)
+    nonzero5 = vals5 != 0
+    start = 0
+    for p0 in range(0, n, chunk_points):
+        pts = torch.arange(p0, min(p0 + chunk_points, n), dtype=torch.int64, device=dev)
+        i, j = pts // g, pts % g
+        cand = torch.stack([pts - g, pts - 1, pts, pts + 1, pts + g], dim=1)
+        ok = torch.stack([i > 0, j > 0, torch.ones_like(i, dtype=torch.bool), j < g - 1,
+                          i < g - 1], dim=1) & nonzero5
+        lens = ok.sum(dim=1)
+        row_ptr[p0 + 1:p0 + 1 + pts.numel()] = lens.cumsum(0).add_(start).to(torch.int32)
+        stop = start + int(lens.sum())
+        col[start:stop] = cand[ok].to(torch.int32)  # row-major: each row ascending
+        val[start:stop] = vals5.expand_as(ok)[ok]
+        start = stop
+    return row_ptr, col, val
 
 
 def make_stencil5_dia_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_OFFDIAG,

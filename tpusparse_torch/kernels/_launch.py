@@ -68,6 +68,22 @@ def dot_buffers(like, nparts):
             torch.empty(nparts, dtype=like.dtype, device=like.device))
 
 
+_TICKETS = {}
+
+
+def dot_tickets(like, cuda_stream):
+    """The ticket counter of the one-launch dots (K6) on ``like``'s device and the stream
+    ``cuda_stream``: a zeroed int32 tensor, made at its first use and kept.  The kernel's
+    last block resets it to 0, so it needs no reset from the host between launches, nor in
+    a CUDA graph; launches on other streams may run at the same time, so each stream has
+    its own."""
+    key = (like.device, cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=like.device)
+    return t
+
+
 def ptr(t):
     return None if t is None else t.data_ptr()
 

@@ -18,6 +18,13 @@ given CPU tensors runs the twin; given CUDA tensors it launches the kernel from
 and twin round every field operation alike, so their fields agree bit for bit; the dots
 differ only in summation order.
 
+K5 and K6 load 16 bytes a thread when their two operands lie at the same offset mod 16
+bytes (fresh allocations do), and one element at a time otherwise (a view one element into
+its storage, say); the C launcher picks the body from the pointers, and both give the same
+p bit for bit.  K6 adds its per-block partials inside its one launch: the last block to
+finish sums them in index order, so a dot is bitwise repeatable; it counts blocks on a
+ticket counter per device and stream (``_launch.dot_tickets``) that it leaves at 0.
+
 The Pallas ``cg_update_pallas`` aliased x and r onto its outputs; here x, r (K4) and p
 (K5) are updated in place too, which is safe on a GPU because every element is read and
 written by one thread.  The one hazard is aliasing between inputs: in the JAX loop p *is*
@@ -34,7 +41,8 @@ import functools
 import torch
 
 from .. import _build
-from ._launch import SUFFIX, check_apart, check_field, dot_buffers, scalar, stream
+from ._launch import (SUFFIX, check_apart, check_field, dot_buffers, dot_tickets, scalar,
+                      stream)
 
 LAUNCHES = {"cg_update": 0, "p_update": 0, "dot": 0, "axpby_dot": 0}
 
@@ -118,7 +126,7 @@ def p_update(beta, r, p):
 
 
 def dot(a, b):
-    """<a, b> as a 0-d tensor.
+    """<a, b> as a 0-d tensor, in one launch.
 
     Replaces the Pallas kernel ``dot_pallas``."""
     if a.device.type == "cpu":
@@ -126,9 +134,10 @@ def dot(a, b):
     n = check_field(a, a)
     check_field(b, a)
     out, part = dot_buffers(a, _partials(n))
+    s = stream(a)
     fn = getattr(_build.lib(), f"tps_dot_{SUFFIX[a.dtype]}")
     _build.check(fn(a.data_ptr(), b.data_ptr(), n, part.data_ptr(), out.data_ptr(),
-                    stream(a)), "dot")
+                    dot_tickets(a, s).data_ptr(), s), "dot")
     LAUNCHES["dot"] += 1
     return out
 

@@ -29,14 +29,16 @@ The generic modes take any square ``CSRMatrix``, ``COOMatrix`` or ``Stencil5``:
   - ``"dia"``                diagonal-offset storage through the CUDA kernel K11
                              (``kernels/dia.py``); ``"dia-xla"`` is its plain twin;
   - ``"bcoo"``               a matvec on ``torch.sparse_csr_tensor`` (cuSPARSE on a card, the
-                             reference's own baseline), the port of ``jax.experimental.sparse``.
+                             reference's own baseline), the port of ``jax.experimental.sparse``,
+                             in row bands of at most ``BCOO_BAND_ENTRIES`` entries.
 
 A generic operator's field is the vector itself, ``num_rows`` elements: the JAX package's
 128-lane padding is a TPU answer and has no counterpart.  x and y share that field, so a
 non-square matrix raises ``ValueError``.  A planes-free constant ``Stencil5`` (``gen:<g>``)
-gets its ELL and DIA operands made on the device (``generate.make_stencil5_ell_device``,
-``make_stencil5_dia_device``); every other matrix goes through the host packs
-(``formats.csr_to_ell``/``stencil5_to_ell``, ``csr_to_dia``/``stencil5_to_dia``).  The
+gets its ELL, DIA and CSR operands made on the device (``generate.make_stencil5_ell_device``,
+``make_stencil5_dia_device``, ``make_stencil5_csr_device``); every other matrix goes
+through the host packs (``formats.csr_to_ell``/``stencil5_to_ell``,
+``csr_to_dia``/``stencil5_to_dia``, ``stencil5_to_csr``).  The
 matrices are the port's own classes (``formats``); ``convert.stencil5_from_numpy`` and
 ``csr_from_numpy`` carry another package's in.  PyTorch
 runs eagerly, so the JAX package's explicit-operand machinery for ``jax.jit``
@@ -57,9 +59,9 @@ import torch
 from . import convert, formats
 from ._device import resolve_device, resolve_dtype
 from .formats import CSRMatrix, Stencil5
-from .generate import (make_stencil5_dia_device, make_stencil5_ell_device,
-                       make_stencil5_planes_device, stencil5_dia_device_ok,
-                       stencil5_ell_device_ok)
+from .generate import (make_stencil5_csr_device, make_stencil5_dia_device,
+                       make_stencil5_ell_device, make_stencil5_planes_device,
+                       stencil5_dia_device_ok, stencil5_ell_device_ok)
 from .kernels import blas1 as _blas1
 from .kernels import dia as _dia
 from .kernels import ell as _ell
@@ -80,7 +82,8 @@ class DeviceOperator:
       p' = r + β·p (K9 on ``stencil5``/``stencil5-bf16c``, K10 on ``stencil5-const``);
     - ``planes``: the coefficient planes of the values-carrying modes, else None;
     - ``operand``: the generic modes' device operand by name (ELL ``vals``/``cols``, DIA
-      ``data``/``offsets``, the ``bcoo`` sparse ``matrix``), else None;
+      ``data``/``offsets``, the ``bcoo`` CSR ``row_ptr``/``col``/``val`` and its row
+      ``bands``, ``(r0, r1, sparse CSR tensor)`` each), else None;
     - ``free()`` drops the operator's callables, planes and operand."""
 
     name: str
@@ -391,33 +394,94 @@ def _init_dia(mat, dtype, device, name="dia", spmv=_dia.spmv_dia) -> DeviceOpera
     )
 
 
+# The most stored entries one ``bcoo`` matvec is handed: torch.sparse_csr_tensor's matvec
+# (cuSPARSE) returned a wrong y for the 2.1e9 entries of the 20480² stencil, with int32
+# and with int64 indices, and a right one for the 5.2e8 of 10240² (PERF.md §7).
+BCOO_BAND_ENTRIES = 2 ** 29
+
+
+def _row_bands(row_ptr, limit):
+    """[(r0, r1), ...]: the rows cut into consecutive bands of at most ``limit`` stored
+    entries each; a row is never split, so a row longer than ``limit`` is a band of its
+    own.  ``row_ptr`` is a CSR row-pointer tensor on any device."""
+    n = row_ptr.numel() - 1
+    nnz = int(row_ptr[-1])
+    bands, r0 = [], 0
+    while r0 < n:
+        target = min(int(row_ptr[r0]) + limit, nnz)  # stays within row_ptr's dtype
+        r1 = int(torch.searchsorted(row_ptr, row_ptr.new_tensor([target]), right=True)) - 1
+        r1 = min(max(r1, r0 + 1), n)
+        bands.append((r0, r1))
+        r0 = r1
+    return bands
+
+
+def _csr_matvec_plain(a, x):
+    """A ``torch.sparse_csr_tensor`` times x in plain PyTorch, each row summed in entry
+    order from 0: the CPU's product of ``bcoo``.  MKL's CPU matvec rounds a row
+    differently by the matrix it is handed (14 of the first 100 rows of the g = 17 stencil
+    differ by an ulp between the whole matrix and those 100 rows alone), so it could not
+    show that cutting rows into bands leaves every row's sum as it was."""
+    crow, col, val = a.crow_indices(), a.col_indices(), a.values()
+    rows = torch.repeat_interleave(torch.arange(a.shape[0]), crow.diff().long())
+    return torch.zeros(a.shape[0], dtype=val.dtype).index_add_(0, rows, val * x[col.long()])
+
+
 def _init_bcoo(mat, dtype, device) -> DeviceOperator:
     """A matvec on ``torch.sparse_csr_tensor``: cuSPARSE on a card, the reference's own
     baseline (spmv_cusparse_csr.cu:182-285), as ``jax.experimental.sparse`` was the JAX
     package's independent cross-check.  Its dot is K6 (``blas1.dot``).  No Pallas kernel
-    stood behind it, so no kernel of this package does either."""
-    csr = _as_csr(mat)
-    n = _square(csr, "bcoo")
-    idx = torch.int32 if max(n, csr.nnz) < 2 ** 31 else torch.int64
+    stood behind it, so no kernel of this package does either.
+
+    The CSR is made on the device for a planes-free constant ``Stencil5``
+    (``generate.make_stencil5_csr_device``), else carried from the host CSR.  It is cut
+    into row bands of at most ``BCOO_BAND_ENTRIES`` entries (``_row_bands``), each a
+    ``torch.sparse_csr_tensor`` of its rows with int32 indices: its own row pointers,
+    shifted to start at 0, and views of the full column and value arrays.  Each band's
+    matvec writes its own rows of one y, and each row is summed inside one band.  On a card
+    the matvec is cuSPARSE's; on the CPU it is ``_csr_matvec_plain``, so there y equals
+    the one-band product bit for bit."""
+    const = _const_stencil(mat)
+    if const is not None:
+        row_ptr, col, val = make_stencil5_csr_device(*const, dtype=dtype, device=device)
+        n, g = const[0] ** 2, mat.grid_size
+    else:
+        csr = _as_csr(mat)
+        n, g = _square(csr, "bcoo"), csr.grid_size
+        if n >= 2 ** 31:
+            raise ValueError(f"mode 'bcoo' takes fewer than 2^31 rows (int32 columns), "
+                             f"got {n}")
+        row_ptr = torch.tensor(csr.row_ptr, dtype=torch.int64, device=device)
+        col = torch.tensor(csr.col_idx, dtype=torch.int32, device=device)
+        val = torch.tensor(csr.val, dtype=dtype, device=device)
+    bands = []
     with warnings.catch_warnings():  # torch warns that sparse CSR support is in beta
         warnings.simplefilter("ignore", UserWarning)
-        a = torch.sparse_csr_tensor(
-            torch.tensor(csr.row_ptr, dtype=idx, device=device),
-            torch.tensor(csr.col_idx, dtype=idx, device=device),
-            torch.tensor(csr.val, dtype=dtype, device=device), size=(n, n),
-            check_invariants=False)
+        for r0, r1 in _row_bands(row_ptr, BCOO_BAND_ENTRIES):
+            s, e = int(row_ptr[r0]), int(row_ptr[r1])
+            crow = (row_ptr[r0:r1 + 1] - row_ptr[r0]).to(torch.int32)
+            bands.append((r0, r1, torch.sparse_csr_tensor(
+                crow, col[s:e], val[s:e], size=(r1 - r0, n), check_invariants=False)))
 
     def run_device(x):
-        return (a @ x.reshape(-1)).reshape(x.shape)
+        xf = x.reshape(-1)
+        y = torch.empty_like(xf)
+        for r0, r1, a in bands:
+            if xf.is_cuda:
+                torch.mv(a, xf, out=y[r0:r1])
+            else:
+                y[r0:r1] = _csr_matvec_plain(a, xf)
+        return y.reshape(x.shape)
 
     def run_device_dot(x):
         y = run_device(x)
         return y, _blas1.dot(x, y)
 
     return DeviceOperator(
-        name="bcoo", num_rows=n, num_cols=n, nnz=csr.nnz, grid_size=csr.grid_size,
+        name="bcoo", num_rows=n, num_cols=n, nnz=col.numel(), grid_size=g,
         field_shape=(n,), device=device, dtype=dtype, run_device=run_device,
-        run_device_dot=run_device_dot, operand={"matrix": a},
+        run_device_dot=run_device_dot,
+        operand={"row_ptr": row_ptr, "col": col, "val": val, "bands": bands},
     )
 
 
