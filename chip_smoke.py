@@ -58,7 +58,25 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      3.35 TB/s, or its operations over the data sheet's peak rate, whichever is larger;
      the solves' median times, next to the card's name and power limit;
   7. one solve of each CG run of phase 5 (bcoo f64 included), and of each fused solve,
-     under torch.profiler, its device time split by kernel (PERF.md section 5).
+     under torch.profiler, its device time split by kernel, and its idle time: phase 5's
+     unprofiled median less the profiled device time (PERF.md section 5);
+  8. the CG CLI's host-stepped loop and its other flags at gen:20480, each run from its own
+     launch counts: --timers on stencil5 f64 (exactly 14 iterations, loop host-stepped,
+     the spmv, blas1 and reduction buckets each > 0 and summing to no more than the
+     median solve, Sum/Norm2 equal to phase 5's stencil5 f64 to 1e-10, launching K8, K4,
+     K5 and K6; its buckets printed beside phase 7's split of the classic solve) and on
+     stencil5-const f32 --loop=classic (K3, K4, K5, K6); --host (one timed run, 14
+     iterations in f64) with --trace into chiprun_out/trace, whose Chrome trace must hold
+     the phase names SpMV, BLAS_AXPY and BLAS_Update_P and the kernels of K8, K4 and K5
+     (the ranges' wall time and their kernels' device time are printed); bare --device
+     with no --mode in f64 (mode stencil5, 14 iterations); phase 5's medians beside those
+     PERF.md records, and one phase scope's host time; the streaming probe kernels
+     (kernels/stream_probe.py) against their twins on a 2^30 f32 field; the SpMV CLI with
+     --ceiling-probe on stencil5, which must launch both probe kernels (every probe's
+     GB/s, the achievable ceiling, the export's share of it and each kernel's share of it
+     from phase 6's times) and python -m tpusparse_torch.bench.probes's two JSON files
+     (the probe set again, and the copy chain's knee points with their passes and µs per
+     pass); the phase's wall time.  Phase 7 leaves the phase scopes out of its sums.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
 record and then {"ok": true, "device": {...}}.  Exports go to chiprun_out/.
@@ -154,6 +172,30 @@ FUSED_RUNS = {
 FUSED_FORBID = ("p_update", "spmv_stencil5", "spmv_stencil5_const",
                 "spmv_stencil5_const_pupdate_dot", "cg_const_update_recompute")
 FUSED_TIMED = 5  # timed solves of each, after one warm-up
+# phase 8: the CG CLI's host-stepped runs and its other flags: label -> (arguments, the
+# export's loop, iterations required, kernels required)
+TRACE_DIR = OUT / "trace"
+STEPPED_RUNS = {
+    "stepped stencil5 f64": (["--mode=stencil5", "--dtype=f64", "--timers", "--runs=3",
+                              "--warmup=1"], "host-stepped", 14, ("spmv_stencil5",) + CLASSIC),
+    "stepped const f32 classic": (["--mode=stencil5-const", "--dtype=f32", "--loop=classic",
+                                   "--timers", "--runs=3", "--warmup=1"], "host-stepped",
+                                  None, ("spmv_stencil5_const",) + CLASSIC),
+    "host stencil5 f64, traced": (["--mode=stencil5", "--dtype=f64", "--host",
+                                   f"--trace={TRACE_DIR}"], "host-stepped", 14,
+                                  ("spmv_stencil5",) + CLASSIC),
+    "device default f64": (["--device", "--dtype=f64", "--runs=3", "--warmup=1"],
+                           "fused-classic", 14, ("spmv_stencil5",) + CLASSIC),
+}
+# two of phase 5's CLI medians as PERF.md section 6 records them before the solver had
+# phase scopes (NVIDIA H100 80GB HBM3, 700.00 W), in ms
+RECORDED_MEDIANS = {"stencil5 f64": 255.3, "const f64 recompute": 144.78}
+# the solver's phase scopes (bench.profiling), which the profiler lists beside the kernels,
+# and the stepped loop's ranges around its reads of the dots
+PHASE_NAMES = ("SpMV", "BLAS_AXPY", "BLAS_Update_P", "Dot_Product")
+# the streaming probe kernels (kernels/stream_probe.py), which --ceiling-probe launches
+PROBE_KERNELS = ("probe_read", "probe_copy")
+SCOPE_PAIRS = 100_000  # scopes entered and left to time one on the host
 # the least time a call can take: its bytes over HBM's rate, or its operations over the
 # peak rate of their type, whichever is larger (NVIDIA's H100 SXM data sheet, dense,
 # outside the tensor cores, at the 700 W limit)
@@ -175,6 +217,11 @@ def dname(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def short(name) -> str:
+    """A wrapper's short name: K1-K12, or the wrapper's own for the streaming probes."""
+    return KERNELS[name][0] if name in KERNELS else name
+
+
 class PathCounts:
     """The launch counts of the main paths, read path by path: every count is set to 0
     just before a path runs and read just after, and the path must have launched each
@@ -191,13 +238,13 @@ class PathCounts:
         counts = {name: c.LAUNCHES[name] for c in self.counters for name in c.LAUNCHES
                   if c.LAUNCHES[name]}
         self.by_path[label] = counts
-        print(f"[launches] {label}: "
-              + ", ".join(f"{KERNELS[n][0]} {counts[n]}" for n in KERNELS if n in counts),
+        order = [n for n in KERNELS if n in counts] + [n for n in counts if n not in KERNELS]
+        print(f"[launches] {label}: " + ", ".join(f"{short(n)} {counts[n]}" for n in order),
               flush=True)
-        missing = [f"{KERNELS[n][0]} {n}" for n in needs if counts.get(n, 0) <= 0]
+        missing = [f"{short(n)} {n}" for n in needs if counts.get(n, 0) <= 0]
         if missing:
             raise AssertionError(f"{label}: kernels of this path never launched: {missing}")
-        stray = [f"{KERNELS[n][0]} {n}" for n in forbid if counts.get(n, 0)]
+        stray = [f"{short(n)} {n}" for n in forbid if counts.get(n, 0)]
         if stray:
             raise AssertionError(f"{label}: kernels of another path launched: {stray}")
         return out
@@ -260,9 +307,9 @@ def phase_build(build):
     (OUT / "build_log.txt").write_text(build.build_log)
     kernel = spills = None
     for ln in build.build_log.splitlines():
-        m = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)I(.+?)E", ln)
+        m = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)(?:I(.+?)E)?", ln)
         if m:
-            kernel = f"{m.group(1)}<{_template_args(m.group(2))}>"
+            kernel = m.group(1) + (f"<{_template_args(m.group(2))}>" if m.group(2) else "")
             spills = "spills not reported"
         elif kernel and "spill" in ln:
             spills = ln.strip()
@@ -957,12 +1004,16 @@ def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
     torch.cuda.empty_cache()
 
 
-def phase_profile(torch, smi):
+def phase_profile(torch, smi, medians):
     """Where a solve's time goes: one solve of each CG run and each fused solve of phase 5
     under torch.profiler at G_BIG² (after two unprofiled ones), its device time split by
-    kernel.  "idle" is wall
-    time minus the summed device time of the solve's kernels, memsets and copies, not a
-    timeline.  The full tables go to chiprun_out/profile.txt."""
+    kernel.  "idle" is the solve's unprofiled median from phase 5 (``medians``: label ->
+    ms) minus the summed device time of the profiled solve's kernels, memsets and copies:
+    a difference, not a timeline.  The profiled solve's own wall time is printed beside it
+    only as an aside, since it also holds the profiler's cost of recording the phase
+    ranges.  The full tables go to chiprun_out/profile.txt.  The solver's phase scopes
+    (``bench.profiling``) are ranges, not device work, and stay out of the sums.  Returns
+    {label: {kernel group: device ms}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -975,7 +1026,7 @@ def phase_profile(torch, smi):
     groups.append(("final sums", re.compile(r"(?<![a-z_])final_sum_kernel")))
     groups.append(("cuSPARSE", re.compile(r"cusparse|csrmv", re.IGNORECASE)))
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
-    tables = []
+    tables, splits = [], {}
     solves = [(label, mode, torch.float64 if "--dtype=f64" in extra else torch.float32,
                {"recompute_ap": False if "--loop=classic" in extra else None})
               for label, (mode, extra, _iters, _needs) in CG_RUNS.items()]
@@ -991,7 +1042,10 @@ def phase_profile(torch, smi):
             x, stats = cg.cg_solve(op, b_is_ones=True, **kwargs)
             wall = (time.perf_counter() - t0) * 1e3
         del x
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # the solver's phase scopes appear as device rows too (their ranges on the card's
+        # timeline): leave them out, or their kernels would count twice
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.key not in PHASE_NAMES]
         if not rows:
             raise AssertionError(f"profile {label}: the profiler saw no device time")
         busy = sum(e.self_device_time_total for e in rows) / 1e3
@@ -999,10 +1053,14 @@ def phase_profile(torch, smi):
         for e in rows:
             g = next((g for g, pat in groups if pat.search(e.key)), "other device")
             split[g] = split.get(g, 0.0) + e.self_device_time_total / 1e3
-        parts = ", ".join(f"{g} {ms!r} ms ({100 * ms / wall:.1f}%)" for g, ms in split.items())
-        print(f"[profile] {label} {G_BIG}², {stats.iterations} iterations: wall {wall!r} ms, "
-              f"device busy {busy!r} ms; {parts}; idle (wall - busy) {wall - busy!r} ms "
-              f"({100 * (wall - busy) / wall:.1f}%) [{smi}]", flush=True)
+        splits[label] = split
+        median = medians[label]
+        parts = ", ".join(f"{g} {ms!r} ms ({100 * ms / median:.1f}%)"
+                          for g, ms in split.items())
+        print(f"[profile] {label} {G_BIG}², {stats.iterations} iterations: phase 5's median "
+              f"{median!r} ms, device busy {busy!r} ms; {parts}; idle (median - busy) "
+              f"{median - busy!r} ms ({100 * (median - busy) / median:.1f}%); the profiled "
+              f"solve's wall {wall!r} ms [{smi}]", flush=True)
         tables.append(f"=== {label}: wall {wall!r} ms\n"
                       + prof.key_averages().table(sort_by="self_device_time_total",
                                                   row_limit=16, max_name_column_width=70))
@@ -1011,6 +1069,181 @@ def phase_profile(torch, smi):
         torch.cuda.empty_cache()
     OUT.mkdir(exist_ok=True)
     (OUT / "profile.txt").write_text("\n\n".join(tables))
+    return splits
+
+
+def check_trace(smi):
+    """The --trace run's Chrome trace: it must hold the phase ranges and K8's, K4's and
+    K5's kernels.  Prints the ranges' summed wall time beside the summed device time of
+    the kernels inside them (the traced solve is the host-stepped one)."""
+    traces = sorted(TRACE_DIR.glob("*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--trace wrote {len(traces)} trace files into {TRACE_DIR}")
+    events = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    names = {e.get("name", "") for e in events}
+    missing = [n for n in PHASE_NAMES if n not in names]
+    missing += [KERNELS[w][0] for w in ("spmv_stencil5", "cg_update", "p_update")
+                if not any(re.search(KERNELS[w][1], n) for n in names)]
+    print(f"[trace] {traces[0].name}: {len(events)} events, {traces[0].stat().st_size} "
+          f"bytes; missing {missing or 'nothing'}", flush=True)
+    if missing:
+        raise AssertionError(f"the trace lacks {missing}")
+    ranges = {n: sum(e["dur"] for e in events if e["name"] == n and e.get("cat") ==
+                     "user_annotation") / 1e3 for n in PHASE_NAMES}
+    groups = [(short, re.compile(rf"(?<![a-z_]){fn}")) for short, fn, _s, _r in
+              KERNELS.values()] + [("final sums", re.compile(r"final_sum_kernel"))]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            g = next((g for g, pat in groups if pat.search(e["name"])), "other kernels")
+            kernels[g] = kernels.get(g, 0.0) + e["dur"] / 1e3
+    print("[trace] ranges (host wall): " + ", ".join(f"{n} {ms!r} ms" for n, ms in
+                                                     ranges.items())
+          + "; kernels (device): " + ", ".join(f"{g} {ms!r} ms" for g, ms in kernels.items())
+          + f" [{smi}]", flush=True)
+
+
+def compare_stream_probes(torch):
+    """The streaming probe kernels against their twins on the probe's own field (2^30 f32,
+    seeded): the read's partials sum to the field's sum (1e-5 relative to the sum of
+    magnitudes: f32 partials in another order), the copy equals its source bit for bit.
+    Their launches here are not counted: the counts are reset before each path."""
+    from tpusparse_torch.kernels import stream_probe
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(2 ** 30, generator=gen, device="cuda")
+    part = torch.empty(stream_probe.read_partials(x), device="cuda")
+    got = stream_probe.read(x, part).double().sum()
+    want = stream_probe.read_plain(x.double(), torch.empty(1, dtype=torch.float64,
+                                                            device="cuda"))[0]
+    err = float((got - want).abs() / x.double().abs().sum())
+    dst = torch.empty_like(x)
+    exact = torch.equal(stream_probe.copy(x, dst), stream_probe.copy_plain(x, x.clone()))
+    print(f"[compare] probe_read 2^30 f32: sum rel err {err:.3e} (tol 1e-5); probe_copy: "
+          f"{'bit for bit' if exact else 'DIFFERS'}", flush=True)
+    if not (err <= 1e-5 and exact):
+        raise AssertionError(f"the streaming probe kernels disagree with their twins: read "
+                             f"{err:.3e}, copy exact {exact}")
+    del x, dst
+
+
+def print_ceiling_shares(times, achievable_gbs, smi):
+    """Each kernel's streaming rate at G_BIG² (phase 6: its bytes over its time) as a share
+    of the data sheet and of the measured ceiling; a share above 100% marks a ceiling
+    that is no ceiling."""
+    parts, over = [], []
+    for name, (short_name, _fn, _src, _rep) in KERNELS.items():
+        for key, e in times[name].items():
+            if e["bound_by"] != "bytes":
+                continue
+            gbs = e["bound_ms"] / e["ms"] * HBM_BYTES_PER_S / 1e9
+            share = 100 * gbs / achievable_gbs
+            parts.append(f"{short_name} {key} {gbs:.1f} GB/s = "
+                         f"{100 * e['bound_ms'] / e['ms']:.1f}% / {share:.1f}%")
+            if share > 100:
+                over.append(f"{short_name} {key}")
+    print(f"[ceiling] kernels at {G_BIG}² (share of the data sheet / of the measured "
+          f"{achievable_gbs!r} GB/s): " + ", ".join(parts)
+          + f"; above the measured ceiling: {over or 'none'} [{smi}]", flush=True)
+
+
+def phase_stepped(torch, counters, cg_cli, spmv_cli, results, splits, times, smi):
+    """Phase 8: the CG CLI's host-stepped loop and its other flags at G_BIG², each run from
+    its own launch counts, then the probes of the card's streaming ceiling.  ``splits``:
+    phase 7's device time by kernel group, per solve; ``times``: phase 6's kernel times."""
+    import shutil
+
+    from tpusparse_torch.bench import probes, profiling
+
+    t_phase = time.perf_counter()
+    counts = PathCounts(counters)
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    ref = results["stencil5 f64"]["validation"]
+    for label, (extra, loop, iters, needs) in STEPPED_RUNS.items():
+        path = OUT / f"chip_smoke_cg_{re.sub(r'[^a-z0-9]+', '_', label)}.json"
+        rc = counts.run(f"cg {label}", needs, lambda: cg_cli.main(
+            [f"gen:{G_BIG}", *extra, f"--json={path}"]))
+        res = json.loads(path.read_text())
+        its, t = res["convergence"]["iterations"], res["timing"]
+        print(f"[stepped] {label}: rc {rc}, mode {res['mode']}, loop {res['loop']}, "
+              f"{its} iterations, median {t['total_median_ms']!r} ms over "
+              f"{res['statistics']['total_runs']} runs; spmv {t['spmv_ms']!r} ms, blas1 "
+              f"{t['blas1_ms']!r} ms, reductions {t['reductions_ms']!r} ms [{smi}]",
+              flush=True)
+        if rc != 0 or not res["convergence"]["converged"] or res["loop"] != loop:
+            raise AssertionError(f"{label}: rc {rc}, loop {res['loop']} (want {loop})")
+        mode = "stencil5-const" if "--mode=stencil5-const" in extra else "stencil5"
+        if res["mode"] != mode:  # the --device run names no mode: the default's
+            raise AssertionError(f"{label}: mode {res['mode']}, not {mode}")
+        if iters is not None and its != iters:
+            raise AssertionError(f"{label}: {its} iterations, not {iters}")
+        buckets = (t["spmv_ms"], t["blas1_ms"], t["reductions_ms"])
+        if loop == "host-stepped" and not (min(buckets) > 0
+                                          and sum(buckets) <= t["total_median_ms"]):
+            raise AssertionError(f"{label}: buckets {buckets} against the median "
+                                 f"{t['total_median_ms']} ms")
+        if "--dtype=f64" in extra:
+            v = res["validation"]
+            errs = {k: abs(v[k] - ref[k]) / abs(ref[k]) for k in ("solution_sum",
+                                                                  "solution_norm")}
+            print(f"[stepped] {label} against phase 5's stencil5 f64: Sum rel "
+                  f"{errs['solution_sum']:.3e}, Norm2 rel {errs['solution_norm']:.3e} "
+                  f"(tol 1e-10)", flush=True)
+            if not max(errs.values()) <= 1e-10:
+                raise AssertionError(f"{label} differs from stencil5 f64: {errs}")
+        if label == "stepped stencil5 f64":
+            prof = splits["stencil5 f64"]
+            print(f"[stepped] buckets of the stepped stencil5 f64 solve beside phase 7's split "
+                  f"of one classic solve: spmv {t['spmv_ms']!r} ms (K8 {prof['K8']!r} + final "
+                  f"sums {prof['final sums']!r} ms), blas1 {t['blas1_ms']!r} ms (K4 "
+                  f"{prof['K4']!r} + K5 {prof['K5']!r} = {prof['K4'] + prof['K5']!r} ms), "
+                  f"reductions {t['reductions_ms']!r} ms (no counterpart); sum "
+                  f"{sum(buckets)!r} of {t['total_median_ms']!r} ms [{smi}]", flush=True)
+    check_trace(smi)
+    for label, recorded in RECORDED_MEDIANS.items():
+        print(f"[solve] phase 5's {label} median {results[label]['timing']['total_median_ms']!r}"
+              f" ms (recorded before the phase scopes: {recorded} ms) [{smi}]", flush=True)
+    # the host cost of the phase scopes the loops now enter (2 or 3 an iteration)
+    t0 = time.perf_counter()
+    for _ in range(SCOPE_PAIRS):
+        with profiling.scope(profiling.PHASE_SPMV):
+            pass
+    us = (time.perf_counter() - t0) / SCOPE_PAIRS * 1e6
+    print(f"[scope] one phase scope (an NVTX range; no profiler runs) costs {us!r} µs on the "
+          f"host; 42 of them, a 14-iteration classic solve's, {42 * us / 1e3!r} ms [{smi}]",
+          flush=True)
+
+    torch.cuda.empty_cache()
+    compare_stream_probes(torch)
+    path = OUT / "chip_smoke_spmv_probe.json"
+    rc = counts.run("spmv stencil5 --ceiling-probe", SPMV_NEEDS["stencil5"] + PROBE_KERNELS,
+                    lambda: spmv_cli.main(
+                        [f"gen:{G_BIG}", "--mode=stencil5", "--ceiling-probe", "--resident-x",
+                         "--runs=3", "--warmup=1", f"--json={path}"]))
+    res = json.loads(path.with_name(f"{path.stem}_stencil5.json").read_text())
+    probe, perf = res["ceiling_probe"], res["benchmark"]["performance"]
+    print("[probe] " + ", ".join(f"{n} {probe[f'{n}_gbs']!r} GB/s" for n in probe["probes"])
+          + f"; achievable {probe['achievable_gbs']!r} GB/s, over the data-sheet peak "
+          f"{probe['probes_over_peak']}; stencil5 SpMV {perf['bandwidth_gbs']!r} GB/s = "
+          f"{perf['roofline_fraction_achievable']!r} of it ({perf['roofline_fraction']!r} of "
+          f"the data sheet) [{smi}]", flush=True)
+    if rc != 0 or not perf.get("roofline_fraction_achievable"):
+        raise AssertionError(f"spmv_bench --ceiling-probe: rc {rc}, {perf}")
+    print_ceiling_shares(times, probe["achievable_gbs"], smi)
+    torch.cuda.empty_cache()
+    if probes.main([f"--out={OUT}"]) != 0:
+        raise AssertionError("python -m tpusparse_torch.bench.probes failed")
+    again = json.loads((OUT / "probe_ceiling.json").read_text())
+    print("[probe] again: " + ", ".join(f"{n} {again[f'{n}_gbs']!r} GB/s"
+                                         for n in again["probes"])
+          + f"; achievable {again['achievable_gbs']!r} GB/s [{smi}]", flush=True)
+    for pt in json.loads((OUT / "probe_onchip_knee.json").read_text())["points"]:
+        print(f"[knee] {pt['footprint_mib']} MiB: copy chain {pt['copy_chain_gbs']!r} GB/s, "
+              f"{pt['per_pass_us']!r} µs per pass, k {pt['k_lo']}/{pt['k_hi']} [{smi}]",
+              flush=True)
+    (OUT / "chip_smoke_launches_stepped.json").write_text(json.dumps(counts.by_path, indent=1))
+    print(f"[stepped] phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1024,7 +1257,7 @@ def main() -> int:
     from tpusparse_torch.bench import sysinfo
     from tpusparse_torch.cli import cg_solver as cg_cli
     from tpusparse_torch.cli import spmv_bench as spmv_cli
-    from tpusparse_torch.kernels import blas1, dia, ell
+    from tpusparse_torch.kernels import blas1, dia, ell, stream_probe
     from tpusparse_torch.kernels import stencil5 as st5
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1040,7 +1273,11 @@ def main() -> int:
                                                spmv_cli)
     times = phase_full_size(torch, st5, blas1, cmp, smi)
     phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times)
-    phase_profile(torch, smi)
+    medians = {label: res["timing"]["total_median_ms"] for label, res in results.items()}
+    medians.update({label: median_ms for label, (median_ms, _its) in fused.items()})
+    splits = phase_profile(torch, smi, medians)
+    phase_stepped(torch, (st5, blas1, ell, dia, stream_probe), cg_cli, spmv_cli, results,
+                  splits, times, smi)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "

@@ -341,3 +341,71 @@ def test_fused_pass_exists_where_jax_has_it(mode):
         assert float(pap) == pytest.approx(float((r * ap).sum()), rel=1e-14)
     op.free()
     assert op.run_fused_pupdate_op is None
+
+
+STEPPED_MODES = ["stencil5", "stencil5-const", "csr", "dia"]
+
+
+@pytest.mark.parametrize("g", [8, 16, 33])
+@pytest.mark.parametrize("mode", STEPPED_MODES)
+@pytest.mark.parametrize("blas1", [True, False])
+def test_stepped_cg_matches_jax_stepped(g, mode, blas1):
+    """The host-stepped classic loop (the SpMV's twin with its dot, then K4's and K5's
+    twins, or plain updates) against the JAX package's cg_solve_stepped in interpret mode,
+    f64: equal iteration counts, x to 1e-12, and all three phase buckets filled."""
+    jop = jops.get_operator(mode, _stencil(g), dtype=jnp.float64)
+    b = jop.as_field(np.ones(g * g)).astype(jnp.float64)
+    xj, sj = jcg.cg_solve_stepped(jop.run_device_dot, b, use_pallas_blas1=blas1)
+    op = ops.get_operator(mode, carry(_stencil(g)), dtype=torch.float64, device="cpu")
+    x, s = cg.cg_solve_stepped(op.run_device_dot, op.ones_b(), use_pallas_blas1=blas1)
+    assert s.converged and sj.converged
+    assert s.iterations == sj.iterations, (s.iterations, sj.iterations)
+    np.testing.assert_allclose(op.from_field(x).numpy(), np.asarray(jop.from_field(xj)),
+                               rtol=1e-12, atol=1e-12)
+    assert s.spmv_time_ms > 0 and s.blas1_time_ms > 0 and s.reduction_time_ms > 0
+    assert s.spmv_time_ms + s.blas1_time_ms + s.reduction_time_ms <= s.total_time_ms
+
+
+@pytest.mark.parametrize("mode", ["stencil5", "stencil5-const", "csr", "bcoo"])
+def test_stepped_cg_matches_own_classic_solve(mode):
+    """The stepped loop and cg_solve's classic loop run the same arithmetic (α and β
+    divided on the host in f64 round as on the device): equal iterations, x to 1e-12."""
+    op = _port_op(24, mode)
+    x_ref, s_ref = cg.cg_solve(op, b_is_ones=True, recompute_ap=False)
+    b = op.ones_b()
+    x, s = cg.cg_solve_stepped(op.run_device_dot, b)
+    assert s.converged and s.iterations == s_ref.iterations
+    np.testing.assert_allclose(x.numpy(), x_ref.numpy(), rtol=1e-12, atol=1e-12)
+    assert torch.equal(b, torch.ones_like(b))  # the solve never writes into b
+
+
+@pytest.mark.parametrize("blas1", [True, False])
+def test_stepped_cg_nonzero_x0_matches_jax(blas1):
+    """r0 = b − A·x0 (K7's twin, or the plain difference), ‖b‖ from <b, b>."""
+    g = 12
+    x0 = np.random.RandomState(3).randn(g, g)
+    jop = jops.get_operator("stencil5", _stencil(g), dtype=jnp.float64)
+    xj, sj = jcg.cg_solve_stepped(jop.run_device_dot, jnp.ones((g, g), jnp.float64),
+                                  jnp.asarray(x0), spmv=jop.run_device,
+                                  use_pallas_blas1=blas1)
+    op = _port_op(g, "stencil5")
+    x, s = cg.cg_solve_stepped(op.run_device_dot, op.ones_b(),
+                               convert.fields_from_numpy(x0, "cpu"), spmv=op.run_device,
+                               use_pallas_blas1=blas1)
+    assert s.converged and s.iterations == sj.iterations
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(s.relative_residual, sj.relative_residual, rtol=1e-6)
+    with pytest.raises(ValueError, match="spmv"):
+        cg.cg_solve_stepped(op.run_device_dot, op.ones_b(), op.ones_b())
+
+
+def test_stepped_cg_zero_rhs_and_max_iters():
+    op = _port_op(10, "stencil5")
+    x, s = cg.cg_solve_stepped(op.run_device_dot, torch.zeros(10, 10, dtype=torch.float64))
+    assert s.iterations == 0 and s.converged and float(x.abs().max()) == 0.0
+    assert s.spmv_time_ms == s.blas1_time_ms == s.reduction_time_ms == 0.0
+    x, s = cg.cg_solve_stepped(op.run_device_dot, op.ones_b(),
+                               config=cg.CGConfig(max_iters=3))
+    assert s.iterations == 3 and not s.converged
+    _, s_ref = cg.cg_solve(op, b_is_ones=True, config=cg.CGConfig(max_iters=3))
+    assert s.residual_norm == pytest.approx(s_ref.residual_norm, rel=1e-12)

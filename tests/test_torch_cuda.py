@@ -12,8 +12,12 @@ and 1e-4 for dots (the dots sum in another order).  CG: equal iteration counts, 
 every operation as PyTorch does (K4, K5, K7, K8, K9, K10, K11 and the ELL kernel of
 K12/K13).  K5 and K6 are also held on fields of 1, 3, 1369 and 10^6 elements, aligned and
 offset by one element, and K6 to be bitwise repeatable over 1000 calls and on two streams.
-``bcoo`` runs in row bands on the stencil CSR made on the card.  The matrices come from
-the port's own ``formats`` and ``generate``: this file imports nothing of the JAX package.
+``bcoo`` runs in row bands on the stencil CSR made on the card.  The host-stepped solve
+(``cg_solve_stepped``) is held to ``cg_solve``'s iteration count and x (f64 1e-12, f32
+1e-5); a probe's chain runs as a CUDA graph, and a chain whose passes allocate a field
+raises at its capture; the streaming probe kernels equal their twins; the phase scopes
+reach the profiler's events.  The matrices come from the port's own
+``formats`` and ``generate``: this file imports nothing of the JAX package.
 """
 
 import numpy as np
@@ -23,8 +27,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tpusparse_torch import convert, formats, generate, ops
+from tpusparse_torch.bench import probes, profiling
 from tpusparse_torch.formats import Stencil5
-from tpusparse_torch.kernels import _launch, blas1, dia, ell
+from tpusparse_torch.kernels import _launch, blas1, dia, ell, stream_probe
 from tpusparse_torch.kernels import stencil5 as st5
 from tpusparse_torch.solvers import cg
 
@@ -414,3 +419,92 @@ def test_generic_wrappers_count_and_check(dev):
         dia.spmv_dia(data, offsets.int(), x)
     with pytest.raises(ValueError, match="dtype|disagree|values"):
         ell.spmv_ell(vals.float(), cols, x)
+
+
+@pytest.mark.parametrize("g", [37, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stepped_cg_on_card_matches_cg_solve(dev, g, dtype):
+    """The host-stepped classic loop (K8 with its dot, K4, K5; K6 for <r0, r0>) against
+    cg_solve's classic loop on the same operator: equal iteration counts, x to 1e-12 in
+    f64 and 1e-5 in f32, every phase bucket > 0 and their sum within the loop's time."""
+    st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5", st, dtype=dtype, device=dev)
+    x_ref, s_ref = cg.cg_solve(op, b_is_ones=True)
+    st5.reset_launches()
+    blas1.reset_launches()
+    x, s = cg.cg_solve_stepped(op.run_device_dot, op.ones_b())
+    assert s.converged and s.iterations == s_ref.iterations
+    assert st5.LAUNCHES["spmv_stencil5"] == s.iterations
+    assert blas1.LAUNCHES["cg_update"] == s.iterations
+    assert blas1.LAUNCHES["p_update"] == s.iterations - 1 and blas1.LAUNCHES["dot"] == 1
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(x, x_ref) <= rtol
+    buckets = (s.spmv_time_ms, s.blas1_time_ms, s.reduction_time_ms)
+    assert min(buckets) > 0 and sum(buckets) <= s.total_time_ms
+
+
+def test_probe_chain_is_a_graph_that_does_not_allocate(dev):
+    """A chain is checked where the allocator can see it, at its capture (a replay never
+    calls the allocator): the copy chain and the read chain (torch.sum allocates its
+    few-KB partials per call) capture, a planted pass that writes a temporary field
+    raises; a chain's GB/s is finite and positive; the probe set reads under the card's
+    data-sheet peak or says which probe did not."""
+    x = torch.ones(2 ** 22, device=dev)
+    nbytes = 4 * 2 ** 22
+    for one_pass, moved in ((probes._copy_probe(x), 2 * nbytes), (probes._read_probe(x), nbytes),
+                            (probes._read_kernel_probe(x), nbytes)):
+        run = probes._chain(one_pass, 8, dev, moved)
+        run()
+    torch.cuda.synchronize()
+    v, c = x.clone(), torch.tensor(1.0000001)
+    with pytest.raises(RuntimeError, match="allocated"):
+        probes._chain(lambda: v * c, 8, dev, 2 * nbytes)
+    gbs = probes.measure_probe_slope(probes._copy_probe, (x,), 2 * nbytes, 4, 16, 2)
+    assert np.isfinite(gbs) and gbs > 0
+    r = probes.measure_achievable_bw(n_elems=2 ** 24, device=dev)
+    assert r["probes"] == list(probes.PROBES)
+    assert r["achievable_gbs"] == max(r[f"{p}_gbs"] for p in r["probes"]
+                                      if p not in r["probes_over_peak"])
+
+
+@pytest.mark.parametrize("n", [8, 1024, 2 ** 20 + 4, 2 ** 24])
+def test_stream_probe_kernels_match_twins(dev, n):
+    """The streaming probe kernels: the read's partials sum to the field's sum (f32
+    partials, 1e-5 relative to the sum of magnitudes), the copy equals its source bit for
+    bit; each wrapper counts its launches; fields that are no whole 16-byte vectors raise."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(gen, dev, torch.float32, n)
+    stream_probe.reset_launches()
+    part = torch.empty(stream_probe.read_partials(x), device=dev)
+    total = float(stream_probe.read(x, part).double().sum())
+    assert abs(total - float(x.double().sum())) <= 1e-5 * float(x.double().abs().sum())
+    dst = torch.empty_like(x)
+    assert torch.equal(stream_probe.copy(x, dst), x)
+    assert stream_probe.LAUNCHES == {"probe_read": 1, "probe_copy": 1}
+    with pytest.raises(ValueError, match="multiple of 4"):
+        stream_probe.copy(x[:n - 1], dst[:n - 1])
+    with pytest.raises(ValueError, match="16-byte"):
+        stream_probe.copy(x[1:n - 3], dst[:n - 4])
+    with pytest.raises(ValueError, match="partials"):
+        stream_probe.read(x, part[:0])
+
+
+def test_scopes_reach_the_profiler(dev, tmp_path):
+    """A profiled classic solve carries the phase names (record_function, with NVTX
+    ranges of the same names) and the kernels' names in its trace."""
+    import json
+
+    st = Stencil5(grid_size=64, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5", st, dtype=torch.float64, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cg.cg_solve(op, b_is_ones=True)
+        torch.cuda.synchronize()
+    keys = {e.key for e in prof.key_averages()}
+    assert {profiling.PHASE_SPMV, profiling.PHASE_AXPY, profiling.PHASE_UPDATE_P} <= keys
+    profiling.profiled_run(cg.cg_solve_stepped, op.run_device_dot, op.ones_b(),
+                           logdir=str(tmp_path))
+    (trace,) = tmp_path.glob("*.json")
+    names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"SpMV", "BLAS_AXPY", "BLAS_Update_P", "Dot_Product"} <= names
+    for kernel in ("spmv_planes_kernel", "cg_update_kernel", "p_update"):
+        assert any(kernel in n for n in names), kernel

@@ -45,12 +45,14 @@ def test_no_module_imports_jax():
     for mod in ("tpusparse_torch.ops", "tpusparse_torch.solvers.cg",
                 "tpusparse_torch.kernels.stencil5", "tpusparse_torch.kernels.blas1",
                 "tpusparse_torch.kernels.ell", "tpusparse_torch.kernels.dia",
-                "tpusparse_torch.kernels._launch", "tpusparse_torch.cli.cg_solver",
+                "tpusparse_torch.kernels._launch", "tpusparse_torch.kernels.stream_probe",
+                "tpusparse_torch.cli.cg_solver",
                 "tpusparse_torch.cli.spmv_bench", "tpusparse_torch.bench.sysinfo",
                 "tpusparse_torch.bench.metrics", "tpusparse_torch.convert",
                 "tpusparse_torch.generate", "tpusparse_torch.formats",
                 "tpusparse_torch.io_mtx", "tpusparse_torch.native",
                 "tpusparse_torch.bench.stats", "tpusparse_torch.bench.export",
+                "tpusparse_torch.bench.probes", "tpusparse_torch.bench.profiling",
                 "tpusparse_torch.cli.generate_matrix"):
         assert mod in res["mods"]
 

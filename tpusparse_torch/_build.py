@@ -62,6 +62,9 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"tps_spmv_{k}_{t}": ((_P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
        for k in ("ell", "dia") for t in ("f32", "f64")},
+    "tps_probe_read_partials": ((_I,), _I),
+    "tps_probe_read_f32": ((_P, _I, _P, _P), ctypes.c_int),
+    "tps_probe_copy_f32": ((_P, _P, _I, _P), ctypes.c_int),
 }
 
 _lock = threading.Lock()

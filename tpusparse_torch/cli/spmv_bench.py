@@ -4,9 +4,12 @@ Counterpart of ``tpusparse/cli/spmv_bench.py`` (reference src/main/main.cu:48-55
 
     python -m tpusparse_torch.cli.spmv_bench <matrix.mtx|gen:<g>> --mode=<m1[,m2,...]>
         [--json=<file>] [--csv=<file>] [--runs=10] [--warmup=5] [--dtype=f32|f64]
-        [--resident-x] [--ceiling-from=<probe.json>] [--device=cuda|cpu]
+        [--resident-x] [--ceiling-probe | --ceiling-from=<probe.json>]
+        [--platform=cuda|cpu]
 
-All modes are checked before the operand is loaded (main.cu:94-105); x = ones (:136-137);
+All modes are checked before the operand is loaded (main.cu:94-105); a mode whose operator
+cannot take the matrix (a stencil mode on a matrix that is no 5-point stencil) is skipped
+with ``[SKIP]``, the other modes run, and the exit code is 1; x = ones (:136-137);
 5 warm-ups and 10 timed runs with the reference's statistics (``bench.stats``, :158-167);
 one export per mode, suffixed ``_<mode>`` (:200-241); Sum(y)/Norm2(y) checksums at 16
 decimals (:245-248).
@@ -15,9 +18,12 @@ decimals (:245-248).
 The run times follow ``run_timed`` (upload x, apply, download y) or, with ``--resident-x``,
 ``run_timed_resident`` (x stays on the card); GFLOPS and GB/s come from the device time of
 one apply (``kernel_time_ms``, CUDA events around a chain of applies) and the card's peak
-(``tpusparse_torch.bench.metrics``).  ``--device=cpu`` runs the plain PyTorch twins (for
-tests at small sizes); its times are the CPU's.  The JAX CLI's ``--ceiling-probe`` needs
-the probes, which are not ported yet.
+(``tpusparse_torch.bench.metrics``).  ``--ceiling-probe`` measures the achievable
+streaming ceiling once, before the modes (``bench.probes.measure_achievable_bw``), and
+``--ceiling-from`` reads one from a probe JSON; either way every export then carries
+``roofline_fraction_achievable`` beside the data-sheet share, and ``--ceiling-probe`` also
+the probe's readings (``ceiling_probe``).  ``--platform=cpu`` runs the plain PyTorch twins
+(for tests at small sizes); its times are the CPU's.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 
 from .. import formats, io_mtx, ops
 from .._device import resolve_device, resolve_dtype
-from ..bench import export, metrics, stats, sysinfo
+from ..bench import export, metrics, probes, stats, sysinfo
 
 
 def load_operand(spec: str):
@@ -62,19 +68,18 @@ def build_parser():
                         "once): the reference's timed region (spmv_cusparse_csr.cu:234-264). "
                         "By default every run uploads x and downloads y")
     p.add_argument("--ceiling-probe", action="store_true",
-                   help="measure the achievable HBM ceiling (not ported yet: raises)")
+                   help="measure the achievable memory ceiling (bench.probes) and report "
+                        "roofline_fraction_achievable beside the nominal share")
     p.add_argument("--ceiling-from", default=None, metavar="PROBE_JSON",
                    help="take the achievable ceiling from a probe JSON ('achievable_gbs') "
                         "and report the share of it beside the nominal one")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run: the card's kernels, or their plain twins on the CPU")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.ceiling_probe:
-        raise NotImplementedError("--ceiling-probe needs tpusparse/bench/probes.py, not ported "
-                                  "yet (ROADMAP Queue 1 item 6); pass --ceiling-from=<json>")
     modes = [m.strip() for m in args.mode.split(",") if m.strip()]
     # check every mode before the (possibly slow) load, reference main.cu:94-105
     for m in modes:
@@ -83,20 +88,34 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.platform)
     dtype = resolve_dtype(args.dtype)
     mat, name = load_operand(args.matrix)
     info = sysinfo.get_system_info(device)
     print(f"[INFO] device: {info['device_kind']} x{info['num_devices']} "
           f"(backend={info['backend']}, nvidia-smi: {info.get('nvidia_smi')})")
-    ceiling = None
+    ceiling = probe = None
     if args.ceiling_from:
         with open(args.ceiling_from) as f:
             ceiling = json.load(f)["achievable_gbs"]
         print(f"[INFO] ceiling from {args.ceiling_from}: achievable {ceiling:.1f} GB/s")
+    elif args.ceiling_probe:
+        # before any operator is built: the probes hold up to 4.5 GiB of streams
+        probe = probes.measure_achievable_bw(device=device)
+        ceiling = probe["achievable_gbs"]
+        print("[INFO] ceiling probe: " + " / ".join(
+            f"{name} {probe[f'{name}_gbs']:.1f}" for name in probe["probes"])
+            + f" GB/s -> achievable {ceiling} GB/s (over the data-sheet peak, left out: "
+            f"{probe['probes_over_peak'] or 'none'})")
 
+    rc = 0
     for mode in modes:
-        op = ops.get_operator(mode, mat, dtype=dtype, device=device)
+        try:
+            op = ops.get_operator(mode, mat, dtype=dtype, device=device)
+        except ValueError as e:
+            print(f"[SKIP] mode {mode}: {e}", file=sys.stderr)
+            rc = 1
+            continue
         x = np.ones(op.num_cols, dtype=op.numpy_dtype)
         if args.resident_x:
             x_dev = op.as_field(x)
@@ -121,6 +140,8 @@ def main(argv=None) -> int:
             sum_y=float(y.sum()), norm2_y=float(np.linalg.norm(y)), kernel_ms=kernel_ms,
             run_protocol="device-resident" if args.resident_x else "transfer-inclusive")
         result["dtype"] = args.dtype
+        if probe is not None:
+            result["ceiling_probe"] = probe
         export.print_human_spmv(result)
         print()
         if args.json:
@@ -132,7 +153,7 @@ def main(argv=None) -> int:
             export.append_csv(args.csv, result)
         op.free()
         del op
-    return 0
+    return rc
 
 
 if __name__ == "__main__":
