@@ -17,7 +17,9 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      lengths, uniformly random columns (ELL only: it has ~10^6 diagonals), a width-1
      diagonal, one with empty rows, and a DIA with offsets ±300 and ±1000 holding NaN
      where its diagonals leave the matrix (tolerances: f64 1e-12; f32 1e-5 for fields,
-     1e-4 for dots, relative to the largest reference magnitude); K5 (p bit for bit) and
+     1e-4 for dots, relative to the largest reference magnitude), and the ELL kernel's
+     rectangular call (a quarter of the rows over their gather domain, y bit for bit, the
+     sharded solver's csr band); K5 (p bit for bit) and
      K6 also on fields of 1, 3, 1369 and 10^6 elements, aligned and offset by one element
      in one operand or both, so that both bodies and the vector body's head and tail run;
   4. the SpMVs on ones at 20480² against the analytic checksums: K3 and K10 in f32 and
@@ -53,7 +55,12 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      function where there is one (kernel/library/library/kernel; held to it at 1e-5
      relative, a yardstick, not an oracle): torch.dot for K6, torch.add(r, p, alpha=β) for
      K5, F.conv2d with the 3×3 stencil for K3, bcoo's banded cuSPARSE matvec for the ELL
-     kernel.  Each kernel's
+     kernel, and the ELL kernel's rectangular call at G_BIG²/4 rows (y bit for bit and
+     its dot against the twin) beside the square call's GB/s.  The sharded path's kernels
+     at its shapes: on the bands of 2 and 4 ranks (G_BIG/2 and G_BIG/4 rows, G_BIG wide)
+     with halo rows, K8 (both planes dtypes) and K3 in the overlapped SpMV's three pieces
+     into one y (y also bit for bit the whole band's call), K1 and K2 on the 4-rank band,
+     in f32 and f64.  Each kernel's
      bound: the bytes its call must move (inputs read once, outputs written once) over
      3.35 TB/s, or its operations over the data sheet's peak rate, whichever is larger;
      the solves' median times, next to the card's name and power limit;
@@ -76,10 +83,26 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      GB/s, the achievable ceiling, the export's share of it and each kernel's share of it
      from phase 6's times) and python -m tpusparse_torch.bench.probes's two JSON files
      (the probe set again, and the copy chain's knee points with their passes and µs per
-     pass); the phase's wall time.  Phase 7 leaves the phase scopes out of its sums.
+     pass); the phase's wall time.  Phase 7 leaves the phase scopes out of its sums;
+  9. the multichip CLI (tpusparse_torch.cli.cg_solver_multichip) at gen:20480 in f64, its
+     ranks gloo processes sharing the card (dist.launch_local, each rank running the CLI's
+     main() in the group): stencil5 on 1, 2 and 4 ranks, stencil5-const recompute, csr
+     and --timers stencil5 and stencil5-const on 4, each with --runs=3 --warmup=1,
+     exactly 14 iterations and
+     Sum/Norm2 equal to phase 5's solution of the same mode to 1e-10, the --timers buckets
+     (halo, spmv, allreduce, blas1) each > 0 and summing to no more than the median; every
+     rank's launch counts, set to 0 just before its CLI run, go to chiprun_out/sharded/
+     and must hold its path's kernels (K8, K4, K5, K6; K1, K2, K6; the ELL kernel, K4, K5,
+     K6; K3, K4, K5, K6); on every rank that has a neighbour, its halo exchanges
+     (cg_sharded.HALO_CALLS) and, at least once each, launches of the path's halo kernels
+     (K8; K1 and K2; the ELL kernel; K3) on the rows an exchange received, one rank none;
+     each run's median and
+     rank-time max/min/imbalance, the one-rank median beside phase 5's single-device one;
+     then stencil5-bf16c f32 on 2 ranks, its x equal to stencil5 f32's bit for bit.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record and then {"ok": true, "device": {...}}.  Exports go to chiprun_out/.
+record (launches summed over phases 5 and 9) and then {"ok": true, "device": {...}}.
+Exports go to chiprun_out/.
 """
 
 from __future__ import annotations
@@ -187,6 +210,33 @@ STEPPED_RUNS = {
     "device default f64": (["--device", "--dtype=f64", "--runs=3", "--warmup=1"],
                            "fused-classic", 14, ("spmv_stencil5",) + CLASSIC),
 }
+# phase 9: the multichip CLI at G_BIG² with its ranks sharing the card: label -> (ranks,
+# arguments, the export's loop, the phase-5 run whose solution it must equal, kernels every
+# rank must launch, kernels every rank with a neighbour must launch on exchanged halo rows)
+SHARDED_RUNS = {
+    "sharded stencil5 f64 x1": (1, ["--mode=stencil5", "--dtype=f64"], "classic",
+                                "stencil5 f64", ("spmv_stencil5",) + CLASSIC, ()),
+    "sharded stencil5 f64 x2": (2, ["--mode=stencil5", "--dtype=f64"], "classic",
+                                "stencil5 f64", ("spmv_stencil5",) + CLASSIC,
+                                ("spmv_stencil5",)),
+    "sharded stencil5 f64 x4": (4, ["--mode=stencil5", "--dtype=f64"], "classic",
+                                "stencil5 f64", ("spmv_stencil5",) + CLASSIC,
+                                ("spmv_stencil5",)),
+    "sharded const f64 recompute x4": (4, ["--mode=stencil5-const", "--dtype=f64"],
+                                       "recompute-ap", "const f64 recompute", RECOMPUTE,
+                                       RECOMPUTE[:2]),
+    "sharded csr f64 x4": (4, ["--mode=csr", "--dtype=f64"], "classic", "csr f64",
+                           ("spmv_ell",) + CLASSIC, ("spmv_ell",)),
+    "sharded stencil5 f64 --timers x4": (4, ["--mode=stencil5", "--dtype=f64", "--timers"],
+                                         "host-stepped", "stencil5 f64",
+                                         ("spmv_stencil5",) + CLASSIC, ("spmv_stencil5",)),
+    "sharded const f64 --timers x4": (4, ["--mode=stencil5-const", "--dtype=f64", "--timers"],
+                                      "host-stepped", "const f64 recompute",
+                                      ("spmv_stencil5_const",) + CLASSIC,
+                                      ("spmv_stencil5_const",)),
+}
+SHARDED_ARGS = ["--runs=3", "--warmup=1"]
+SHARDED_DIR = OUT / "sharded"
 # two of phase 5's CLI medians as PERF.md section 6 records them before the solver had
 # phase scopes (NVIDIA H100 80GB HBM3, 700.00 W), in ms
 RECORDED_MEDIANS = {"stencil5 f64": 255.3, "const f64 recompute": 144.78}
@@ -470,6 +520,26 @@ def compare_generic(torch, ell, dia, cmp, operands, x, label):
             raise AssertionError(f"{KERNELS[name][0]} {label}: y is not finite")
 
 
+def ell_band(torch, generate, g, lo, hi, dtype):
+    """The sharded solver's ELL operand of grid rows [lo, hi): the stencil's band, its
+    columns rebased into the gather domain [halo_prev; band; halo_next]."""
+    vals, cols = generate.make_stencil5_ell_device(g, DIAG, OFFDIAG, dtype=dtype,
+                                                   device="cuda", rows=(lo, hi))
+    return vals, cols.sub_(lo * g - g)
+
+
+def compare_ell_band(torch, ell, generate, cmp, g, dtype, randn):
+    """The ELL kernel's rectangular call against its twin: a quarter of the grid's rows
+    over its gather domain, the dot from the band's own rows (``dot_offset``)."""
+    lo, hi = g // 4, g // 2
+    vals, cols = ell_band(torch, generate, g, lo, hi, dtype)
+    dom = randn((hi - lo + 2) * g)
+    y, d = ell.spmv_ell(vals, cols, dom, with_dot=True, dot_offset=g)
+    yp, dp = ell.spmv_ell_plain(vals, cols, dom, with_dot=True, dot_offset=g)
+    cmp.check("spmv_ell", f"g={g} {dname(dtype)} rows [{lo}, {hi}) over their gather domain",
+              dtype, [("y", y, yp, "exact"), ("dot", d, dp, "dot")])
+
+
 def generic_matrices():
     """Phase 3's host matrices, 10^6 rows each, made with vectorized numpy from a seed:
     {label: (ELLMatrix or None, DIAMatrix or None)}."""
@@ -535,6 +605,7 @@ def phase_compare(torch, st5, blas1, ell, dia, cmp):
                 generate.make_stencil5_ell_device(g, DIAG, OFFDIAG, dtype=dtype, device=dev),
                 generate.make_stencil5_dia_device(g, DIAG, OFFDIAG, dtype=dtype, device=dev)),
                 randn(g * g), f"stencil {lab}")
+            compare_ell_band(torch, ell, generate, cmp, g, dtype, randn)
     compare_k5_k6_alignments(torch, blas1, cmp)
     t0 = time.perf_counter()
     mats = generic_matrices()
@@ -960,6 +1031,84 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
     return times
 
 
+def compare_band_pieces(torch, st5, cmp, planes, p, hp, hn, label):
+    """K8 (``planes``) or K3 (None) over a band with exchanged halo rows, as the sharded
+    solver's overlapped SpMV runs it: the interior rows, then the first and the last row,
+    each piece from its own contiguous planes into its rows of one y (``out=``), the
+    rows next to a piece from the band itself.  y against the twin over the whole band,
+    the three dots' sum against its dot, and y bit for bit against the kernel's own call
+    over the whole band (the synchronous SpMV)."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    band = p.shape[0]
+
+    def spmv(rows, above, below, out=None):
+        if planes is None:
+            return st5.spmv_stencil5_const(p[rows], above, below, with_dot=True, out=out, **kw)
+        return st5.spmv_stencil5(planes[:, rows].contiguous(), p[rows], above, below,
+                                 with_dot=True, out=out)
+
+    name = "spmv_stencil5_const" if planes is None else "spmv_stencil5"
+    y = torch.empty_like(p)
+    dots = [spmv(slice(1, band - 1), p[0:1], p[-1:], y[1:-1])[1],
+            spmv(slice(0, 1), hp, p[1:2], y[0:1])[1],
+            spmv(slice(band - 1, band), p[-2:-1], hn, y[-1:])[1]]
+    whole, _ = spmv(slice(0, band), hp, hn)
+    if planes is None:
+        yp, dp = st5.spmv_stencil5_const_plain(p, hp, hn, with_dot=True, **kw)
+    else:
+        yp, dp = st5.spmv_stencil5_plain(planes, p, hp, hn, with_dot=True)
+    cmp.check(name, label, p.dtype, [("y", y, yp, "field"),
+                                     ("dot", dots[0] + dots[1] + dots[2], dp, "dot"),
+                                     ("y whole band", y, whole, "exact")])
+
+
+def phase_full_size_bands(torch, st5, cmp):
+    """The sharded path's kernels against their twins at G_BIG width on the bands of 2 and
+    4 ranks, with exchanged halo rows (seeded random fields): K8 in both planes dtypes
+    and K3 in the overlapped SpMV's three pieces, K1 and K2 over a whole band."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        for ranks in (4, 2):
+            torch.cuda.empty_cache()
+            band = G_BIG // ranks
+            gen = torch.Generator(device=dev).manual_seed(ranks)
+
+            def rand(*shape):
+                return torch.rand(*shape, generator=gen, device=dev, dtype=dtype)
+
+            p, hp, hn = rand(band, G_BIG), rand(1, G_BIG), rand(1, G_BIG)
+            lab = f"{ranks}-rank band {band}×{G_BIG} {dname(dtype)} + halos"
+            compare_band_pieces(torch, st5, cmp, None, p, hp, hn, lab + ", three pieces")
+            for pdt in (dtype, torch.bfloat16):
+                planes = rand(5, band, G_BIG).to(pdt)
+                compare_band_pieces(torch, st5, cmp, planes, p, hp, hn,
+                                    f"{lab}, planes {dname(pdt)}, three pieces")
+                del planes
+            if ranks != 4:
+                continue
+            r, x = rand(band, G_BIG), rand(band, G_BIG)
+            s = torch.tensor(0.37, dtype=dtype, device=dev)
+            pk, dk = st5.spmv_stencil5_const_pupdate_dot(s, r, p, hp, hn,
+                                                         out=torch.empty_like(p), **kw)
+            pp, dp = st5.spmv_stencil5_const_pupdate_dot_plain(s, r, p, hp, hn, **kw)
+            cmp.check("spmv_stencil5_const_pupdate_dot", f"{lab} beta=0.37", dtype,
+                      [("p'", pk, pp, "field"), ("<p',Ap'>", dk, dp, "dot")])
+            del pk, pp
+            xk, rk, dk = st5.cg_const_update_recompute(s, x.clone(), r.clone(), p, hp, hn, **kw)
+            xp, rp, dp = st5.cg_const_update_recompute_plain(s, x.clone(), r.clone(), p, hp,
+                                                             hn, **kw)
+            cmp.check("cg_const_update_recompute", lab, dtype,
+                      [("x'", xk, xp, "field"), ("r'", rk, rp, "field"),
+                       ("<r',r'>", dk, dp, "dot")])
+            del xk, rk, xp, rp, r, x
+        del p
+    torch.cuda.empty_cache()
+    print(f"[compare] the sharded path's bands at {G_BIG} wide took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
     """K11 and the ELL kernel against their twins at G_BIG² on the stencil's operands made
     on the card and a seeded random x, then timed against them; adds to ``times``.  The
@@ -1000,8 +1149,39 @@ def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
                 bcoo.free()
                 del bcoo
             del operand
+            if name == "spmv_ell":
+                time_ell_band(torch, ell, generate, cmp, times[name][key], dtype, smi)
         del x
     torch.cuda.empty_cache()
+
+
+def time_ell_band(torch, ell, generate, cmp, square, dtype, smi):
+    """The ELL kernel's rectangular call as the sharded csr band makes it on 4 ranks
+    (G_BIG/4 grid rows over their gather domain, the band's own dot from ``dot_offset``):
+    against its twin (y bit for bit, the dot to tolerance), then timed beside the square
+    call's rate at G_BIG² (``square``: its timing entry), both in GB/s of the bytes each
+    must move."""
+    torch.cuda.empty_cache()
+    rows = G_BIG // 4
+    vals, cols = ell_band(torch, generate, G_BIG, rows, 2 * rows, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dom = torch.rand((rows + 2) * G_BIG, generator=gen, device="cuda", dtype=dtype)
+
+    def call():
+        return ell.spmv_ell(vals, cols, dom, with_dot=True, dot_offset=G_BIG)
+
+    y, d = call()
+    yp, dp = ell.spmv_ell_plain(vals, cols, dom, with_dot=True, dot_offset=G_BIG)
+    cmp.check("spmv_ell", f"{rows} of {G_BIG} rows over their gather domain "
+              f"{dname(dtype)}", dtype, [("y", y, yp, "exact"), ("dot", d, dp, "dot")])
+    del y, yp
+    ms = _time_ms(torch, call)
+    moved = nbytes(vals, cols, dom) + rows * G_BIG * dom.element_size()
+    square_gbs = square["bound_ms"] * HBM_BYTES_PER_S / 1e9 / square["ms"]
+    print(f"[time] ELL kernel rectangular, {rows} of {G_BIG} rows over their gather domain, "
+          f"{dname(dtype)}: {ms!r} ms, {moved / ms / 1e6!r} GB/s; the square call at "
+          f"{G_BIG}²: {square['ms']!r} ms, {square_gbs!r} GB/s [{smi}]", flush=True)
+    del vals, cols, dom
 
 
 def phase_profile(torch, smi, medians):
@@ -1246,6 +1426,128 @@ def phase_stepped(torch, counters, cg_cli, spmv_cli, results, splits, times, smi
     print(f"[stepped] phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def _sharded_rank(device, argv, counts_path):
+    """One rank of a phase-9 run (spawned by dist.launch_local): the multichip CLI's main()
+    in the group, as under torchrun, its launch counts and the solver's halo counts
+    (``cg_sharded.HALO_CALLS``: the exchanges, and the calls given an exchanged row) set
+    to 0 just before and written to <counts_path>_rank<r>.json just after."""
+    from tpusparse_torch import dist
+    from tpusparse_torch.cli import cg_solver_multichip
+    from tpusparse_torch.kernels import blas1, ell
+    from tpusparse_torch.kernels import stencil5 as st5
+    from tpusparse_torch.solvers import cg_sharded
+
+    counters = (st5, blas1, ell)
+    for c in counters:
+        c.reset_launches()
+    cg_sharded.reset_halo_calls()
+    rc = cg_solver_multichip.main(argv)
+    counts = {"LAUNCHES": {n: v for c in counters for n, v in c.LAUNCHES.items() if v},
+              "HALO_CALLS": dict(cg_sharded.HALO_CALLS)}
+    pathlib.Path(f"{counts_path}_rank{dist.rank()}.json").write_text(json.dumps(counts))
+    return rc
+
+
+def _bf16c_rank(device):
+    """stencil5 and stencil5-bf16c, f32, at G_BIG² on this rank; rank 0 returns whether
+    the gathered solutions are equal bit for bit, and both iteration counts."""
+    import numpy as np
+    import torch
+
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    xs, its = [], []
+    for mode in ("stencil5", "stencil5-bf16c"):
+        x, s = cg_sharded.cg_solve_sharded(G_BIG, mode=mode, dtype=torch.float32,
+                                           device=device)
+        xs.append(dist.gather_to_host(x, rows=G_BIG))
+        its.append(s.iterations)
+        del x
+        cg_sharded.clear_caches()
+    return None if xs[0] is None else (bool(np.array_equal(xs[0], xs[1])), its)
+
+
+def phase_sharded(torch, results, smi):
+    """Phase 9: the multichip CLI at G_BIG² with 1, 2 and 4 ranks sharing the card (gloo,
+    halos and dots staged through the host), each run from its ranks' own launch counts.
+    Returns {wrapper: launches summed over the runs and ranks}."""
+    from tpusparse_torch import dist
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    SHARDED_DIR.mkdir(parents=True, exist_ok=True)
+    launches = {}
+    for label, (n, extra, loop, ref_label, needs, halo_needs) in SHARDED_RUNS.items():
+        slug = re.sub(r"[^a-z0-9]+", "_", label)
+        path, counts_path = OUT / f"chip_smoke_{slug}.json", SHARDED_DIR / slug
+        t0 = time.perf_counter()
+        rc = dist.launch_local(_sharded_rank, n, [f"gen:{G_BIG}", *extra, *SHARDED_ARGS,
+                                                  f"--chips={n}", f"--json={path}"],
+                               str(counts_path), device="cuda")
+        wall = time.perf_counter() - t0
+        res = json.loads(path.read_text())
+        its, t = res["convergence"]["iterations"], res["timing"]
+        for r in range(n):
+            counts = json.loads(pathlib.Path(f"{counts_path}_rank{r}.json").read_text())
+            halo = counts["HALO_CALLS"]
+            print(f"[launches] {label} rank {r}: " + ", ".join(
+                f"{short(k)} {v} ({halo.get(k, 0)} on exchanged halo rows)"
+                for k, v in counts["LAUNCHES"].items())
+                + f"; {halo['exchange']} halo exchanges", flush=True)
+            missing = [short(k) for k in needs if not counts["LAUNCHES"].get(k)]
+            if n > 1:  # every rank of several has a neighbour: each exchange's rows must
+                # reach a launch of each of its path's halo kernels
+                missing += [f"{short(k)} on exchanged halo rows ({halo[k]} of "
+                            f"{halo['exchange']} exchanges)" for k in halo_needs
+                            if not 0 < halo["exchange"] <= halo[k]
+                            <= counts["LAUNCHES"].get(k, 0)]
+            elif any(halo.values()):
+                missing += [f"no halo on one rank, got {halo}"]
+            if missing:
+                raise AssertionError(f"{label} rank {r}: never launched {missing}")
+            for k, v in counts["LAUNCHES"].items():
+                launches[k] = launches.get(k, 0) + v
+        ref = results[ref_label]["validation"]
+        errs = {k: abs(res["validation"][k] - ref[k]) / abs(ref[k])
+                for k in ("solution_sum", "solution_norm")}
+        rank_t = (f"rank times max {t['solve_time_max_ms']!r} / min {t['solve_time_min_ms']!r}"
+                  f" ms, imbalance {t['load_imbalance_pct']!r}%" if n > 1 else "one rank")
+        print(f"[sharded] {label}: rc {rc}, mode {res['mode']}, loop {res['loop']}, {its} "
+              f"iterations, median {t['total_median_ms']!r} ms over "
+              f"{res['statistics']['total_runs']} runs ({rank_t}); gather to rank 0 "
+              f"{t['allgather_ms']!r} ms; Sum rel {errs['solution_sum']:.3e}, Norm2 rel "
+              f"{errs['solution_norm']:.3e} against phase 5's {ref_label} (tol 1e-10); the "
+              f"run's wall {wall:.1f} s [{smi}]", flush=True)
+        if rc != 0 or its != 14 or res["loop"] != loop or not max(errs.values()) <= 1e-10:
+            raise AssertionError(f"{label}: rc {rc}, {its} iterations, loop {res['loop']}, "
+                                 f"{errs}")
+        if loop == "host-stepped":
+            buckets = {k: t[f"{k}_ms"] for k in ("halo", "spmv", "allreduce", "blas1")}
+            print(f"[sharded] {label} buckets: " + ", ".join(
+                f"{k} {v!r} ms" for k, v in buckets.items())
+                  + f"; sum {sum(buckets.values())!r} of the median {t['total_median_ms']!r} "
+                  f"ms [{smi}]", flush=True)
+            if not (min(buckets.values()) > 0
+                    and sum(buckets.values()) <= t["total_median_ms"]):
+                raise AssertionError(f"{label}: buckets {buckets}")
+        if n == 1:
+            single = results[ref_label]["timing"]["total_median_ms"]
+            print(f"[sharded] {label}: one rank's median {t['total_median_ms']!r} ms against "
+                  f"phase 5's single-device {ref_label} median {single!r} ms: the sharded "
+                  f"machinery and its host-read dots cost "
+                  f"{t['total_median_ms'] - single!r} ms a solve [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    equal, its = dist.launch_local(_bf16c_rank, 2, device="cuda")
+    print(f"[sharded] stencil5-bf16c f32 on 2 ranks: {its[1]} iterations, x equal to "
+          f"stencil5 f32's ({its[0]} iterations) bit for bit: {equal} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not equal or its[0] != its[1]:
+        raise AssertionError("sharded stencil5-bf16c x differs from sharded stencil5 f32 x")
+    print(f"[sharded] phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1272,12 +1574,15 @@ def main() -> int:
     results, fused, launches = phase_main_path(torch, (st5, blas1, ell, dia), cg_cli,
                                                spmv_cli)
     times = phase_full_size(torch, st5, blas1, cmp, smi)
+    phase_full_size_bands(torch, st5, cmp)
     phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times)
     medians = {label: res["timing"]["total_median_ms"] for label, res in results.items()}
     medians.update({label: median_ms for label, (median_ms, _its) in fused.items()})
     splits = phase_profile(torch, smi, medians)
     phase_stepped(torch, (st5, blas1, ell, dia, stream_probe), cg_cli, spmv_cli, results,
                   splits, times, smi)
+    for name, count in phase_sharded(torch, results, smi).items():
+        launches[name] += count
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "

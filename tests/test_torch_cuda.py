@@ -16,8 +16,11 @@ offset by one element, and K6 to be bitwise repeatable over 1000 calls and on tw
 (``cg_solve_stepped``) is held to ``cg_solve``'s iteration count and x (f64 1e-12, f32
 1e-5); a probe's chain runs as a CUDA graph, and a chain whose passes allocate a field
 raises at its capture; the streaming probe kernels equal their twins; the phase scopes
-reach the profiler's events.  The matrices come from the port's own
-``formats`` and ``generate``: this file imports nothing of the JAX package.
+reach the profiler's events.  The sharded solver runs on one rank against ``cg_solve``
+and on two gloo ranks sharing the card (spawned by ``dist.launch_local``, which imports
+this module in each rank), its pieces against their twins: the ELL kernel's rectangular
+call and K3/K8 on one-row bands written into a larger y.  The matrices come from the
+port's own ``formats`` and ``generate``: this file imports nothing of the JAX package.
 """
 
 import numpy as np
@@ -508,3 +511,107 @@ def test_scopes_reach_the_profiler(dev, tmp_path):
     assert {"SpMV", "BLAS_AXPY", "BLAS_Update_P", "Dot_Product"} <= names
     for kernel in ("spmv_planes_kernel", "cg_update_kernel", "p_update"):
         assert any(kernel in n for n in names), kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rectangular_ell_matches_twin_on_card(dev, dtype):
+    """The ELL kernel over a gather domain: a band of rows [lo, hi) of the g = 37 stencil,
+    columns rebased into [halo_prev; band; halo_next], against its twin (y bit for bit,
+    the band's own dot from ``dot_offset``)."""
+    g, lo, hi = 37, 10, 20
+    vals, cols = generate.make_stencil5_ell_device(g, dtype=dtype, device=dev, rows=(lo, hi))
+    cols = cols - (lo * g - g)
+    dom = _randn(torch.Generator(device=dev).manual_seed(3), dev, dtype, (hi - lo + 2) * g)
+    ell.reset_launches()
+    y, d = ell.spmv_ell(vals, cols, dom, with_dot=True, dot_offset=g)
+    yp, dp = ell.spmv_ell_plain(vals, cols, dom, with_dot=True, dot_offset=g)
+    assert y.shape == ((hi - lo) * g,) and torch.equal(y, yp)
+    assert _rel(d, dp) <= TOL[dtype][1]
+    assert ell.LAUNCHES == {"spmv_ell": 1}
+    with pytest.raises(ValueError, match="dot_offset"):
+        ell.spmv_ell(vals, cols, dom, with_dot=True, dot_offset=3 * g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_row_pieces_match_twins_on_card(dev, dtype):
+    """K8 and K3 on bands of one row with both halo rows, written into a row of a larger
+    y (``out=``): the sharded solver's boundary rows."""
+    g = 1000
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x, hp, hn = (_randn(gen, dev, dtype, 1, g) for _ in range(3))
+    planes = _randn(gen, dev, dtype, 5, 1, g)
+    y = torch.zeros(3, g, device=dev, dtype=dtype)
+    _, d = st5.spmv_stencil5(planes, x, hp, hn, with_dot=True, out=y[1:2])
+    yp, dp = st5.spmv_stencil5_plain(planes, x, hp, hn, with_dot=True)
+    assert torch.equal(y[1:2], yp) and not y[0].any() and not y[2].any()
+    assert _rel(d, dp) <= TOL[dtype][1]
+    _, d = st5.spmv_stencil5_const(x, hp, hn, with_dot=True, out=y[0:1], **KW)
+    yp, dp = st5.spmv_stencil5_const_plain(x, hp, hn, with_dot=True, **KW)
+    assert _rel(y[0:1], yp) <= TOL[dtype][0] and _rel(d, dp) <= TOL[dtype][1]
+    with pytest.raises(ValueError, match="overlap"):
+        st5.spmv_stencil5_const(x, hp, hn, out=hp, **KW)
+
+
+def test_sharded_one_rank_on_card_equals_cg_solve(dev):
+    """The sharded solve on one rank (no process group) at g = 1000, f64, against
+    ``cg.cg_solve`` on the same card: identical iterations, x to 1e-12, through K8, K4,
+    K5 and K6."""
+    from tpusparse_torch.solvers import cg_sharded
+
+    g = 1000
+    op = ops.get_operator("stencil5", Stencil5(grid_size=g, planes=None,
+                                               constant=(5.0, -1.0)),
+                          dtype=torch.float64, device=dev)
+    x_ref, s_ref = cg.cg_solve(op, b_is_ones=True)
+    st5.reset_launches()
+    blas1.reset_launches()
+    x, s = cg_sharded.cg_solve_sharded(g, mode="stencil5", dtype=torch.float64, device=dev)
+    cg_sharded.clear_caches()
+    assert s.converged and s.iterations == s_ref.iterations
+    assert _rel(x, x_ref) <= 1e-12
+    assert st5.LAUNCHES["spmv_stencil5"] == s.iterations
+    assert blas1.LAUNCHES["cg_update"] == blas1.LAUNCHES["p_update"] == s.iterations
+    assert blas1.LAUNCHES["dot"] == 1
+
+
+def _two_ranks_on_card(device):
+    """Each rank: stencil5 (overlapped), stencil5-const recompute and csr at g = 64, f64,
+    its kernels' launches and those given an exchanged halo row, and the solutions
+    gathered to rank 0."""
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    out = {}
+    for mode in ("stencil5", "stencil5-const", "csr"):
+        for counter in (st5, blas1, ell):
+            counter.reset_launches()
+        cg_sharded.reset_halo_calls()
+        x, s = cg_sharded.cg_solve_sharded(64, mode=mode, dtype=torch.float64, device=device)
+        launched = {**st5.LAUNCHES, **ell.LAUNCHES}
+        halos = {k: min(v, launched[k]) for k, v in cg_sharded.HALO_CALLS.items()
+                 if v and k != "exchange"}
+        out[mode] = (dist.gather_to_host(x, rows=64), s.iterations,
+                     dist._all_objects((cg_sharded.HALO_CALLS["exchange"], halos)))
+    return out
+
+
+def test_two_ranks_share_the_card(dev):
+    """Two gloo ranks on one card, halos staged through pinned host memory: each mode's
+    solution against the one-device solve on the CPU (iterations identical, x to 1e-12),
+    and every rank exchanged rows once an iteration and launched its path's kernels on
+    them."""
+    from tpusparse_torch import dist
+
+    got = dist.launch_local(_two_ranks_on_card, 2, device="cuda")
+    want_halo = {"stencil5": {"spmv_stencil5"},
+                 "stencil5-const": {"spmv_stencil5_const_pupdate_dot",
+                                    "cg_const_update_recompute"},
+                 "csr": {"spmv_ell"}}
+    st = Stencil5(grid_size=64, planes=None, constant=(5.0, -1.0))
+    for mode, (x, iterations, halos) in got.items():
+        ref, s_ref = cg.cg_solve(ops.get_operator(mode, st, dtype=torch.float64,
+                                                  device="cpu"), b_is_ones=True)
+        assert iterations == s_ref.iterations
+        assert _rel(torch.from_numpy(x), ref.reshape(64, 64)) <= 1e-12
+        assert all(ex == iterations and want_halo[mode] <= set(h) for ex, h in halos), \
+            (mode, halos)

@@ -53,7 +53,9 @@ def test_no_module_imports_jax():
                 "tpusparse_torch.io_mtx", "tpusparse_torch.native",
                 "tpusparse_torch.bench.stats", "tpusparse_torch.bench.export",
                 "tpusparse_torch.bench.probes", "tpusparse_torch.bench.profiling",
-                "tpusparse_torch.cli.generate_matrix"):
+                "tpusparse_torch.cli.generate_matrix", "tpusparse_torch.dist",
+                "tpusparse_torch.solvers.cg_sharded", "tpusparse_torch.cli.cg_solver_multichip",
+                "tpusparse_torch.bench.sharded_overlap"):
         assert mod in res["mods"]
 
 

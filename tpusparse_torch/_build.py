@@ -60,8 +60,10 @@ _SIGNATURES = {
     **{f"tps_dot_{t}": ((_P, _P, _I, _P, _P, _P, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_axpby_dot_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
        for t in ("f32", "f64")},
-    **{f"tps_spmv_{k}_{t}": ((_P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
-       for k in ("ell", "dia") for t in ("f32", "f64")},
+    **{f"tps_spmv_ell_{t}": ((_P, _P, _P, _P, _I, _I, _I, _P, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64")},
+    **{f"tps_spmv_dia_{t}": ((_P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64")},
     "tps_probe_read_partials": ((_I,), _I),
     "tps_probe_read_f32": ((_P, _I, _P, _P), ctypes.c_int),
     "tps_probe_copy_f32": ((_P, _P, _I, _P), ctypes.c_int),

@@ -268,10 +268,10 @@ def print_human_cg(result: Dict[str, Any]) -> None:
                   f"({100 * t['reductions_ms'] / tot:.0f}%)")
         if t.get("halo_ms"):
             print(f"  Halo:     {t['halo_ms']:.2f} ms ({100 * t['halo_ms'] / tot:.0f}%)  "
-                  f"[ppermute]")
+                  f"[D2H, gloo, H2D]")
         if t.get("allreduce_ms"):
             print(f"  Allreduce:{t['allreduce_ms']:.2f} ms "
-                  f"({100 * t['allreduce_ms'] / tot:.0f}%)  [psum + readback]")
+                  f"({100 * t['allreduce_ms'] / tot:.0f}%)  [dot reads + gloo gather]")
     v = result["validation"]
     print("=== Solution Checksum ===")
     print(f"Sum(x)   = {v['solution_sum']:.16f}")

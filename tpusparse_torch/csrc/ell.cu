@@ -13,8 +13,11 @@
 // Operator: y[i] = sum over k = 0..W-1 of vals[k*n + i] * x[cols[k*n + i]], summed from 0
 // in slot order, every product and sum an explicitly rounded intrinsic: y equals the plain
 // twin spmv_ell_plain (tpusparse_torch/kernels/ell.py) bit for bit.  Padding slots hold
-// val 0 and an in-range column (formats.csr_to_ell).  Optionally the partials of <x, y>
-// (x and y share one field: the matrix is square).
+// val 0 and an in-range column (formats.csr_to_ell).  x may hold more entries than the n
+// rows (the sharded solver's band over a gather domain with the neighbours' halo rows);
+// columns index x.  Optionally the partials of <x[dot_offset : dot_offset + n], y>: with a
+// square matrix dot_offset is 0, over the gather domain it skips the halo row before the
+// band.
 //
 // Layout: vals (W, n) in the state's dtype and cols (W, n) int32, slot-major, so that the
 // threads of a warp, on neighbouring rows, read neighbouring addresses of each slot.
@@ -42,7 +45,7 @@ template <typename T, bool kDot>
 __global__ void __launch_bounds__(kRowThreads)
 spmv_ell_kernel(const T* __restrict__ vals, const int32_t* __restrict__ cols,
                 const T* __restrict__ x, T* __restrict__ y, int64_t width, int64_t n,
-                T* partials) {
+                int64_t dot_offset, T* partials) {
   const int64_t i = row_index();
   T acc = T(0);
   if (i < n) {
@@ -53,23 +56,25 @@ spmv_ell_kernel(const T* __restrict__ vals, const int32_t* __restrict__ cols,
       out = add_rn(out, mul_rn(vals[e], __ldg(x + cols[e])));
     }
     y[i] = out;
-    if (kDot) acc = mul_rn(__ldg(x + i), out);
+    if (kDot) acc = mul_rn(__ldg(x + dot_offset + i), out);
   }
   if (kDot) store_partial(acc, partials);
 }
 
 template <typename T>
 int spmv_ell(const void* vals, const void* cols, const void* x, void* y, int64_t width,
-             int64_t n, void* partials, void* dot, void* stream) {
+             int64_t n, int64_t dot_offset, void* partials, void* dot, void* stream) {
   const int64_t blocks = row_blocks(n);
   cudaStream_t s = (cudaStream_t)stream;
   T* part = dot != nullptr ? (T*)partials : nullptr;
   if (part != nullptr) {
     spmv_ell_kernel<T, true><<<(unsigned)blocks, kRowThreads, 0, s>>>(
-        (const T*)vals, (const int32_t*)cols, (const T*)x, (T*)y, width, n, part);
+        (const T*)vals, (const int32_t*)cols, (const T*)x, (T*)y, width, n, dot_offset,
+        part);
   } else {
     spmv_ell_kernel<T, false><<<(unsigned)blocks, kRowThreads, 0, s>>>(
-        (const T*)vals, (const int32_t*)cols, (const T*)x, (T*)y, width, n, part);
+        (const T*)vals, (const int32_t*)cols, (const T*)x, (T*)y, width, n, dot_offset,
+        part);
   }
   return finish_dot<T>(part, blocks, (T*)dot, s);
 }
@@ -82,16 +87,19 @@ extern "C" {
 // needs.
 int64_t tps_row_partials(int64_t n) { return row_blocks(n); }
 
-// vals (width, n), cols (width, n) int32 in [0, n), x/y (n); partials sized by
-// tps_row_partials(n), dot (one element) or null for no dot.
+// vals (width, n), cols (width, n) int32 in [0, m), x (m >= n), y (n); partials sized by
+// tps_row_partials(n), dot (one element) or null for no dot, which reads x from
+// dot_offset (0 <= dot_offset <= m - n).
 int tps_spmv_ell_f32(const void* vals, const void* cols, const void* x, void* y,
-                     int64_t width, int64_t n, void* partials, void* dot, void* stream) {
-  return spmv_ell<float>(vals, cols, x, y, width, n, partials, dot, stream);
+                     int64_t width, int64_t n, int64_t dot_offset, void* partials, void* dot,
+                     void* stream) {
+  return spmv_ell<float>(vals, cols, x, y, width, n, dot_offset, partials, dot, stream);
 }
 
 int tps_spmv_ell_f64(const void* vals, const void* cols, const void* x, void* y,
-                     int64_t width, int64_t n, void* partials, void* dot, void* stream) {
-  return spmv_ell<double>(vals, cols, x, y, width, n, partials, dot, stream);
+                     int64_t width, int64_t n, int64_t dot_offset, void* partials, void* dot,
+                     void* stream) {
+  return spmv_ell<double>(vals, cols, x, y, width, n, dot_offset, partials, dot, stream);
 }
 
 }  // extern "C"

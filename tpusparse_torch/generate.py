@@ -7,7 +7,8 @@ Norm2 of y = A·ones).  The device half builds the stencil's coefficient planes
 (``make_stencil5_planes_device``), its ELL, DIA and CSR operands
 (``make_stencil5_ell_device``, ``make_stencil5_dia_device``, ``make_stencil5_csr_device``)
 and the canonical x = ones / b = ones field (``ones_field``) directly on the target device
-in the target dtype.
+in the target dtype.  The planes, the ELL operand and b = ones (``ones_band``) also come as
+one rank's row band with zero pad rows, for the sharded solver.
 """
 
 from __future__ import annotations
@@ -116,28 +117,57 @@ def ones_field(grid_size: int, dtype=torch.float32, device="cuda"):
 
 
 def make_stencil5_planes_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_OFFDIAG,
-                                dtype=torch.float32, device="cuda"):
+                                dtype=torch.float32, device="cuda", rows=None, pad_rows=0):
     """The (5, g, g) coefficient planes of the g×g stencil, in the order N, W, C, E, S,
     made on the device in ``dtype``: the port of ``tpusparse.generate.
     make_stencil5_planes_device``, with the masks of ``make_stencil5`` (row 0 has no N, the
     last row no S, column 0 no W, the last column no E).
 
-    One (5, g, g) tensor is allocated and each plane filled in place, so the peak footprint
-    is the output alone: five (g, g) planes and a ``torch.stack`` would double it (16.8 GB
-    for f32 at 20480²).  bfloat16 is filled directly, never through an f32 copy; 5, -1 and 0
+    ``rows=(lo, hi)`` makes only grid rows [lo, hi) of them, and ``pad_rows`` appends that
+    many rows of zero planes: a rank's band, (5, hi − lo + pad_rows, g), with N masked only
+    where the band holds global row 0 and S only where it holds row g − 1, the planes the
+    JAX package's ``_sharded_planes`` (``cg_sharded.py:249-268``) made whole and sharded.
+
+    One tensor is allocated and each plane filled in place, so the peak footprint is the
+    output alone: five (g, g) planes and a ``torch.stack`` would double it (16.8 GB for
+    f32 at 20480²).  bfloat16 is filled directly, never through an f32 copy; 5, -1 and 0
     are exact in it."""
     g = int(grid_size)
     if g < 1:
         raise ValueError("grid_size must be >= 1")
-    planes = torch.empty((5, g, g), dtype=dtype, device=resolve_device(device))
-    planes[C].fill_(diag)
+    lo, hi = _band(g, rows, pad_rows)
+    planes = torch.empty((5, hi - lo + pad_rows, g), dtype=dtype, device=resolve_device(device))
+    real = planes[:, :hi - lo]
+    real[C].fill_(diag)
     for d in (N, S, W, E):
-        planes[d].fill_(offdiag)
-    planes[N, 0].zero_()
-    planes[S, -1].zero_()
-    planes[W, :, 0].zero_()
-    planes[E, :, -1].zero_()
+        real[d].fill_(offdiag)
+    if lo == 0 and hi > 0:
+        real[N, 0].zero_()
+    if lo < g <= hi:
+        real[S, -1].zero_()
+    real[W, :, 0].zero_()
+    real[E, :, -1].zero_()
+    planes[:, hi - lo:].zero_()
     return planes
+
+
+def ones_band(grid_size: int, rows=None, pad_rows=0, dtype=torch.float32, device="cuda"):
+    """The canonical b = ones on grid rows [lo, hi) (``rows``, default all), with
+    ``pad_rows`` zero rows appended: a rank's band of the right-hand side, made on the
+    device (the JAX package's ``_local_ones_b``, ``cg_sharded.py:406-412``)."""
+    g = int(grid_size)
+    lo, hi = _band(g, rows, pad_rows)
+    b = torch.ones((hi - lo + pad_rows, g), dtype=dtype, device=resolve_device(device))
+    b[hi - lo:].zero_()
+    return b
+
+
+def _band(g, rows, pad_rows):
+    """(lo, hi) of a band of a g-row grid, checked."""
+    lo, hi = (0, g) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= lo <= hi <= g or pad_rows < 0:
+        raise ValueError(f"rows {rows} with {pad_rows} pad rows do not fit a grid of {g} rows")
+    return lo, hi
 
 
 def stencil5_ell_device_ok(grid_size: int, diag, offdiag) -> bool:
@@ -153,7 +183,7 @@ def stencil5_dia_device_ok(grid_size: int) -> bool:
 
 
 def make_stencil5_ell_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_OFFDIAG,
-                             dtype=torch.float32, device="cuda"):
+                             dtype=torch.float32, device="cuda", rows=None, pad_rows=0):
     """The slot-major ELL operand of the constant g×g stencil, made on the device: values
     (5, g²) in ``dtype`` and columns (5, g²) int32, the operand ``convert.ell_from_numpy``
     makes of ``formats.stencil5_to_ell`` — the port of its analytic path,
@@ -161,31 +191,42 @@ def make_stencil5_ell_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_
     both coefficients nonzero (ValueError otherwise).
 
     Every row is first written as an interior row, columns r + (−g, −1, 0, +1, +g) with
-    values (o, o, d, o, o); then the 4g − 4 boundary rows are rewritten: their real
-    columns packed to the left in N, W, C, E, S order, the pad slots holding the last real
-    column with value 0.  Values round through float32, as the host pack stores them.  At
-    20480² the host pack would be 16.8 GB of int64 columns and 8.4 GB of values."""
+    values (o, o, d, o, o); then the boundary rows are rewritten: their real columns
+    packed to the left in N, W, C, E, S order, the pad slots holding the last real column
+    with value 0.  Values round through float32, as the host pack stores them.  At 20480²
+    the host pack would be 16.8 GB of int64 columns and 8.4 GB of values.
+
+    ``rows=(lo, hi)`` makes only the points of grid rows [lo, hi), (5, (hi − lo)·g), and
+    ``pad_rows`` appends that many rows of points with zero values whose columns all point
+    at the point itself, (hi + t)·g + j: a rank's band, columns global, as the JAX
+    package's sharded ``csr`` operand (``cg_sharded.py:303-310``)."""
     g = int(grid_size)
     if not stencil5_ell_device_ok(g, diag, offdiag):
         raise ValueError("the analytic stencil ELL needs g >= 3 and nonzero coefficients "
                          "(formats.stencil5_to_ell packs the others on the host)")
-    n = g * g
-    if n >= 2 ** 31 - g:
+    lo, hi = _band(g, rows, pad_rows)
+    if (hi + pad_rows) * g >= 2 ** 31 - g:
         raise ValueError(f"grid {g} too large for int32 columns")
     dev = resolve_device(device)
+    p0, p1 = lo * g, (hi + pad_rows) * g  # the band's points, pad rows included
     d32, o32 = float(np.float32(diag)), float(np.float32(offdiag))
-    cols = torch.empty((5, n), dtype=torch.int32, device=dev)
-    torch.arange(n, dtype=torch.int32, device=dev, out=cols[2])
+    cols = torch.empty((5, p1 - p0), dtype=torch.int32, device=dev)
+    torch.arange(p0, p1, dtype=torch.int32, device=dev, out=cols[2])
     for slot, shift in ((0, -g), (1, -1), (3, 1), (4, g)):
         torch.add(cols[2], shift, out=cols[slot])
-    vals = torch.full((5, n), o32, dtype=dtype, device=dev)
+    vals = torch.full((5, p1 - p0), o32, dtype=dtype, device=dev)
     vals[2].fill_(d32)
+    real = (hi - lo) * g
+    cols[:, real:] = cols[2, real:]  # pad rows: every slot at the point itself, value 0
+    vals[:, real:] = 0
 
-    # the boundary rows: i = 0, i = g-1 (both with their corners), then j = 0 and
-    # j = g-1 between them, as the host pack orders them
-    edge = torch.cat([torch.arange(g, device=dev), torch.arange(n - g, n, device=dev),
-                      torch.arange(g, n - g, g, device=dev),
-                      torch.arange(2 * g - 1, n - g, g, device=dev)])
+    # the boundary points of the band: all of rows 0 and g-1, and columns 0 and g-1 of
+    # the rows between them
+    full = [torch.arange(i * g, (i + 1) * g, device=dev) for i in sorted({0, g - 1})
+            if lo <= i < hi]
+    first = max(lo, 1)
+    mid = torch.arange(first, max(first, min(hi, g - 1)), device=dev) * g
+    edge = torch.cat([*full, mid, mid + (g - 1)])
     ei, ej = edge // g, edge % g
     cand = torch.stack([edge - g, edge - 1, edge, edge + 1, edge + g], dim=1)
     ok = torch.stack([ei > 0, ej > 0, torch.ones_like(ei, dtype=torch.bool), ej < g - 1,
@@ -202,8 +243,8 @@ def make_stencil5_ell_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_
     last = ecol[torch.arange(m, device=dev), lens - 1]  # lens >= 3: always a real column
     pad = torch.arange(5, device=dev)[None, :] >= lens[:, None]
     ecol = torch.where(pad, last[:, None], ecol)
-    cols[:, edge] = ecol.T.to(torch.int32)
-    vals[:, edge] = evals.T
+    cols[:, edge - p0] = ecol.T.to(torch.int32)
+    vals[:, edge - p0] = evals.T
     return vals, cols
 
 

@@ -8,9 +8,12 @@ kernels, which compute the same function:
 
 The operand is ``formats.csr_to_ell``'s, slot-major: ``vals`` (W, n) in the state's
 dtype and ``cols`` (W, n) int32, column k of row i at [k, i] (``convert.ell_from_numpy``,
-or ``generate.make_stencil5_ell_device``).  The matrix is square: x and y are fields of
-the same n elements, of any shape.  y[i] = Σ_k vals[k, i]·x[cols[k, i]], summed from 0
-over k = 0..W-1 in order.  None of the JAX package's packs is needed: not the column
+or ``generate.make_stencil5_ell_device``).  y[i] = Σ_k vals[k, i]·x[cols[k, i]], summed
+from 0 over k = 0..W-1 in order.  A square matrix takes x of n elements, of any shape, and
+gives y of x's shape.  The rectangular call takes x of m > n elements and gives y of n:
+the sharded solver's band of rows over its gather domain, the band with a halo row on
+either side (``solvers.cg_sharded``); its dot is <x[dot_offset : dot_offset + n], y>, the
+band's own rows of x.  None of the JAX package's packs is needed: not the column
 windows, the select ladder, the affine and rot packs or the overflow scatter-add, which
 answered Mosaic's lane-only gather, nor its fallback to the XLA gather for scattered
 columns.  The kernel takes every sparsity.
@@ -38,44 +41,53 @@ def reset_launches() -> None:
     LAUNCHES["spmv_ell"] = 0
 
 
-def spmv_ell_plain(vals, cols, x, *, with_dot=False):
+def spmv_ell_plain(vals, cols, x, *, with_dot=False, dot_offset=0):
     """Plain twin of ``spmv_ell``: one gather and one multiply-add per slot."""
     xf = x.reshape(-1)
-    y = torch.zeros_like(xf)
+    n = vals.shape[1]
+    y = xf.new_zeros(n)
     for k in range(vals.shape[0]):
         y.add_(vals[k] * xf.index_select(0, cols[k]))
-    y = y.reshape(x.shape)
-    return (y, torch.dot(xf, y.reshape(-1))) if with_dot else y
+    if n == xf.numel():
+        y = y.reshape(x.shape)
+    return (y, torch.dot(xf[dot_offset:dot_offset + n], y.reshape(-1))) if with_dot else y
 
 
-def spmv_ell(vals, cols, x, *, with_dot=False):
-    """y = A·x for the slot-major ELL operand (vals, cols), or (y, <x, A·x>) when
-    ``with_dot``.  Columns must lie in [0, n): the kernel reads x at them unchecked.
+def spmv_ell(vals, cols, x, *, with_dot=False, dot_offset=0):
+    """y = A·x for the slot-major ELL operand (vals, cols) of n rows, or (y, <x[dot_offset
+    : dot_offset + n], y>) when ``with_dot``.  x holds m >= n elements; y has x's shape
+    when m == n, else (n,).  Columns must lie in [0, m): the kernel reads x at them
+    unchecked.
 
     Replaces the Pallas kernels ``_spmv_gather_jit`` and ``_spmv_affine_jit``
     (tpusparse/kernels/gather_ell.py): one CUDA kernel backs both."""
     if x.device.type == "cpu":
-        return spmv_ell_plain(vals, cols, x, with_dot=with_dot)
-    n = check_field(x, x)
-    _check_operand(vals, cols, x, n)
-    y = torch.empty_like(x)
+        return spmv_ell_plain(vals, cols, x, with_dot=with_dot, dot_offset=dot_offset)
+    m = check_field(x, x)
+    n = _check_operand(vals, cols, x, m, dot_offset)
+    y = torch.empty_like(x) if n == m else x.new_empty(n)
     dot, part = dot_buffers(x, row_partials(n)) if with_dot else (None, None)
     fn = getattr(_build.lib(), f"tps_spmv_ell_{SUFFIX[x.dtype]}")
     _build.check(fn(vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-                    vals.shape[0], n, ptr(part), ptr(dot), stream(x)), "spmv_ell")
+                    vals.shape[0], n, dot_offset, ptr(part), ptr(dot), stream(x)), "spmv_ell")
     LAUNCHES["spmv_ell"] += 1
     return (y, dot) if with_dot else y
 
 
-def _check_operand(vals, cols, x, n):
+def _check_operand(vals, cols, x, m, dot_offset):
+    """The operand's row count n, once it is checked against x of m elements."""
     if vals.device != x.device or vals.dtype != x.dtype:
         raise ValueError(f"ELL values on {vals.device}/{vals.dtype}, x on "
                          f"{x.device}/{x.dtype}")
     if cols.device != x.device or cols.dtype != torch.int32:
         raise ValueError(f"ELL columns must be int32 on {x.device}, got "
                          f"{cols.device}/{cols.dtype}")
-    if vals.dim() != 2 or vals.shape[1] != n or cols.shape != vals.shape:
-        raise ValueError(f"ELL operand must be (W, {n}) values and columns, got "
+    if vals.dim() != 2 or not 0 < vals.shape[1] <= m or cols.shape != vals.shape:
+        raise ValueError(f"ELL operand must be (W, n) values and columns with n <= {m}, got "
                          f"{tuple(vals.shape)} and {tuple(cols.shape)}")
     if not (vals.is_contiguous() and cols.is_contiguous()):
         raise ValueError("the ELL operand must be contiguous")
+    n = vals.shape[1]
+    if not 0 <= dot_offset <= m - n:
+        raise ValueError(f"dot_offset {dot_offset} outside [0, {m - n}]")
+    return n

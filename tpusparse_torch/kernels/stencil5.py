@@ -22,6 +22,8 @@ their fields agree bit for bit; the dots differ only in summation order.  Dots c
 kernels read through a device pointer.
 
 ``LAUNCHES[name]`` counts the kernel launches of each wrapper (twins do not count).
+K3 and K8 take ``out=``, a field to write y into: the sharded solver writes a
+band's rows piece by piece into one y.
 """
 
 from __future__ import annotations
@@ -74,23 +76,26 @@ def _neighbours(x, halo_prev, halo_next):
             torch.cat([zcol, x[:, :-1]], 1), torch.cat([x[:, 1:], zcol], 1))
 
 
-def spmv_stencil5_plain(planes, x, halo_prev=None, halo_next=None, *, with_dot=False):
+def spmv_stencil5_plain(planes, x, halo_prev=None, halo_next=None, *, with_dot=False,
+                        out=None):
     """Plain twin of ``spmv_stencil5``; the port of ``spmv_stencil5_xla`` (the
     ``stencil5-xla`` operator).  Summed left to right as the kernels sum it:
     C·x + W·xw + E·xe + N·xn + S·xs.  bf16 planes are widened exactly to x's dtype by
     PyTorch's type promotion."""
     xn, xs, xw, xe = _neighbours(x, halo_prev, halo_next)
     y = planes[C] * x + planes[W] * xw + planes[E] * xe + planes[N] * xn + planes[S] * xs
+    y = y if out is None else out.copy_(y)
     return (y, _dot(x, y)) if with_dot else y
 
 
 def spmv_stencil5_const_plain(x, halo_prev=None, halo_next=None, *, diag, offdiag,
-                              with_dot=False):
+                              with_dot=False, out=None):
     """Plain twin of ``spmv_stencil5_const``; the port of ``spmv_stencil5_const_xla``
     (the ``stencil5-const-xla`` operator).  Neighbour sum in the kernels' order
     ((N + S) + W) + E."""
     xn, xs, xw, xe = _neighbours(x, halo_prev, halo_next)
     y = diag * x + offdiag * (((xn + xs) + xw) + xe)
+    y = y if out is None else out.copy_(y)
     return (y, _dot(x, y)) if with_dot else y
 
 
@@ -144,20 +149,22 @@ def cg_const_update_recompute_plain(alpha, x, r, p, halo_prev=None, halo_next=No
 # ---------------------------------------------------------------------------
 
 
-def spmv_stencil5(planes, x, halo_prev=None, halo_next=None, *, with_dot=False):
+def spmv_stencil5(planes, x, halo_prev=None, halo_next=None, *, with_dot=False, out=None):
     """y = A·x for the coefficient planes (5, rows, g) in the order N, W, C, E, S, or
     (y, <x, A·x>) when ``with_dot``.  Planes are x's dtype, or bfloat16 (the
-    ``stencil5-bf16c`` operator) for an f32 or f64 x.
+    ``stencil5-bf16c`` operator) for an f32 or f64 x.  y goes into ``out`` when given (a
+    field like x that overlaps neither x nor a halo row), else into a new field.
 
     Replaces the Pallas kernels ``spmv_stencil5_pipelined`` and ``spmv_stencil5_pallas``
     (tpusparse/kernels/stencil5.py): one CUDA kernel backs both, since they differ only in
     how the TPU moved data."""
     if x.device.type == "cpu":
-        return spmv_stencil5_plain(planes, x, halo_prev, halo_next, with_dot=with_dot)
+        return spmv_stencil5_plain(planes, x, halo_prev, halo_next, with_dot=with_dot,
+                                   out=out)
     rows, g = _check_band(x, x)
     _check_planes(planes, x)
     _check_halos(halo_prev, halo_next, x)
-    y = torch.empty_like(x)
+    y = _spmv_out(out, x, halo_prev, halo_next)
     dot, part = dot_buffers(x, _partials(rows, g)) if with_dot else (None, None)
     suffix = _PLANES_SUFFIX[planes.dtype] + SUFFIX[x.dtype]
     fn = getattr(_build.lib(), f"tps_spmv_stencil5_{suffix}")
@@ -197,18 +204,18 @@ def spmv_stencil5_pupdate(planes, beta, r, p, halo_prev=None, halo_next=None, *,
 
 
 def spmv_stencil5_const(x, halo_prev=None, halo_next=None, *, diag, offdiag,
-                        with_dot=False):
-    """y = A·x, or (y, <x, A·x>) when ``with_dot``.
+                        with_dot=False, out=None):
+    """y = A·x, or (y, <x, A·x>) when ``with_dot``; ``out`` as in ``spmv_stencil5``.
 
     Replaces the Pallas kernels ``spmv_stencil5_const_pipelined`` and
     ``spmv_stencil5_const_pallas`` (tpusparse/kernels/stencil5.py): one CUDA kernel backs
     both, since they differ only in how the TPU moved data."""
     if x.device.type == "cpu":
         return spmv_stencil5_const_plain(x, halo_prev, halo_next, diag=diag, offdiag=offdiag,
-                                         with_dot=with_dot)
+                                         with_dot=with_dot, out=out)
     rows, g = _check_band(x, x)
     _check_halos(halo_prev, halo_next, x)
-    y = torch.empty_like(x)
+    y = _spmv_out(out, x, halo_prev, halo_next)
     dot, part = dot_buffers(x, _partials(rows, g)) if with_dot else (None, None)
     fn = getattr(_build.lib(), f"tps_spmv_stencil5_const_{SUFFIX[x.dtype]}")
     _build.check(fn(x.data_ptr(), ptr(halo_prev), ptr(halo_next), y.data_ptr(), rows, g,
@@ -339,6 +346,18 @@ def _check_out(out, r, p):
         if overlaps(out, t):
             raise ValueError(f"out must not overlap {name}: neighbouring blocks still read "
                              f"{name} while p' is written")
+
+
+def _spmv_out(out, x, halo_prev, halo_next):
+    """The y of K3 and K8: ``out`` once checked, else a new field."""
+    if out is None:
+        return torch.empty_like(x)
+    check_field(out, x)
+    for name, t in (("x", x), ("halo_prev", halo_prev), ("halo_next", halo_next)):
+        if t is not None and overlaps(out, t):
+            raise ValueError(f"out must not overlap {name}: the kernel reads it while y is "
+                             "written")
+    return out
 
 
 def _pupdate_out(out, r, p):

@@ -71,8 +71,9 @@ class CGStats:
     """Parity with reference CGStats (include/solvers/cg_solver.h:28-43); the same fields
     as ``tpusparse.solvers.cg.CGStats``.  ``cg_solve_stepped`` fills the phase buckets
     (``spmv``, ``blas1``, ``reduction``) and ``total_time_ms`` with the loop's wall time;
-    ``cg_solve`` leaves the buckets at zero.  The collective buckets stay zero (the port
-    has no sharded solver yet), and so do the dispatch ones: the JAX package's dispatch
+    ``cg_solve`` leaves the buckets at zero.  The collective buckets (``halo``,
+    ``allreduce``) are the sharded stepped loop's (``cg_sharded.cg_solve_sharded_stepped``),
+    zero here.  The dispatch ones stay zero everywhere: the JAX package's dispatch
     correction is a relay correction with no counterpart here."""
 
     iterations: int = 0
