@@ -56,13 +56,15 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      relative, a yardstick, not an oracle): torch.dot for K6, torch.add(r, p, alpha=β) for
      K5, F.conv2d with the 3×3 stencil for K3, bcoo's banded cuSPARSE matvec for the ELL
      kernel, and the ELL kernel's rectangular call at G_BIG²/4 rows (y bit for bit and
-     its dot against the twin) beside the square call's GB/s.  The sharded path's kernels
-     at its shapes: on the bands of 2 and 4 ranks (G_BIG/2 and G_BIG/4 rows, G_BIG wide)
-     with halo rows, K8 (both planes dtypes) and K3 in the overlapped SpMV's three pieces
-     into one y (y also bit for bit the whole band's call), K1 and K2 on the 4-rank band,
-     in f32 and f64.  Each kernel's
-     bound: the bytes its call must move (inputs read once, outputs written once) over
-     3.35 TB/s, or its operations over the data sheet's peak rate, whichever is larger;
+     its dot against the twin) beside the square call's GB/s.  The sharded paths' kernels
+     at their shapes: on the bands of 2 and 4 ranks (G_BIG/2 and G_BIG/4 rows, G_BIG wide)
+     and on the blocks of a 2 x 2 mesh (G_BIG/2 × G_BIG/2: a (G_BIG/2 − 2)-row core and
+     one-row pieces G_BIG/2 wide) and of a 1 x 4 mesh (G_BIG × G_BIG/4) with halo rows,
+     K8 (both planes dtypes) and K3 in the overlapped SpMV's three pieces into one y (y
+     also bit for bit the whole band's call), K1 and K2 on the 4-rank band, in f32 and
+     f64.  Each kernel's bound: the bytes its call must move (inputs read once, outputs
+     written once) over 3.35 TB/s, or its operations over the data sheet's peak rate,
+     whichever is larger;
      the solves' median times, next to the card's name and power limit;
   7. one solve of each CG run of phase 5 (bcoo f64 included), and of each fused solve,
      under torch.profiler, its device time split by kernel, and its idle time: phase 5's
@@ -98,10 +100,21 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      (K8; K1 and K2; the ELL kernel; K3) on the rows an exchange received, one rank none;
      each run's median and
      rank-time max/min/imbalance, the one-rank median beside phase 5's single-device one;
-     then stencil5-bf16c f32 on 2 ranks, its x equal to stencil5 f32's bit for bit.
+     then stencil5-bf16c f32 on 2 ranks, its x equal to stencil5 f32's bit for bit;
+ 10. the multichip CLI's 2-D block decomposition (--mesh2d) at gen:20480 f64, its ranks
+     sharing the card, --runs=3 --warmup=1: stencil5 and stencil5-const on 2 x 2,
+     --timers stencil5 on 2 x 2 and stencil5 on 1 x 4, each with exactly 14 iterations,
+     solver tpusparse-cg-sharded2d-RxC and Sum/Norm2 equal to phase 5's solution of the
+     same mode to 1e-10, the --timers buckets each > 0 and summing to no more than the
+     median; every rank must launch its SpMV (K8 or K3), K4, K5 and K6; a rank with a N/S
+     neighbour must hand the exchanged rows to its SpMV's launches, one with a W/E
+     neighbour must exchange columns and consume each in a side-column correction
+     (cg_sharded.HALO_CALLS: column_exchange, column_correction), and one with neither
+     exchange nothing; each median beside phase 9's 4-rank row-band median of its mode,
+     and the rank-time max/min/imbalance.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5 and 9) and then {"ok": true, "device": {...}}.
+record (launches summed over phases 5, 9 and 10) and then {"ok": true, "device": {...}}.
 Exports go to chiprun_out/.
 """
 
@@ -236,6 +249,23 @@ SHARDED_RUNS = {
                                       ("spmv_stencil5_const",)),
 }
 SHARDED_ARGS = ["--runs=3", "--warmup=1"]
+# phase 10: the multichip CLI's 2-D decomposition at G_BIG² f64, its ranks sharing the card:
+# label -> (mesh, arguments, the export's loop, the phase-5 run whose solution it must
+# equal, kernels every rank must launch (the first: its SpMV, which takes the exchanged
+# rows), the phase-9 row-band run of the same mode on 4 ranks)
+STENCIL5_BLOCK = ("spmv_stencil5",) + CLASSIC
+MESH2D_RUNS = {
+    "mesh2d stencil5 f64 2x2": ((2, 2), ["--mode=stencil5", "--dtype=f64"], "classic",
+                                "stencil5 f64", STENCIL5_BLOCK, "sharded stencil5 f64 x4"),
+    "mesh2d const f64 2x2": ((2, 2), ["--mode=stencil5-const", "--dtype=f64"], "classic",
+                             "const f64 recompute", ("spmv_stencil5_const",) + CLASSIC,
+                             "sharded const f64 recompute x4"),
+    "mesh2d stencil5 f64 --timers 2x2": ((2, 2), ["--mode=stencil5", "--dtype=f64",
+                                                  "--timers"], "host-stepped", "stencil5 f64",
+                                         STENCIL5_BLOCK, "sharded stencil5 f64 --timers x4"),
+    "mesh2d stencil5 f64 1x4": ((1, 4), ["--mode=stencil5", "--dtype=f64"], "classic",
+                                "stencil5 f64", STENCIL5_BLOCK, "sharded stencil5 f64 x4"),
+}
 SHARDED_DIR = OUT / "sharded"
 # two of phase 5's CLI medians as PERF.md section 6 records them before the solver had
 # phase scopes (NVIDIA H100 80GB HBM3, 700.00 W), in ms
@@ -1062,31 +1092,39 @@ def compare_band_pieces(torch, st5, cmp, planes, p, hp, hn, label):
                                      ("y whole band", y, whole, "exact")])
 
 
+# the sharded paths' fields: label -> (rows, columns, seed); the bands of 4 and 2 ranks and
+# the blocks of a 2 x 2 and of a 1 x 4 mesh
+SHARDED_SHAPES = {"4-rank band": (G_BIG // 4, G_BIG, 4), "2-rank band": (G_BIG // 2, G_BIG, 2),
+                  "2x2 block": (G_BIG // 2, G_BIG // 2, 22),
+                  "1x4 block": (G_BIG, G_BIG // 4, 14)}
+
+
 def phase_full_size_bands(torch, st5, cmp):
-    """The sharded path's kernels against their twins at G_BIG width on the bands of 2 and
-    4 ranks, with exchanged halo rows (seeded random fields): K8 in both planes dtypes
-    and K3 in the overlapped SpMV's three pieces, K1 and K2 over a whole band."""
+    """The sharded paths' kernels against their twins at their shapes, with exchanged halo
+    rows (seeded random fields): on the bands of 2 and 4 ranks (G_BIG wide) and on the
+    blocks of a 2 x 2 mesh (G_BIG/2 wide) and of a 1 x 4 mesh (G_BIG rows, G_BIG/4 wide),
+    K8 in both planes dtypes and K3 in the overlapped SpMV's three pieces; K1 and K2 over
+    a whole 4-rank band."""
     kw = {"diag": DIAG, "offdiag": OFFDIAG}
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
-        for ranks in (4, 2):
+        for shape, (band, width, seed) in SHARDED_SHAPES.items():
             torch.cuda.empty_cache()
-            band = G_BIG // ranks
-            gen = torch.Generator(device=dev).manual_seed(ranks)
+            gen = torch.Generator(device=dev).manual_seed(seed)
 
             def rand(*shape):
                 return torch.rand(*shape, generator=gen, device=dev, dtype=dtype)
 
-            p, hp, hn = rand(band, G_BIG), rand(1, G_BIG), rand(1, G_BIG)
-            lab = f"{ranks}-rank band {band}×{G_BIG} {dname(dtype)} + halos"
+            p, hp, hn = rand(band, width), rand(1, width), rand(1, width)
+            lab = f"{shape} {band}×{width} {dname(dtype)} + halos"
             compare_band_pieces(torch, st5, cmp, None, p, hp, hn, lab + ", three pieces")
             for pdt in (dtype, torch.bfloat16):
-                planes = rand(5, band, G_BIG).to(pdt)
+                planes = rand(5, band, width).to(pdt)
                 compare_band_pieces(torch, st5, cmp, planes, p, hp, hn,
                                     f"{lab}, planes {dname(pdt)}, three pieces")
                 del planes
-            if ranks != 4:
+            if shape != "4-rank band":
                 continue
             r, x = rand(band, G_BIG), rand(band, G_BIG)
             s = torch.tensor(0.37, dtype=dtype, device=dev)
@@ -1105,7 +1143,7 @@ def phase_full_size_bands(torch, st5, cmp):
             del xk, rk, xp, rp, r, x
         del p
     torch.cuda.empty_cache()
-    print(f"[compare] the sharded path's bands at {G_BIG} wide took "
+    print(f"[compare] the sharded paths' bands and blocks took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -1468,6 +1506,97 @@ def _bf16c_rank(device):
     return None if xs[0] is None else (bool(np.array_equal(xs[0], xs[1])), its)
 
 
+def _band_halo_missing(n, r, counts, halo_needs):
+    """What a rank of a row-band run lacks: on several ranks every rank has a neighbour,
+    and each exchange's rows must reach a launch of each of its path's halo kernels; one
+    rank exchanges nothing."""
+    halo = counts["HALO_CALLS"]
+    if n == 1:
+        return [f"no halo on one rank, got {halo}"] if any(halo.values()) else []
+    return [f"{short(k)} on exchanged halo rows ({halo[k]} of {halo['exchange']} exchanges)"
+            for k in halo_needs
+            if not 0 < halo["exchange"] <= halo[k] <= counts["LAUNCHES"].get(k, 0)]
+
+
+def _block_halo_missing(mesh, r, counts, halo_kernel):
+    """What a rank of a 2-D run lacks: with a N/S neighbour, row exchanges whose rows reach
+    its SpMV kernel's launches; with a W/E neighbour, column exchanges each consumed by one
+    or two side-column corrections; with neither (a 1 x 1 mesh), no exchange."""
+    halo, nr, nc = counts["HALO_CALLS"], mesh[0], mesh[1]
+    i, j = divmod(r, nc)
+    rows, cols = (i > 0) + (i < nr - 1), (j > 0) + (j < nc - 1)
+    missing = []
+    if rows and not 0 < halo["exchange"] <= halo[halo_kernel] \
+            <= counts["LAUNCHES"].get(halo_kernel, 0):
+        missing.append(f"{short(halo_kernel)} on exchanged halo rows ({halo[halo_kernel]} of "
+                       f"{halo['exchange']} exchanges)")
+    if cols and not 0 < halo["column_exchange"] * cols == halo["column_correction"]:
+        missing.append(f"{cols} corrections an exchange with exchanged columns "
+                       f"({halo['column_correction']} of {halo['column_exchange']} exchanges)")
+    if not rows and halo["exchange"] or not cols and halo["column_exchange"]:
+        missing.append(f"no exchange without a neighbour, got {halo}")
+    return missing
+
+
+def run_multichip(label, n, argv, loop, ref_label, needs, halo_missing, results, smi,
+                  launches):
+    """One multichip CLI run on n ranks sharing the card, from its ranks' own launch
+    counts: every rank must launch ``needs``, ``halo_missing(r, counts)`` says what rank r
+    lacks on its exchanged halos, the solution must equal phase 5's ``ref_label`` to
+    1e-10 in 14 iterations, and a host-stepped run's four buckets must be > 0 and sum to
+    no more than its median.  Adds the ranks' launches to ``launches``; returns the
+    export."""
+    from tpusparse_torch import dist
+
+    slug = re.sub(r"[^a-z0-9]+", "_", label)
+    path, counts_path = OUT / f"chip_smoke_{slug}.json", SHARDED_DIR / slug
+    t0 = time.perf_counter()
+    rc = dist.launch_local(_sharded_rank, n, [f"gen:{G_BIG}", *argv, *SHARDED_ARGS,
+                                              f"--json={path}"],
+                           str(counts_path), device="cuda")
+    wall = time.perf_counter() - t0
+    res = json.loads(path.read_text())
+    its, t = res["convergence"]["iterations"], res["timing"]
+    for r in range(n):
+        counts = json.loads(pathlib.Path(f"{counts_path}_rank{r}.json").read_text())
+        halo = counts["HALO_CALLS"]
+        print(f"[launches] {label} rank {r}: " + ", ".join(
+            f"{short(k)} {v} ({halo.get(k, 0)} on exchanged halo rows)"
+            for k, v in counts["LAUNCHES"].items())
+            + f"; {halo['exchange']} row exchanges, {halo['column_exchange']} column "
+              f"exchanges, {halo['column_correction']} corrections with exchanged columns",
+            flush=True)
+        missing = [short(k) for k in needs if not counts["LAUNCHES"].get(k)]
+        missing += halo_missing(r, counts)
+        if missing:
+            raise AssertionError(f"{label} rank {r}: never launched {missing}")
+        for k, v in counts["LAUNCHES"].items():
+            launches[k] = launches.get(k, 0) + v
+    ref = results[ref_label]["validation"]
+    errs = {k: abs(res["validation"][k] - ref[k]) / abs(ref[k])
+            for k in ("solution_sum", "solution_norm")}
+    rank_t = (f"rank times max {t['solve_time_max_ms']!r} / min {t['solve_time_min_ms']!r}"
+              f" ms, imbalance {t['load_imbalance_pct']!r}%" if n > 1 else "one rank")
+    print(f"[sharded] {label}: rc {rc}, solver {res['solver']}, mode {res['mode']}, loop "
+          f"{res['loop']}, {its} iterations, median {t['total_median_ms']!r} ms over "
+          f"{res['statistics']['total_runs']} runs ({rank_t}); gather to rank 0 "
+          f"{t['allgather_ms']!r} ms; Sum rel {errs['solution_sum']:.3e}, Norm2 rel "
+          f"{errs['solution_norm']:.3e} against phase 5's {ref_label} (tol 1e-10); the "
+          f"run's wall {wall:.1f} s [{smi}]", flush=True)
+    if rc != 0 or its != 14 or res["loop"] != loop or not max(errs.values()) <= 1e-10:
+        raise AssertionError(f"{label}: rc {rc}, {its} iterations, loop {res['loop']}, "
+                             f"{errs}")
+    if loop == "host-stepped":
+        buckets = {k: t[f"{k}_ms"] for k in ("halo", "spmv", "allreduce", "blas1")}
+        print(f"[sharded] {label} buckets: " + ", ".join(
+            f"{k} {v!r} ms" for k, v in buckets.items())
+              + f"; sum {sum(buckets.values())!r} of the median {t['total_median_ms']!r} "
+              f"ms [{smi}]", flush=True)
+        if not (min(buckets.values()) > 0 and sum(buckets.values()) <= t["total_median_ms"]):
+            raise AssertionError(f"{label}: buckets {buckets}")
+    return res
+
+
 def phase_sharded(torch, results, smi):
     """Phase 9: the multichip CLI at G_BIG² with 1, 2 and 4 ranks sharing the card (gloo,
     halos and dots staged through the host), each run from its ranks' own launch counts.
@@ -1479,64 +1608,17 @@ def phase_sharded(torch, results, smi):
     SHARDED_DIR.mkdir(parents=True, exist_ok=True)
     launches = {}
     for label, (n, extra, loop, ref_label, needs, halo_needs) in SHARDED_RUNS.items():
-        slug = re.sub(r"[^a-z0-9]+", "_", label)
-        path, counts_path = OUT / f"chip_smoke_{slug}.json", SHARDED_DIR / slug
-        t0 = time.perf_counter()
-        rc = dist.launch_local(_sharded_rank, n, [f"gen:{G_BIG}", *extra, *SHARDED_ARGS,
-                                                  f"--chips={n}", f"--json={path}"],
-                               str(counts_path), device="cuda")
-        wall = time.perf_counter() - t0
-        res = json.loads(path.read_text())
-        its, t = res["convergence"]["iterations"], res["timing"]
-        for r in range(n):
-            counts = json.loads(pathlib.Path(f"{counts_path}_rank{r}.json").read_text())
-            halo = counts["HALO_CALLS"]
-            print(f"[launches] {label} rank {r}: " + ", ".join(
-                f"{short(k)} {v} ({halo.get(k, 0)} on exchanged halo rows)"
-                for k, v in counts["LAUNCHES"].items())
-                + f"; {halo['exchange']} halo exchanges", flush=True)
-            missing = [short(k) for k in needs if not counts["LAUNCHES"].get(k)]
-            if n > 1:  # every rank of several has a neighbour: each exchange's rows must
-                # reach a launch of each of its path's halo kernels
-                missing += [f"{short(k)} on exchanged halo rows ({halo[k]} of "
-                            f"{halo['exchange']} exchanges)" for k in halo_needs
-                            if not 0 < halo["exchange"] <= halo[k]
-                            <= counts["LAUNCHES"].get(k, 0)]
-            elif any(halo.values()):
-                missing += [f"no halo on one rank, got {halo}"]
-            if missing:
-                raise AssertionError(f"{label} rank {r}: never launched {missing}")
-            for k, v in counts["LAUNCHES"].items():
-                launches[k] = launches.get(k, 0) + v
-        ref = results[ref_label]["validation"]
-        errs = {k: abs(res["validation"][k] - ref[k]) / abs(ref[k])
-                for k in ("solution_sum", "solution_norm")}
-        rank_t = (f"rank times max {t['solve_time_max_ms']!r} / min {t['solve_time_min_ms']!r}"
-                  f" ms, imbalance {t['load_imbalance_pct']!r}%" if n > 1 else "one rank")
-        print(f"[sharded] {label}: rc {rc}, mode {res['mode']}, loop {res['loop']}, {its} "
-              f"iterations, median {t['total_median_ms']!r} ms over "
-              f"{res['statistics']['total_runs']} runs ({rank_t}); gather to rank 0 "
-              f"{t['allgather_ms']!r} ms; Sum rel {errs['solution_sum']:.3e}, Norm2 rel "
-              f"{errs['solution_norm']:.3e} against phase 5's {ref_label} (tol 1e-10); the "
-              f"run's wall {wall:.1f} s [{smi}]", flush=True)
-        if rc != 0 or its != 14 or res["loop"] != loop or not max(errs.values()) <= 1e-10:
-            raise AssertionError(f"{label}: rc {rc}, {its} iterations, loop {res['loop']}, "
-                                 f"{errs}")
-        if loop == "host-stepped":
-            buckets = {k: t[f"{k}_ms"] for k in ("halo", "spmv", "allreduce", "blas1")}
-            print(f"[sharded] {label} buckets: " + ", ".join(
-                f"{k} {v!r} ms" for k, v in buckets.items())
-                  + f"; sum {sum(buckets.values())!r} of the median {t['total_median_ms']!r} "
-                  f"ms [{smi}]", flush=True)
-            if not (min(buckets.values()) > 0
-                    and sum(buckets.values()) <= t["total_median_ms"]):
-                raise AssertionError(f"{label}: buckets {buckets}")
+        res = run_multichip(
+            label, n, [*extra, f"--chips={n}"], loop, ref_label, needs,
+            lambda r, counts, n=n, halo_needs=halo_needs: _band_halo_missing(
+                n, r, counts, halo_needs), results, smi, launches)
         if n == 1:
             single = results[ref_label]["timing"]["total_median_ms"]
-            print(f"[sharded] {label}: one rank's median {t['total_median_ms']!r} ms against "
+            median = res["timing"]["total_median_ms"]
+            print(f"[sharded] {label}: one rank's median {median!r} ms against "
                   f"phase 5's single-device {ref_label} median {single!r} ms: the sharded "
-                  f"machinery and its host-read dots cost "
-                  f"{t['total_median_ms'] - single!r} ms a solve [{smi}]", flush=True)
+                  f"machinery and its host-read dots cost {median - single!r} ms a solve "
+                  f"[{smi}]", flush=True)
     t0 = time.perf_counter()
     equal, its = dist.launch_local(_bf16c_rank, 2, device="cuda")
     print(f"[sharded] stencil5-bf16c f32 on 2 ranks: {its[1]} iterations, x equal to "
@@ -1545,6 +1627,32 @@ def phase_sharded(torch, results, smi):
     if not equal or its[0] != its[1]:
         raise AssertionError("sharded stencil5-bf16c x differs from sharded stencil5 f32 x")
     print(f"[sharded] phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def phase_mesh2d(torch, results, smi):
+    """Phase 10: the multichip CLI's 2-D block decomposition (--mesh2d) at G_BIG² f64, its
+    ranks sharing the card, each run from its ranks' own launch counts; each median beside
+    phase 9's 4-rank row-band median of the same mode.  Returns {wrapper: launches summed
+    over the runs and ranks}."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    for label, (mesh, extra, loop, ref_label, needs, band_label) in MESH2D_RUNS.items():
+        halo_kernel = needs[0]
+        res = run_multichip(
+            label, mesh[0] * mesh[1], [*extra, f"--mesh2d={mesh[0]}x{mesh[1]}"], loop,
+            ref_label, needs,
+            lambda r, counts, mesh=mesh, k=halo_kernel: _block_halo_missing(mesh, r, counts,
+                                                                            k),
+            results, smi, launches)
+        if res["solver"] != f"tpusparse-cg-sharded2d-{mesh[0]}x{mesh[1]}":
+            raise AssertionError(f"{label}: solver {res['solver']}")
+        band = OUT / f"chip_smoke_{re.sub(r'[^a-z0-9]+', '_', band_label)}.json"
+        band_ms = json.loads(band.read_text())["timing"]["total_median_ms"]
+        print(f"[mesh2d] {label}: median {res['timing']['total_median_ms']!r} ms against "
+              f"phase 9's {band_label} {band_ms!r} ms [{smi}]", flush=True)
+    print(f"[mesh2d] phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -1582,6 +1690,8 @@ def main() -> int:
     phase_stepped(torch, (st5, blas1, ell, dia, stream_probe), cg_cli, spmv_cli, results,
                   splits, times, smi)
     for name, count in phase_sharded(torch, results, smi).items():
+        launches[name] += count
+    for name, count in phase_mesh2d(torch, results, smi).items():
         launches[name] += count
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "

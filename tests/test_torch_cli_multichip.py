@@ -9,8 +9,12 @@ package's (tpusparse/cli/cg_solver_multichip.py).
 - a stencil .mtx read by every rank, and a padded ``stencil5-const`` request recorded as
   the ``stencil5`` that ran, both as in JAX;
 - the refusals, each rc 2: a non-stencil .mtx without ``--mode=csr`` (as in JAX),
-  ``--mesh2d`` (not ported) and ``--dtype=bf16`` (no bf16 state);
-- ``--timers`` on 2 ranks: the host-stepped loop with its halo and allreduce buckets.
+  ``--mode=csr`` with ``--mesh2d`` (as in JAX), a malformed ``--mesh2d`` and
+  ``--dtype=bf16`` (no bf16 state);
+- ``--timers`` on 2 ranks: the host-stepped loop with its halo and allreduce buckets;
+- ``--mesh2d=2x2`` (four ranks, blocks of the 2-D decomposition) against the JAX CLI's
+  ``--mesh2d=2x2``: the same mode, iterations and Sum/Norm2 (1e-10), solver
+  ``tpusparse-cg-sharded2d-2x2``, and with ``--timers`` its four buckets.
 """
 
 import json
@@ -18,6 +22,7 @@ import json
 import numpy as np
 import pytest
 
+from tpusparse_torch import dist
 from tpusparse_torch.cli import cg_solver_multichip as port_cli
 
 
@@ -118,11 +123,78 @@ def test_cli_refuses_a_non_stencil_mtx(tmp_path, capfd):
 
 
 def test_cli_refuses_what_is_not_ported(capsys):
-    assert port_cli.main(["gen:16", "--platform=cpu", "--mesh2d=2x2"]) == 2
-    assert "2-D decomposition is not ported yet (ROADMAP Queue 1 item 7)" in \
-        capsys.readouterr().err
+    """``--dtype=bf16`` (no bf16 state yet), and ``--mode=csr`` on a 2-D mesh, which the
+    JAX CLI refuses too."""
+    assert port_cli.main(["gen:16", "--platform=cpu", "--mode=csr", "--mesh2d=2x2"]) == 2
+    assert "the generic csr mode is 1-D row-band only" in capsys.readouterr().err
     assert port_cli.main(["gen:16", "--platform=cpu", "--dtype=bf16"]) == 2
     assert "--dtype=bf16" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mesh", ["2by2", "2x", "0x4", "2x2x2"])
+def test_cli_refuses_a_malformed_mesh2d(capsys, mesh):
+    from tpusparse.cli import cg_solver_multichip as jax_cli
+
+    assert port_cli.main(["gen:16", "--platform=cpu", f"--mesh2d={mesh}"]) == 2
+    assert "--mesh2d expects RxC" in capsys.readouterr().err
+    if mesh != "0x4":  # the JAX CLI takes 0 and fails later, in jax.make_mesh
+        assert jax_cli.main(["gen:16", f"--mesh2d={mesh}"]) == 2
+
+
+def test_cli_mesh2d_refuses_a_grid_that_does_not_divide(capfd):
+    """Every rank of four returns 2; rank 0 alone says why."""
+    assert port_cli.main(["gen:18", "--platform=cpu", "--mesh2d=1x4", "--runs=1",
+                          "--warmup=0"]) == 2
+    assert capfd.readouterr().err.count("must divide the mesh extents (1, 4)") == 1
+
+
+def _cli_in_group(device, argv):
+    return port_cli.main(argv)
+
+
+def test_cli_mesh2d_in_a_group_of_another_size(capfd):
+    """In a group (as under torchrun) the group's size must be R·C."""
+    argv = ["gen:16", "--platform=cpu", "--mesh2d=2x2", "--runs=1", "--warmup=0"]
+    assert dist.launch_local(_cli_in_group, 2, argv, device="cpu") == 2
+    assert "--mesh2d=2x2 needs 4 ranks but the group has 2" in capfd.readouterr().err
+
+
+def test_cli_mesh2d_reads_an_mtx(tmp_path):
+    """A stencil .mtx through the 2-D blocks: each rank slices its block of the file's
+    planes."""
+    from tpusparse.cli import cg_solver_multichip as jax_cli
+    from tpusparse.generate import write_matrix_market_stencil5
+
+    mtx = tmp_path / "g12.mtx"
+    write_matrix_market_stencil5(str(mtx), 12)
+    argv = [str(mtx), "--mesh2d=2x2", "--dtype=f64", "--runs=3", "--warmup=0"]
+    rc, port = _run(port_cli.main, tmp_path, "port", [*argv, "--platform=cpu"])
+    rc_j, ref = _run(jax_cli.main, tmp_path, "jax", argv)
+    assert rc == rc_j == 0
+    assert port["matrix"] == ref["matrix"] and port["matrix"]["name"] == "g12.mtx"
+    _same_solution(port, ref)
+
+
+@pytest.mark.parametrize("timers", [False, True])
+def test_cli_mesh2d_matches_jax_cli(tmp_path, capfd, timers):
+    from tpusparse.cli import cg_solver_multichip as jax_cli
+
+    argv = ["gen:16", "--mesh2d=2x2", "--dtype=f64", "--runs=3", "--warmup=1",
+            *(["--timers"] if timers else [])]
+    rc, port = _run(port_cli.main, tmp_path, "port", [*argv, "--platform=cpu", "--chips=3"])
+    out = capfd.readouterr().out
+    rc_j, ref = _run(jax_cli.main, tmp_path, "jax", argv)
+    assert rc == rc_j == 0
+    assert port["mode"] == ref["mode"] == "stencil5"
+    assert port["solver"] == ref["solver"] == "tpusparse-cg-sharded2d-2x2"
+    _same_solution(port, ref)
+    assert port["loop"] == ("host-stepped" if timers else "classic")
+    t = port["timing"]
+    assert t["num_chips"] == 4 and t["allgather_ms"] > 0  # --chips is ignored, as in JAX
+    assert len(t["per_process_ms"]) == 4 and t["load_imbalance_pct"] >= 0
+    assert "[INFO] ranks: 4 x cpu" in out and out.count("Iterations:") == 1
+    if timers:
+        assert min(t["halo_ms"], t["allreduce_ms"], t["spmv_ms"], t["blas1_ms"]) > 0
 
 
 def test_cli_timers_on_two_ranks(tmp_path):

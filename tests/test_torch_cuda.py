@@ -16,10 +16,11 @@ offset by one element, and K6 to be bitwise repeatable over 1000 calls and on tw
 (``cg_solve_stepped``) is held to ``cg_solve``'s iteration count and x (f64 1e-12, f32
 1e-5); a probe's chain runs as a CUDA graph, and a chain whose passes allocate a field
 raises at its capture; the streaming probe kernels equal their twins; the phase scopes
-reach the profiler's events.  The sharded solver runs on one rank against ``cg_solve``
-and on two gloo ranks sharing the card (spawned by ``dist.launch_local``, which imports
-this module in each rank), its pieces against their twins: the ELL kernel's rectangular
-call and K3/K8 on one-row bands written into a larger y.  The matrices come from the
+reach the profiler's events.  The sharded solver runs on one rank against ``cg_solve``,
+on two gloo ranks sharing the card and on four as a 2 x 2 mesh of blocks (spawned by
+``dist.launch_local``, which imports this module in each rank), its pieces against their
+twins: the ELL kernel's rectangular call and K3/K8 on one-row bands written into a larger
+y.  The matrices come from the
 port's own ``formats`` and ``generate``: this file imports nothing of the JAX package.
 """
 
@@ -615,3 +616,59 @@ def test_two_ranks_share_the_card(dev):
         assert _rel(torch.from_numpy(x), ref.reshape(64, 64)) <= 1e-12
         assert all(ex == iterations and want_halo[mode] <= set(h) for ex, h in halos), \
             (mode, halos)
+
+
+def _mesh_2x2_on_card(device):
+    """Each rank of a 2 x 2 mesh at g = 1024, f64: the 2-D classic solve with its launches
+    and halo counts, then one SpMV of a seeded x, overlapped and synchronous; solution and
+    y gathered to rank 0."""
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    mesh, g = (2, 2), 1024
+    st5.reset_launches()
+    blas1.reset_launches()
+    cg_sharded.reset_halo_calls()
+    x, s = cg_sharded.cg_solve_sharded_2d(mesh, g, dtype=torch.float64, device=device)
+    counts = dist._all_objects((st5.LAUNCHES["spmv_stencil5"], dict(blas1.LAUNCHES),
+                                dict(cg_sharded.HALO_CALLS)))
+    field = np.random.RandomState(5).randn(g, g)
+    ys = []
+    for overlap in (True, False):
+        op = cg_sharded.make_sharded_operator(g, mesh_shape=mesh, dtype=torch.float64,
+                                              overlap=overlap, device=device)
+        y, pap = op.local_spmv_dot(op.band_of(field))
+        ys.append((dist.gather_blocks_to_host(y, mesh), float(pap)))
+    out = (dist.gather_blocks_to_host(x, mesh), s.iterations, counts, ys, field)
+    cg_sharded.clear_caches()
+    return out
+
+
+def test_2x2_mesh_shares_the_card(dev):
+    """Four gloo ranks on one card, a 2 x 2 mesh of 512² blocks: the solution against
+    ``cg.cg_solve`` on the card (iterations identical, x to 1e-12), every rank's K8 (three
+    row pieces an iteration), K4, K5 and K6 launched and its rows and columns exchanged
+    once an iteration, each column consumed by its side-column correction; the overlapped
+    SpMV's y bit for bit the synchronous one's and, to 1e-12, the plain stencil's on the
+    whole grid."""
+    from tpusparse_torch import dist
+
+    x, iterations, counts, ys, field = dist.launch_local(_mesh_2x2_on_card, 4, device="cuda")
+    g = 1024
+    op = ops.get_operator("stencil5", Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0)),
+                          dtype=torch.float64, device=dev)
+    x_ref, s_ref = cg.cg_solve(op, b_is_ones=True)
+    assert iterations == s_ref.iterations
+    assert _rel(torch.from_numpy(x), x_ref.cpu().reshape(g, g)) <= 1e-12
+    for k8, b1, halo in counts:
+        assert k8 == 3 * iterations and b1["dot"] == 1
+        assert b1["cg_update"] == b1["p_update"] == iterations
+        assert halo["exchange"] == halo["column_exchange"] == iterations
+        assert halo["spmv_stencil5"] == halo["column_correction"] == iterations
+    (ya, da), (yb, db) = ys
+    np.testing.assert_array_equal(ya, yb)
+    planes = generate.make_stencil5_planes_device(g, dtype=torch.float64, device="cpu")
+    y_ref, d_ref = st5.spmv_stencil5_plain(planes, torch.from_numpy(field), with_dot=True)
+    assert _rel(torch.from_numpy(ya), y_ref) <= 1e-12
+    assert abs(da - float(d_ref)) <= 1e-12 * abs(float(d_ref))
+    assert abs(da - db) <= 1e-14 * abs(db)

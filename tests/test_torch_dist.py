@@ -4,9 +4,11 @@ tpusparse/dist.py.
 The multi-rank checks run in one group of four gloo ranks on the CPU, spawned once for
 the file by ``dist.launch_local`` (the ``group`` fixture): ``describe_group``,
 ``gather_to_host`` (rank 0 gets the field, the other ranks None; equal, unequal and padded
-bands), ``barrier``, ``rank_time_stats`` on planted durations, the solver's staged halo
-exchange (each rank's halo rows are its neighbours' boundary rows, zero rows, None, at the
-grid's edges) and its rank-ordered dot (the same bits on every rank).  Each rank checks
+bands), ``gather_blocks_to_host`` (2 x 2 blocks), ``barrier``, ``rank_time_stats`` on
+planted durations, the solver's staged halo exchange (each rank's halo rows are its
+neighbours' boundary rows, zero rows, None, at the grid's edges; on a 2 x 2 mesh also the
+W/E neighbours' facing columns) and its rank-ordered dot (the same bits on every rank).
+``block_of`` is held to the JAX mesh's ``P("x", "y")`` blocks.  Each rank checks
 what it sees and rank 0 reports what all saw.  The spawned ranks import this module, so
 it imports JAX and the JAX package only inside its tests.
 """
@@ -58,13 +60,33 @@ def _group_checks(device):
     # the staged halo exchange of one (3, 6) band per rank
     halo = cg_sharded._HaloExchange(6, torch.float64, device)
     band = torch.tensor(_field(3, 6, 1000.0 * (r + 1)))
-    hp, hn = halo.exchange(band)
+    hp, hn, hw, he = halo.exchange(band)
     want_prev = None if r == 0 else _field(3, 6, 1000.0 * r)[-1:]
     want_next = None if r == n - 1 else _field(3, 6, 1000.0 * (r + 2))[:1]
     ok = all((h is None and w is None) or (h is not None and w is not None
                                           and np.array_equal(h.numpy(), w))
              for h, w in ((hp, want_prev), (hn, want_next)))
-    report["halo_ok"] = dist._all_objects(ok)
+    report["halo_ok"] = dist._all_objects(ok and hw is None and he is None)
+
+    # the 2-D decomposition on a 2 x 2 mesh: each rank's block of an (8, 8) field, gathered
+    # to rank 0, and each rank's four halos: its N/S neighbours' facing rows, its W/E
+    # neighbours' facing columns, None at the grid's edges
+    mesh = (2, 2)
+    whole = _field(8, 8)
+    (r0, r1), (c0, c1) = dist.block_of(r, mesh, 8)
+    block = torch.tensor(whole[r0:r1, c0:c1])
+    report["blocks"] = dist.gather_blocks_to_host(block, mesh)
+    halo = cg_sharded._HaloExchange(c1 - c0, torch.float64, device, mesh_shape=mesh,
+                                    rows=r1 - r0)
+    got = halo.exchange(block)
+    want = (whole[r0 - 1:r0, c0:c1] if r0 > 0 else None,
+            whole[r1:r1 + 1, c0:c1] if r1 < 8 else None,
+            whole[r0:r1, c0 - 1] if c0 > 0 else None,
+            whole[r0:r1, c1] if c1 < 8 else None)
+    report["halo_2d_ok"] = dist._all_objects(all(
+        (h is None and w is None) or (h is not None and w is not None
+                                      and np.array_equal(h.numpy(), w))
+        for h, w in zip(got, want)))
 
     # the rank-ordered dot: partials that a different order would round differently
     partial = torch.tensor(np.random.RandomState(r).randn() * 10.0 ** (4 * r),
@@ -175,6 +197,30 @@ def test_rank_time_stats_matches_jax(group, monkeypatch):
 
 def test_halo_exchange_on_four_ranks(group):
     assert group["halo_ok"] == [True] * NRANKS
+
+
+def test_gather_blocks_to_host_on_four_ranks(group):
+    np.testing.assert_array_equal(group["blocks"], _field(8, 8))
+
+
+def test_2d_halo_exchange_on_four_ranks(group):
+    assert group["halo_2d_ok"] == [True] * NRANKS
+
+
+@pytest.mark.parametrize("mesh,g", [((2, 2), 8), ((1, 4), 12), ((4, 1), 12), ((2, 4), 24)])
+def test_block_of_is_the_jax_sharding(mesh, g):
+    """Rank k's block: the slices ``P("x", "y")`` gives the k-th device of the JAX mesh
+    (row-major)."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    jmesh = jax.make_mesh(mesh, ("x", "y"), devices=jax.devices()[:mesh[0] * mesh[1]])
+    slices = NamedSharding(jmesh, P("x", "y")).devices_indices_map((g, g))
+    for k, device in enumerate(jmesh.devices.flat):
+        want = tuple(s.indices(g)[:2] for s in slices[device])  # an unsplit axis: all g
+        assert dist.block_of(k, mesh, g) == want
+    with pytest.raises(ValueError, match="divide"):
+        dist.block_of(0, mesh, g + 1)
 
 
 def test_rank_ordered_dot_is_the_same_bits_on_every_rank(group):

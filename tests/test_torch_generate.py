@@ -1,6 +1,7 @@
 """The band operands of the sharded solver (tpusparse_torch.generate): a rank's rows of the
 stencil's coefficient planes, of its slot-major ELL operand and of b = ones, with zero pad
-rows, against the same rows of the whole-grid operands.
+rows, and a 2-D block's rows and columns of the planes and of b = ones, against the same
+rows and columns of the whole-grid operands.
 
 Whole-grid operands: the port's own, already held to the JAX package's
 (tests/test_torch_host.py, tests/test_torch_ell.py); the pad rows: zero planes, zero ELL
@@ -53,9 +54,38 @@ def test_ones_band(g, lo, hi, pad):
     np.testing.assert_array_equal(b.numpy(), want)
 
 
+# (g, rows, cols): a 2 x 2 mesh's four blocks, a 1 x 4 mesh's inner block, a block one
+# column wide at each side and one in the middle
+BLOCKS = [(8, (0, 4), (0, 4)), (8, (0, 4), (4, 8)), (8, (4, 8), (0, 4)), (8, (4, 8), (4, 8)),
+          (12, (0, 12), (3, 6)), (6, (2, 4), (0, 1)), (6, (2, 4), (5, 6)), (6, (0, 6), (3, 4))]
+
+
+@pytest.mark.parametrize("g,rows,cols", BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_block_planes_are_the_grids_block(g, rows, cols, dtype):
+    """A block's planes are the whole grid's at its rows and columns: W masked only in
+    global column 0, E only in column g − 1 (an inner side column keeps its −1)."""
+    whole = generate.make_stencil5_planes_device(g, dtype=dtype, device="cpu")
+    block = generate.make_stencil5_planes_device(g, dtype=dtype, device="cpu", rows=rows,
+                                                 cols=cols)
+    assert block.shape == (5, rows[1] - rows[0], cols[1] - cols[0]) and block.dtype == dtype
+    assert torch.equal(block, whole[:, rows[0]:rows[1], cols[0]:cols[1]])
+
+
+@pytest.mark.parametrize("g,rows,cols", BLOCKS)
+def test_ones_block(g, rows, cols):
+    b = generate.ones_band(g, rows, dtype=torch.float64, device="cpu", cols=cols)
+    np.testing.assert_array_equal(b.numpy(), np.ones((rows[1] - rows[0], cols[1] - cols[0])))
+
+
 def test_bands_refuse_rows_outside_the_grid():
     for rows, pad in (((3, 2), 0), ((0, 17), 0), ((-1, 4), 0), ((0, 4), -1)):
         with pytest.raises(ValueError, match="do not fit"):
             generate.make_stencil5_planes_device(16, device="cpu", rows=rows, pad_rows=pad)
         with pytest.raises(ValueError, match="do not fit"):
             generate.ones_band(16, rows, pad, device="cpu")
+    for cols in ((3, 2), (0, 17), (-1, 4)):
+        with pytest.raises(ValueError, match="do not fit"):
+            generate.make_stencil5_planes_device(16, device="cpu", cols=cols)
+        with pytest.raises(ValueError, match="do not fit"):
+            generate.ones_band(16, device="cpu", cols=cols)

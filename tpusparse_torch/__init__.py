@@ -9,11 +9,13 @@ Matrix Market I/O with its native reader, benchmark statistics, metrics and expo
 Ported so far: every Pallas kernel of the JAX package as a hand-written CUDA kernel
 (``csrc/``: the stencil kernels K1–K3 and K8–K10, the BLAS1 kernels K4–K7, DIA K11 and one
 ELL kernel for K12/K13); every SpMV mode of its registry (``ops``); the single-device CG
-solver's loops (recompute, classic, fused, host-stepped; ``solvers/cg``); the 1-D row-band
-sharded CG on ``torch.distributed`` (``dist``, ``solvers/cg_sharded``); the benchmark
-harness, probes and profiling (``bench/``); and the CLIs (``cli/``: CG, SpMV, the matrix
-generator, the multichip CG).  ``PERF.md`` and ``ROADMAP.md`` say what is measured and
-what is still to come (the 2-D decomposition, a bf16 state).
+solver's loops (recompute, classic, fused, host-stepped; ``solvers/cg``); the sharded CG
+on ``torch.distributed``, over row bands and over the 2-D block decomposition (``dist``,
+``solvers/cg_sharded``: ``cg_solve_sharded``, ``cg_solve_sharded_2d`` and their stepped
+twins); the benchmark harness, probes and profiling (``bench/``); and the CLIs (``cli/``:
+CG, SpMV, the matrix generator, the multichip CG with ``--mesh2d``).  ``PERF.md`` and
+``ROADMAP.md`` say what is measured and what is still to come (a bf16 state, a CUDA graph
+of the iteration).
 """
 
 __version__ = "0.1.0"
@@ -21,7 +23,7 @@ __version__ = "0.1.0"
 
 def clear_caches() -> None:
     """Drop every cached operator and the device memory it pins: the sharded solver's
-    operators of synthesized operands.  (The single-device solver caches nothing.)  Sweeps
+    operators of synthesized operands, row bands and 2-D blocks.  (The single-device solver caches nothing.)  Sweeps
     over grid sizes call this between points."""
     from .solvers import cg_sharded
 

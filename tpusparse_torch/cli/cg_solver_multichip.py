@@ -5,8 +5,8 @@ src/main/cg_solver_mgpu_stencil.cu):
 
     python -m tpusparse_torch.cli.cg_solver_multichip <gen:<g>|matrix.mtx> [--chips=N]
         [--mode=stencil5] [--tol=1e-6] [--maxiter=1000] [--json=<f>] [--csv=<f>]
-        [--runs=10] [--warmup=3] [--dtype=f32|f64] [--timers] [--trace=<logdir>]
-        [--multihost] [--platform=cuda|cpu]
+        [--runs=10] [--warmup=3] [--dtype=f32|f64] [--mesh2d=RxC] [--timers]
+        [--trace=<logdir>] [--multihost] [--platform=cuda|cpu]
 
 ``--chips=N`` is the number of ranks (default: one per visible card, one on the CPU).
 One command drives them: the CLI spawns N processes on this host
@@ -21,7 +21,14 @@ which keeps its rows (the reference's per-rank load, :50-60 of its main).  The s
 modes need a 5-point-stencil-extractable matrix, ``stencil5-const`` uniform coefficients,
 ``csr`` any g²×g² matrix whose nonzeros lie within one grid row of their row; each of
 these refusals returns 2, as ``--dtype=bf16`` (no bf16 state in the port's kernels yet)
-and ``--mesh2d`` (the 2-D decomposition is not ported yet) do.
+does.
+
+``--mesh2d=RxC`` runs the 2-D block decomposition instead (``cg_sharded.
+cg_solve_sharded_2d``): R·C ranks (``--chips`` is ignored, as in the JAX CLI), rank
+i·C + j holding grid block (i, j), rows and columns exchanged with its four neighbours.
+The grid must divide by R and C and the mode be a stencil one; ``csr``, a malformed RxC,
+a grid that does not divide, or a group of another size than R·C returns 2.  The export's
+solver is ``tpusparse-cg-sharded2d-RxC``.
 
 The protocol is the reference's: 3 warm-up solves, 10 timed solves with its statistics,
 Sum(x)/Norm2(x) of the solution gathered to rank 0 (``dist.gather_to_host``, timed as
@@ -35,6 +42,7 @@ more solve on rank 0.  The export's ``loop`` is ``recompute-ap`` (``stencil5-con
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 import os
 import sys
@@ -73,7 +81,8 @@ def build_parser():
     p.add_argument("--dtype", default=None, choices=[None, "f32", "f64", "bf16"],
                    help="state dtype (default f32); bf16 is refused: no bf16 state yet")
     p.add_argument("--mesh2d", default=None, metavar="RxC",
-                   help="2-D block decomposition: refused, not ported yet")
+                   help="2-D block decomposition over an RxC grid of ranks (R·C ranks, "
+                        "--chips ignored); the grid must divide both extents")
     p.add_argument("--multihost", action="store_true",
                    help="join the process group from the torchrun environment (one process "
                         "per rank) instead of spawning the ranks")
@@ -91,26 +100,50 @@ def build_parser():
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    mesh = None
     if args.mesh2d:
-        print("[ERROR] --mesh2d: 2-D decomposition is not ported yet (ROADMAP Queue 1 item 7)",
-              file=sys.stderr)
-        return 2
+        if args.mode == "csr":
+            print("[ERROR] the generic csr mode is 1-D row-band only (reference parity: "
+                  "its comparison kernel lives in the 1-D partitioned solver)",
+                  file=sys.stderr)
+            return 2
+        mesh = parse_mesh2d(args.mesh2d)
+        if mesh is None:
+            print(f"[ERROR] --mesh2d expects RxC (e.g. 2x4), got '{args.mesh2d}'",
+                  file=sys.stderr)
+            return 2
     if args.dtype == "bf16":
         print("[ERROR] --dtype=bf16: the port's kernels take f32 and f64 state; a bf16 state "
               "is not ported yet (ROADMAP Queue 1 item 8)", file=sys.stderr)
         return 2
     if tdist.is_initialized() or args.multihost or "WORLD_SIZE" in os.environ:
         dist.initialize_multihost()
-        if args.chips and args.chips != dist.world_size():
+        if mesh is not None and mesh[0] * mesh[1] != dist.world_size():
+            print(f"[ERROR] --mesh2d={args.mesh2d} needs {mesh[0] * mesh[1]} ranks but the "
+                  f"group has {dist.world_size()}", file=sys.stderr)
+            return 2
+        if mesh is None and args.chips and args.chips != dist.world_size():
             print(f"[ERROR] --chips={args.chips} but the group has {dist.world_size()} ranks",
                   file=sys.stderr)
             return 2
         return run(args, dist.rank_device(args.platform))
     device = resolve_device(args.platform)  # raises without a card, before any spawn
-    nranks = args.chips or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    if mesh is not None:
+        nranks = mesh[0] * mesh[1]
+    else:
+        nranks = args.chips or (torch.cuda.device_count() if device.type == "cuda" else 1)
     if nranks == 1:
         return run(args, device)
     return dist.launch_local(_rank_main, nranks, argv, device=args.platform)
+
+
+def parse_mesh2d(text):
+    """(R, C) of an ``RxC`` string, both at least 1, or None."""
+    try:
+        r, c = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        return None
+    return (r, c) if r >= 1 and c >= 1 else None
 
 
 def _rank_main(device, argv):
@@ -168,14 +201,29 @@ def run(args, device) -> int:
             "these times are no measurement of scaling across cards")
 
     diag, offdiag = const_coeffs if const_coeffs is not None else (5.0, -1.0)
-    op = cg_sharded.make_sharded_operator(g, mode=args.mode, planes=planes, matrix=matrix,
-                                          diag=diag, offdiag=offdiag, dtype=dtype,
-                                          device=device)
+    mesh = parse_mesh2d(args.mesh2d) if args.mesh2d else None
+    try:
+        op = cg_sharded.make_sharded_operator(g, mode=args.mode, planes=planes,
+                                              matrix=matrix, diag=diag, offdiag=offdiag,
+                                              dtype=dtype, device=device, mesh_shape=mesh)
+    except ValueError as e:
+        if mesh is None:
+            raise
+        say(f"[ERROR] --mesh2d={args.mesh2d}: {e}", file=sys.stderr)
+        return 2
     del planes, matrix
-    loop = ("host-stepped" if args.timers
-            else "recompute-ap" if op.mode == "stencil5-const" else "classic")
-    solve = (cg_sharded.cg_solve_sharded_stepped if args.timers
-             else cg_sharded.cg_solve_sharded)
+    if mesh is not None:
+        say(f"[INFO] 2-D mesh {mesh[0]}x{mesh[1]}: rank i·{mesh[1]} + j holds block (i, j) of "
+            f"{op.band}x{op.cols}")
+        loop = "host-stepped" if args.timers else "classic"
+        solve = (cg_sharded.cg_solve_sharded_2d_stepped if args.timers
+                 else cg_sharded.cg_solve_sharded_2d)
+        solve = functools.partial(solve, mesh)
+    else:
+        loop = ("host-stepped" if args.timers
+                else "recompute-ap" if op.mode == "stencil5-const" else "classic")
+        solve = (cg_sharded.cg_solve_sharded_stepped if args.timers
+                 else cg_sharded.cg_solve_sharded)
 
     def run_solve(keep_x: bool = False):
         t0 = time.perf_counter()
@@ -206,13 +254,16 @@ def run(args, device) -> int:
         say(f"Load imbalance:      {rank_times['load_imbalance_pct']:.2f}% (measured: max "
             f"{rank_times['solve_time_max_ms']:.2f} / min {rank_times['solve_time_min_ms']:.2f}"
             f" ms across {nranks} ranks)")
+    elif mesh is not None:
+        say("Load imbalance:      0.00% (2-D blocks divide the grid exactly; one rank)")
     else:
         imbalance = 100.0 * op.row_pad / op.band if op.band else 0.0
         say(f"Load imbalance:      {imbalance:.2f}% (row padding {op.row_pad} of band "
             f"{op.band}; one rank)")
     # the MPI_Gatherv analog, timed as the reference's CGStatsMultiGPU time_allgather
     t_gather = time.perf_counter()
-    x_host = dist.gather_to_host(x, rows=g)
+    x_host = (dist.gather_blocks_to_host(x, mesh) if mesh is not None
+              else dist.gather_to_host(x, rows=g))
     allgather_ms = (time.perf_counter() - t_gather) * 1e3
     del x
     cg_sharded.clear_caches()  # a synthesized operand's operator is cached: drop it
@@ -223,7 +274,9 @@ def run(args, device) -> int:
            if cg_stats.spmv_time_ms > 0 else None)
     result = export.cg_result_dict(
         # op.mode, not args.mode: a padded stencil5-const runs as stencil5
-        solver=f"tpusparse-cg-sharded-{nranks}chip", mode=op.mode, matrix_name=name, op=op,
+        solver=(f"tpusparse-cg-sharded2d-{mesh[0]}x{mesh[1]}" if mesh is not None
+                else f"tpusparse-cg-sharded-{nranks}chip"), mode=op.mode, matrix_name=name,
+        op=op,
         cg_stats=cg_stats, bench_stats=bench, sysinfo=info, sum_x=float(x_host.sum()),
         norm2_x=float(np.linalg.norm(x_host)), gflops_spmv=gfl, loop=loop,
         extra_timing={"num_chips": nranks, "allgather_ms": allgather_ms,

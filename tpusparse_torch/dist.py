@@ -153,6 +153,41 @@ def gather_to_host(x, rows: int = 0):
     return out[:rows] if rows else out
 
 
+def block_of(rank_: int, mesh_shape, grid_size: int) -> tuple:
+    """((row_lo, row_hi), (col_lo, col_hi)): the grid block of rank ``rank_`` on an R×C
+    mesh, row-major (rank k = i·C + j holds block (i, j)), as the JAX package's
+    ``P("x", "y")`` sharding placed it.  The grid must divide by R and C."""
+    nr, nc = (int(v) for v in mesh_shape)
+    g = int(grid_size)
+    if g % nr or g % nc:
+        raise ValueError(f"grid {g} must divide the mesh extents ({nr}, {nc})")
+    if not 0 <= rank_ < nr * nc:
+        raise ValueError(f"rank {rank_} is not on a {nr}x{nc} mesh")
+    i, j = divmod(rank_, nc)
+    h, w = g // nr, g // nc
+    return (i * h, (i + 1) * h), (j * w, (j + 1) * w)
+
+
+def gather_blocks_to_host(x, mesh_shape):
+    """Every rank's block of a 2-D decomposed field, put in place on rank 0's host as the
+    whole (R·h, C·w) numpy field; the other ranks get None, as ``gather_to_host``.
+    Collective: every rank calls it, and the group must have R·C ranks.  Each block goes to
+    its host, then by gloo to rank 0."""
+    nr, nc = (int(v) for v in mesh_shape)
+    if nr * nc != world_size():
+        raise ValueError(f"a {nr}x{nc} mesh needs {nr * nc} ranks, the group has "
+                         f"{world_size()}")
+    block = x.detach().to("cpu").contiguous()
+    if world_size() == 1:
+        return block.numpy()
+    parts = [torch.empty_like(block) for _ in range(nr * nc)] if rank() == 0 else None
+    tdist.gather(block, parts, dst=0)
+    if parts is None:
+        return None
+    return torch.cat([torch.cat(parts[i * nc:(i + 1) * nc], dim=1) for i in range(nr)],
+                     dim=0).numpy()
+
+
 def barrier() -> None:
     """Cross-rank barrier: the reference's MPI_Barrier before timing
     (cg_solver_mgpu_partitioned.cu:405).  A no-op for one rank."""

@@ -8,7 +8,8 @@ Norm2 of y = A·ones).  The device half builds the stencil's coefficient planes
 (``make_stencil5_ell_device``, ``make_stencil5_dia_device``, ``make_stencil5_csr_device``)
 and the canonical x = ones / b = ones field (``ones_field``) directly on the target device
 in the target dtype.  The planes, the ELL operand and b = ones (``ones_band``) also come as
-one rank's row band with zero pad rows, for the sharded solver.
+one rank's row band with zero pad rows, for the sharded solver; the planes and b = ones
+also as one rank's block of rows and columns, for its 2-D decomposition.
 """
 
 from __future__ import annotations
@@ -117,7 +118,8 @@ def ones_field(grid_size: int, dtype=torch.float32, device="cuda"):
 
 
 def make_stencil5_planes_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_OFFDIAG,
-                                dtype=torch.float32, device="cuda", rows=None, pad_rows=0):
+                                dtype=torch.float32, device="cuda", rows=None, pad_rows=0,
+                                cols=None):
     """The (5, g, g) coefficient planes of the g×g stencil, in the order N, W, C, E, S,
     made on the device in ``dtype``: the port of ``tpusparse.generate.
     make_stencil5_planes_device``, with the masks of ``make_stencil5`` (row 0 has no N, the
@@ -127,6 +129,11 @@ def make_stencil5_planes_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAU
     many rows of zero planes: a rank's band, (5, hi − lo + pad_rows, g), with N masked only
     where the band holds global row 0 and S only where it holds row g − 1, the planes the
     JAX package's ``_sharded_planes`` (``cg_sharded.py:249-268``) made whole and sharded.
+    ``cols=(lo, hi)`` likewise makes only grid columns [lo, hi): a rank's block of the 2-D
+    decomposition, (5, rows, hi − lo), with W masked only where the block holds global
+    column 0 and E only where it holds column g − 1 (the JAX package's ``_sharded_planes``
+    with ``P(None, "x", "y")``, ``cg_sharded.py:813-825``).  A block's inner side columns
+    keep their −1: the solver adds the neighbour's column times it.
 
     One tensor is allocated and each plane filled in place, so the peak footprint is the
     output alone: five (g, g) planes and a ``torch.stack`` would double it (16.8 GB for
@@ -136,7 +143,9 @@ def make_stencil5_planes_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAU
     if g < 1:
         raise ValueError("grid_size must be >= 1")
     lo, hi = _band(g, rows, pad_rows)
-    planes = torch.empty((5, hi - lo + pad_rows, g), dtype=dtype, device=resolve_device(device))
+    c0, c1 = _band(g, cols, 0, "columns")
+    planes = torch.empty((5, hi - lo + pad_rows, c1 - c0), dtype=dtype,
+                         device=resolve_device(device))
     real = planes[:, :hi - lo]
     real[C].fill_(diag)
     for d in (N, S, W, E):
@@ -145,28 +154,35 @@ def make_stencil5_planes_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAU
         real[N, 0].zero_()
     if lo < g <= hi:
         real[S, -1].zero_()
-    real[W, :, 0].zero_()
-    real[E, :, -1].zero_()
+    if c0 == 0 and c1 > 0:
+        real[W, :, 0].zero_()
+    if c0 < g <= c1:
+        real[E, :, -1].zero_()
     planes[:, hi - lo:].zero_()
     return planes
 
 
-def ones_band(grid_size: int, rows=None, pad_rows=0, dtype=torch.float32, device="cuda"):
+def ones_band(grid_size: int, rows=None, pad_rows=0, dtype=torch.float32, device="cuda",
+              cols=None):
     """The canonical b = ones on grid rows [lo, hi) (``rows``, default all), with
     ``pad_rows`` zero rows appended: a rank's band of the right-hand side, made on the
-    device (the JAX package's ``_local_ones_b``, ``cg_sharded.py:406-412``)."""
+    device (the JAX package's ``_local_ones_b``, ``cg_sharded.py:406-412``); with
+    ``cols=(lo, hi)`` only those columns, a rank's block (the JAX 2-D solver's
+    ``jnp.ones((g // nr, g // nc))``, ``cg_sharded.py:1072``)."""
     g = int(grid_size)
     lo, hi = _band(g, rows, pad_rows)
-    b = torch.ones((hi - lo + pad_rows, g), dtype=dtype, device=resolve_device(device))
+    c0, c1 = _band(g, cols, 0, "columns")
+    b = torch.ones((hi - lo + pad_rows, c1 - c0), dtype=dtype, device=resolve_device(device))
     b[hi - lo:].zero_()
     return b
 
 
-def _band(g, rows, pad_rows):
-    """(lo, hi) of a band of a g-row grid, checked."""
+def _band(g, rows, pad_rows, what="rows"):
+    """(lo, hi) of a band of a g-row grid (or of a block's columns), checked."""
     lo, hi = (0, g) if rows is None else (int(rows[0]), int(rows[1]))
     if not 0 <= lo <= hi <= g or pad_rows < 0:
-        raise ValueError(f"rows {rows} with {pad_rows} pad rows do not fit a grid of {g} rows")
+        raise ValueError(f"{what} {rows} with {pad_rows} pad rows do not fit a grid of {g} "
+                         f"{what}")
     return lo, hi
 
 
