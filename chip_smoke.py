@@ -21,10 +21,14 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      rectangular call (a quarter of the rows over their gather domain, y bit for bit, the
      sharded solver's csr band); K5 (p bit for bit) and
      K6 also on fields of 1, 3, 1369 and 10^6 elements, aligned and offset by one element
-     in one operand or both, so that both bodies and the vector body's head and tail run;
+     in one operand or both, so that both bodies and the vector body's head and tail run,
+     in f32, f64 and bf16; the bf16-state instances (K3, K4-K7, K8 with bf16 planes, K11,
+     the ELL kernel square and rectangular) on the stencil's operands, fields bit for bit
+     and their f32 dots to 1e-4;
   4. the SpMVs on ones at 20480² against the analytic checksums: K3 and K10 in f32 and
      f64, K8 and K9 in f32, bf16c and f64, K11 and the ELL kernel in f32 and f64 (K9 and
-     K10 with β = 0, p = 0 and r = ones);
+     K10 with β = 0, p = 0 and r = ones); K3, K8, K11 and the ELL kernel at a bf16 state,
+     summed in f64;
   5. the main paths, each read on its own: every launch count is set to 0 just before a
      path runs and read just after, and the path must have launched its own kernels (CG
      over stencil5-const recompute: K1, K2, K6; every classic CG: its SpMV, K4, K5, K6;
@@ -42,13 +46,21 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      G_HOST² (each run's wall time, its operator's build included, is printed); the bf16c
      solution against the f32 stencil5 solution, bit for
      bit; one solve from a seeded nonzero x0 (K7), held with the x0 = 0 solve to the true
-     residual; five fused p-update solves through cg.cg_solve(fused_pupdate=True), a
+     residual, and one at a bf16 state (K7's bf16 instance), held to stencil5 f64's x
+     within 1e-2; five fused p-update solves through cg.cg_solve(fused_pupdate=True), a
      median over a few solves after a warm-up each (stencil5 f64, exactly 14 iterations
      and the classic stencil5 f64 solution's Sum/Norm2 to 1e-10; stencil5 f32;
      stencil5-bf16c f32, bit for bit the fused stencil5 f32 solution; stencil5-const f64,
      exactly 14 iterations and the recompute solution's Sum/Norm2 to 1e-10;
-     stencil5-const f32).  The kernels line's launches are the paths' counts summed; the
-     counts of each path go to chiprun_out/chip_smoke_launches.json;
+     stencil5-const f32).  The bf16 state: the CG CLI at gen:20480 --dtype=bf16 in
+     stencil5, stencil5-bf16c, stencil5-const --loop=classic, csr, dia and bcoo, each
+     launching its bf16 kernels, converging, and giving Sum/Norm2 within 1e-2 of the
+     stencil5 f64 solve's (its iterations and median printed beside the same mode's f32
+     solve's); --loop=auto on stencil5-const at bf16 must return 2 (the recompute loop
+     refuses a bf16 state); the SpMV CLI at --dtype=bf16 over the six modes at 20480²
+     (--resident-x) and the plain twins stencil5-xla, stencil5-const-xla, csr-xla and
+     dia-xla at G_HOST², each with the analytic checksums to 1e-12.  The kernels line's launches are the paths'
+     counts summed; the counts of each path go to chiprun_out/chip_smoke_launches.json;
   6. each kernel against its plain twin at 20480² on seeded random fields at the main
      paths' shapes (same tolerances), then timed against it on those inputs (CUDA events,
      plain/kernel/kernel/plain), and against the one PyTorch call that computes the same
@@ -62,12 +74,16 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      one-row pieces G_BIG/2 wide) and of a 1 x 4 mesh (G_BIG × G_BIG/4) with halo rows,
      K8 (both planes dtypes) and K3 in the overlapped SpMV's three pieces into one y (y
      also bit for bit the whole band's call), K1 and K2 on the 4-rank band, in f32 and
-     f64.  Each kernel's bound: the bytes its call must move (inputs read once, outputs
-     written once) over 3.35 TB/s, or its operations over the data sheet's peak rate,
-     whichever is larger;
+     f64.  The bf16-state instances the same way (fields bit for bit): K3, K4-K7 and K8
+     (bf16 planes) at 20480², against F.conv2d in bf16, torch.add and torch.dot on bf16
+     (held to the kernel at 1e-2: the library rounds once where the kernel rounds each
+     operation), K11 and the ELL kernel (against bcoo at bf16), the rectangular ELL call,
+     and K3 and K8 in the band and block pieces.  Each kernel's bound: the bytes its call
+     must move (inputs read once, outputs written once) over 3.35 TB/s, or its operations
+     over the data sheet's peak rate, whichever is larger (a bf16 state computes in f32);
      the solves' median times, next to the card's name and power limit;
-  7. one solve of each CG run of phase 5 (bcoo f64 included), and of each fused solve,
-     under torch.profiler, its device time split by kernel, and its idle time: phase 5's
+  7. one solve of each CG run of phase 5 (bcoo f64 included; of the bf16 runs, stencil5
+     only), and of each fused solve, under torch.profiler, its device time split by kernel, and its idle time: phase 5's
      unprofiled median less the profiled device time (PERF.md section 5);
   8. the CG CLI's host-stepped loop and its other flags at gen:20480, each run from its own
      launch counts: --timers on stencil5 f64 (exactly 14 iterations, loop host-stepped,
@@ -100,10 +116,13 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      (K8; K1 and K2; the ELL kernel; K3) on the rows an exchange received, one rank none;
      each run's median and
      rank-time max/min/imbalance, the one-rank median beside phase 5's single-device one;
-     then stencil5-bf16c f32 on 2 ranks, its x equal to stencil5 f32's bit for bit;
+     stencil5 at --dtype=bf16 on 2 ranks (any iteration count, Sum/Norm2 within 1e-2 of
+     phase 5's stencil5 f64); then stencil5-bf16c f32 on 2 ranks, its x equal to stencil5
+     f32's bit for bit;
  10. the multichip CLI's 2-D block decomposition (--mesh2d) at gen:20480 f64, its ranks
      sharing the card, --runs=3 --warmup=1: stencil5 and stencil5-const on 2 x 2,
-     --timers stencil5 on 2 x 2 and stencil5 on 1 x 4, each with exactly 14 iterations,
+     --timers stencil5 on 2 x 2 and stencil5 on 1 x 4, each with exactly 14 iterations, and
+     stencil5 --dtype=bf16 on 2 x 2 (the bars of phase 9's bf16 run),
      solver tpusparse-cg-sharded2d-RxC and Sum/Norm2 equal to phase 5's solution of the
      same mode to 1e-10, the --timers buckets each > 0 and summing to no more than the
      median; every rank must launch its SpMV (K8 or K3), K4, K5 and K6; a rank with a N/S
@@ -181,14 +200,33 @@ CG_RUNS = {
     "csr f32": ("csr", ["--dtype=f32"], None, ("spmv_ell",) + CLASSIC),
     "dia f64": ("dia", ["--dtype=f64"], 14, ("spmv_dia",) + CLASSIC),
     "bcoo f64": ("bcoo", ["--dtype=f64"], 14, CLASSIC),
+    # the bf16 state: the classic loop through the bf16 instances (bcoo: cuSPARSE in f32)
+    "stencil5 bf16": ("stencil5", ["--dtype=bf16"], None, ("spmv_stencil5",) + CLASSIC),
+    "bf16c bf16": ("stencil5-bf16c", ["--dtype=bf16"], None, ("spmv_stencil5",) + CLASSIC),
+    "const bf16 classic": ("stencil5-const", ["--dtype=bf16", "--loop=classic"], None,
+                           ("spmv_stencil5_const",) + CLASSIC),
+    "csr bf16": ("csr", ["--dtype=bf16"], None, ("spmv_ell",) + CLASSIC),
+    "dia bf16": ("dia", ["--dtype=bf16"], None, ("spmv_dia",) + CLASSIC),
+    "bcoo bf16": ("bcoo", ["--dtype=bf16"], None, CLASSIC),
 }
+# the bf16 solves: Sum/Norm2 within BF16_TOL of stencil5 f64's (a bf16 CG's x is noise at
+# ~5e-3 against the exact solution); phase 7 profiles the first of them only
+BF16_RUNS = tuple(label for label in CG_RUNS if label.endswith(("bf16", "bf16 classic")))
+BF16_TOL = 1e-2
+# each bf16 solve beside the f32 (or f64) solve of its mode in the same call
+WIDER_RUN = {"stencil5 bf16": "stencil5 f32", "bf16c bf16": "bf16c f32",
+             "const bf16 classic": "const f32 classic", "csr bf16": "csr f32",
+             "dia bf16": "dia f64", "bcoo bf16": "bcoo f64"}
 # the f64 solves whose solution must equal stencil5 f64's (Sum/Norm2 to 1e-10)
 HELD_TO_STENCIL5 = ("csr f64", "dia f64", "bcoo f64")
 # the SpMV CLI's modes: mode -> kernels required (the plain twins and cuSPARSE need none)
 SPMV_NEEDS = {"stencil5": ("spmv_stencil5",), "stencil5-bf16c": ("spmv_stencil5",),
               "stencil5-const": ("spmv_stencil5_const",), "csr": ("spmv_ell",),
-              "dia": ("spmv_dia",), "csr-xla": (), "dia-xla": (), "bcoo": ()}
+              "dia": ("spmv_dia",), "csr-xla": (), "dia-xla": (), "bcoo": (),
+              "stencil5-xla": (), "stencil5-const-xla": ()}
 SPMV_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr", "dia", "bcoo")
+# the SpMV CLI's plain twins at --dtype=bf16, at G_HOST² (SPMV_MODES run at G_BIG²)
+HOST_MODES_BF16 = ("stencil5-xla", "stencil5-const-xla", "csr-xla", "dia-xla")
 # the plain twins of the generic kernels, at a grid where they take seconds
 HOST_MODES = ("csr", "csr-xla", "dia-xla")
 # K5/K6 fields of these sizes and (r, p) offsets in elements into their storage: both
@@ -247,6 +285,10 @@ SHARDED_RUNS = {
                                       "host-stepped", "const f64 recompute",
                                       ("spmv_stencil5_const",) + CLASSIC,
                                       ("spmv_stencil5_const",)),
+    # the bf16 state: any iteration count, Sum/Norm2 within BF16_TOL of stencil5 f64's
+    "sharded stencil5 bf16 x2": (2, ["--mode=stencil5", "--dtype=bf16"], "classic",
+                                 "stencil5 f64", ("spmv_stencil5",) + CLASSIC,
+                                 ("spmv_stencil5",)),
 }
 SHARDED_ARGS = ["--runs=3", "--warmup=1"]
 # phase 10: the multichip CLI's 2-D decomposition at G_BIG² f64, its ranks sharing the card:
@@ -265,6 +307,8 @@ MESH2D_RUNS = {
                                          STENCIL5_BLOCK, "sharded stencil5 f64 --timers x4"),
     "mesh2d stencil5 f64 1x4": ((1, 4), ["--mode=stencil5", "--dtype=f64"], "classic",
                                 "stencil5 f64", STENCIL5_BLOCK, "sharded stencil5 f64 x4"),
+    "mesh2d stencil5 bf16 2x2": ((2, 2), ["--mode=stencil5", "--dtype=bf16"], "classic",
+                                 "stencil5 f64", STENCIL5_BLOCK, "sharded stencil5 bf16 x2"),
 }
 SHARDED_DIR = OUT / "sharded"
 # two of phase 5's CLI medians as PERF.md section 6 records them before the solver had
@@ -278,9 +322,9 @@ PROBE_KERNELS = ("probe_read", "probe_copy")
 SCOPE_PAIRS = 100_000  # scopes entered and left to time one on the host
 # the least time a call can take: its bytes over HBM's rate, or its operations over the
 # peak rate of their type, whichever is larger (NVIDIA's H100 SXM data sheet, dense,
-# outside the tensor cores, at the 700 W limit)
+# outside the tensor cores, at the 700 W limit); a bf16 state computes in f32
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 67e12}
 
 
 def rel(a, b) -> float:
@@ -339,7 +383,9 @@ class Compare:
     each kernel's largest absolute and relative errors over all its outputs."""
 
     def __init__(self, torch):
-        self.tol = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-4)}
+        # bf16: fields bit for bit (its kernels round as the twins do), f32 dots to 1e-4
+        self.tol = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-4),
+                    torch.bfloat16: (0.0, 1e-4)}
         self.max_abs = {name: 0.0 for name in KERNELS}
         self.max_rel = {name: 0.0 for name in KERNELS}
 
@@ -375,8 +421,11 @@ def phase_card(torch, sysinfo):
 
 
 def _template_args(mangled) -> str:
+    # a substitution (S_, S1_, ...) among these arguments can only repeat __nv_bfloat16:
+    # builtin types are never substituted
     names = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
-    return ",".join(names[a] for a in re.findall(r"13__nv_bfloat16|[fd]", mangled))
+    return ",".join(names.get(a, "bf16")
+                    for a in re.findall(r"13__nv_bfloat16|S\d*_|[fd]", mangled))
 
 
 def phase_build(build):
@@ -401,7 +450,8 @@ def phase_build(build):
 
 
 def compare_const(torch, st5, cmp, g, dtype, randn):
-    """K1-K3 against their twins on a g-wide grid and on a band with halo rows."""
+    """K1-K3 against their twins on a g-wide grid and on a band with halo rows; K3 only
+    for a bf16 state (K1 and K2 have no bf16 instance)."""
     kw = {"diag": DIAG, "offdiag": OFFDIAG}
     dev = torch.device("cuda")
     lab = f"g={g} {dname(dtype)}"
@@ -420,6 +470,8 @@ def compare_const(torch, st5, cmp, g, dtype, randn):
     yp, dp = st5.spmv_stencil5_const_plain(xb, hp, hn, with_dot=True, **kw)
     cmp.check("spmv_stencil5_const", lab + f" band {band} rows + halos", dtype,
               [("y", y, yp, "field"), ("dot", d, dp, "dot")])
+    if dtype == torch.bfloat16:
+        return
 
     for beta, halos, rows in ((0.0, (None, None), g), (0.7, (hp, hn), band)):
         r, p = randn(rows, g), randn(rows, g)
@@ -513,14 +565,14 @@ def compare_k5_k6_alignments(torch, blas1, cmp):
     """K5 (p bit for bit) and K6 against their twins on fields of SMALL_N elements at each
     of ALIGNMENTS, so that both bodies, and the vector body's head and tail, run."""
     dev = torch.device("cuda")
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(5)
         beta = torch.tensor(0.37, dtype=dtype, device=dev)
         for n in SMALL_N:
             for align, (off_r, off_p) in ALIGNMENTS.items():
-                r = offset_copy(torch, torch.randn(n, generator=gen, device=dev, dtype=dtype),
+                r = offset_copy(torch, torch.randn(n, generator=gen, device=dev).to(dtype),
                                 off_r)
-                p = offset_copy(torch, torch.randn(n, generator=gen, device=dev, dtype=dtype),
+                p = offset_copy(torch, torch.randn(n, generator=gen, device=dev).to(dtype),
                                 off_p)
                 body = "vector" if (r.data_ptr() - p.data_ptr()) % 16 == 0 else "scalar"
                 if (body == "vector") != (align != "one offset"):
@@ -610,6 +662,35 @@ def generic_matrices():
     }
 
 
+def compare_bf16(torch, st5, blas1, ell, dia, cmp, g):
+    """The bf16-state instances against their twins on a g-wide grid (seeded normal values
+    rounded to bf16): K3 and K8 (bf16 planes) on the grid and on a band with halo rows,
+    K4-K7, K11 and the ELL kernel on the stencil's operands, and the ELL kernel's
+    rectangular call; fields bit for bit, dots (f32) to 1e-4."""
+    from tpusparse_torch import generate
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(g + 16)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    compare_const(torch, st5, cmp, g, bf, randn)
+    lab = f"g={g} bfloat16"
+    compare_blas1(torch, blas1, cmp, *(randn(g, g) for _ in range(4)), lab)
+    band = g // 2 + 1
+    pl = f"g={g} planes bfloat16 state bfloat16"
+    compare_k8(torch, st5, cmp, randn(5, g, g), randn(g, g), (), pl)
+    compare_k8(torch, st5, cmp, randn(5, band, g), randn(band, g),
+               (randn(1, g), randn(1, g)), pl + f" band {band} rows + halos")
+    compare_generic(torch, ell, dia, cmp, (
+        generate.make_stencil5_ell_device(g, DIAG, OFFDIAG, dtype=bf, device=dev),
+        generate.make_stencil5_dia_device(g, DIAG, OFFDIAG, dtype=bf, device=dev)),
+        randn(g * g), f"stencil {lab}")
+    compare_ell_band(torch, ell, generate, cmp, g, bf, randn)
+
+
 def phase_compare(torch, st5, blas1, ell, dia, cmp):
     from tpusparse_torch import convert, generate
 
@@ -636,6 +717,7 @@ def phase_compare(torch, st5, blas1, ell, dia, cmp):
                 generate.make_stencil5_dia_device(g, DIAG, OFFDIAG, dtype=dtype, device=dev)),
                 randn(g * g), f"stencil {lab}")
             compare_ell_band(torch, ell, generate, cmp, g, dtype, randn)
+        compare_bf16(torch, st5, blas1, ell, dia, cmp, g)
     compare_k5_k6_alignments(torch, blas1, cmp)
     t0 = time.perf_counter()
     mats = generic_matrices()
@@ -691,6 +773,22 @@ def phase_checksum(torch, st5, ell, dia, generate):
             torch.cuda.empty_cache()
         del x
         torch.cuda.empty_cache()
+    # the bf16 state: y = 1, 2 or 3 at every point, exact in bf16, summed in f64
+    bf = torch.bfloat16
+    x = generate.ones_field(G_BIG, bf, "cuda")
+    check(f"K3 {G_BIG}² bfloat16", st5.spmv_stencil5_const(x, diag=DIAG, offdiag=OFFDIAG))
+    planes = generate.make_stencil5_planes_device(G_BIG, DIAG, OFFDIAG, dtype=bf,
+                                                  device="cuda")
+    check(f"K8 {G_BIG}² planes bfloat16 state bfloat16", st5.spmv_stencil5(planes, x))
+    del planes
+    for short, spmv, make in (("ELL", ell.spmv_ell, generate.make_stencil5_ell_device),
+                              ("K11", dia.spmv_dia, generate.make_stencil5_dia_device)):
+        operand = make(G_BIG, DIAG, OFFDIAG, dtype=bf, device="cuda")
+        check(f"{short} {G_BIG}² bfloat16", spmv(*operand, x.reshape(-1)))
+        del operand
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
 
 
 def phase_main_path(torch, counters, cg_cli, spmv_cli):
@@ -731,6 +829,24 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
               f"Norm2 rel {errs['solution_norm']:.3e} (tol 1e-10)", flush=True)
         if not max(errs.values()) <= 1e-10:
             raise AssertionError(f"CG {label} solution differs from stencil5 f64's: {errs}")
+    for label in BF16_RUNS:
+        v = results[label]["validation"]
+        errs = {k: abs(v[k] - ref[k]) / abs(ref[k]) for k in ("solution_sum", "solution_norm")}
+        f32 = results[WIDER_RUN[label]]
+        print(f"[cg] {label} solution against stencil5 f64: Sum rel {errs['solution_sum']:.3e}, "
+              f"Norm2 rel {errs['solution_norm']:.3e} (tol {BF16_TOL:g}); "
+              f"{results[label]['convergence']['iterations']} iterations, median "
+              f"{results[label]['timing']['total_median_ms']!r} ms against {WIDER_RUN[label]}'s "
+              f"{f32['convergence']['iterations']} iterations, "
+              f"{f32['timing']['total_median_ms']!r} ms in the same call", flush=True)
+        if not max(errs.values()) <= BF16_TOL:
+            raise AssertionError(f"CG {label} solution differs from stencil5 f64's: {errs}")
+    # --loop=auto picks the recompute loop on stencil5-const, which refuses a bf16 state
+    rc = counts.run("cg const bf16 --loop=auto (refused)", (), lambda: cg_cli.main(
+        [f"gen:{G_BIG}", "--mode=stencil5-const", "--dtype=bf16"]))
+    print(f"[cg] stencil5-const --dtype=bf16 --loop=auto: rc {rc} (want 2)", flush=True)
+    if rc != 2:
+        raise AssertionError(f"cg_solver --mode=stencil5-const --dtype=bf16: rc {rc}, not 2")
 
     kernel_ms = run_spmv_cli(spmv_cli, counts, G_BIG, SPMV_MODES, "chip_smoke_spmv.json")
     print(f"[spmv] csr / stencil5 SpMV kernel time at {G_BIG}² f32: "
@@ -738,6 +854,11 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
           f"2.07 on its A100); bcoo (cuSPARSE) / csr: "
           f"{kernel_ms['bcoo'] / kernel_ms['csr']!r}", flush=True)
     run_spmv_cli(spmv_cli, counts, G_BIG, ("bcoo",), "chip_smoke_spmv_f64.json", "f64")
+    # x stays on the card: each transfer-inclusive run would spend ~1 s moving x and y
+    run_spmv_cli(spmv_cli, counts, G_BIG, SPMV_MODES, "chip_smoke_spmv_bf16.json", "bf16",
+                 ("--resident-x",))
+    run_spmv_cli(spmv_cli, counts, G_HOST, HOST_MODES_BF16, "chip_smoke_spmv_host_bf16.json",
+                 "bf16")
     run_spmv_cli(spmv_cli, counts, G_HOST, HOST_MODES, "chip_smoke_spmv_host.json")
 
     # the values-carrying solves' solutions, bit for bit: bf16 planes against f32 planes
@@ -777,6 +898,27 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
     if not (s.converged and res < 1e-5 and res_zero < 1e-5):
         raise AssertionError("CG from a nonzero x0 did not solve the system")
     del x, x_zero
+    torch.cuda.empty_cache()
+    # the same at a bf16 state (r0 through K7's bf16 instance), its x held to stencil5
+    # f64's as the bf16 CLI runs are
+    op = ops.get_operator("stencil5", st, dtype=torch.bfloat16, device="cuda")
+    x0 = torch.randn(G_BIG, G_BIG, generator=gen, device="cuda").to(torch.bfloat16)
+    x, s = counts.run("cg_solve stencil5 bf16 from a seeded x0",
+                      ("spmv_stencil5", "axpby_dot") + CLASSIC,
+                      lambda: cg.cg_solve(op, op.ones_b(), x0))
+    op.free()
+    del x0
+    xd = x.double()
+    ref = results["stencil5 f64"]["validation"]
+    errs = {"solution_sum": abs(float(xd.sum()) - ref["solution_sum"]) / ref["solution_sum"],
+            "solution_norm": abs(float(torch.linalg.vector_norm(xd)) - ref["solution_norm"])
+            / ref["solution_norm"]}
+    print(f"[cg] stencil5 bf16 from a seeded x0: converged {s.converged}, {s.iterations} "
+          f"iterations, Sum rel {errs['solution_sum']:.3e}, Norm2 rel "
+          f"{errs['solution_norm']:.3e} against stencil5 f64 (tol {BF16_TOL:g})", flush=True)
+    if not (s.converged and max(errs.values()) <= BF16_TOL):
+        raise AssertionError(f"bf16 CG from a nonzero x0: converged {s.converged}, {errs}")
+    del x, xd
     torch.cuda.empty_cache()
 
     fused = phase_fused(torch, counts, st, results)
@@ -849,9 +991,9 @@ def phase_fused(torch, counts, st, results):
     return out
 
 
-def run_spmv_cli(spmv_cli, counts, g, modes, name, dtype="f32"):
-    """The SpMV CLI at gen:g in ``dtype``, one run per mode, each with its own launch
-    counts; the wall time of a run includes its operator's build.  Raises unless every
+def run_spmv_cli(spmv_cli, counts, g, modes, name, dtype="f32", extra=()):
+    """The SpMV CLI at gen:g in ``dtype`` with ``extra`` arguments, one run per mode, each
+    with its own launch counts; the wall time of a run includes its operator's build.  Raises unless every
     mode gives the same checksums, and those of y = A·ones to 1e-12 (``generate.
     stencil5_spmv_checksums``).  Returns {mode: kernel ms}."""
     from tpusparse_torch import generate
@@ -863,7 +1005,7 @@ def run_spmv_cli(spmv_cli, counts, g, modes, name, dtype="f32"):
         t0 = time.perf_counter()
         rc = counts.run(f"spmv {mode} {g}² {dtype}", SPMV_NEEDS[mode], lambda: spmv_cli.main(
             [f"gen:{g}", f"--mode={mode}", f"--dtype={dtype}", "--runs=3", "--warmup=1",
-             f"--json={spmv_json}"]))
+             *extra, f"--json={spmv_json}"]))
         wall = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"spmv_bench --mode={mode} at {g}²: rc {rc}")
@@ -903,10 +1045,10 @@ def nbytes(*tensors) -> int:
 def bound(work, key):
     """(ms, "bytes"|"operations"): the least time of a call that moves work[0] bytes (each
     input read once, each output written once) and does work[1] operations of the state
-    type of ``key`` ("f32", "f64", "bf16_f32", ...)."""
+    type of ``key`` ("f32", "f64", "bf16", "bf16_f32", ...: planes_state)."""
     nb, ops = work
     t_bytes = nb / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[key[-3:]] * 1e3
+    t_ops = ops / PEAK_FLOPS[key.split("_")[-1]] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -935,13 +1077,14 @@ def _time_pairs(torch, times, key, pairs, label, smi):
               f"kernel at {100 * e['bound_ms'] / e['ms']:.1f}% of it) [{smi}]", flush=True)
 
 
-def check_library(name, label, got, want):
-    """A library call against the kernel: a yardstick held to 1e-5 relative, not an
-    oracle (it sums in another order)."""
+def check_library(name, label, got, want, tol=1e-5):
+    """A library call against the kernel: a yardstick held to ``tol`` relative (1e-5; 1e-2
+    at a bf16 state, where it rounds once, or its sum to bf16, where the kernel rounds
+    each operation), not an oracle (it sums in another order)."""
     e = rel(got.reshape(want.shape), want)
     print(f"[library] {KERNELS[name][0]} {label}: rel err {e:.3e} against the kernel "
-          f"(tol 1e-05)", flush=True)
-    if not e <= 1e-5:
+          f"(tol {tol:g})", flush=True)
+    if not e <= tol:
         raise AssertionError(f"library call of {name} {label}: rel err {e:.3e}")
 
 
@@ -1061,6 +1204,70 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
     return times
 
 
+def phase_full_size_bf16(torch, st5, blas1, cmp, smi, times):
+    """The bf16-state instances of K3-K8 at G_BIG² against their twins (fields bit for
+    bit, f32 dots to 1e-4) on seeded uniform values rounded to bf16, at the main paths'
+    shapes, then timed against the twin and against the bf16 library call where there is
+    one: F.conv2d in bf16 for K3, torch.add(r, p, alpha=β) and torch.dot on bf16 for K5
+    and K6 (held to the kernel at 1e-2: ``check_library``).  Adds key "bf16" (K8:
+    "bf16_bf16", planes_state) to ``times``."""
+    import torch.nn.functional as F
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    n = G_BIG * G_BIG
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, r, p = (torch.rand(G_BIG, G_BIG, generator=gen, device=dev, dtype=bf)
+               for _ in range(3))
+    s = torch.tensor(0.37, dtype=bf, device=dev)
+    beta = float(s)  # the library calls take β as the kernels do, rounded to bf16
+    lab = f"{G_BIG}² bfloat16"
+    y, d = st5.spmv_stencil5_const(x, with_dot=True, **kw)
+    yp, dp = st5.spmv_stencil5_const_plain(x, with_dot=True, **kw)
+    cmp.check("spmv_stencil5_const", lab + " with dot", bf,
+              [("y", y, yp, "exact"), ("dot", d, dp, "dot")])
+    del yp
+    w = torch.tensor([[0.0, OFFDIAG, 0.0], [OFFDIAG, DIAG, OFFDIAG], [0.0, OFFDIAG, 0.0]],
+                     dtype=bf, device=dev).reshape(1, 1, 3, 3)
+
+    def conv():
+        return F.conv2d(x.reshape(1, 1, G_BIG, G_BIG), w, padding=1)
+
+    check_library("spmv_stencil5_const", f"F.conv2d {lab}", conv(), y, tol=BF16_TOL)
+    # y = A·x stands in for Ap in the classic loop's K4
+    compare_blas1(torch, blas1, cmp, x, r, p, y, lab)
+    check_library("p_update", f"torch.add {lab}", torch.add(r, p, alpha=beta),
+                  blas1.p_update(s, r, p.clone()), tol=BF16_TOL)
+    check_library("dot", f"torch.dot {lab}", torch.dot(x.reshape(-1), r.reshape(-1)),
+                  blas1.dot(x, r), tol=BF16_TOL)
+    f = nbytes(x)
+    _time_pairs(torch, times, "bf16", {
+        "spmv_stencil5_const": (lambda: st5.spmv_stencil5_const(x, **kw),
+                                lambda: st5.spmv_stencil5_const_plain(x, **kw),
+                                (2 * f, 6 * n), conv),
+        "cg_update": (lambda: blas1.cg_update(s, x, r, p, y),
+                      lambda: blas1.cg_update_plain(s, x, r, p, y), (6 * f, 6 * n), None),
+        "p_update": (lambda: blas1.p_update(s, r, p), lambda: blas1.p_update_plain(s, r, p),
+                     (3 * f, 2 * n), lambda: torch.add(r, p, alpha=beta)),
+        "dot": (lambda: blas1.dot(x, r), lambda: blas1.dot_plain(x, r), (2 * f, 2 * n),
+                lambda: torch.dot(x.reshape(-1), r.reshape(-1))),
+        "axpby_dot": (lambda: blas1.axpby_dot(1.0, x, -1.0, r),
+                      lambda: blas1.axpby_dot_plain(1.0, x, -1.0, r), (3 * f, 5 * n), None),
+    }, lab, smi)
+    del y
+    torch.cuda.empty_cache()
+    planes = torch.rand(5, G_BIG, G_BIG, generator=gen, device=dev, dtype=bf)
+    pl = f"{G_BIG}² planes bfloat16 state bfloat16"
+    compare_k8(torch, st5, cmp, planes, x, (), pl)
+    _time_pairs(torch, times, "bf16_bf16", {
+        "spmv_stencil5": (lambda: st5.spmv_stencil5(planes, x),
+                          lambda: st5.spmv_stencil5_plain(planes, x),
+                          (nbytes(planes) + 2 * f, 9 * n), None)}, pl, smi)
+    del planes, x, r, p
+    torch.cuda.empty_cache()
+
+
 def compare_band_pieces(torch, st5, cmp, planes, p, hp, hn, label):
     """K8 (``planes``) or K3 (None) over a band with exchanged halo rows, as the sharded
     solver's overlapped SpMV runs it: the interior rows, then the first and the last row,
@@ -1103,12 +1310,12 @@ def phase_full_size_bands(torch, st5, cmp):
     """The sharded paths' kernels against their twins at their shapes, with exchanged halo
     rows (seeded random fields): on the bands of 2 and 4 ranks (G_BIG wide) and on the
     blocks of a 2 x 2 mesh (G_BIG/2 wide) and of a 1 x 4 mesh (G_BIG rows, G_BIG/4 wide),
-    K8 in both planes dtypes and K3 in the overlapped SpMV's three pieces; K1 and K2 over
-    a whole 4-rank band."""
+    K8 in both planes dtypes and K3 in the overlapped SpMV's three pieces, in f32, f64 and
+    bf16; K1 and K2 over a whole 4-rank band (f32, f64)."""
     kw = {"diag": DIAG, "offdiag": OFFDIAG}
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         for shape, (band, width, seed) in SHARDED_SHAPES.items():
             torch.cuda.empty_cache()
             gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1119,12 +1326,12 @@ def phase_full_size_bands(torch, st5, cmp):
             p, hp, hn = rand(band, width), rand(1, width), rand(1, width)
             lab = f"{shape} {band}×{width} {dname(dtype)} + halos"
             compare_band_pieces(torch, st5, cmp, None, p, hp, hn, lab + ", three pieces")
-            for pdt in (dtype, torch.bfloat16):
+            for pdt in dict.fromkeys((dtype, torch.bfloat16)):
                 planes = rand(5, band, width).to(pdt)
                 compare_band_pieces(torch, st5, cmp, planes, p, hp, hn,
                                     f"{lab}, planes {dname(pdt)}, three pieces")
                 del planes
-            if shape != "4-rank band":
+            if shape != "4-rank band" or dtype == torch.bfloat16:  # no bf16 K1, K2
                 continue
             r, x = rand(band, G_BIG), rand(band, G_BIG)
             s = torch.tensor(0.37, dtype=dtype, device=dev)
@@ -1149,16 +1356,18 @@ def phase_full_size_bands(torch, st5, cmp):
 
 def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
     """K11 and the ELL kernel against their twins at G_BIG² on the stencil's operands made
-    on the card and a seeded random x, then timed against them; adds to ``times``.  The
-    ELL kernel's library call is ``bcoo``'s matvec, cuSPARSE over the stencil's CSR made on
-    the card in row bands (``ops.BCOO_BAND_ENTRIES``), held to the kernel's y at 1e-5."""
+    on the card and a seeded random x, in f32, f64 and bf16, then timed against them; adds
+    to ``times``.  The ELL kernel's library call is ``bcoo``'s matvec, cuSPARSE over the
+    stencil's CSR made on the card in row bands (``ops.BCOO_BAND_ENTRIES``; at bf16 the
+    f32 CSR with x widened and y rounded once), held to the kernel's y at 1e-5 (bf16:
+    1e-2)."""
     from tpusparse_torch import ops
     from tpusparse_torch.formats import Stencil5
 
     dev = torch.device("cuda")
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
-    for dtype in (torch.float32, torch.float64):
-        key = dname(dtype).replace("float", "f")
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        key = {torch.bfloat16: "bf16"}.get(dtype, dname(dtype).replace("float", "f"))
         gen = torch.Generator(device=dev).manual_seed(1)
         x = torch.rand(G_BIG * G_BIG, generator=gen, device=dev, dtype=dtype)
         for name, mod, make in (("spmv_ell", ell, generate.make_stencil5_ell_device),
@@ -1179,7 +1388,8 @@ def phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times):
                 bcoo = ops.get_operator("bcoo", st, dtype=dtype, device=dev)
                 check_library(name, f"cuSPARSE bcoo {lab}, {len(bcoo.operand['bands'])} row "
                               f"bands of at most {ops.BCOO_BAND_ENTRIES} entries",
-                              bcoo.run_device(x), kern(*operand, x))
+                              bcoo.run_device(x), kern(*operand, x),
+                              tol=BF16_TOL if dtype == torch.bfloat16 else 1e-5)
                 e = times[name][key]
                 _time_library(torch, e, lambda: kern(*operand, x), lambda: bcoo.run_device(x))
                 print(f"[time] {KERNELS[name][0]} {name} {lab}: kernel {e['ms']!r} ms, library "
@@ -1245,9 +1455,11 @@ def phase_profile(torch, smi, medians):
     groups.append(("cuSPARSE", re.compile(r"cusparse|csrmv", re.IGNORECASE)))
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
     tables, splits = [], {}
-    solves = [(label, mode, torch.float64 if "--dtype=f64" in extra else torch.float32,
+    dtypes = {"--dtype=f64": torch.float64, "--dtype=bf16": torch.bfloat16}
+    solves = [(label, mode, next((dt for a, dt in dtypes.items() if a in extra), torch.float32),
                {"recompute_ap": False if "--loop=classic" in extra else None})
-              for label, (mode, extra, _iters, _needs) in CG_RUNS.items()]
+              for label, (mode, extra, _iters, _needs) in CG_RUNS.items()
+              if label not in BF16_RUNS[1:]]  # one bf16 solve: stencil5's
     solves += [(label, mode, getattr(torch, dtype_name), {"fused_pupdate": True})
                for label, (mode, dtype_name, _iters, _pass) in FUSED_RUNS.items()]
     for label, mode, dtype, kwargs in solves:
@@ -1543,13 +1755,15 @@ def run_multichip(label, n, argv, loop, ref_label, needs, halo_missing, results,
     """One multichip CLI run on n ranks sharing the card, from its ranks' own launch
     counts: every rank must launch ``needs``, ``halo_missing(r, counts)`` says what rank r
     lacks on its exchanged halos, the solution must equal phase 5's ``ref_label`` to
-    1e-10 in 14 iterations, and a host-stepped run's four buckets must be > 0 and sum to
-    no more than its median.  Adds the ranks' launches to ``launches``; returns the
+    1e-10 in 14 iterations (a bf16 state's: to BF16_TOL, in any count), and a
+    host-stepped run's four buckets must be > 0 and sum to no more than its median.  Adds the ranks' launches to ``launches``; returns the
     export."""
     from tpusparse_torch import dist
 
     slug = re.sub(r"[^a-z0-9]+", "_", label)
     path, counts_path = OUT / f"chip_smoke_{slug}.json", SHARDED_DIR / slug
+    bf16 = "--dtype=bf16" in argv  # any iteration count, x within BF16_TOL
+    tol = BF16_TOL if bf16 else 1e-10
     t0 = time.perf_counter()
     rc = dist.launch_local(_sharded_rank, n, [f"gen:{G_BIG}", *argv, *SHARDED_ARGS,
                                               f"--json={path}"],
@@ -1581,9 +1795,10 @@ def run_multichip(label, n, argv, loop, ref_label, needs, halo_missing, results,
           f"{res['loop']}, {its} iterations, median {t['total_median_ms']!r} ms over "
           f"{res['statistics']['total_runs']} runs ({rank_t}); gather to rank 0 "
           f"{t['allgather_ms']!r} ms; Sum rel {errs['solution_sum']:.3e}, Norm2 rel "
-          f"{errs['solution_norm']:.3e} against phase 5's {ref_label} (tol 1e-10); the "
+          f"{errs['solution_norm']:.3e} against phase 5's {ref_label} (tol {tol:g}); the "
           f"run's wall {wall:.1f} s [{smi}]", flush=True)
-    if rc != 0 or its != 14 or res["loop"] != loop or not max(errs.values()) <= 1e-10:
+    if rc != 0 or (its != 14 and not bf16) or res["loop"] != loop \
+            or not max(errs.values()) <= tol:
         raise AssertionError(f"{label}: rc {rc}, {its} iterations, loop {res['loop']}, "
                              f"{errs}")
     if loop == "host-stepped":
@@ -1682,6 +1897,7 @@ def main() -> int:
     results, fused, launches = phase_main_path(torch, (st5, blas1, ell, dia), cg_cli,
                                                spmv_cli)
     times = phase_full_size(torch, st5, blas1, cmp, smi)
+    phase_full_size_bf16(torch, st5, blas1, cmp, smi, times)
     phase_full_size_bands(torch, st5, cmp)
     phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times)
     medians = {label: res["timing"]["total_median_ms"] for label, res in results.items()}

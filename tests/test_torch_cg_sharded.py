@@ -52,9 +52,11 @@ def _run_case(device, g, kind, kw):
     solve_kw = {k: kw.pop(k) for k in ("recompute_ap", "max_iters", "use_pallas_blas1")
                 if k in kw}
     field = kw.pop("x", None)
-    if kind == "reach":
+    if kind in ("reach", "refuse"):
+        make = (cg_sharded.make_sharded_operator if kind == "reach"
+                else cg_sharded.cg_solve_sharded)
         try:
-            cg_sharded.make_sharded_operator(device=device, **kw)
+            make(device=device, **kw)
         except ValueError as e:
             return str(e)
         return None
@@ -82,6 +84,8 @@ def _cases(n, mats):
         ("gate", "fused", dict(grid_size=8 * n, mode="stencil5", max_iters=200)),
         ("gate 512", "fused", dict(grid_size=512, mode="stencil5", max_iters=200)),
     ]
+    if n == 2:
+        return cases + BF16_CASES
     if n != 4:
         return cases
     x20 = np.random.RandomState(SEED_X).randn(20, 20)
@@ -112,6 +116,16 @@ def _cases(n, mats):
                                      x=mats["banded x"])),
         ("reach", "reach", dict(grid_size=8, mode="csr", matrix=mats["far"])),
     ]
+
+
+# the bf16 state on 2 ranks (the classic loop), and the row bands' recompute loop refusing
+# it
+BF16_CASES = [
+    ("bf16 stencil5", "fused", dict(grid_size=32, mode="stencil5", dtype=torch.bfloat16)),
+    ("bf16 csr", "fused", dict(grid_size=32, mode="csr", dtype=torch.bfloat16)),
+    ("bf16 stencil5-const", "refuse",
+     dict(grid_size=32, mode="stencil5-const", dtype=torch.bfloat16)),
+]
 
 
 @pytest.fixture(scope="module")
@@ -150,7 +164,8 @@ def _jax_solve(n, g, **kw):
     from tpusparse.solvers import cg_sharded as jcs
 
     mesh = jax.make_mesh((n,), ("x",), devices=jax.devices()[:n])
-    x, s = jcs.cg_solve_sharded(mesh, g, dtype=jnp.float64, **kw)
+    kw.setdefault("dtype", jnp.float64)
+    x, s = jcs.cg_solve_sharded(mesh, g, **kw)
     return np.asarray(x, np.float64), s
 
 
@@ -386,3 +401,40 @@ def test_refusals_without_a_group():
     cg_sharded.clear_caches()
     assert cg_sharded.make_sharded_operator(8, mode="stencil5", device="cpu") is not op
     cg_sharded.clear_caches()
+
+
+@pytest.mark.parametrize("mode", ["stencil5", "csr"])
+def test_sharded_bf16_matches_jax(port, mode):
+    """A bf16 state on 2 ranks against JAX ``cg_solve_sharded`` at bf16 on 2 devices:
+    both converge, iterations within ±1, Sum(x) and Norm2(x) within relative 1e-3 of JAX's
+    x summed in f64 (the bars of tests/test_torch_bf16.py at g = 32); the same x as the
+    port's single-device bf16 solve of the mode to 1e-3."""
+    import jax.numpy as jnp
+
+    from tpusparse_torch import formats, ops
+    from tpusparse_torch.solvers import cg
+
+    res = port[2][f"bf16 {mode}"]
+    xj, sj = _jax_solve(2, 32, mode=mode, dtype=jnp.bfloat16)
+    assert res["converged"] and sj.converged and res["x"].dtype == np.float32
+    assert abs(res["iterations"] - sj.iterations) <= 1
+    x = res["x"].astype(np.float64)
+    print(f"bf16 {mode} on 2 ranks: iterations {res['iterations']} (JAX {sj.iterations}), "
+          f"Sum(x) rel diff {abs(x.sum() - xj.sum()) / xj.sum():.2e}")
+    np.testing.assert_allclose(x.sum(), xj.sum(), rtol=1e-3)
+    np.testing.assert_allclose(np.linalg.norm(x), np.linalg.norm(xj), rtol=1e-3)
+    st = formats.Stencil5(grid_size=32, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator(mode, st, dtype=torch.bfloat16, device="cpu")
+    x1, s1 = cg.cg_solve(op, b_is_ones=True)
+    assert abs(res["iterations"] - s1.iterations) <= 1
+    np.testing.assert_allclose(x.sum(), op.from_field(x1).double().sum().item(), rtol=1e-3)
+
+
+def test_sharded_recompute_refuses_bf16(port):
+    """The row bands' recompute loop (``stencil5-const``'s default) raises ValueError at
+    bf16, where JAX's raises TypeError."""
+    import jax.numpy as jnp
+
+    assert "bf16" in port[2]["bf16 stencil5-const"]
+    with pytest.raises(TypeError, match="carry"):
+        _jax_solve(2, 32, mode="stencil5-const", dtype=jnp.bfloat16)

@@ -95,6 +95,8 @@ def _cases(mesh):
         ("stepped", "stepped", dict(mode="stencil5")),
     ]
     if mesh == (2, 2):
+        cases += [(f"bf16 {mode}", "solve", dict(grid_size=32, mode=mode,
+                                                  dtype=torch.bfloat16)) for mode in MODES]
         cases += [("gate", "solve", dict(grid_size=32, mode="stencil5", max_iters=200)),
                   ("plain blas1", "solve", dict(mode="stencil5", use_pallas_blas1=False)),
                   ("b", "solve", dict(mode="stencil5", b=_seeded_x()))]
@@ -129,7 +131,8 @@ def _jax_solve_2d(mesh, g, mode, **kw):
     from tpusparse.solvers import cg_sharded as jcs
 
     jmesh = jax.make_mesh(mesh, ("x", "y"), devices=jax.devices()[:mesh[0] * mesh[1]])
-    x, s = jcs.cg_solve_sharded_2d(jmesh, g, mode=mode, dtype=jnp.float64, **kw)
+    kw.setdefault("dtype", jnp.float64)
+    x, s = jcs.cg_solve_sharded_2d(jmesh, g, mode=mode, **kw)
     return np.asarray(x, np.float64), s
 
 
@@ -283,3 +286,22 @@ def test_2d_halo_counters(port, mesh, case):
         want["column_exchange"] = its if cols else 0
         want["column_correction"] = its * cols
         assert calls == want, (r, calls)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_2d_bf16_matches_jax(port, mode):
+    """A bf16 state on the (2, 2) mesh at g = 32 against JAX ``cg_solve_sharded_2d`` at
+    bf16: both converge, iterations within ±1, Sum(x) and Norm2(x) within relative 1e-3 of
+    JAX's x summed in f64 (the bars of tests/test_torch_bf16.py at g = 32)."""
+    import jax.numpy as jnp
+
+    res = port[(2, 2)][f"bf16 {mode}"]
+    xj, sj = _jax_solve_2d((2, 2), 32, mode, dtype=jnp.bfloat16)
+    assert res["converged"] and sj.converged and res["mode"] == mode
+    assert res["x"].dtype == np.float32 and res["x"].shape == (32, 32)
+    assert abs(res["iterations"] - sj.iterations) <= 1
+    x = res["x"].astype(np.float64)
+    print(f"bf16 {mode} on 2x2: iterations {res['iterations']} (JAX {sj.iterations}), "
+          f"Sum(x) rel diff {abs(x.sum() - xj.sum()) / xj.sum():.2e}")
+    np.testing.assert_allclose(x.sum(), xj.sum(), rtol=1e-3)
+    np.testing.assert_allclose(np.linalg.norm(x), np.linalg.norm(xj), rtol=1e-3)

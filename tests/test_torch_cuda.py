@@ -10,8 +10,10 @@ Tolerances, relative to the largest reference magnitude: f64 1e-12; f32 1e-5 for
 and 1e-4 for dots (the dots sum in another order).  CG: equal iteration counts, x to rtol
 1e-10.  Fields are also required to equal the twins' bit for bit where the kernels round
 every operation as PyTorch does (K4, K5, K7, K8, K9, K10, K11 and the ELL kernel of
-K12/K13).  K5 and K6 are also held on fields of 1, 3, 1369 and 10^6 elements, aligned and
-offset by one element, and K6 to be bitwise repeatable over 1000 calls and on two streams.
+K12/K13).  The bf16-state instances (K3-K8, K11, the ELL kernel) equal their twins bit for
+bit, their f32 dots within 1e-4, and a bf16 classic solve on the card converges within
+one iteration of the CPU twins' solve.  K5 and K6 are also held on fields of 1, 3, 1369
+and 10^6 elements in f32, f64 and bf16, aligned and offset by one element, and K6 to be bitwise repeatable over 1000 calls and on two streams.
 ``bcoo`` runs in row bands on the stencil CSR made on the card.  The host-stepped solve
 (``cg_solve_stepped``) is held to ``cg_solve``'s iteration count and x (f64 1e-12, f32
 1e-5); a probe's chain runs as a CUDA graph, and a chain whose passes allocate a field
@@ -38,7 +40,9 @@ from tpusparse_torch.kernels import stencil5 as st5
 from tpusparse_torch.solvers import cg
 
 KW = {"diag": 5.0, "offdiag": -1.0}
-TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-4)}
+# bf16: fields are held bit for bit; its dots are f32
+TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-4),
+       torch.bfloat16: (0.0, 1e-4)}
 
 pytestmark = pytest.mark.cuda
 
@@ -212,15 +216,15 @@ ALIGNMENTS = {"aligned": (0, 0), "one offset": (1, 0), "both offset": (1, 1)}
 
 @pytest.mark.parametrize("n", [1, 3, 1369, 10 ** 6])
 @pytest.mark.parametrize("align", list(ALIGNMENTS))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 def test_k5_k6_any_size_and_alignment(dev, n, align, dtype):
     """K5's p bit for bit and K6 within TOL, in the vector body (both operands at one
     offset mod 16 bytes: a scalar head, vectors, a scalar tail) and in the scalar body."""
     _, tol_dot = TOL[dtype]
     gen = torch.Generator(device=dev).manual_seed(n)
     off_r, off_p = ALIGNMENTS[align]
-    r = _offset_copy(_randn(gen, dev, dtype, n), off_r)
-    p = _offset_copy(_randn(gen, dev, dtype, n), off_p)
+    r = _offset_copy(_randn(gen, dev, torch.float32, n).to(dtype), off_r)
+    p = _offset_copy(_randn(gen, dev, torch.float32, n).to(dtype), off_p)
     assert ((r.data_ptr() - p.data_ptr()) % 16 == 0) == (align != "one offset")
     beta = torch.tensor(0.37, dtype=dtype, device=dev)
     pk = blas1.p_update(beta, r, _offset_copy(p, off_p))
@@ -672,3 +676,113 @@ def test_2x2_mesh_shares_the_card(dev):
     assert _rel(torch.from_numpy(ya), y_ref) <= 1e-12
     assert abs(da - float(d_ref)) <= 1e-12 * abs(float(d_ref))
     assert abs(da - db) <= 1e-14 * abs(db)
+
+
+BF16 = torch.bfloat16
+
+
+def _bf16_dot(d, dp):
+    assert d.dtype == torch.float32 and _rel(d, dp) <= TOL[BF16][1]
+
+
+@pytest.mark.parametrize("g", [37, 1000])
+def test_bf16_kernels_match_twins_on_card(dev, g):
+    """Every bf16-state instance against its twin, bit for bit: K3 and K8 (bf16 planes) on
+    the grid and on a band with halo rows, K4-K7, K11 and the ELL kernel on the stencil's
+    operands, square and over a gather domain; K1, K2, K9 and K10 refuse a bf16 state."""
+    gen = torch.Generator(device=dev).manual_seed(g + 16)
+
+    def rnd(*shape):
+        return _randn(gen, dev, torch.float32, *shape).to(BF16)
+
+    x, r, p, ap = (rnd(g, g) for _ in range(4))
+    hp, hn = rnd(1, g), rnd(1, g)
+    a, b = (torch.tensor(v, dtype=BF16, device=dev) for v in (0.37, -0.61))
+    planes = rnd(5, g, g)
+    for hs in ((), (hp, hn)):
+        y, d = st5.spmv_stencil5_const(x, *hs, with_dot=True, **KW)
+        yp, dp = st5.spmv_stencil5_const_plain(x, *hs, with_dot=True, **KW)
+        assert y.dtype == BF16 and torch.equal(y, yp)
+        _bf16_dot(d, dp)
+        y, d = st5.spmv_stencil5(planes, x, *hs, with_dot=True)
+        yp, dp = st5.spmv_stencil5_plain(planes, x, *hs, with_dot=True)
+        assert y.dtype == BF16 and torch.equal(y, yp)
+        assert torch.equal(st5.spmv_stencil5(planes, x, *hs), yp)
+        _bf16_dot(d, dp)
+    xk, rk, dk = blas1.cg_update(a, x.clone(), r.clone(), p, ap)
+    xp, rp, dp = blas1.cg_update_plain(a, x.clone(), r.clone(), p, ap)
+    assert torch.equal(xk, xp) and torch.equal(rk, rp)
+    _bf16_dot(dk, dp)
+    assert torch.equal(blas1.p_update(b, r, p.clone()), blas1.p_update_plain(b, r, p.clone()))
+    _bf16_dot(blas1.dot(x, r), blas1.dot_plain(x, r))
+    zk, dk = blas1.axpby_dot(a, x, b, r)
+    zp, dp = blas1.axpby_dot_plain(a, x, b, r)
+    assert torch.equal(zk, zp)
+    _bf16_dot(dk, dp)
+    xf = x.reshape(-1)
+    for kern, plain, operand in (
+            (ell.spmv_ell, ell.spmv_ell_plain,
+             generate.make_stencil5_ell_device(g, dtype=BF16, device=dev)),
+            (dia.spmv_dia, dia.spmv_dia_plain,
+             generate.make_stencil5_dia_device(g, dtype=BF16, device=dev)),
+            (dia.spmv_dia, dia.spmv_dia_plain,
+             (rnd(5, g * g), torch.tensor([-g, -1, 0, 1, g], device=dev)))):
+        y, d = kern(*operand, xf, with_dot=True)
+        yp, dp = plain(*operand, xf, with_dot=True)
+        assert y.dtype == BF16 and torch.equal(y, yp)
+        _bf16_dot(d, dp)
+    lo, hi = g // 4, g // 2
+    vals, cols = generate.make_stencil5_ell_device(g, dtype=BF16, device=dev, rows=(lo, hi))
+    cols = cols - (lo * g - g)
+    dom = rnd((hi - lo + 2) * g)
+    y, d = ell.spmv_ell(vals, cols, dom, with_dot=True, dot_offset=g)
+    yp, dp = ell.spmv_ell_plain(vals, cols, dom, with_dot=True, dot_offset=g)
+    assert y.shape == ((hi - lo) * g,) and torch.equal(y, yp)
+    _bf16_dot(d, dp)
+    for refused in (lambda: st5.spmv_stencil5_const_pupdate_dot(a, r, p, **KW),
+                    lambda: st5.cg_const_update_recompute(a, x, r, p, **KW),
+                    lambda: st5.spmv_stencil5_const_pupdate(a, r, p, **KW),
+                    lambda: st5.spmv_stencil5_pupdate(planes, a, r, p)):
+        with pytest.raises(ValueError, match="bf16"):
+            refused()
+
+
+def test_bf16_one_row_pieces_match_twins_on_card(dev):
+    """K8 and K3 at bf16 on a band of one row with both halo rows, written into a row of a
+    larger y (``out=``): the sharded solver's boundary rows."""
+    g = 1000
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x, hp, hn = (_randn(gen, dev, torch.float32, 1, g).to(BF16) for _ in range(3))
+    planes = _randn(gen, dev, torch.float32, 5, 1, g).to(BF16)
+    y = torch.zeros(3, g, device=dev, dtype=BF16)
+    _, d = st5.spmv_stencil5(planes, x, hp, hn, with_dot=True, out=y[1:2])
+    yp, dp = st5.spmv_stencil5_plain(planes, x, hp, hn, with_dot=True)
+    assert torch.equal(y[1:2], yp) and not y[0].any() and not y[2].any()
+    _bf16_dot(d, dp)
+    _, d = st5.spmv_stencil5_const(x, hp, hn, with_dot=True, out=y[0:1], **KW)
+    yp, dp = st5.spmv_stencil5_const_plain(x, hp, hn, with_dot=True, **KW)
+    assert torch.equal(y[0:1], yp)
+    _bf16_dot(d, dp)
+
+
+@pytest.mark.parametrize("mode", ["stencil5", "stencil5-bf16c", "stencil5-const", "csr",
+                                  "dia", "bcoo"])
+def test_bf16_classic_solve_on_card(dev, mode):
+    """A bf16 state's classic solve at g = 64 through the bf16 kernels on the card, against
+    the CPU twins' solve: both converge, iterations within one, Sum(x) and Norm2(x) within
+    1e-2 (their dots sum in other orders, and a bf16 CG's x is noise below ~5e-3); the
+    recompute loop refuses it."""
+    g = 64
+    st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
+    runs = []
+    for device in (dev, "cpu"):
+        op = ops.get_operator(mode, st, dtype=BF16, device=device)
+        x, s = cg.cg_solve(op, b_is_ones=True, recompute_ap=False)
+        xh = op.from_field(x).double().cpu()
+        runs.append((s, float(xh.sum()), float(torch.linalg.vector_norm(xh))))
+    (s, sx, nx), (s_cpu, sx_cpu, nx_cpu) = runs
+    assert s.converged and s_cpu.converged and abs(s.iterations - s_cpu.iterations) <= 1
+    np.testing.assert_allclose((sx, nx), (sx_cpu, nx_cpu), rtol=1e-2)
+    if mode == "stencil5-const":
+        with pytest.raises(ValueError, match="bf16"):
+            cg.cg_solve(ops.get_operator(mode, st, dtype=BF16, device=dev), b_is_ones=True)

@@ -96,7 +96,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         _device.resolve_device("meta")
     with pytest.raises(ValueError, match="unsupported dtype"):
-        _device.resolve_dtype("bf16")
+        _device.resolve_dtype("f16")
+    assert _device.resolve_dtype("bf16") == torch.bfloat16
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

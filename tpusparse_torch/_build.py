@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double
+_STATES = ("f32", "f64", "bf16")  # the state dtypes of the kernels that take all three
 # name -> (argtypes, restype) of every C function in csrc/: the kernel entry points return
 # a CUDA error code, the size queries an int64, tps_error_string a C string
 _SIGNATURES = {
@@ -39,7 +40,7 @@ _SIGNATURES = {
     "tps_stencil5_partials": ((_I, _I), _I),
     "tps_stencil5_max_rows": ((), _I),
     **{f"tps_spmv_stencil5_const_{t}": ((_P, _P, _P, _P, _I, _I, _D, _D, _P, _P, _P),
-                                        ctypes.c_int) for t in ("f32", "f64")},
+                                        ctypes.c_int) for t in _STATES},
     **{f"tps_stencil5_const_pupdate_dot_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,
                                                 _P, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_cg_const_update_recompute_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,
@@ -48,22 +49,22 @@ _SIGNATURES = {
                                                  _P, _P, _P), ctypes.c_int)
        for t in ("f32", "f64")},
     **{f"tps_spmv_stencil5_{t}": ((_P, _P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
-       for t in ("f32", "f64", "bf16_f32", "bf16_f64")},
+       for t in ("f32", "f64", "bf16_f32", "bf16_f64", "bf16_bf16")},
     **{f"tps_spmv_stencil5_pupdate_{t}": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
                                           ctypes.c_int)
        for t in ("f32", "f64", "bf16_f32", "bf16_f64")},
     "tps_blas1_partials": ((_I,), _I),
     "tps_row_partials": ((_I,), _I),
     **{f"tps_cg_update_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
-       for t in ("f32", "f64")},
-    **{f"tps_p_update_{t}": ((_P, _P, _P, _I, _P), ctypes.c_int) for t in ("f32", "f64")},
-    **{f"tps_dot_{t}": ((_P, _P, _I, _P, _P, _P, _P), ctypes.c_int) for t in ("f32", "f64")},
+       for t in _STATES},
+    **{f"tps_p_update_{t}": ((_P, _P, _P, _I, _P), ctypes.c_int) for t in _STATES},
+    **{f"tps_dot_{t}": ((_P, _P, _I, _P, _P, _P, _P), ctypes.c_int) for t in _STATES},
     **{f"tps_axpby_dot_{t}": ((_P, _P, _P, _P, _P, _I, _P, _P, _P), ctypes.c_int)
-       for t in ("f32", "f64")},
+       for t in _STATES},
     **{f"tps_spmv_ell_{t}": ((_P, _P, _P, _P, _I, _I, _I, _P, _P, _P), ctypes.c_int)
-       for t in ("f32", "f64")},
+       for t in _STATES},
     **{f"tps_spmv_dia_{t}": ((_P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
-       for t in ("f32", "f64")},
+       for t in _STATES},
     "tps_probe_read_partials": ((_I,), _I),
     "tps_probe_read_f32": ((_P, _I, _P, _P), ctypes.c_int),
     "tps_probe_copy_f32": ((_P, _P, _I, _P), ctypes.c_int),

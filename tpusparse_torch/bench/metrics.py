@@ -11,6 +11,9 @@ from the JAX module:
     tensor), where the JAX models count its TPU packs;
   - the peak is ``sysinfo.gpu_peaks``, this package's table of NVIDIA cards.  A card missing
     from it reports no roofline share (None), no bound class and no above-peak flag;
+  - every model takes the state's itemsize, 2 for a bf16 state: ``stencil5`` at bf16 is
+    5·2 + 2·2 = 14 B a point, ``stencil5-const`` 4 B, ``dia`` 14 B and ``csr`` 34 B (five
+    slots of a bf16 value and an int32 column, x and y);
   - the cache knee is the card's L2 size (``sysinfo``'s ``l2_cache_bytes``).  A working set
     below it can stay in L2 across chained applies, so its GB/s is an L2 figure, not an HBM
     one.
@@ -71,8 +74,11 @@ def _bytes_dia_op(op, itemsize):
 
 def _bytes_bcoo_op(op, itemsize):
     """``bcoo`` (row bands of ``torch.sparse_csr_tensor``): the reference's CSR model at
-    the operand's column index width (int32)."""
-    return bytes_csr(op.nnz, op.num_rows, itemsize, op.operand["col"].element_size())
+    the operand's column index width (int32) and its values' own width (f32 for a bf16
+    state, which holds them in f32)."""
+    val_size = op.operand["val"].element_size()
+    return (bytes_csr(op.nnz, op.num_rows, itemsize, op.operand["col"].element_size())
+            + op.nnz * (val_size - itemsize))
 
 
 # mode -> bytes of one apply; a plain ``*-xla`` oracle is held to its kernel's model: the
@@ -83,7 +89,8 @@ BYTE_MODELS = {
     "dia": _bytes_dia_op,
     "bcoo": _bytes_bcoo_op,
     "stencil5": lambda op, itemsize: bytes_stencil5(op.num_rows, itemsize),
-    # bf16 coefficient planes: 5 planes at 2 B, x and y at the state's itemsize
+    # bf16 coefficient planes: 5 planes at 2 B, x and y at the state's itemsize (14 B a
+    # point at a bf16 state, as stencil5's)
     "stencil5-bf16c": lambda op, itemsize: op.num_rows * (5 * 2 + 2 * itemsize),
     "stencil5-const": lambda op, itemsize: bytes_stencil5_const(op.num_rows, itemsize),
 }
@@ -153,7 +160,7 @@ def calculate_spmv_metrics(op, time_ms: float, *, dtype_itemsize: int, device_ki
         bytes_moved=nbytes,
         nnz=op.nnz,
         rows=op.num_rows,
-        dtype={4: "float32", 8: "float64"}.get(dtype_itemsize, "?"),
+        dtype={2: "bfloat16", 4: "float32", 8: "float64"}.get(dtype_itemsize, "?"),
         achievable_gbs=achievable_gbs,
         roofline_fraction_achievable=bw / achievable_gbs if achievable_gbs else None,
         timing_flags=tuple(flags),

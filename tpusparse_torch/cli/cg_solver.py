@@ -5,7 +5,7 @@ Counterpart of ``tpusparse/cli/cg_solver.py`` (reference src/main/cg_solver.cu:4
     python -m tpusparse_torch.cli.cg_solver <matrix.mtx|gen:<g>> [--mode=stencil5]
         [--tol=1e-6] [--maxiter=1000] [--timers] [--host|--device]
         [--loop=auto|classic|recompute] [--json=<f>] [--csv=<f>] [--runs=10] [--warmup=3]
-        [--dtype=f32|f64] [--trace=<logdir>] [--platform=cuda|cpu]
+        [--dtype=f32|f64|bf16] [--trace=<logdir>] [--platform=cuda|cpu]
 
 Modes: stencil5 (the default, the reference's stencil5-csr) and stencil5-bf16c
 (coefficient planes in the state's dtype or in bf16, K8; classic loop), stencil5-const
@@ -13,7 +13,10 @@ Modes: stencil5 (the default, the reference's stencil5-csr) and stencil5-bf16c
 the generic operators csr (and its alias cusparse-csr, the ELL kernel that replaces
 K12/K13), dia (K11), their plain twins csr-xla, ell and dia-xla, and bcoo (cuSPARSE), on
 gen:<g> or any square .mtx, classic loop.  The classic loop's updates run through the
-BLAS1 kernels K4-K7.
+BLAS1 kernels K4-K7.  ``--dtype=bf16`` runs a bf16 state through the classic loop (K3,
+K4-K8, K11 and the ELL kernel in their bf16 instances; ``bcoo`` in f32 with x and y
+rounded once) and the stepped one; ``--loop=recompute``, and ``--loop=auto`` on
+stencil5-const, return 2 there, where the JAX CLI fails.
 
 b = ones, x0 = 0; the device-native loop (``--device``, the default): 3 warm-up solves,
 then 10 timed solves with the reference's statistics (median, 2σ outlier rejection);
@@ -37,7 +40,7 @@ import time
 import numpy as np
 
 from .. import ops
-from .._device import resolve_device, resolve_dtype
+from .._device import host_numpy, resolve_device, resolve_dtype
 from ..bench import export, metrics, profiling, stats, sysinfo
 from ..solvers import cg
 from .spmv_bench import load_operand
@@ -66,7 +69,10 @@ def build_parser():
     p.add_argument("--csv", default=None)
     p.add_argument("--runs", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
+    p.add_argument("--dtype", default="f32", choices=["f32", "f64", "bf16"],
+                   help="state dtype; bf16 runs the classic and stepped loops only (the "
+                        "recompute loop, also --loop=auto's pick on stencil5-const, "
+                        "returns 2, as the JAX CLI fails there)")
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                    help="where to run: the card's kernels, or their plain twins on the CPU")
     p.add_argument("--verbose", type=int, default=1)
@@ -93,15 +99,22 @@ def main(argv=None) -> int:
 
     recompute_ap = {"auto": None, "classic": False, "recompute": True}[args.loop]
     try:
-        loop_kind = "recompute-ap" if cg.uses_recompute(op, recompute_ap) else "fused-classic"
+        recompute = cg.uses_recompute(op, recompute_ap)
     except ValueError:
         print(f"[ERROR] --loop=recompute: mode '{args.mode}' provides no recompute passes "
               "(only stencil5-const does)", file=sys.stderr)
         return 2
+    loop_kind = "recompute-ap" if recompute else "fused-classic"
     host_path = args.host or args.timers
     if host_path:
         loop_kind = "host-stepped"  # the stepped loop is the classic one, whatever --loop
         b = op.ones_b()
+    else:
+        try:
+            cg.check_loop(dtype, "recompute" if recompute else "classic")
+        except ValueError as e:
+            print(f"[ERROR] --loop={args.loop} --dtype={args.dtype}: {e}", file=sys.stderr)
+            return 2
     config = cg.CGConfig(max_iters=args.maxiter, tolerance=args.tol, verbose=args.verbose)
 
     def run_solve(keep_x: bool = False):
@@ -129,7 +142,7 @@ def main(argv=None) -> int:
     if args.trace:
         profiling.profiled_run(run_solve, logdir=args.trace)
         print(f"[INFO] trace captured: {args.trace}")
-    x_host = op.from_field(x).cpu().numpy().astype(np.float64)
+    x_host = host_numpy(op.from_field(x)).astype(np.float64)  # checksums in f64
     del x
 
     # gflops_spmv from a measurement only: the stepped loop's SpMV time, else the device

@@ -5,7 +5,7 @@ src/main/cg_solver_mgpu_stencil.cu):
 
     python -m tpusparse_torch.cli.cg_solver_multichip <gen:<g>|matrix.mtx> [--chips=N]
         [--mode=stencil5] [--tol=1e-6] [--maxiter=1000] [--json=<f>] [--csv=<f>]
-        [--runs=10] [--warmup=3] [--dtype=f32|f64] [--mesh2d=RxC] [--timers]
+        [--runs=10] [--warmup=3] [--dtype=f32|f64|bf16] [--mesh2d=RxC] [--timers]
         [--trace=<logdir>] [--multihost] [--platform=cuda|cpu]
 
 ``--chips=N`` is the number of ranks (default: one per visible card, one on the CPU).
@@ -20,8 +20,9 @@ the group instead.  Halo rows and dots pass through the host (``solvers.cg_shard
 which keeps its rows (the reference's per-rank load, :50-60 of its main).  The stencil
 modes need a 5-point-stencil-extractable matrix, ``stencil5-const`` uniform coefficients,
 ``csr`` any g²×g² matrix whose nonzeros lie within one grid row of their row; each of
-these refusals returns 2, as ``--dtype=bf16`` (no bf16 state in the port's kernels yet)
-does.
+these refusals returns 2.  ``--dtype=bf16`` runs a bf16 state through the classic and
+stepped loops; ``stencil5-const`` on row bands, whose loop is the recompute one, returns 2
+at bf16 without ``--timers`` (the JAX CLI fails there).
 
 ``--mesh2d=RxC`` runs the 2-D block decomposition instead (``cg_sharded.
 cg_solve_sharded_2d``): R·C ranks (``--chips`` is ignored, as in the JAX CLI), rank
@@ -79,7 +80,8 @@ def build_parser():
     p.add_argument("--runs", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--dtype", default=None, choices=[None, "f32", "f64", "bf16"],
-                   help="state dtype (default f32); bf16 is refused: no bf16 state yet")
+                   help="state dtype (default f32); bf16 runs the classic and stepped "
+                        "loops only")
     p.add_argument("--mesh2d", default=None, metavar="RxC",
                    help="2-D block decomposition over an RxC grid of ranks (R·C ranks, "
                         "--chips ignored); the grid must divide both extents")
@@ -112,10 +114,6 @@ def main(argv=None) -> int:
             print(f"[ERROR] --mesh2d expects RxC (e.g. 2x4), got '{args.mesh2d}'",
                   file=sys.stderr)
             return 2
-    if args.dtype == "bf16":
-        print("[ERROR] --dtype=bf16: the port's kernels take f32 and f64 state; a bf16 state "
-              "is not ported yet (ROADMAP Queue 1 item 8)", file=sys.stderr)
-        return 2
     if tdist.is_initialized() or args.multihost or "WORLD_SIZE" in os.environ:
         dist.initialize_multihost()
         if mesh is not None and mesh[0] * mesh[1] != dist.world_size():
@@ -222,6 +220,12 @@ def run(args, device) -> int:
     else:
         loop = ("host-stepped" if args.timers
                 else "recompute-ap" if op.mode == "stencil5-const" else "classic")
+        if loop == "recompute-ap" and dtype == torch.bfloat16:
+            say(f"[ERROR] --mode=stencil5-const --dtype=bf16: the row bands' recompute loop "
+                "does not take a bf16 state (the JAX CLI fails there too); use --mesh2d, "
+                "--timers or --mode=stencil5", file=sys.stderr)
+            cg_sharded.clear_caches()
+            return 2
         solve = (cg_sharded.cg_solve_sharded_stepped if args.timers
                  else cg_sharded.cg_solve_sharded)
 
@@ -285,7 +289,7 @@ def run(args, device) -> int:
                          if op.mode == "csr" else {}),
                       **(rank_times or {})},
     )
-    result["dtype"] = "f64" if dtype == torch.float64 else "f32"
+    result["dtype"] = {torch.float64: "f64", torch.bfloat16: "bf16"}.get(dtype, "f32")
     export.print_human_cg(result)
     if args.json:
         export.write_json(args.json, result)

@@ -3,7 +3,7 @@
 Counterpart of ``tpusparse/cli/spmv_bench.py`` (reference src/main/main.cu:48-55):
 
     python -m tpusparse_torch.cli.spmv_bench <matrix.mtx|gen:<g>> --mode=<m1[,m2,...]>
-        [--json=<file>] [--csv=<file>] [--runs=10] [--warmup=5] [--dtype=f32|f64]
+        [--json=<file>] [--csv=<file>] [--runs=10] [--warmup=5] [--dtype=f32|f64|bf16]
         [--resident-x] [--ceiling-probe | --ceiling-from=<probe.json>]
         [--platform=cuda|cpu]
 
@@ -12,7 +12,8 @@ cannot take the matrix (a stencil mode on a matrix that is no 5-point stencil) i
 with ``[SKIP]``, the other modes run, and the exit code is 1; x = ones (:136-137);
 5 warm-ups and 10 timed runs with the reference's statistics (``bench.stats``, :158-167);
 one export per mode, suffixed ``_<mode>`` (:200-241); Sum(y)/Norm2(y) checksums at 16
-decimals (:245-248).
+decimals (:245-248), summed in f64 at every ``--dtype`` (the JAX CLI sums a bf16 y in bf16,
+``tpusparse/cli/spmv_bench.py:172``, and misses the analytic sum).
 ``gen:<g>`` makes the stencil operand on the device, without a .mtx file, in every mode.
 
 The run times follow ``run_timed`` (upload x, apply, download y) or, with ``--resident-x``,
@@ -36,7 +37,7 @@ import sys
 import numpy as np
 
 from .. import formats, io_mtx, ops
-from .._device import resolve_device, resolve_dtype
+from .._device import host_numpy, resolve_device, resolve_dtype
 from ..bench import export, metrics, probes, stats, sysinfo
 
 
@@ -62,7 +63,7 @@ def build_parser():
     p.add_argument("--csv", default=None, help="CSV output path (append mode)")
     p.add_argument("--runs", type=int, default=10)
     p.add_argument("--warmup", type=int, default=5)
-    p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
+    p.add_argument("--dtype", default="f32", choices=["f32", "f64", "bf16"])
     p.add_argument("--resident-x", action="store_true",
                    help="keep x on the card across timed runs (upload once, read y back "
                         "once): the reference's timed region (spmv_cusparse_csr.cu:234-264). "
@@ -122,13 +123,13 @@ def main(argv=None) -> int:
             bench = stats.benchmark_with_stats(lambda: op.run_timed_resident(x_dev)[1],
                                                num_runs=args.runs, warmup=args.warmup)
             y_dev, _ = op.run_timed_resident(x_dev)
-            y = op.from_field(y_dev).cpu().numpy()
+            y = host_numpy(op.from_field(y_dev))
             del x_dev, y_dev
         else:
             bench = stats.benchmark_with_stats(lambda: op.run_timed(x)[1],
                                                num_runs=args.runs, warmup=args.warmup)
             y, _ = op.run_timed(x)
-        y = y.astype(np.float64)
+        y = y.astype(np.float64)  # checksums in f64, a bf16 y widened exactly
         # GFLOPS and GB/s from the device time of one apply (CUDA events); on the CPU the
         # median run stands in
         kernel_ms = op.kernel_time_ms() if device.type == "cuda" else bench.median_ms

@@ -31,17 +31,27 @@
 //
 // alpha and beta are read through a device pointer, as in K1/K2: the host never reads
 // them.  Dots go through reduce.cuh's per-block partials and fixed-order sum, in the
-// state's precision: K6 adds its partials inside its one launch (store_partial_and_finish,
+// compute type: K6 adds its partials inside its one launch (store_partial_and_finish,
 // a ticket counter per stream), K4 and K7 launch final_sum_kernel after them.  Every field
 // operation is an explicitly rounded intrinsic, so x, r, p and z equal the plain twins
 // (tpusparse_torch/kernels/blas1.py) bit for bit, in either body.
+//
+// A bf16 state (tps_*_bf16) is stored in bf16 and computed in f32, rounded to bf16 after
+// every operation in the Pallas kernels' order (reduce.cuh): K4 x + (alpha*p) and
+// r - (alpha*Ap), K5 r + (beta*p), K7 (alpha*x) + (beta*y), alpha and beta themselves bf16.
+// Its dots accumulate in f32 (the products of two bf16 values are exact in f32), so its
+// partials, the final sum and the result are f32.  K5's and K6's 16-byte vectors hold 8
+// bf16 under the same alignment test.  Per element a bf16 state halves the bytes: K4 12 B,
+// K5 6 B, K6 4 B, K7 6 B.
 //
 // In place: K4 updates x and r, K5 updates p.  Each element is read and written by one
 // thread, so in place is safe on a GPU; but p and Ap must overlap neither x nor r (the
 // wrapper checks).  K7 writes z into its own buffer.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "reduce.cuh"
 
@@ -70,8 +80,8 @@ __device__ __forceinline__ int64_t first_index() {
 
 __device__ __forceinline__ int64_t grid_stride() { return (int64_t)gridDim.x * blockDim.x; }
 
-// 16-byte vectors: four floats or two doubles.
-template <typename T>
+// 16-byte vectors: four floats, two doubles or eight bf16 (a uint4 of four bf16 pairs).
+template <typename S>
 struct Vec16;
 template <>
 struct Vec16<float> {
@@ -81,19 +91,42 @@ template <>
 struct Vec16<double> {
   using type = double2;
 };
+template <>
+struct Vec16<__nv_bfloat16> {
+  using type = uint4;
+};
 
 // The vector body's scalar head: the elements before a's first 16-byte boundary (at most
 // n), or -1 when a and b lie at different offsets mod 16 and no body of vectors fits both.
 // Tensors' elements are aligned to their size, so the head is a whole number of them.
-template <typename T>
+template <typename S>
 int64_t vector_head(const void* a, const void* b, int64_t n) {
   const uintptr_t pa = (uintptr_t)a, pb = (uintptr_t)b;
   if ((pa ^ pb) & 15u) return -1;
-  const int64_t head = (int64_t)((16u - (pa & 15u)) & 15u) / (int64_t)sizeof(T);
+  const int64_t head = (int64_t)((16u - (pa & 15u)) & 15u) / (int64_t)sizeof(S);
   return head < n ? head : n;
 }
 
-// K5's arithmetic on each lane: r + beta*p, rounded as the twin rounds it.
+// K5's arithmetic on one element: r + (beta*p), rounded as the twin rounds it.
+template <typename S>
+__device__ __forceinline__ S p_update_one(compute_t<S> beta, S r, S p) {
+  return narrow<S>(add_rn(widen(r), mul_s<S>(beta, widen(p))));
+}
+
+// A pair of bf16 (one 32-bit lane of a uint4) as two floats, and back, rounded.
+__device__ __forceinline__ float2 unpack_bf16x2(unsigned int u) {
+  __nv_bfloat162 h;
+  memcpy(&h, &u, sizeof(h));
+  return __bfloat1622float2(h);
+}
+__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  unsigned int u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+
+// K5's arithmetic on each lane of a vector.
 __device__ __forceinline__ float4 p_update_lanes(float beta, float4 r, float4 p) {
   return make_float4(add_rn(r.x, mul_rn(beta, p.x)), add_rn(r.y, mul_rn(beta, p.y)),
                      add_rn(r.z, mul_rn(beta, p.z)), add_rn(r.w, mul_rn(beta, p.w)));
@@ -101,9 +134,20 @@ __device__ __forceinline__ float4 p_update_lanes(float beta, float4 r, float4 p)
 __device__ __forceinline__ double2 p_update_lanes(double beta, double2 r, double2 p) {
   return make_double2(add_rn(r.x, mul_rn(beta, p.x)), add_rn(r.y, mul_rn(beta, p.y)));
 }
+__device__ __forceinline__ unsigned int p_update_pair(float beta, unsigned int r,
+                                                      unsigned int p) {
+  const float2 rv = unpack_bf16x2(r), pv = unpack_bf16x2(p);
+  using B = __nv_bfloat16;
+  return pack_bf16x2(add_rn(rv.x, mul_s<B>(beta, pv.x)), add_rn(rv.y, mul_s<B>(beta, pv.y)));
+}
+__device__ __forceinline__ uint4 p_update_lanes(float beta, uint4 r, uint4 p) {
+  return make_uint4(p_update_pair(beta, r.x, p.x), p_update_pair(beta, r.y, p.y),
+                    p_update_pair(beta, r.z, p.z), p_update_pair(beta, r.w, p.w));
+}
 
-// K6's running sums: lane j of every vector into acc[j], four sums in f32 and two in f64
-// (acc[2] and acc[3] stay 0 there).
+// K6's running sums: lane j of every vector into acc[j % 4], four sums in f32 and bf16
+// (two lanes of a bf16 vector each, in lane order) and two in f64 (acc[2] and acc[3] stay
+// 0 there).
 __device__ __forceinline__ void fma_lanes(float* acc, float4 a, float4 b) {
   acc[0] = fma_rn(a.x, b.x, acc[0]);
   acc[1] = fma_rn(a.y, b.y, acc[1]);
@@ -114,44 +158,58 @@ __device__ __forceinline__ void fma_lanes(double* acc, double2 a, double2 b) {
   acc[0] = fma_rn(a.x, b.x, acc[0]);
   acc[1] = fma_rn(a.y, b.y, acc[1]);
 }
+__device__ __forceinline__ void fma_lanes(float* acc, uint4 a, uint4 b) {
+  const unsigned int av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float2 x = unpack_bf16x2(av[2 * h + q]), y = unpack_bf16x2(bv[2 * h + q]);
+      acc[2 * q] = fma_rn(x.x, y.x, acc[2 * q]);
+      acc[2 * q + 1] = fma_rn(x.y, y.y, acc[2 * q + 1]);
+    }
+  }
+}
 
 // K4: x += alpha*p, r -= alpha*Ap in place, and the partials of <r', r'>.
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-cg_update_kernel(const T* __restrict__ alpha_ptr, T* __restrict__ x, T* __restrict__ r,
-                 const T* __restrict__ p, const T* __restrict__ ap, int64_t n, T* partials) {
-  const T alpha = *alpha_ptr;
+cg_update_kernel(const S* __restrict__ alpha_ptr, S* __restrict__ x, S* __restrict__ r,
+                 const S* __restrict__ p, const S* __restrict__ ap, int64_t n,
+                 compute_t<S>* partials) {
+  using T = compute_t<S>;
+  const T alpha = widen(*alpha_ptr);
   T acc = T(0);
   for (int64_t k = first_index(); k < n; k += grid_stride()) {
-    x[k] = add_rn(x[k], mul_rn(alpha, p[k]));
-    const T rn = sub_rn(r[k], mul_rn(alpha, ap[k]));
-    r[k] = rn;
+    x[k] = narrow<S>(add_rn(widen(x[k]), mul_s<S>(alpha, widen(p[k]))));
+    const T rn = sub_s<S>(widen(r[k]), mul_s<S>(alpha, widen(ap[k])));
+    r[k] = narrow<S>(rn);
     acc = fma_rn(rn, rn, acc);
   }
   store_partial(acc, partials);
 }
 
 // K5, scalar body: p = r + beta*p in place, for r and p at different offsets mod 16.
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-p_update_kernel(const T* __restrict__ beta_ptr, const T* __restrict__ r, T* __restrict__ p,
+p_update_kernel(const S* __restrict__ beta_ptr, const S* __restrict__ r, S* __restrict__ p,
                 int64_t n) {
-  const T beta = *beta_ptr;
+  const compute_t<S> beta = widen(*beta_ptr);
   for (int64_t k = first_index(); k < n; k += grid_stride()) {
-    p[k] = add_rn(r[k], mul_rn(beta, p[k]));
+    p[k] = p_update_one<S>(beta, r[k], p[k]);
   }
 }
 
 // K5, vector body: thread k of the grid updates vector k, both loads issued before its
 // store; the threads k < head update the head elements [0, head), and as many threads the
 // tail after the last whole vector.
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kVecThreads)
-p_update_vec_kernel(const T* __restrict__ beta_ptr, const T* __restrict__ r,
-                    T* __restrict__ p, int64_t n, int64_t head) {
-  using V = typename Vec16<T>::type;
-  constexpr int64_t kLanes = sizeof(V) / sizeof(T);
-  const T beta = *beta_ptr;
+p_update_vec_kernel(const S* __restrict__ beta_ptr, const S* __restrict__ r,
+                    S* __restrict__ p, int64_t n, int64_t head) {
+  using V = typename Vec16<S>::type;
+  constexpr int64_t kLanes = sizeof(V) / sizeof(S);
+  const compute_t<S> beta = widen(*beta_ptr);
   const int64_t k = first_index();
   const int64_t nv = (n - head) / kLanes;
   if (k < nv) {
@@ -160,17 +218,19 @@ p_update_vec_kernel(const T* __restrict__ beta_ptr, const T* __restrict__ r,
     reinterpret_cast<V*>(p + head)[k] = p_update_lanes(beta, rk, pk);
   }
   const int64_t tail = head + nv * kLanes + k;
-  if (k < head) p[k] = add_rn(r[k], mul_rn(beta, p[k]));
-  if (tail < n) p[tail] = add_rn(r[tail], mul_rn(beta, p[tail]));
+  if (k < head) p[k] = p_update_one<S>(beta, r[k], p[k]);
+  if (tail < n) p[tail] = p_update_one<S>(beta, r[tail], p[tail]);
 }
 
 // K6, scalar body: <a, b> for a and b at different offsets mod 16, finished in this launch.
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-dot_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, T* partials,
-           unsigned int* tickets, T* out) {
-  T acc = T(0);
-  for (int64_t k = first_index(); k < n; k += grid_stride()) acc = fma_rn(a[k], b[k], acc);
+dot_kernel(const S* __restrict__ a, const S* __restrict__ b, int64_t n,
+           compute_t<S>* partials, unsigned int* tickets, compute_t<S>* out) {
+  compute_t<S> acc = 0;
+  for (int64_t k = first_index(); k < n; k += grid_stride()) {
+    acc = fma_rn(widen(a[k]), widen(b[k]), acc);
+  }
   store_partial_and_finish(acc, partials, tickets, out);
 }
 
@@ -178,18 +238,19 @@ dot_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, T* parti
 // loaded before the first add, four running sums per thread (two in f64) added in a fixed
 // order; head and tail as in K5 (threads t < head, and as many after the last vector);
 // finished in this launch.
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kThreads, kDotBlocksPerSM)
-dot_vec_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, int64_t head,
-               T* partials, unsigned int* tickets, T* out) {
-  using V = typename Vec16<T>::type;
-  constexpr int64_t kLanes = sizeof(V) / sizeof(T);
+dot_vec_kernel(const S* __restrict__ a, const S* __restrict__ b, int64_t n, int64_t head,
+               compute_t<S>* partials, unsigned int* tickets, compute_t<S>* out) {
+  using T = compute_t<S>;
+  using V = typename Vec16<S>::type;
+  constexpr int64_t kLanes = sizeof(V) / sizeof(S);
   T acc[4] = {T(0), T(0), T(0), T(0)};
   const int64_t t = first_index(), stride = grid_stride();
   const int64_t nv = (n - head) / kLanes;
   const int64_t tail = head + nv * kLanes + t;
-  if (t < head) acc[0] = fma_rn(a[t], b[t], acc[0]);
-  if (tail < n) acc[1] = fma_rn(a[tail], b[tail], acc[1]);
+  if (t < head) acc[0] = fma_rn(widen(a[t]), widen(b[t]), acc[0]);
+  if (tail < n) acc[1] = fma_rn(widen(a[tail]), widen(b[tail]), acc[1]);
   const V* __restrict__ av = reinterpret_cast<const V*>(a + head);
   const V* __restrict__ bv = reinterpret_cast<const V*>(b + head);
   int64_t k = t;
@@ -209,72 +270,76 @@ dot_vec_kernel(const T* __restrict__ a, const T* __restrict__ b, int64_t n, int6
 }
 
 // K7: z = alpha*x + beta*y, and the partials of <z, z>.
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-axpby_dot_kernel(const T* __restrict__ alpha_ptr, const T* __restrict__ x,
-                 const T* __restrict__ beta_ptr, const T* __restrict__ y, T* __restrict__ z,
-                 int64_t n, T* partials) {
-  const T alpha = *alpha_ptr;
-  const T beta = *beta_ptr;
+axpby_dot_kernel(const S* __restrict__ alpha_ptr, const S* __restrict__ x,
+                 const S* __restrict__ beta_ptr, const S* __restrict__ y, S* __restrict__ z,
+                 int64_t n, compute_t<S>* partials) {
+  using T = compute_t<S>;
+  const T alpha = widen(*alpha_ptr);
+  const T beta = widen(*beta_ptr);
   T acc = T(0);
   for (int64_t k = first_index(); k < n; k += grid_stride()) {
-    const T zk = add_rn(mul_rn(alpha, x[k]), mul_rn(beta, y[k]));
-    z[k] = zk;
+    const T zk = add_s<S>(mul_s<S>(alpha, widen(x[k])), mul_s<S>(beta, widen(y[k])));
+    z[k] = narrow<S>(zk);
     acc = fma_rn(zk, zk, acc);
   }
   store_partial(acc, partials);
 }
 
-template <typename T>
+template <typename S>
 int cg_update(const void* alpha, void* x, void* r, const void* p, const void* ap, int64_t n,
               void* partials, void* dot, void* stream) {
+  using T = compute_t<S>;
   const int blocks = blocks_for(n);
   cudaStream_t s = (cudaStream_t)stream;
-  cg_update_kernel<T><<<blocks, kThreads, 0, s>>>((const T*)alpha, (T*)x, (T*)r, (const T*)p,
-                                                  (const T*)ap, n, (T*)partials);
+  cg_update_kernel<S><<<blocks, kThreads, 0, s>>>((const S*)alpha, (S*)x, (S*)r, (const S*)p,
+                                                  (const S*)ap, n, (T*)partials);
   return finish_dot<T>((const T*)partials, blocks, (T*)dot, s);
 }
 
-template <typename T>
+template <typename S>
 int p_update(const void* beta, const void* r, void* p, int64_t n, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t head = vector_head<T>(r, p, n);
+  const int64_t head = vector_head<S>(r, p, n);
   if (head >= 0) {
     // one thread per vector; at least one block, whose first threads take head and tail
-    const int64_t nv = (n - head) / (int64_t)(16 / sizeof(T));
+    const int64_t nv = (n - head) / (int64_t)(16 / sizeof(S));
     const int64_t blocks = (nv + kVecThreads - 1) / kVecThreads;
-    p_update_vec_kernel<T><<<(unsigned int)(blocks > 0 ? blocks : 1), kVecThreads, 0, s>>>(
-        (const T*)beta, (const T*)r, (T*)p, n, head);
+    p_update_vec_kernel<S><<<(unsigned int)(blocks > 0 ? blocks : 1), kVecThreads, 0, s>>>(
+        (const S*)beta, (const S*)r, (S*)p, n, head);
   } else {
-    p_update_kernel<T><<<blocks_for(n), kThreads, 0, s>>>((const T*)beta, (const T*)r,
-                                                          (T*)p, n);
+    p_update_kernel<S><<<blocks_for(n), kThreads, 0, s>>>((const S*)beta, (const S*)r,
+                                                          (S*)p, n);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename S>
 int run_dot(const void* a, const void* b, int64_t n, void* partials, void* out,
             void* tickets, void* stream) {
+  using T = compute_t<S>;
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t head = vector_head<T>(a, b, n);
+  const int64_t head = vector_head<S>(a, b, n);
   if (head >= 0) {
-    dot_vec_kernel<T><<<blocks_for(n, kDotBlocks), kThreads, 0, s>>>(
-        (const T*)a, (const T*)b, n, head, (T*)partials, (unsigned int*)tickets, (T*)out);
+    dot_vec_kernel<S><<<blocks_for(n, kDotBlocks), kThreads, 0, s>>>(
+        (const S*)a, (const S*)b, n, head, (T*)partials, (unsigned int*)tickets, (T*)out);
   } else {
-    dot_kernel<T><<<blocks_for(n), kThreads, 0, s>>>((const T*)a, (const T*)b, n,
+    dot_kernel<S><<<blocks_for(n), kThreads, 0, s>>>((const S*)a, (const S*)b, n,
                                                      (T*)partials, (unsigned int*)tickets,
                                                      (T*)out);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename S>
 int axpby_dot(const void* alpha, const void* x, const void* beta, const void* y, void* z,
               int64_t n, void* partials, void* dot, void* stream) {
+  using T = compute_t<S>;
   const int blocks = blocks_for(n);
   cudaStream_t s = (cudaStream_t)stream;
-  axpby_dot_kernel<T><<<blocks, kThreads, 0, s>>>((const T*)alpha, (const T*)x,
-                                                  (const T*)beta, (const T*)y, (T*)z, n,
+  axpby_dot_kernel<S><<<blocks, kThreads, 0, s>>>((const S*)alpha, (const S*)x,
+                                                  (const S*)beta, (const S*)y, (S*)z, n,
                                                   (T*)partials);
   return finish_dot<T>((const T*)partials, blocks, (T*)dot, s);
 }
@@ -286,44 +351,34 @@ extern "C" {
 // Number of per-block partials a dot over n elements needs (K6's vector body uses no more).
 int64_t tps_blas1_partials(int64_t n) { return blocks_for(n); }
 
-int tps_cg_update_f32(const void* alpha, void* x, void* r, const void* p, const void* ap,
-                      int64_t n, void* partials, void* dot, void* stream) {
-  return cg_update<float>(alpha, x, r, p, ap, n, partials, dot, stream);
-}
+// Every entry point: alpha/beta in the state's dtype; partials and the dot in the
+// compute type (f32 for f32 and bf16, f64 for f64).
+#define TPS_BLAS1(SUF, S)                                                                  \
+  int tps_cg_update_##SUF(const void* alpha, void* x, void* r, const void* p,             \
+                          const void* ap, int64_t n, void* partials, void* dot,            \
+                          void* stream) {                                                  \
+    return cg_update<S>(alpha, x, r, p, ap, n, partials, dot, stream);                     \
+  }                                                                                        \
+  int tps_p_update_##SUF(const void* beta, const void* r, void* p, int64_t n,             \
+                         void* stream) {                                                   \
+    return p_update<S>(beta, r, p, n, stream);                                             \
+  }                                                                                        \
+  /* tickets: a zeroed unsigned int that no launch running at the same time shares (one   \
+     per stream); the kernel leaves it at 0. */                                            \
+  int tps_dot_##SUF(const void* a, const void* b, int64_t n, void* partials, void* out,   \
+                    void* tickets, void* stream) {                                         \
+    return run_dot<S>(a, b, n, partials, out, tickets, stream);                            \
+  }                                                                                        \
+  int tps_axpby_dot_##SUF(const void* alpha, const void* x, const void* beta,             \
+                          const void* y, void* z, int64_t n, void* partials, void* dot,    \
+                          void* stream) {                                                  \
+    return axpby_dot<S>(alpha, x, beta, y, z, n, partials, dot, stream);                   \
+  }
 
-int tps_cg_update_f64(const void* alpha, void* x, void* r, const void* p, const void* ap,
-                      int64_t n, void* partials, void* dot, void* stream) {
-  return cg_update<double>(alpha, x, r, p, ap, n, partials, dot, stream);
-}
+TPS_BLAS1(f32, float)
+TPS_BLAS1(f64, double)
+TPS_BLAS1(bf16, __nv_bfloat16)
 
-int tps_p_update_f32(const void* beta, const void* r, void* p, int64_t n, void* stream) {
-  return p_update<float>(beta, r, p, n, stream);
-}
-
-int tps_p_update_f64(const void* beta, const void* r, void* p, int64_t n, void* stream) {
-  return p_update<double>(beta, r, p, n, stream);
-}
-
-// tickets: a zeroed unsigned int that no launch running at the same time shares (one per
-// stream); the kernel leaves it at 0.
-int tps_dot_f32(const void* a, const void* b, int64_t n, void* partials, void* out,
-                void* tickets, void* stream) {
-  return run_dot<float>(a, b, n, partials, out, tickets, stream);
-}
-
-int tps_dot_f64(const void* a, const void* b, int64_t n, void* partials, void* out,
-                void* tickets, void* stream) {
-  return run_dot<double>(a, b, n, partials, out, tickets, stream);
-}
-
-int tps_axpby_dot_f32(const void* alpha, const void* x, const void* beta, const void* y,
-                      void* z, int64_t n, void* partials, void* dot, void* stream) {
-  return axpby_dot<float>(alpha, x, beta, y, z, n, partials, dot, stream);
-}
-
-int tps_axpby_dot_f64(const void* alpha, const void* x, const void* beta, const void* y,
-                      void* z, int64_t n, void* partials, void* dot, void* stream) {
-  return axpby_dot<double>(alpha, x, beta, y, z, n, partials, dot, stream);
-}
+#undef TPS_BLAS1
 
 }  // extern "C"

@@ -15,6 +15,11 @@
 // explicitly rounded intrinsic: y equals the plain twin spmv_dia_plain
 // (tpusparse_torch/kernels/dia.py) bit for bit.  Optionally the partials of <x, y>.
 //
+// A bf16 state (tps_spmv_dia_bf16): data, x and y in bf16, each product and each sum
+// computed in f32 and rounded to bf16, in the Pallas kernel's order (dia.py:84-140: a bf16
+// accumulator from 0, acc + data[d]*x per diagonal); the dot accumulates in f32
+// (reduce.cuh).  14 B a row for the stencil's five diagonals.
+//
 // Offsets are a device array of ndiag int64, read by every thread of a warp at one
 // address (a broadcast from L1), so any count works, up to csr_to_dia's 4096 and beyond.
 //
@@ -25,6 +30,7 @@
 // neighbouring rows meet in L1/L2.  Index arithmetic is 64-bit: d*n + i reaches 2.1e9 at
 // 20480^2.  y must not alias x or data.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,12 +40,14 @@
 namespace {
 
 // kDot: also the partials of <x, y> (a separate instantiation, so that the plain SpMV
-// carries none of the dot's code).
-template <typename T, bool kDot>
+// carries none of the dot's code).  S is the state's storage type; every product and sum
+// is rounded to S (the identity for f32 and f64).
+template <typename S, bool kDot>
 __global__ void __launch_bounds__(kRowThreads)
-spmv_dia_kernel(const T* __restrict__ data, const int64_t* __restrict__ offsets,
-                const T* __restrict__ x, T* __restrict__ y, int64_t ndiag, int64_t n,
-                T* partials) {
+spmv_dia_kernel(const S* __restrict__ data, const int64_t* __restrict__ offsets,
+                const S* __restrict__ x, S* __restrict__ y, int64_t ndiag, int64_t n,
+                compute_t<S>* partials) {
+  using T = compute_t<S>;
   const int64_t i = row_index();
   T acc = T(0);
   if (i < n) {
@@ -47,26 +55,29 @@ spmv_dia_kernel(const T* __restrict__ data, const int64_t* __restrict__ offsets,
 #pragma unroll 4
     for (int64_t d = 0; d < ndiag; ++d) {
       const int64_t j = i + __ldg(offsets + d);
-      if (j >= 0 && j < n) out = add_rn(out, mul_rn(data[d * n + i], __ldg(x + j)));
+      if (j >= 0 && j < n) {
+        out = add_s<S>(out, mul_s<S>(widen(data[d * n + i]), widen(__ldg(x + j))));
+      }
     }
-    y[i] = out;
-    if (kDot) acc = mul_rn(__ldg(x + i), out);
+    y[i] = narrow<S>(out);
+    if (kDot) acc = mul_rn(widen(__ldg(x + i)), out);
   }
   if (kDot) store_partial(acc, partials);
 }
 
-template <typename T>
+template <typename S>
 int spmv_dia(const void* data, const void* offsets, const void* x, void* y, int64_t ndiag,
              int64_t n, void* partials, void* dot, void* stream) {
+  using T = compute_t<S>;
   const int64_t blocks = row_blocks(n);
   cudaStream_t s = (cudaStream_t)stream;
   T* part = dot != nullptr ? (T*)partials : nullptr;
   if (part != nullptr) {
-    spmv_dia_kernel<T, true><<<(unsigned)blocks, kRowThreads, 0, s>>>(
-        (const T*)data, (const int64_t*)offsets, (const T*)x, (T*)y, ndiag, n, part);
+    spmv_dia_kernel<S, true><<<(unsigned)blocks, kRowThreads, 0, s>>>(
+        (const S*)data, (const int64_t*)offsets, (const S*)x, (S*)y, ndiag, n, part);
   } else {
-    spmv_dia_kernel<T, false><<<(unsigned)blocks, kRowThreads, 0, s>>>(
-        (const T*)data, (const int64_t*)offsets, (const T*)x, (T*)y, ndiag, n, part);
+    spmv_dia_kernel<S, false><<<(unsigned)blocks, kRowThreads, 0, s>>>(
+        (const S*)data, (const int64_t*)offsets, (const S*)x, (S*)y, ndiag, n, part);
   }
   return finish_dot<T>(part, blocks, (T*)dot, s);
 }
@@ -85,6 +96,12 @@ int tps_spmv_dia_f32(const void* data, const void* offsets, const void* x, void*
 int tps_spmv_dia_f64(const void* data, const void* offsets, const void* x, void* y,
                      int64_t ndiag, int64_t n, void* partials, void* dot, void* stream) {
   return spmv_dia<double>(data, offsets, x, y, ndiag, n, partials, dot, stream);
+}
+
+// The bf16 state: data, x and y bf16; partials and the dot f32.
+int tps_spmv_dia_bf16(const void* data, const void* offsets, const void* x, void* y,
+                      int64_t ndiag, int64_t n, void* partials, void* dot, void* stream) {
+  return spmv_dia<__nv_bfloat16>(data, offsets, x, y, ndiag, n, partials, dot, stream);
 }
 
 }  // extern "C"

@@ -19,6 +19,15 @@
 // square matrix dot_offset is 0, over the gather domain it skips the halo row before the
 // band.
 //
+// A bf16 state (tps_spmv_ell_bf16) follows the Pallas kernel's own accumulation
+// (gather_ell.py:283-320, _gather_kernel: an f32 accumulator, y rounded to bf16 at the
+// end): each product vals*x is formed in f32, where the product of two bf16 values is
+// exact, the products are summed in f32 in slot order, and y is rounded to bf16 once.  The
+// kernel body rounds the product to bf16 before widening it, but XLA folds that round trip
+// away (excess precision): on the 32^2 stencil the JAX kernel's y equals the exact
+// products' f32 sum, rounded once, at every row, and the bf16-rounded products' at 71%.
+// The dot accumulates in f32 (reduce.cuh).  34 B a row for the stencil's five slots.
+//
 // Layout: vals (W, n) in the state's dtype and cols (W, n) int32, slot-major, so that the
 // threads of a warp, on neighbouring rows, read neighbouring addresses of each slot.
 //
@@ -31,6 +40,7 @@
 // several slots' loads are in flight before their sum needs them.  Index arithmetic is
 // 64-bit: k*n + i reaches 2.1e9 at 20480^2.  y must not alias x or the operand.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,12 +50,15 @@
 namespace {
 
 // kDot: also the partials of <x, y> (a separate instantiation, so that the plain SpMV
-// carries none of the dot's code).
-template <typename T, bool kDot>
+// carries none of the dot's code).  S is the state's storage type: the products and their
+// sum are kept in compute_t<S>, and y is rounded to S once (the identity for f32 and f64);
+// the dot reads that rounded y.
+template <typename S, bool kDot>
 __global__ void __launch_bounds__(kRowThreads)
-spmv_ell_kernel(const T* __restrict__ vals, const int32_t* __restrict__ cols,
-                const T* __restrict__ x, T* __restrict__ y, int64_t width, int64_t n,
-                int64_t dot_offset, T* partials) {
+spmv_ell_kernel(const S* __restrict__ vals, const int32_t* __restrict__ cols,
+                const S* __restrict__ x, S* __restrict__ y, int64_t width, int64_t n,
+                int64_t dot_offset, compute_t<S>* partials) {
+  using T = compute_t<S>;
   const int64_t i = row_index();
   T acc = T(0);
   if (i < n) {
@@ -53,27 +66,29 @@ spmv_ell_kernel(const T* __restrict__ vals, const int32_t* __restrict__ cols,
 #pragma unroll 4
     for (int64_t k = 0; k < width; ++k) {
       const int64_t e = k * n + i;
-      out = add_rn(out, mul_rn(vals[e], __ldg(x + cols[e])));
+      out = add_rn(out, mul_rn(widen(vals[e]), widen(__ldg(x + cols[e]))));
     }
-    y[i] = out;
-    if (kDot) acc = mul_rn(__ldg(x + dot_offset + i), out);
+    const S yi = narrow<S>(out);
+    y[i] = yi;
+    if (kDot) acc = mul_rn(widen(__ldg(x + dot_offset + i)), widen(yi));
   }
   if (kDot) store_partial(acc, partials);
 }
 
-template <typename T>
+template <typename S>
 int spmv_ell(const void* vals, const void* cols, const void* x, void* y, int64_t width,
              int64_t n, int64_t dot_offset, void* partials, void* dot, void* stream) {
+  using T = compute_t<S>;
   const int64_t blocks = row_blocks(n);
   cudaStream_t s = (cudaStream_t)stream;
   T* part = dot != nullptr ? (T*)partials : nullptr;
   if (part != nullptr) {
-    spmv_ell_kernel<T, true><<<(unsigned)blocks, kRowThreads, 0, s>>>(
-        (const T*)vals, (const int32_t*)cols, (const T*)x, (T*)y, width, n, dot_offset,
+    spmv_ell_kernel<S, true><<<(unsigned)blocks, kRowThreads, 0, s>>>(
+        (const S*)vals, (const int32_t*)cols, (const S*)x, (S*)y, width, n, dot_offset,
         part);
   } else {
-    spmv_ell_kernel<T, false><<<(unsigned)blocks, kRowThreads, 0, s>>>(
-        (const T*)vals, (const int32_t*)cols, (const T*)x, (T*)y, width, n, dot_offset,
+    spmv_ell_kernel<S, false><<<(unsigned)blocks, kRowThreads, 0, s>>>(
+        (const S*)vals, (const int32_t*)cols, (const S*)x, (S*)y, width, n, dot_offset,
         part);
   }
   return finish_dot<T>(part, blocks, (T*)dot, s);
@@ -100,6 +115,14 @@ int tps_spmv_ell_f64(const void* vals, const void* cols, const void* x, void* y,
                      int64_t width, int64_t n, int64_t dot_offset, void* partials, void* dot,
                      void* stream) {
   return spmv_ell<double>(vals, cols, x, y, width, n, dot_offset, partials, dot, stream);
+}
+
+// The bf16 state: values, x and y bf16, columns int32; partials and the dot f32.
+int tps_spmv_ell_bf16(const void* vals, const void* cols, const void* x, void* y,
+                      int64_t width, int64_t n, int64_t dot_offset, void* partials,
+                      void* dot, void* stream) {
+  return spmv_ell<__nv_bfloat16>(vals, cols, x, y, width, n, dot_offset, partials, dot,
+                                 stream);
 }
 
 }  // extern "C"

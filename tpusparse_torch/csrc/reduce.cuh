@@ -1,29 +1,67 @@
-// The pieces every kernel of tpusparse_torch shares: explicitly rounded arithmetic, and one
-// deterministic two-level dot product.
+// The pieces every kernel of tpusparse_torch shares: the storage/compute split, explicitly
+// rounded arithmetic, and one deterministic two-level dot product.
+//
+// Storage and compute: a field is stored as S and computed in compute_t<S>: f32 and f64 in
+// themselves, bf16 in f32.  widen() reads a stored value into the compute type (exact),
+// narrow<S>() is the one rounding store (round to nearest even), and rnd<S>() rounds a
+// compute-type value to S's precision without leaving the compute type.  For f32 and f64
+// narrow and rnd are the identity, so their kernels compile as before.
 //
 // Rounding: every field operation goes through an explicitly rounded intrinsic
-// (__fadd_rn, __fmul_rn, ...), which nvcc never contracts into an FMA.  Plain PyTorch ops
-// round each operation the same way, so a kernel's fields equal its plain twin's bit for
-// bit, and two kernels that compute the same expression agree bit for bit.
+// (__fadd_rn, __fmul_rn, ...), which nvcc never contracts into an FMA, and a bf16 state
+// rounds each result to bf16 (rnd<S>) before the next operation uses it, in the order the
+// JAX kernel writes them.  Plain PyTorch ops round each operation the same way (eager bf16
+// ops compute in f32 and round each result), so a kernel's fields equal its plain twin's
+// bit for bit, and two kernels that compute the same expression agree bit for bit.
 //
 // Dots: each block reduces its threads' running sums in a fixed order (shuffle tree, then
 // the warps' sums in order) and writes one partial; the partials are then added in a fixed
 // order, either by final_sum_kernel, one block launched after the kernel (finish_dot), or
 // in the same launch by the block that finishes last (store_partial_and_finish).  No
 // float atomics, so equal inputs give equal dots, and equal CG iteration counts, from run
-// to run.  Partials accumulate in the state's precision (f32 for f32, f64 for f64).
+// to run.  Partials accumulate in the compute type (f32 for f32 and bf16, f64 for f64),
+// so final_sum_kernel<float> and store_partial_and_finish<float> serve a bf16 state too.
 //
 // Everything here has internal linkage (anonymous namespace): each .cu file that includes
 // it gets its own copy, and the one library links them side by side.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kFinalThreads = 1024;
+
+template <typename S>
+struct Compute {
+  using type = S;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+// the type a field stored as S is computed in
+template <typename S>
+using compute_t = typename Compute<S>::type;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The one rounding store: v in S, rounded to nearest even.
+template <typename S>
+__device__ __forceinline__ S narrow(compute_t<S> v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to S's precision, kept in the compute type.
+template <typename S>
+__device__ __forceinline__ compute_t<S> rnd(compute_t<S> v) { return widen(narrow<S>(v)); }
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
@@ -34,6 +72,20 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) {
   return __fma_rn(a, b, c);
+}
+
+// The field operations of a state stored as S: computed in compute_t<S>, then rounded to S.
+template <typename S>
+__device__ __forceinline__ compute_t<S> add_s(compute_t<S> a, compute_t<S> b) {
+  return rnd<S>(add_rn(a, b));
+}
+template <typename S>
+__device__ __forceinline__ compute_t<S> sub_s(compute_t<S> a, compute_t<S> b) {
+  return rnd<S>(sub_rn(a, b));
+}
+template <typename S>
+__device__ __forceinline__ compute_t<S> mul_s(compute_t<S> a, compute_t<S> b) {
+  return rnd<S>(mul_rn(a, b));
 }
 
 // Sum of v over the block in a fixed order; the result is valid in thread 0.

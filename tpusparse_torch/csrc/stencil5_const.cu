@@ -40,10 +40,15 @@
 // an FMA; plain PyTorch ops round each operation the same way, so the fields also match
 // the plain twins in tpusparse_torch/kernels/stencil5.py bit for bit.
 //
+// K3 also has a bf16-state instance: x and y stored in bf16, every sum and product
+// computed in f32 and rounded to bf16 in the Pallas kernel's order, diag and offdiag
+// rounded to bf16 first, and the dot accumulated in f32 (reduce.cuh); 4 B a point.
+//
 // Every entry point launches on the stream it is given, allocates nothing (the caller
 // passes the partials buffer, sized by tps_stencil5_partials) and returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,32 +57,41 @@
 
 namespace {
 
-// (A f)(i, j) for the field f; *center receives f(i, j).
-template <typename T, typename F>
-__device__ __forceinline__ T stencil_at(const F& f, const T* hp, const T* hn, int64_t i,
-                                        int64_t j, int64_t rows, int64_t g, T diag, T offdiag,
-                                        T* center) {
-  const Neighbours<T> v = gather5<T>(f, hp, hn, i, j, rows, g);
+// (A f)(i, j) for the field f stored as S; *center receives f(i, j).  Each sum and
+// product is rounded to S (the identity for f32 and f64) in the Pallas kernel's order:
+// diag*x + offdiag*(((N + S) + W) + E).
+template <typename S, typename F>
+__device__ __forceinline__ compute_t<S> stencil_at(const F& f, const S* hp, const S* hn,
+                                                   int64_t i, int64_t j, int64_t rows,
+                                                   int64_t g, compute_t<S> diag,
+                                                   compute_t<S> offdiag,
+                                                   compute_t<S>* center) {
+  using T = compute_t<S>;
+  const Neighbours<T> v = gather5<S>(f, hp, hn, i, j, rows, g);
   *center = v.c;
-  const T nb = add_rn(add_rn(add_rn(v.n, v.s), v.w), v.e);
-  return add_rn(mul_rn(diag, v.c), mul_rn(offdiag, nb));
+  const T nb = add_s<S>(add_s<S>(add_s<S>(v.n, v.s), v.w), v.e);
+  return add_s<S>(mul_s<S>(diag, v.c), mul_s<S>(offdiag, nb));
 }
 
-// K3: y = A x, and the partials of <x, y> when partials != nullptr.
-template <typename T>
+// K3: y = A x, and the partials of <x, y> when partials != nullptr.  diag and offdiag are
+// rounded to S first, as the Pallas kernel's Python floats are to a bf16 state.
+template <typename S>
 __global__ void __launch_bounds__(kTX * kTY)
-spmv_kernel(const T* __restrict__ x, const T* __restrict__ hp, const T* __restrict__ hn,
-            T* __restrict__ y, int64_t rows, int64_t g, T diag, T offdiag, T* partials) {
+spmv_kernel(const S* __restrict__ x, const S* __restrict__ hp, const S* __restrict__ hn,
+            S* __restrict__ y, int64_t rows, int64_t g, compute_t<S> diag,
+            compute_t<S> offdiag, compute_t<S>* partials) {
+  using T = compute_t<S>;
   const int64_t j = (int64_t)blockIdx.x * kTX + threadIdx.x;
   const int64_t i0 = (int64_t)blockIdx.y * kTileRows;
-  const Field<T> f{x};
+  const Field<S> f{x};
+  const T d = rnd<S>(diag), o = rnd<S>(offdiag);
   T acc = T(0);
   if (j < g) {
     for (int t = threadIdx.y; t < kTileRows && i0 + t < rows; t += kTY) {
       const int64_t i = i0 + t;
       T c;
-      const T v = stencil_at(f, hp, hn, i, j, rows, g, diag, offdiag, &c);
-      y[i * g + j] = v;
+      const T v = stencil_at<S>(f, hp, hn, i, j, rows, g, d, o, &c);
+      y[i * g + j] = narrow<S>(v);
       acc = fma_rn(c, v, acc);
     }
   }
@@ -101,7 +115,7 @@ __device__ __forceinline__ void pupdate_spmv(const T* __restrict__ beta_ptr,
     for (int t = threadIdx.y; t < kTileRows && i0 + t < rows; t += kTY) {
       const int64_t k = (i0 + t) * g + j;
       T c;
-      const T v = stencil_at(f, hp, hn, i0 + t, j, rows, g, diag, offdiag, &c);
+      const T v = stencil_at<T>(f, hp, hn, i0 + t, j, rows, g, diag, offdiag, &c);
       pout[k] = c;
       if (kStoreY) y[k] = v;
       acc = fma_rn(c, v, acc);
@@ -148,7 +162,7 @@ update_recompute_kernel(const T* __restrict__ alpha_ptr, T* __restrict__ x, T* _
       const int64_t i = i0 + t;
       const int64_t k = i * g + j;
       T c;
-      const T ap = stencil_at(f, hp, hn, i, j, rows, g, diag, offdiag, &c);
+      const T ap = stencil_at<T>(f, hp, hn, i, j, rows, g, diag, offdiag, &c);
       x[k] = add_rn(x[k], mul_rn(alpha, c));
       const T rn = sub_rn(r[k], mul_rn(alpha, ap));
       r[k] = rn;
@@ -158,14 +172,15 @@ update_recompute_kernel(const T* __restrict__ alpha_ptr, T* __restrict__ x, T* _
   store_partial(acc, partials);
 }
 
-template <typename T>
+template <typename S>
 int spmv(const void* x, const void* hp, const void* hn, void* y, int64_t rows, int64_t g,
          double diag, double offdiag, void* partials, void* dot, void* stream) {
+  using T = compute_t<S>;
   const dim3 grid = grid_for(rows, g);
   cudaStream_t s = (cudaStream_t)stream;
   T* part = dot != nullptr ? (T*)partials : nullptr;
-  spmv_kernel<T><<<grid, dim3(kTX, kTY), 0, s>>>(
-      (const T*)x, (const T*)hp, (const T*)hn, (T*)y, rows, g, (T)diag, (T)offdiag, part);
+  spmv_kernel<S><<<grid, dim3(kTX, kTY), 0, s>>>(
+      (const S*)x, (const S*)hp, (const S*)hn, (S*)y, rows, g, (T)diag, (T)offdiag, part);
   return finish_dot<T>(part, (int64_t)grid.x * grid.y, (T*)dot, s);
 }
 
@@ -230,6 +245,14 @@ int tps_spmv_stencil5_const_f64(const void* x, const void* hp, const void* hn, v
                                 int64_t rows, int64_t g, double diag, double offdiag,
                                 void* partials, void* dot, void* stream) {
   return spmv<double>(x, hp, hn, y, rows, g, diag, offdiag, partials, dot, stream);
+}
+
+// The bf16 state: x, y and halo rows bf16, partials and the dot f32.  K3 only: the JAX
+// recompute and fused loops, which K1, K2 and K10 serve, reject a bf16 state.
+int tps_spmv_stencil5_const_bf16(const void* x, const void* hp, const void* hn, void* y,
+                                 int64_t rows, int64_t g, double diag, double offdiag,
+                                 void* partials, void* dot, void* stream) {
+  return spmv<__nv_bfloat16>(x, hp, hn, y, rows, g, diag, offdiag, partials, dot, stream);
 }
 
 int tps_stencil5_const_pupdate_dot_f32(const void* beta, const void* r, const void* p,

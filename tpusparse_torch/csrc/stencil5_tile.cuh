@@ -10,7 +10,8 @@
 // sees each field once.  Off-grid neighbours are selected away, never multiplied by a 0
 // mask: they are never loaded, and a NaN outside the band cannot leak in.  N/S of the
 // band's first/last row come from the halo rows (nullptr = zero, the Dirichlet edge); W/E
-// at the grid's side columns are zero.  All index arithmetic is 64-bit.
+// at the grid's side columns are zero.  All index arithmetic is 64-bit.  A field stored
+// as S is gathered in compute_t<S> (reduce.cuh): bf16 in f32.
 
 #pragma once
 
@@ -29,23 +30,23 @@ inline dim3 grid_for(int64_t rows, int64_t g) {
   return dim3((unsigned)((g + kTX - 1) / kTX), (unsigned)((rows + kTileRows - 1) / kTileRows));
 }
 
-// The stencil input field read as it is (K3, K8: x; K2: p).
-template <typename T>
+// The stencil input field read as it is (K3, K8: x; K2: p), in the compute type.
+template <typename S>
 struct Field {
-  const T* v;
-  __device__ __forceinline__ T operator()(int64_t k) const { return v[k]; }
+  const S* v;
+  __device__ __forceinline__ compute_t<S> operator()(int64_t k) const { return widen(v[k]); }
 };
 
 // The stencil input formed on the fly as p' = r + beta*p (K1, K9, K10), rounded as
 // PyTorch's `r + beta * p` rounds it.  A block forms its neighbours' p' from r and p too,
 // so p' must never be written over p: another block may still read that p.
-template <typename T>
+template <typename S>
 struct PUpdated {
-  const T* r;
-  const T* p;
-  T beta;
-  __device__ __forceinline__ T operator()(int64_t k) const {
-    return add_rn(r[k], mul_rn(beta, p[k]));
+  const S* r;
+  const S* p;
+  compute_t<S> beta;
+  __device__ __forceinline__ compute_t<S> operator()(int64_t k) const {
+    return add_s<S>(widen(r[k]), mul_s<S>(beta, widen(p[k])));
   }
 };
 
@@ -55,16 +56,19 @@ struct Neighbours {
   T c, n, s, w, e;
 };
 
-template <typename T, typename F>
-__device__ __forceinline__ Neighbours<T> gather5(const F& f, const T* hp, const T* hn,
-                                                 int64_t i, int64_t j, int64_t rows,
-                                                 int64_t g) {
+// The field's values are stored as S (the halo rows too) and gathered in compute_t<S>.
+template <typename S, typename F>
+__device__ __forceinline__ Neighbours<compute_t<S>> gather5(const F& f, const S* hp,
+                                                            const S* hn, int64_t i,
+                                                            int64_t j, int64_t rows,
+                                                            int64_t g) {
+  using T = compute_t<S>;
   const int64_t k = i * g + j;
   const T zero = T(0);
   Neighbours<T> v;
   v.c = f(k);
-  v.n = (i > 0) ? f(k - g) : (hp != nullptr ? hp[j] : zero);
-  v.s = (i + 1 < rows) ? f(k + g) : (hn != nullptr ? hn[j] : zero);
+  v.n = (i > 0) ? f(k - g) : (hp != nullptr ? widen(hp[j]) : zero);
+  v.s = (i + 1 < rows) ? f(k + g) : (hn != nullptr ? widen(hn[j]) : zero);
   v.w = (j > 0) ? f(k - 1) : zero;
   v.e = (j + 1 < g) ? f(k + 1) : zero;
   return v;

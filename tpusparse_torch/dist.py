@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from ._device import host_numpy
+
 # how long a collective may wait for its peers before gloo gives up
 TIMEOUT = datetime.timedelta(seconds=300)
 
@@ -127,7 +129,8 @@ def local_band_rows(grid_size: int, num_devices: int, device_index: int) -> tupl
 
 def gather_to_host(x, rows: int = 0):
     """Every rank's band of a row-banded field, stacked in rank order on rank 0's host, as
-    a numpy array; ``rows`` > 0 keeps the first ``rows`` rows (drops a padded tail).
+    a numpy array (f32 for a bf16 field, widened exactly); ``rows`` > 0 keeps the first
+    ``rows`` rows (drops a padded tail).
 
     Collective: every rank calls it.  Rank 0 gets the field and the other ranks get None,
     as the reference's ``MPI_Gatherv`` to root (cg_solver_mgpu_partitioned.cu:834-851);
@@ -149,7 +152,7 @@ def gather_to_host(x, rows: int = 0):
             return None
         out = whole if len(set(sizes)) == 1 else torch.cat(
             [part[:size] for part, size in zip(parts, sizes)])
-    out = out.numpy()
+    out = host_numpy(out)
     return out[:rows] if rows else out
 
 
@@ -179,13 +182,13 @@ def gather_blocks_to_host(x, mesh_shape):
                          f"{world_size()}")
     block = x.detach().to("cpu").contiguous()
     if world_size() == 1:
-        return block.numpy()
+        return host_numpy(block)
     parts = [torch.empty_like(block) for _ in range(nr * nc)] if rank() == 0 else None
     tdist.gather(block, parts, dst=0)
     if parts is None:
         return None
-    return torch.cat([torch.cat(parts[i * nc:(i + 1) * nc], dim=1) for i in range(nr)],
-                     dim=0).numpy()
+    return host_numpy(torch.cat([torch.cat(parts[i * nc:(i + 1) * nc], dim=1)
+                                 for i in range(nr)], dim=0))
 
 
 def barrier() -> None:

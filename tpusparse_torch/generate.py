@@ -9,7 +9,9 @@ Norm2 of y = A·ones).  The device half builds the stencil's coefficient planes
 and the canonical x = ones / b = ones field (``ones_field``) directly on the target device
 in the target dtype.  The planes, the ELL operand and b = ones (``ones_band``) also come as
 one rank's row band with zero pad rows, for the sharded solver; the planes and b = ones
-also as one rank's block of rows and columns, for its 2-D decomposition.
+also as one rank's block of rows and columns, for its 2-D decomposition.  Every device
+maker takes ``dtype=torch.bfloat16`` and fills in it directly, never through an f32 copy
+(5, −1, 0 and 1 are exact in bf16).
 """
 
 from __future__ import annotations

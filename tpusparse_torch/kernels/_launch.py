@@ -2,6 +2,32 @@
 
 The wrappers call these only on their kernel path, after a CPU tensor has gone to the
 plain twin: what reaches them must be a CUDA tensor the kernels can take, or they raise.
+
+The state dtypes are f32, f64 and bf16 (``SUFFIX``).  A bf16 state follows one rounding
+contract, the JAX package's, in every kernel and in its plain twin:
+
+1. Fields are stored in bf16.  Every elementwise operation a JAX kernel writes is computed
+   in f32 from bf16 operands with the ``_rn`` intrinsics (no contraction, no ``__hfma2``)
+   and rounded to bf16 (``__float2bfloat16_rn``) after each operation, in the JAX
+   kernel's order: K4 ``x + (α·p)`` and ``r − (α·Ap)``; K5 ``r + (β·p)``; K7
+   ``(α·x) + (β·y)``; K8 ``C·x + W·xw + E·xe + N·xn + S·xs`` left to right; K3
+   ``diag·x + offdiag·(((N + S) + W) + E)`` with diag and offdiag rounded to bf16; K11
+   ``acc + data[d]·x`` per diagonal from 0.  The ELL kernel follows its JAX kernel's own
+   f32 accumulator: the products (exact in f32) summed in f32 in slot order, y rounded to
+   bf16 once; its body rounds each product to bf16 first, but XLA folds that round trip
+   away, and the JAX kernel's y is the exact products' sum (``csrc/ell.cu``).  This is what eager PyTorch bf16 ops and XLA's CPU compute, so
+   the plain twins are plain bf16 torch expressions in that order, and kernel, twin and
+   JAX agree bit for bit on fields.
+2. α and β are bf16 0-d tensors on the device, as in JAX: ``scalar`` casts them to the
+   state's dtype.
+3. Dots accumulate in f32 (``_device.acc_dtype``, the counterpart of the JAX package's
+   ``blas1._acc_dtype``): each product of two stored bf16 values is exact in f32, and the
+   partials and the final sum are f32, in the fixed order of ``csrc/reduce.cuh``
+   (``dot_buffers``).  JAX instead rounds each grid block's partial to bf16, a block
+   partition of the TPU's VMEM; the port does not copy that, so its dots differ from
+   JAX's by a bounded amount (relative 1e-2 covers it).
+4. Host checksums (Sum, Norm2) are computed in f64 from the bf16 values
+   (``_device.host_numpy`` widens them exactly), never summed in bf16.
 """
 
 from __future__ import annotations
@@ -11,19 +37,21 @@ import functools
 import torch
 
 from .. import _build
+from .._device import acc_dtype
 
 # state dtypes the kernels take -> the suffix of their C entry points
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 
 def check_field(t, like):
-    """A contiguous, non-empty CUDA tensor of f32/f64 with ``like``'s device, dtype and
-    shape."""
+    """A contiguous, non-empty CUDA tensor of f32/f64/bf16 with ``like``'s device, dtype
+    and shape."""
     if not t.is_cuda:
         raise ValueError(f"expected a CUDA tensor (or CPU for the plain twin), got "
                          f"device {t.device}")
     if t.dtype not in SUFFIX:
-        raise ValueError(f"unsupported dtype {t.dtype}: the kernels take float32/float64")
+        raise ValueError(f"unsupported dtype {t.dtype}: the kernels take float32, float64 "
+                         "and bfloat16")
     if t.device != like.device or t.dtype != like.dtype:
         raise ValueError(f"tensors disagree: {t.device}/{t.dtype} vs "
                          f"{like.device}/{like.dtype}")
@@ -62,10 +90,20 @@ def scalar(v, like):
     return t.reshape(())
 
 
+def check_state(t, what):
+    """Raise for a bf16 state where a kernel has no bf16 instance (K1, K2, K9, K10: the
+    JAX recompute and fused loops that they serve reject a bf16 state)."""
+    if t.dtype == torch.bfloat16:
+        raise ValueError(f"{what} has no bf16-state kernel: the JAX package's recompute "
+                         "and fused CG loops reject a bf16 state; use the classic loop")
+
+
 def dot_buffers(like, nparts):
-    """The 0-d result and the ``nparts`` per-block partials of a kernel's dot."""
-    return (torch.empty((), dtype=like.dtype, device=like.device),
-            torch.empty(nparts, dtype=like.dtype, device=like.device))
+    """The 0-d result and the ``nparts`` per-block partials of a kernel's dot, in the
+    dtype its dot accumulates in (``acc_dtype``: f32 for a bf16 state)."""
+    acc = acc_dtype(like.dtype)
+    return (torch.empty((), dtype=acc, device=like.device),
+            torch.empty(nparts, dtype=acc, device=like.device))
 
 
 _TICKETS = {}

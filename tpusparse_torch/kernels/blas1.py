@@ -7,10 +7,13 @@ Counterpart of ``tpusparse/kernels/blas1.py``.  Four wrappers, one per Pallas ke
   ``dot``        K6, <a, b>                                        (``dot_pallas``)
   ``axpby_dot``  K7, z = α·x + β·y and <z, z>                      (``axpby_dot_pallas``)
 
-Fields are f32 or f64 tensors of any shape (the CG state is a (g, g) field), contiguous,
-all of one dtype; dots come back as 0-d tensors in that dtype, as the Pallas kernels
-accumulate (``blas1._acc_dtype``: f32 for f32, f64 for f64).  α and β are 0-d tensors or
-Python floats; the kernels read them through a device pointer.
+Fields are f32, f64 or bf16 tensors of any shape (the CG state is a (g, g) field),
+contiguous, all of one dtype; dots come back as 0-d tensors in the dtype they accumulate
+in, as the Pallas kernels accumulate (``blas1._acc_dtype``: f32 for f32 and bf16, f64 for
+f64).  α and β are 0-d tensors or Python floats, cast to the state's dtype (bf16 for a
+bf16 state, as in JAX); the kernels read them through a device pointer.  A bf16 state
+rounds every field operation to bf16 in the Pallas kernels' order (``_launch``'s
+contract): the twins are the same bf16 torch expressions.
 
 Each wrapper has a ``*_plain`` twin of the same signature in plain PyTorch.  A wrapper
 given CPU tensors runs the twin; given CUDA tensors it launches the kernel from
@@ -41,6 +44,7 @@ import functools
 import torch
 
 from .. import _build
+from .._device import acc_dtype
 from ._launch import (SUFFIX, check_apart, check_field, dot_buffers, dot_tickets, scalar,
                       stream)
 
@@ -58,8 +62,9 @@ def reset_launches() -> None:
 
 
 def dot_plain(a, b):
-    """Plain twin of ``dot``."""
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+    """Plain twin of ``dot``, accumulated in ``acc_dtype`` (a bf16 state's dot in f32)."""
+    acc = acc_dtype(a.dtype)
+    return torch.dot(a.reshape(-1).to(acc), b.reshape(-1).to(acc))
 
 
 def cg_update_plain(alpha, x, r, p, ap):

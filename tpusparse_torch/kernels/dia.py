@@ -8,9 +8,10 @@ The operand is ``formats.csr_to_dia``'s: ``data`` (ndiag, n) in the state's dtyp
 ``offsets`` (ndiag,) int64 on the same device (``convert.dia_from_numpy``, or
 ``generate.make_stencil5_dia_device``), with A[i, i + offsets[d]] = data[d, i].  The
 matrix is square: x and y are fields of the same n elements, of any shape.
-y[i] = Σ_d data[d, i]·x[i + offsets[d]], summed from 0 in the order of the diagonals; a
-term whose x index leaves [0, n) is left out by select, never multiplied by a padded
-zero, so whatever ``data`` holds there cannot reach y.  The JAX kernel's VMEM window, its
+y[i] = Σ_d data[d, i]·x[i + offsets[d]], summed from 0 in the order of the diagonals (a
+bf16 state rounds each product and each sum to bf16, as the JAX kernel's bf16 accumulator
+does); a term whose x index leaves [0, n) is left out by select, never multiplied by a
+padded zero, so whatever ``data`` holds there cannot reach y.  The JAX kernel's VMEM window, its
 (q, s) lane split of each offset and its zero-padded x have no counterpart.
 
 ``spmv_dia_plain`` is the twin, and the port of the XLA operator (``ops._init_dia_xla``,
@@ -28,6 +29,7 @@ import torch
 
 from .. import _build
 from ._launch import SUFFIX, check_field, dot_buffers, ptr, row_partials, stream
+from .blas1 import dot_plain
 
 LAUNCHES = {"spmv_dia": 0}
 
@@ -47,7 +49,7 @@ def spmv_dia_plain(data, offsets, x, *, with_dot=False):
         if hi > lo:
             y[lo:hi] += data[d, lo:hi] * xf[lo + off:hi + off]
     y = y.reshape(x.shape)
-    return (y, torch.dot(xf, y.reshape(-1))) if with_dot else y
+    return (y, dot_plain(xf, y)) if with_dot else y
 
 
 def spmv_dia(data, offsets, x, *, with_dot=False):

@@ -9,7 +9,9 @@ kernels, which compute the same function:
 The operand is ``formats.csr_to_ell``'s, slot-major: ``vals`` (W, n) in the state's
 dtype and ``cols`` (W, n) int32, column k of row i at [k, i] (``convert.ell_from_numpy``,
 or ``generate.make_stencil5_ell_device``).  y[i] = Σ_k vals[k, i]·x[cols[k, i]], summed
-from 0 over k = 0..W-1 in order.  A square matrix takes x of n elements, of any shape, and
+from 0 over k = 0..W-1 in order; a bf16 state sums the products in f32 (a product of two
+bf16 values is exact there) and rounds y to bf16 once, as the JAX kernel computes it
+(``_launch``'s contract).  A square matrix takes x of n elements, of any shape, and
 gives y of x's shape.  The rectangular call takes x of m > n elements and gives y of n:
 the sharded solver's band of rows over its gather domain, the band with a halo row on
 either side (``solvers.cg_sharded``); its dot is <x[dot_offset : dot_offset + n], y>, the
@@ -32,7 +34,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .._device import acc_dtype
 from ._launch import SUFFIX, check_field, dot_buffers, ptr, row_partials, stream
+from .blas1 import dot_plain
 
 LAUNCHES = {"spmv_ell": 0}
 
@@ -42,15 +46,20 @@ def reset_launches() -> None:
 
 
 def spmv_ell_plain(vals, cols, x, *, with_dot=False, dot_offset=0):
-    """Plain twin of ``spmv_ell``: one gather and one multiply-add per slot."""
+    """Plain twin of ``spmv_ell``: one gather and one multiply-add per slot, in
+    ``acc_dtype``, and y rounded to x's dtype once: a bf16 state's products (exact in f32)
+    are summed in f32, as the JAX kernel accumulates; f32 and f64 compute in the state's
+    dtype."""
     xf = x.reshape(-1)
+    acc = acc_dtype(xf.dtype)
     n = vals.shape[1]
-    y = xf.new_zeros(n)
+    y = xf.new_zeros(n, dtype=acc)
     for k in range(vals.shape[0]):
-        y.add_(vals[k] * xf.index_select(0, cols[k]))
+        y.add_(vals[k].to(acc) * xf.index_select(0, cols[k]).to(acc))
+    y = y.to(xf.dtype)
     if n == xf.numel():
         y = y.reshape(x.shape)
-    return (y, torch.dot(xf[dot_offset:dot_offset + n], y.reshape(-1))) if with_dot else y
+    return (y, dot_plain(xf[dot_offset:dot_offset + n], y)) if with_dot else y
 
 
 def spmv_ell(vals, cols, x, *, with_dot=False, dot_offset=0):

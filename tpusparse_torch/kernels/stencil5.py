@@ -16,10 +16,14 @@ wrappers, one per Pallas kernel:
 Each has a ``*_plain`` twin of the same signature in plain PyTorch.  A wrapper given CPU
 tensors runs the twin; given CUDA tensors it launches the kernel from
 ``tpusparse_torch/csrc/stencil5.cu`` (K8, K9) or ``stencil5_const.cu`` (K1-K3, K10) or
-raises; there is no fallback between the two.  Kernel and twin round every field operation alike, so
-their fields agree bit for bit; the dots differ only in summation order.  Dots come back as
-0-d tensors in the state's dtype; α and β are 0-d tensors (or Python floats) that the
-kernels read through a device pointer.
+raises; there is no fallback between the two.  Kernel and twin round every field operation
+alike, so their fields agree bit for bit; the dots differ only in summation order.  Dots
+come back as 0-d tensors in the dtype they accumulate in (f32 for a bf16 state); α and β
+are 0-d tensors (or Python floats) that the kernels read through a device pointer.
+
+A bf16 state (``_launch``'s rounding contract) has kernels for K8 (bf16 planes) and K3
+only: the JAX package's recompute and fused loops, which K1, K2, K9 and K10 serve, reject
+a bf16 state, so their wrappers raise ``ValueError`` for one on a card.
 
 ``LAUNCHES[name]`` counts the kernel launches of each wrapper (twins do not count).
 K3 and K8 take ``out=``, a field to write y into: the sharded solver writes a
@@ -34,8 +38,9 @@ import torch
 
 from .. import _build
 from ..formats import C, E, N, S, W
-from ._launch import (SUFFIX, check_apart, check_field, dot_buffers, overlaps, ptr,
-                      scalar, stream)
+from ._launch import (SUFFIX, check_apart, check_field, check_state, dot_buffers, overlaps,
+                      ptr, scalar, stream)
+from .blas1 import dot_plain as _dot
 
 LAUNCHES = {
     "spmv_stencil5": 0,
@@ -58,10 +63,6 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 # Plain PyTorch twins
 # ---------------------------------------------------------------------------
-
-
-def _dot(a, b):
-    return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
 def _neighbours(x, halo_prev, halo_next):
@@ -92,9 +93,11 @@ def spmv_stencil5_const_plain(x, halo_prev=None, halo_next=None, *, diag, offdia
                               with_dot=False, out=None):
     """Plain twin of ``spmv_stencil5_const``; the port of ``spmv_stencil5_const_xla``
     (the ``stencil5-const-xla`` operator).  Neighbour sum in the kernels' order
-    ((N + S) + W) + E."""
+    ((N + S) + W) + E; diag and offdiag in x's dtype (rounded to bf16 for a bf16 state,
+    as JAX rounds its Python floats)."""
     xn, xs, xw, xe = _neighbours(x, halo_prev, halo_next)
-    y = diag * x + offdiag * (((xn + xs) + xw) + xe)
+    d, o = (float(torch.tensor(v, dtype=x.dtype)) for v in (diag, offdiag))  # on the host
+    y = d * x + o * (((xn + xs) + xw) + xe)
     y = y if out is None else out.copy_(y)
     return (y, _dot(x, y)) if with_dot else y
 
@@ -152,7 +155,7 @@ def cg_const_update_recompute_plain(alpha, x, r, p, halo_prev=None, halo_next=No
 def spmv_stencil5(planes, x, halo_prev=None, halo_next=None, *, with_dot=False, out=None):
     """y = A·x for the coefficient planes (5, rows, g) in the order N, W, C, E, S, or
     (y, <x, A·x>) when ``with_dot``.  Planes are x's dtype, or bfloat16 (the
-    ``stencil5-bf16c`` operator) for an f32 or f64 x.  y goes into ``out`` when given (a
+    ``stencil5-bf16c`` operator) for an f32 or f64 x; a bf16 x takes bf16 planes.  y goes into ``out`` when given (a
     field like x that overlaps neither x nor a halo row), else into a new field.
 
     Replaces the Pallas kernels ``spmv_stencil5_pipelined`` and ``spmv_stencil5_pallas``
@@ -186,6 +189,7 @@ def spmv_stencil5_pupdate(planes, beta, r, p, halo_prev=None, halo_next=None, *,
     if r.device.type == "cpu":
         return spmv_stencil5_pupdate_plain(planes, beta, r, p, halo_prev, halo_next, out=out)
     rows, g = _check_band(r, r)
+    check_state(r, "spmv_stencil5_pupdate (K9)")
     check_field(p, r)
     _check_planes(planes, r)
     _check_halos(halo_prev, halo_next, r)
@@ -236,6 +240,7 @@ def spmv_stencil5_const_pupdate_dot(beta, r, p, halo_prev=None, halo_next=None, 
         return spmv_stencil5_const_pupdate_dot_plain(beta, r, p, halo_prev, halo_next,
                                                      diag=diag, offdiag=offdiag, out=out)
     rows, g = _check_band(r, r)
+    check_state(r, "spmv_stencil5_const_pupdate_dot (K1)")
     check_field(p, r)
     _check_halos(halo_prev, halo_next, r)
     out = _pupdate_out(out, r, p)
@@ -261,6 +266,7 @@ def spmv_stencil5_const_pupdate(beta, r, p, halo_prev=None, halo_next=None, *, d
         return spmv_stencil5_const_pupdate_plain(beta, r, p, halo_prev, halo_next, diag=diag,
                                                  offdiag=offdiag, out=out)
     rows, g = _check_band(r, r)
+    check_state(r, "spmv_stencil5_const_pupdate (K10)")
     check_field(p, r)
     _check_halos(halo_prev, halo_next, r)
     out = _pupdate_out(out, r, p)
@@ -286,6 +292,7 @@ def cg_const_update_recompute(alpha, x, r, p, halo_prev=None, halo_next=None, *,
         return cg_const_update_recompute_plain(alpha, x, r, p, halo_prev, halo_next,
                                                diag=diag, offdiag=offdiag)
     rows, g = _check_band(r, r)
+    check_state(r, "cg_const_update_recompute (K2)")
     check_field(x, r)
     check_field(p, r)
     check_apart({"x": x, "r": r}, {"p": p})

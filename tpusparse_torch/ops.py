@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from . import convert, formats
-from ._device import resolve_device, resolve_dtype
+from ._device import acc_dtype, host_numpy, resolve_device, resolve_dtype
 from .formats import CSRMatrix, Stencil5
 from .generate import (make_stencil5_csr_device, make_stencil5_dia_device,
                        make_stencil5_ell_device, make_stencil5_planes_device,
@@ -108,7 +108,8 @@ class DeviceOperator:
 
     @property
     def numpy_dtype(self):
-        """The state's dtype in numpy: a host vector is cast to it before its upload."""
+        """The state's dtype in numpy (f32 for a bf16 state, which numpy lacks): a host
+        vector is cast to it before its upload."""
         return _NUMPY_DTYPE[self.dtype]
 
     def as_field(self, x_flat):
@@ -135,7 +136,7 @@ class DeviceOperator:
         t0 = time.perf_counter()
         x = self.as_field(np.asarray(x_flat_host, dtype=self.numpy_dtype))
         y = self.run_device(x)
-        y_host = self.from_field(y).cpu().numpy()  # the download is also the sync
+        y_host = host_numpy(self.from_field(y))  # the download is also the sync
         return y_host, (time.perf_counter() - t0) * 1e3
 
     def run_timed_resident(self, x_field):
@@ -191,7 +192,9 @@ class DeviceOperator:
         self.operand = None
 
 
-_NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+# numpy has no bfloat16: a bf16 state's host vector is f32, cast on the device
+_NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64,
+                torch.bfloat16: np.float32}
 
 
 def _as_csr(mat) -> CSRMatrix:
@@ -440,7 +443,13 @@ def _init_bcoo(mat, dtype, device) -> DeviceOperator:
     shifted to start at 0, and views of the full column and value arrays.  Each band's
     matvec writes its own rows of one y, and each row is summed inside one band.  On a card
     the matvec is cuSPARSE's; on the CPU it is ``_csr_matvec_plain``, so there y equals
-    the one-band product bit for bit."""
+    the one-band product bit for bit.
+
+    A bf16 state: the values are rounded to bf16 and held in f32 (widened once, exactly;
+    the CPU's sparse matvec has no bf16), and each apply widens x to f32, runs the f32
+    matvec and rounds y to bf16 once: the same arithmetic on the CPU and the card, and what
+    cuSPARSE does with bf16 data and f32 compute.  It is the library baseline, not a port
+    kernel."""
     const = _const_stencil(mat)
     if const is not None:
         row_ptr, col, val = make_stencil5_csr_device(*const, dtype=dtype, device=device)
@@ -454,6 +463,8 @@ def _init_bcoo(mat, dtype, device) -> DeviceOperator:
         row_ptr = torch.tensor(csr.row_ptr, dtype=torch.int64, device=device)
         col = torch.tensor(csr.col_idx, dtype=torch.int32, device=device)
         val = torch.tensor(csr.val, dtype=dtype, device=device)
+    # a bf16 state's values are held in f32, widened once (exactly) from bf16
+    val = val.to(acc_dtype(dtype))
     bands = []
     with warnings.catch_warnings():  # torch warns that sparse CSR support is in beta
         warnings.simplefilter("ignore", UserWarning)
@@ -464,14 +475,14 @@ def _init_bcoo(mat, dtype, device) -> DeviceOperator:
                 crow, col[s:e], val[s:e], size=(r1 - r0, n), check_invariants=False)))
 
     def run_device(x):
-        xf = x.reshape(-1)
+        xf = x.reshape(-1).to(val.dtype)  # a bf16 x widened once, exactly
         y = torch.empty_like(xf)
         for r0, r1, a in bands:
             if xf.is_cuda:
                 torch.mv(a, xf, out=y[r0:r1])
             else:
                 y[r0:r1] = _csr_matvec_plain(a, xf)
-        return y.reshape(x.shape)
+        return y.to(x.dtype).reshape(x.shape)  # a bf16 y rounded once
 
     def run_device_dot(x):
         y = run_device(x)

@@ -28,6 +28,11 @@ Three loops, as in the JAX package:
 The BLAS1 kernels also form the start: K6 gives <r0, r0> (and <b, b>), and for a nonzero
 x0, K7 gives r0 = b - A·x0 with <r0, r0> in one pass.
 
+A bf16 state (``--dtype=bf16``) runs the classic and the stepped loops, as in the JAX
+package, whose recompute and fused loops reject one (``check_loop``): fields in bf16,
+dots, rr and the convergence test in f32, α and β rounded to bf16 (``_launch``'s
+contract).
+
 α, β, rr and <p, Ap> stay on the device as 0-d tensors, and the kernels read α and β
 through a device pointer.  The host reads one flag per iteration, the convergence test
 rr > tol², which is the reference's own per-iteration poll (cg_solver.cu:598-599); the
@@ -102,6 +107,17 @@ def uses_recompute(op, recompute_ap: Optional[bool] = None) -> bool:
     return avail and recompute_ap is not False
 
 
+def check_loop(dtype, loop: str) -> None:
+    """Raise ValueError when ``loop`` (``"recompute"`` or ``"fused"``) is asked of a bf16
+    state: the JAX package's recompute and fused loops reject one (``lax.while_loop``'s
+    carry changes type, ``tpusparse/solvers/cg.py:368``), so K1, K2, K9 and K10 have no
+    bf16 instance.  The classic loop runs it."""
+    if dtype == torch.bfloat16 and loop in ("recompute", "fused"):
+        raise ValueError(f"the {loop} CG loop does not take a bf16 state (the JAX "
+                         "package's rejects it too); use the classic loop: "
+                         "recompute_ap=False, or --loop=classic")
+
+
 def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
              b_is_ones: bool = False, recompute_ap: Optional[bool] = None,
              use_pallas_blas1: Optional[bool] = None, fused_pupdate: Optional[bool] = None):
@@ -124,6 +140,10 @@ def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
       fused_pupdate: True runs the fused p-update loop through the operator's
         ``run_fused_pupdate_op`` (ValueError if it has none, or with ``recompute_ap=True``);
         None and False leave it off, as the JAX package's default.
+
+    A bf16 state (``op.dtype``) runs the classic loop only: the recompute loop, also when
+    None picks it, and the fused loop raise ValueError (``check_loop``).  Its dots, rr and
+    <b, b> are f32; α and β are rounded to bf16 where the kernels take them.
     """
     config = config or CGConfig()
     fused = bool(fused_pupdate)
@@ -136,6 +156,7 @@ def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
     if b_is_ones and x0 is not None:
         raise ValueError("b_is_ones implies x0 = 0")
     recompute = not fused and uses_recompute(op, recompute_ap)
+    check_loop(op.dtype, "fused" if fused else "recompute" if recompute else "classic")
     cg_update = blas1.cg_update if kernels else blas1.cg_update_plain
 
     t0 = time.perf_counter()

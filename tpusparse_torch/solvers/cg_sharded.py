@@ -15,6 +15,11 @@ src/solvers/cg_solver_mgpu_partitioned.cu:236-908) and its 2-D blocks.
                                                                   summed in rank order
   MPI_Gatherv of x (:834-851)       out_spec resharding           ``dist.gather_to_host``
 
+A bf16 state (``dtype=torch.bfloat16``) runs the classic and stepped loops on bands and
+blocks: halo rows and columns staged in bf16, each rank's partial dot f32 (gloo moves
+both), α and β rounded to bf16 on the device; the recompute loop refuses it, as the JAX
+package's does (``cg.check_loop``).
+
 gloo takes CPU tensors only, so the halo rows and the dots pass through the host, as the
 reference's did; NCCL, which would move them from device to device, refuses two ranks on
 one card.  Each rank's partial dot goes to its host, gloo gathers the N partials, and every
@@ -81,7 +86,7 @@ from ..generate import (make_stencil5, make_stencil5_ell_device, make_stencil5_p
 from ..kernels import blas1
 from ..kernels import ell as _ell
 from ..kernels import stencil5 as _st5
-from .cg import CGConfig, CGStats
+from .cg import CGConfig, CGStats, check_loop
 
 MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr")
 
@@ -359,7 +364,9 @@ class ShardedOperator:
         column beyond the block) took as 0 (the JAX package's ``_col_deltas``,
         ``cg_sharded.py:1013-1019``, whose kernel duplicated the edge column, so that its
         correction replaced a term; here it adds one).  With ``with_dot``, their terms of
-        <p, y>.  A None column (no neighbour there, a row band) adds nothing."""
+        <p, y>, accumulated in f32 for a bf16 state.  A None column (no neighbour there, a
+        row band) adds nothing.  A bf16 state rounds the product and then the sum to bf16,
+        the order of JAX's ``y.at[:, :1].add(dw)``."""
         dots = []
         for k, (col, h) in enumerate(((0, hw), (-1, he))):
             if h is None:
@@ -368,7 +375,7 @@ class ShardedOperator:
             y[:, col] += d
             self.halo.count_column(h)
             if with_dot:
-                dots.append(torch.dot(p[:, col], d))
+                dots.append(blas1.dot_plain(p[:, col], d))
         return dots
 
     def _rows(self, p, piece, hp, hn, y, with_dot):
@@ -645,6 +652,8 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
     ``b``: None builds each rank's band of b = ones; else the whole (g, g) field, of which
     each rank takes its rows.  ``recompute_ap``: None runs the recompute loop (K1, K2)
     when the operator is ``stencil5-const``, as the JAX package does; True requires it.
+    A bf16 state runs the classic loop only (``cg.check_loop``: ValueError where the
+    recompute loop would run; ``recompute_ap=False`` runs ``stencil5-const`` classic).
     ``use_pallas_blas1``: True or None runs K4-K6, False plain PyTorch ops.  The
     convergence test and the ``CGStats`` fields are those of ``cg.cg_solve``:
     iterations while rr > tol²·<b, b>.  ``operator``: a prebuilt operator (the CLI's),
@@ -659,6 +668,7 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
     if recompute and not bands_const:
         raise ValueError("recompute_ap: only mode='stencil5-const' on row bands provides "
                          "the recompute passes in the sharded solver")
+    check_loop(op.dtype, "recompute" if recompute else "classic")
     kernels = use_pallas_blas1 is not False
     dot = blas1.dot if kernels else blas1.dot_plain
 
