@@ -24,7 +24,10 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      in one operand or both, so that both bodies and the vector body's head and tail run,
      in f32, f64 and bf16; the bf16-state instances (K3, K4-K7, K8 with bf16 planes, K11,
      the ELL kernel square and rectangular) on the stencil's operands, fields bit for bit
-     and their f32 dots to 1e-4;
+     and their f32 dots to 1e-4.  K3 in both of its bodies, y bit for bit the twin's in
+     every state: the vector body (the one the alignment rule picks at g = 1000 and 4096)
+     and the forced scalar body there, the scalar body alone at g = 37, each launch taking
+     the body the rule says (K3's two launch counts);
   4. the SpMVs on ones at 20480² against the analytic checksums: K3 and K10 in f32 and
      f64, K8 and K9 in f32, bf16c and f64, K11 and the ELL kernel in f32 and f64 (K9 and
      K10 with β = 0, p = 0 and r = ones); K3, K8, K11 and the ELL kernel at a bf16 state,
@@ -59,7 +62,10 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      solve's); --loop=auto on stencil5-const at bf16 must return 2 (the recompute loop
      refuses a bf16 state); the SpMV CLI at --dtype=bf16 over the six modes at 20480²
      (--resident-x) and the plain twins stencil5-xla, stencil5-const-xla, csr-xla and
-     dia-xla at G_HOST², each with the analytic checksums to 1e-12.  The kernels line's launches are the paths'
+     dia-xla at G_HOST², each with the analytic checksums to 1e-12.  Every field on these
+     paths is aligned for K3's vector body, so no path may launch K3's scalar body (the
+     const classic solves in f32 and bf16 among them; phases 8-10 hold every run and rank
+     to the same).  The kernels line's launches are the paths'
      counts summed; the counts of each path go to chiprun_out/chip_smoke_launches.json;
   6. each kernel against its plain twin at 20480² on seeded random fields at the main
      paths' shapes (same tolerances), then timed against it on those inputs (CUDA events,
@@ -73,8 +79,11 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      and on the blocks of a 2 x 2 mesh (G_BIG/2 × G_BIG/2: a (G_BIG/2 − 2)-row core and
      one-row pieces G_BIG/2 wide) and of a 1 x 4 mesh (G_BIG × G_BIG/4) with halo rows,
      K8 (both planes dtypes) and K3 in the overlapped SpMV's three pieces into one y (y
-     also bit for bit the whole band's call), K1 and K2 on the 4-rank band, in f32 and
-     f64.  The bf16-state instances the same way (fields bit for bit): K3, K4-K7 and K8
+     also bit for bit the whole band's call; K3 in both bodies, y bit for bit the twin's),
+     K1 and K2 on the 4-rank band, in f32 and f64.  K3's vector body against its forced
+     scalar body in turns (vector/scalar/scalar/vector) at 20480² and in the three pieces
+     of every band and block shape, in f32, f64 and bf16, each beside the bound (and, in
+     phase 8, the measured ceiling).  The bf16-state instances the same way (fields bit for bit): K3, K4-K7 and K8
      (bf16 planes) at 20480², against F.conv2d in bf16, torch.add and torch.dot on bf16
      (held to the kernel at 1e-2: the library rounds once where the kernel rounds each
      operation), K11 and the ELL kernel (against bcoo at bf16), the rectangular ELL call,
@@ -160,7 +169,8 @@ KERNELS = {
     "cg_const_update_recompute": ("K2", "update_recompute_kernel",
                                   "tpusparse_torch/csrc/stencil5_const.cu",
                                   "tpusparse/kernels/stencil5.py:1014"),
-    "spmv_stencil5_const": ("K3", "spmv_kernel", "tpusparse_torch/csrc/stencil5_const.cu",
+    "spmv_stencil5_const": ("K3", "spmv_(vec_)?kernel",
+                            "tpusparse_torch/csrc/stencil5_const.cu",
                             "tpusparse/kernels/stencil5.py:718"),
     "cg_update": ("K4", "cg_update_kernel", "tpusparse_torch/csrc/blas1.cu",
                   "tpusparse/kernels/blas1.py:162"),
@@ -182,6 +192,10 @@ KERNELS = {
     "spmv_ell": ("K12", "spmv_ell_kernel", "tpusparse_torch/csrc/ell.cu",
                  "tpusparse/kernels/gather_ell.py:283, tpusparse/kernels/gather_ell.py:645"),
 }
+# K3's scalar body's share of K3's launches (stencil5.LAUNCHES): every field of the main
+# paths, the sharded runs and phase 6's shapes is aligned for the vector body, so none of
+# them may launch the scalar body
+K3_SCALAR = "spmv_stencil5_const_scalar"
 # the kernels each main path must launch in its own run: the recompute loop's two passes
 # and its <r0, r0>; the classic loop's SpMV with its dot, K4, K5 and <r0, r0>
 RECOMPUTE = ("spmv_stencil5_const_pupdate_dot", "cg_const_update_recompute", "dot")
@@ -346,10 +360,18 @@ def short(name) -> str:
     return KERNELS[name][0] if name in KERNELS else name
 
 
+def k3_scalar_launched(label, counts):
+    """Raise if a path launched K3's scalar body (counts: wrapper -> launches)."""
+    if counts.get(K3_SCALAR, 0):
+        raise AssertionError(f"{label}: K3's scalar body launched {counts[K3_SCALAR]} of "
+                             f"{counts['spmv_stencil5_const']} K3 launches on fields aligned "
+                             f"for the vector body")
+
+
 class PathCounts:
     """The launch counts of the main paths, read path by path: every count is set to 0
     just before a path runs and read just after, and the path must have launched each
-    kernel it names."""
+    kernel it names (K3 through its vector body only)."""
 
     def __init__(self, counters):
         self.counters = counters
@@ -371,11 +393,13 @@ class PathCounts:
         stray = [f"{short(n)} {n}" for n in forbid if counts.get(n, 0)]
         if stray:
             raise AssertionError(f"{label}: kernels of another path launched: {stray}")
+        k3_scalar_launched(label, counts)
         return out
 
     def totals(self):
-        """{wrapper: launches summed over the paths}."""
-        return {name: sum(c.get(name, 0) for c in self.by_path.values()) for name in KERNELS}
+        """{wrapper: launches summed over the paths}, K3's scalar body's too."""
+        return {name: sum(c.get(name, 0) for c in self.by_path.values())
+                for name in (*KERNELS, K3_SCALAR)}
 
 
 class Compare:
@@ -449,9 +473,38 @@ def phase_build(build):
     print(f"[build] {how} in {build.build_seconds:.1f} s: {build.BUILD}", flush=True)
 
 
+def k3_counts(st5):
+    """(K3 launches, of which the scalar body's)."""
+    return st5.LAUNCHES["spmv_stencil5_const"], st5.LAUNCHES[K3_SCALAR]
+
+
+def compare_k3_bodies(torch, st5, cmp, args, label):
+    """K3 on the operands args = (x[, halo_prev, halo_next]) against its twin, y bit for
+    bit and the dot to tolerance, with and without the dot: through the body the
+    alignment rule picks, and through the forced scalar body where that is the vector body;
+    each launch must take the body the rule says."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    x = args[0]
+    yp, dp = st5.spmv_stencil5_const_plain(*args, with_dot=True, **kw)
+    vector = st5.const_vector_fits(*args)
+    for scalar in (False, True) if vector else (False,):
+        body = "scalar" if scalar or not vector else "vector"
+        before = k3_counts(st5)
+        y = st5.spmv_stencil5_const(*args, _scalar_body=scalar, **kw)
+        yd, d = st5.spmv_stencil5_const(*args, with_dot=True, _scalar_body=scalar, **kw)
+        ran = tuple(a - b for a, b in zip(k3_counts(st5), before))
+        if ran != (2, 2 if body == "scalar" else 0):
+            raise AssertionError(f"K3 {label}: (launches, scalar-body launches) {ran}, "
+                                 f"want the {body} body")
+        cmp.check("spmv_stencil5_const", f"{label}, {body} body", x.dtype,
+                  [("y", y, yp, "exact"), ("y with dot", yd, yp, "exact"),
+                   ("dot", d, dp, "dot")])
+
+
 def compare_const(torch, st5, cmp, g, dtype, randn):
-    """K1-K3 against their twins on a g-wide grid and on a band with halo rows; K3 only
-    for a bf16 state (K1 and K2 have no bf16 instance)."""
+    """K1-K3 against their twins on a g-wide grid and on a band with halo rows (K3 in both
+    bodies where the vector body takes the grid: g = 1000, 4096); K3 only for a bf16 state
+    (K1 and K2 have no bf16 instance)."""
     kw = {"diag": DIAG, "offdiag": OFFDIAG}
     dev = torch.device("cuda")
     lab = f"g={g} {dname(dtype)}"
@@ -459,17 +512,8 @@ def compare_const(torch, st5, cmp, g, dtype, randn):
     x, xb = randn(g, g), randn(band, g)
     hp, hn = randn(1, g), randn(1, g)
 
-    y = st5.spmv_stencil5_const(x, **kw)
-    cmp.check("spmv_stencil5_const", lab, dtype,
-              [("y", y, st5.spmv_stencil5_const_plain(x, **kw), "field")])
-    y, d = st5.spmv_stencil5_const(x, with_dot=True, **kw)
-    yp, dp = st5.spmv_stencil5_const_plain(x, with_dot=True, **kw)
-    cmp.check("spmv_stencil5_const", lab + " with dot", dtype,
-              [("y", y, yp, "field"), ("dot", d, dp, "dot")])
-    y, d = st5.spmv_stencil5_const(xb, hp, hn, with_dot=True, **kw)
-    yp, dp = st5.spmv_stencil5_const_plain(xb, hp, hn, with_dot=True, **kw)
-    cmp.check("spmv_stencil5_const", lab + f" band {band} rows + halos", dtype,
-              [("y", y, yp, "field"), ("dot", d, dp, "dot")])
+    compare_k3_bodies(torch, st5, cmp, (x,), lab)
+    compare_k3_bodies(torch, st5, cmp, (xb, hp, hn), lab + f" band {band} rows + halos")
     if dtype == torch.bfloat16:
         return
 
@@ -1088,6 +1132,39 @@ def check_library(name, label, got, want, tol=1e-5):
         raise AssertionError(f"library call of {name} {label}: rel err {e:.3e}")
 
 
+def time_k3_bodies(torch, run, work, key, label, smi):
+    """K3's vector body against its forced scalar body on the same operands, in turns
+    (vector/scalar/scalar/vector); ``run(scalar)`` makes the call.  Prints both beside the
+    bound; returns (vector ms, scalar ms), each the better of its two."""
+    t = [_time_ms(torch, lambda sc=sc: run(sc)) for sc in (False, True, True, False)]
+    vector, scalar = min(t[0], t[3]), min(t[1], t[2])
+    b, by = bound(work, key)
+    print(f"[time] K3 bodies {label}: vector {vector!r} ms ({100 * b / vector:.1f}% of the "
+          f"bound), scalar {scalar!r} ms ({100 * b / scalar:.1f}%), bound {b!r} ms ({by}); "
+          f"scalar / vector {scalar / vector:.3f} [{smi}]", flush=True)
+    return vector, scalar
+
+
+def k3_entry(ms, work, key, plain_ms=None, library_ms=None):
+    """A timing entry of K3 (one body, one shape) beside its bound."""
+    b, by = bound(work, key)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b,
+            "bound_by": by}
+
+
+def time_k3(torch, st5, times, x, key, label, smi):
+    """K3 at G_BIG² after _time_pairs timed its vector body: the forced scalar body in turns
+    with the vector body (its entry: key "scalar_" + key, with the same twin and library
+    times)."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    work = (2 * nbytes(x), 6 * x.numel())
+    e = times["spmv_stencil5_const"]
+    _vector, scalar = time_k3_bodies(
+        torch, lambda sc: st5.spmv_stencil5_const(x, _scalar_body=sc, **kw), work, key,
+        label, smi)
+    e[f"scalar_{key}"] = k3_entry(scalar, work, key, e[key]["plain_ms"], e[key]["library_ms"])
+
+
 def phase_full_size(torch, st5, blas1, cmp, smi):
     """Each kernel against its twin at G_BIG² on seeded random fields, at the main paths'
     shapes (no halo rows, β ≠ 0), then timed against it, and against its library call,
@@ -1110,11 +1187,8 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
         key = dname(dtype).replace("float", "f")
         lab = f"{G_BIG}² {dname(dtype)}"
 
-        y, d = st5.spmv_stencil5_const(x, with_dot=True, **kw)
-        yp, dp = st5.spmv_stencil5_const_plain(x, with_dot=True, **kw)
-        cmp.check("spmv_stencil5_const", lab + " with dot", dtype,
-                  [("y", y, yp, "field"), ("dot", d, dp, "dot")])
-        del yp
+        compare_k3_bodies(torch, st5, cmp, (x,), lab)
+        y = st5.spmv_stencil5_const(x, **kw)
         # the 3×3 stencil as a convolution with zero padding: the constant operator
         w = torch.tensor([[0.0, OFFDIAG, 0.0], [OFFDIAG, DIAG, OFFDIAG], [0.0, OFFDIAG, 0.0]],
                          dtype=dtype, device=dev).reshape(1, 1, 3, 3)
@@ -1176,6 +1250,7 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
             "axpby_dot": (lambda: blas1.axpby_dot(1.0, x, -1.0, r),
                           lambda: blas1.axpby_dot_plain(1.0, x, -1.0, r), (3 * f, 5 * n), None),
         }, lab, smi)
+        time_k3(torch, st5, times, x, key, lab, smi)
         del y, pk
         for pdt in (dtype, torch.bfloat16):
             torch.cuda.empty_cache()
@@ -1223,11 +1298,8 @@ def phase_full_size_bf16(torch, st5, blas1, cmp, smi, times):
     s = torch.tensor(0.37, dtype=bf, device=dev)
     beta = float(s)  # the library calls take β as the kernels do, rounded to bf16
     lab = f"{G_BIG}² bfloat16"
-    y, d = st5.spmv_stencil5_const(x, with_dot=True, **kw)
-    yp, dp = st5.spmv_stencil5_const_plain(x, with_dot=True, **kw)
-    cmp.check("spmv_stencil5_const", lab + " with dot", bf,
-              [("y", y, yp, "exact"), ("dot", d, dp, "dot")])
-    del yp
+    compare_k3_bodies(torch, st5, cmp, (x,), lab)
+    y = st5.spmv_stencil5_const(x, **kw)
     w = torch.tensor([[0.0, OFFDIAG, 0.0], [OFFDIAG, DIAG, OFFDIAG], [0.0, OFFDIAG, 0.0]],
                      dtype=bf, device=dev).reshape(1, 1, 3, 3)
 
@@ -1255,6 +1327,7 @@ def phase_full_size_bf16(torch, st5, blas1, cmp, smi, times):
         "axpby_dot": (lambda: blas1.axpby_dot(1.0, x, -1.0, r),
                       lambda: blas1.axpby_dot_plain(1.0, x, -1.0, r), (3 * f, 5 * n), None),
     }, lab, smi)
+    time_k3(torch, st5, times, x, "bf16", lab, smi)
     del y
     torch.cuda.empty_cache()
     planes = torch.rand(5, G_BIG, G_BIG, generator=gen, device=dev, dtype=bf)
@@ -1268,55 +1341,75 @@ def phase_full_size_bf16(torch, st5, blas1, cmp, smi, times):
     torch.cuda.empty_cache()
 
 
-def compare_band_pieces(torch, st5, cmp, planes, p, hp, hn, label):
-    """K8 (``planes``) or K3 (None) over a band with exchanged halo rows, as the sharded
-    solver's overlapped SpMV runs it: the interior rows, then the first and the last row,
-    each piece from its own contiguous planes into its rows of one y (``out=``), the
-    rows next to a piece from the band itself.  y against the twin over the whole band,
-    the three dots' sum against its dot, and y bit for bit against the kernel's own call
-    over the whole band (the synchronous SpMV)."""
+def k3_pieces(st5, p, hp, hn, y, scalar=False):
+    """K3 over a band with exchanged halo rows as the sharded solver's overlapped SpMV runs
+    it (``cg_sharded``): the interior rows, then the first and the last row, each into
+    its rows of y (``out=``), the rows next to a piece from the band itself.  Returns the
+    three dots."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG, "with_dot": True, "_scalar_body": scalar}
+    return [st5.spmv_stencil5_const(p[1:-1], p[0:1], p[-1:], out=y[1:-1], **kw)[1],
+            st5.spmv_stencil5_const(p[0:1], hp, p[1:2], out=y[0:1], **kw)[1],
+            st5.spmv_stencil5_const(p[-1:], p[-2:-1], hn, out=y[-1:], **kw)[1]]
+
+
+def compare_band_pieces(torch, st5, cmp, planes, p, hp, hn, label, scalar=False):
+    """K8 (``planes``) or K3 (None; its scalar body when ``scalar``, else the vector body)
+    over a band with exchanged halo rows, as the sharded solver's overlapped SpMV runs it:
+    the interior rows, then the first and the last row, each piece from its own
+    contiguous planes into its rows of one y (``out=``), the rows next to a piece from
+    the band itself.  y against the twin over the whole band (K3: bit for bit), the three
+    dots' sum against its dot, and y bit for bit against the kernel's own call over the
+    whole band (the synchronous SpMV)."""
     kw = {"diag": DIAG, "offdiag": OFFDIAG}
     band = p.shape[0]
-
-    def spmv(rows, above, below, out=None):
-        if planes is None:
-            return st5.spmv_stencil5_const(p[rows], above, below, with_dot=True, out=out, **kw)
-        return st5.spmv_stencil5(planes[:, rows].contiguous(), p[rows], above, below,
-                                 with_dot=True, out=out)
-
-    name = "spmv_stencil5_const" if planes is None else "spmv_stencil5"
     y = torch.empty_like(p)
-    dots = [spmv(slice(1, band - 1), p[0:1], p[-1:], y[1:-1])[1],
-            spmv(slice(0, 1), hp, p[1:2], y[0:1])[1],
-            spmv(slice(band - 1, band), p[-2:-1], hn, y[-1:])[1]]
-    whole, _ = spmv(slice(0, band), hp, hn)
     if planes is None:
+        before = k3_counts(st5)
+        dots = k3_pieces(st5, p, hp, hn, y, scalar)
+        whole, _ = st5.spmv_stencil5_const(p, hp, hn, with_dot=True, _scalar_body=scalar, **kw)
+        ran = tuple(a - b for a, b in zip(k3_counts(st5), before))
+        if ran != (4, 4 if scalar else 0):
+            raise AssertionError(f"K3 {label}: (launches, scalar-body launches) {ran}")
         yp, dp = st5.spmv_stencil5_const_plain(p, hp, hn, with_dot=True, **kw)
+        name, kind = "spmv_stencil5_const", "exact"
     else:
+        def spmv(rows, above, below, out=None):
+            return st5.spmv_stencil5(planes[:, rows].contiguous(), p[rows], above, below,
+                                     with_dot=True, out=out)
+
+        dots = [spmv(slice(1, band - 1), p[0:1], p[-1:], y[1:-1])[1],
+                spmv(slice(0, 1), hp, p[1:2], y[0:1])[1],
+                spmv(slice(band - 1, band), p[-2:-1], hn, y[-1:])[1]]
+        whole, _ = spmv(slice(0, band), hp, hn)
         yp, dp = st5.spmv_stencil5_plain(planes, p, hp, hn, with_dot=True)
-    cmp.check(name, label, p.dtype, [("y", y, yp, "field"),
+        name, kind = "spmv_stencil5", "field"
+    cmp.check(name, label, p.dtype, [("y", y, yp, kind),
                                      ("dot", dots[0] + dots[1] + dots[2], dp, "dot"),
                                      ("y whole band", y, whole, "exact")])
 
 
-# the sharded paths' fields: label -> (rows, columns, seed); the bands of 4 and 2 ranks and
-# the blocks of a 2 x 2 and of a 1 x 4 mesh
-SHARDED_SHAPES = {"4-rank band": (G_BIG // 4, G_BIG, 4), "2-rank band": (G_BIG // 2, G_BIG, 2),
-                  "2x2 block": (G_BIG // 2, G_BIG // 2, 22),
-                  "1x4 block": (G_BIG, G_BIG // 4, 14)}
+# the sharded paths' fields: label -> (rows, columns, seed, key of K3's timings); the bands
+# of 4 and 2 ranks and the blocks of a 2 x 2 and of a 1 x 4 mesh
+SHARDED_SHAPES = {"4-rank band": (G_BIG // 4, G_BIG, 4, "band4"),
+                  "2-rank band": (G_BIG // 2, G_BIG, 2, "band2"),
+                  "2x2 block": (G_BIG // 2, G_BIG // 2, 22, "block2x2"),
+                  "1x4 block": (G_BIG, G_BIG // 4, 14, "block1x4")}
 
 
-def phase_full_size_bands(torch, st5, cmp):
+def phase_full_size_bands(torch, st5, cmp, smi, times):
     """The sharded paths' kernels against their twins at their shapes, with exchanged halo
     rows (seeded random fields): on the bands of 2 and 4 ranks (G_BIG wide) and on the
     blocks of a 2 x 2 mesh (G_BIG/2 wide) and of a 1 x 4 mesh (G_BIG rows, G_BIG/4 wide),
-    K8 in both planes dtypes and K3 in the overlapped SpMV's three pieces, in f32, f64 and
-    bf16; K1 and K2 over a whole 4-rank band (f32, f64)."""
+    K8 in both planes dtypes and K3 (both bodies) in the overlapped SpMV's three pieces,
+    in f32, f64 and bf16; K1 and K2 over a whole 4-rank band (f32, f64).  K3's three
+    pieces are then timed, vector body against scalar body, into ``times`` (keys
+    "<shape key>_<state>" and "<shape key>_scalar_<state>", beside the twin over the band)."""
     kw = {"diag": DIAG, "offdiag": OFFDIAG}
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64, torch.bfloat16):
-        for shape, (band, width, seed) in SHARDED_SHAPES.items():
+        key = {torch.bfloat16: "bf16"}.get(dtype, dname(dtype).replace("float", "f"))
+        for shape, (band, width, seed, skey) in SHARDED_SHAPES.items():
             torch.cuda.empty_cache()
             gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -1325,7 +1418,20 @@ def phase_full_size_bands(torch, st5, cmp):
 
             p, hp, hn = rand(band, width), rand(1, width), rand(1, width)
             lab = f"{shape} {band}×{width} {dname(dtype)} + halos"
-            compare_band_pieces(torch, st5, cmp, None, p, hp, hn, lab + ", three pieces")
+            for scalar in (False, True):
+                compare_band_pieces(torch, st5, cmp, None, p, hp, hn,
+                                    lab + f", three pieces, "
+                                    f"{'scalar' if scalar else 'vector'} body", scalar)
+            y = torch.empty_like(p)
+            work = (2 * nbytes(p) + nbytes(hp, hn), 8 * p.numel())
+            vector, scalar = time_k3_bodies(torch, lambda sc: k3_pieces(st5, p, hp, hn, y, sc),
+                                            work, key, lab + ", three pieces", smi)
+            plain = _time_ms(torch, lambda: st5.spmv_stencil5_const_plain(p, hp, hn,
+                                                                          with_dot=True, **kw))
+            times["spmv_stencil5_const"][f"{skey}_{key}"] = k3_entry(vector, work, key, plain)
+            times["spmv_stencil5_const"][f"{skey}_scalar_{key}"] = k3_entry(scalar, work, key,
+                                                                            plain)
+            del y
             for pdt in dict.fromkeys((dtype, torch.bfloat16)):
                 planes = rand(5, band, width).to(pdt)
                 compare_band_pieces(torch, st5, cmp, planes, p, hp, hn,
@@ -1784,6 +1890,7 @@ def run_multichip(label, n, argv, loop, ref_label, needs, halo_missing, results,
         missing += halo_missing(r, counts)
         if missing:
             raise AssertionError(f"{label} rank {r}: never launched {missing}")
+        k3_scalar_launched(f"{label} rank {r}", counts["LAUNCHES"])
         for k, v in counts["LAUNCHES"].items():
             launches[k] = launches.get(k, 0) + v
     ref = results[ref_label]["validation"]
@@ -1898,7 +2005,7 @@ def main() -> int:
                                                spmv_cli)
     times = phase_full_size(torch, st5, blas1, cmp, smi)
     phase_full_size_bf16(torch, st5, blas1, cmp, smi, times)
-    phase_full_size_bands(torch, st5, cmp)
+    phase_full_size_bands(torch, st5, cmp, smi, times)
     phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times)
     medians = {label: res["timing"]["total_median_ms"] for label, res in results.items()}
     medians.update({label: median_ms for label, (median_ms, _its) in fused.items()})
@@ -1929,6 +2036,8 @@ def main() -> int:
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": cmp.max_abs[name], "max_rel_err": cmp.max_rel[name],
                  **t["f32"]}
+        if name == "spmv_stencil5_const":
+            entry["launches_scalar_body"] = launches[K3_SCALAR]
         for key, e in t.items():
             if key != "f32":
                 entry.update({f"{k}_{key}": v for k, v in e.items() if k != "bound_by"})

@@ -22,7 +22,11 @@ reach the profiler's events.  The sharded solver runs on one rank against ``cg_s
 on two gloo ranks sharing the card and on four as a 2 x 2 mesh of blocks (spawned by
 ``dist.launch_local``, which imports this module in each rank), its pieces against their
 twins: the ELL kernel's rectangular call and K3/K8 on one-row bands written into a larger
-y.  The matrices come from the
+y.  K3's two bodies (the vector body, the scalar body) are each held bit for bit to the
+twin at widths 1 to 4096 and bands of 1 to 2049 rows, each launch taking the body the
+alignment rule names (``stencil5.const_vector_fits``; views off a 16-byte boundary take
+the scalar body), and the vector body's dot is one launch, repeatable bit for bit.  The
+matrices come from the
 port's own ``formats`` and ``generate``: this file imports nothing of the JAX package.
 """
 
@@ -184,7 +188,8 @@ def test_each_wrapper_counts_its_launches(dev):
     st5.spmv_stencil5_const_pupdate(a, r, p, out=x.clone(), **KW)
     st5.spmv_stencil5_const_pupdate_plain(a, r, p, **KW)
     assert st5.LAUNCHES == {"spmv_stencil5": 1, "spmv_stencil5_pupdate": 1,
-                            "spmv_stencil5_const": 2, "spmv_stencil5_const_pupdate_dot": 1,
+                            "spmv_stencil5_const": 2, "spmv_stencil5_const_scalar": 0,
+                            "spmv_stencil5_const_pupdate_dot": 1,
                             "cg_const_update_recompute": 1, "spmv_stencil5_const_pupdate": 1}
     blas1.reset_launches()
     blas1.cg_update(a, x, r, p, p.clone())
@@ -201,6 +206,108 @@ def test_each_wrapper_counts_its_launches(dev):
     kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 1 and kernels[0][1] == 1 and "dot_vec_kernel" in kernels[0][0], \
         kernels
+
+
+# K3's two bodies: widths around the vector body's 16-byte vectors (1 to 16 of them, a
+# ragged tile of 32 vectors, several tiles) and the scalar body's cases (g·itemsize not a
+# multiple of 16)
+K3_WIDTHS = [1, 7, 8, 9, 37, 64, 1000, 4096]
+# band heights around the vector body's tiles of 16 rows (1, 2, one short, one, one more,
+# three) and enough tiles that every block walks several (the grid is the blocks the card
+# holds at once)
+K3_ROWS = (1, 2, 15, 16, 17, 48, 2049)
+STATES = [torch.float32, torch.float64, torch.bfloat16]
+
+
+def _k3_counts():
+    """(K3 launches, of which the scalar body's)."""
+    return st5.LAUNCHES["spmv_stencil5_const"], st5.LAUNCHES["spmv_stencil5_const_scalar"]
+
+
+@pytest.mark.parametrize("g", K3_WIDTHS)
+@pytest.mark.parametrize("dtype", STATES)
+def test_k3_bodies_match_twin_on_card(dev, g, dtype):
+    """Both K3 bodies, with and without halo rows and the dot: y bit for bit the twin's,
+    the dot within TOL of the twin's, and the vector body launched exactly when the
+    alignment rule holds (fresh fields: whenever g·itemsize is a multiple of 16)."""
+    gen = torch.Generator(device=dev).manual_seed(g)
+    for rows in K3_ROWS:
+        x = _randn(gen, dev, torch.float32, rows, g).to(dtype)
+        hs = tuple(_randn(gen, dev, torch.float32, 1, g).to(dtype) for _ in range(2))
+        for halos in ((), hs):
+            vector = st5.const_vector_fits(x, *halos)
+            assert vector == (g * x.element_size() % 16 == 0)
+            yp, dp = st5.spmv_stencil5_const_plain(x, *halos, with_dot=True, **KW)
+            for scalar in (False, True):
+                st5.reset_launches()
+                y = st5.spmv_stencil5_const(x, *halos, _scalar_body=scalar, **KW)
+                yd, d = st5.spmv_stencil5_const(x, *halos, with_dot=True, _scalar_body=scalar,
+                                                **KW)
+                what = (rows, len(halos), "scalar" if scalar or not vector else "vector")
+                assert _k3_counts() == (2, 0 if vector and not scalar else 2), what
+                assert torch.equal(y, yp) and torch.equal(yd, yp), what
+                assert _rel(d, dp) <= TOL[dtype][1], what
+
+
+@pytest.mark.parametrize("dtype", STATES)
+def test_k3_pieces_and_misaligned_views_on_card(dev, dtype):
+    """The sharded SpMV's three row pieces into one y (``out=``) and a one-row piece into a
+    row of a larger y take the vector body, and equal the twin over the whole band; a view
+    of x, of a halo row or of ``out`` one element into its storage takes the scalar body,
+    with the same y."""
+    g, band = 1000, 35
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p, hp, hn = (_randn(gen, dev, torch.float32, *s).to(dtype)
+                 for s in ((band, g), (1, g), (1, g)))
+    yp, dp = st5.spmv_stencil5_const_plain(p, hp, hn, with_dot=True, **KW)
+    st5.reset_launches()
+    y = torch.empty_like(p)
+    dots = [st5.spmv_stencil5_const(p[1:-1], p[0:1], p[-1:], with_dot=True, out=y[1:-1],
+                                    **KW)[1],
+            st5.spmv_stencil5_const(p[0:1], hp, p[1:2], with_dot=True, out=y[0:1], **KW)[1],
+            st5.spmv_stencil5_const(p[-1:], p[-2:-1], hn, with_dot=True, out=y[-1:], **KW)[1]]
+    assert _k3_counts() == (3, 0)
+    assert torch.equal(y, yp) and _rel(dots[0] + dots[1] + dots[2], dp) <= TOL[dtype][1]
+    row = torch.zeros(3, g, device=dev, dtype=dtype)
+    st5.spmv_stencil5_const(p[5:6], p[4:5], p[6:7], out=row[1:2], **KW)
+    assert _k3_counts() == (4, 0)
+    assert torch.equal(row[1], yp[5]) and not row[0].any() and not row[2].any()
+
+    def shifted(t):  # a copy of t one element into its own storage
+        return torch.empty(t.numel() + 1, device=dev, dtype=dtype)[1:].view(t.shape).copy_(t)
+
+    for name, args, out in (("x", (shifted(p), hp, hn), None),
+                            ("halo_next", (p, hp, shifted(hn)), None),
+                            ("out", (p, hp, hn), shifted(torch.empty_like(p)))):
+        assert not st5.const_vector_fits(*args, out=out), name
+        st5.reset_launches()
+        yk, d = st5.spmv_stencil5_const(*args, with_dot=True, out=out, **KW)
+        assert _k3_counts() == (1, 1), name
+        assert torch.equal(yk, yp) and _rel(d, dp) <= TOL[dtype][1], name
+
+
+def test_k3_vector_dot_is_one_launch_and_repeatable(dev):
+    """The vector body's dot: one launch (no final_sum_kernel, which the scalar body
+    launches), bitwise equal over repeated calls, its ticket counter back at 0."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for dtype in STATES:
+        x = _randn(gen, dev, torch.float32, 2049, 4096).to(dtype)
+        want = st5.spmv_stencil5_const(x, with_dot=True, **KW)[1]
+        assert all(torch.equal(st5.spmv_stencil5_const(x, with_dot=True, **KW)[1], want)
+                   for _ in range(50))
+        assert _rel(want, st5.spmv_stencil5_const_plain(x, with_dot=True, **KW)[1]) \
+            <= TOL[dtype][1]
+        for scalar, names in ((False, ["spmv_vec_kernel"]),
+                              (True, ["spmv_kernel", "final_sum_kernel"])):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                st5.spmv_stencil5_const(x, with_dot=True, _scalar_body=scalar, **KW)
+                torch.cuda.synchronize()
+            kernels = [(e.key, e.count) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            assert len(kernels) == len(names) and all(c == 1 for _, c in kernels), kernels
+            assert all(any(f"::{n}<" in k for k, _ in kernels) for n in names), kernels
+    assert all(int(t) == 0 for t in _launch._TICKETS.values())
 
 
 def _offset_copy(t, offset):

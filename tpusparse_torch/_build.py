@@ -41,6 +41,9 @@ _SIGNATURES = {
     "tps_stencil5_max_rows": ((), _I),
     **{f"tps_spmv_stencil5_const_{t}": ((_P, _P, _P, _P, _I, _I, _D, _D, _P, _P, _P),
                                         ctypes.c_int) for t in _STATES},
+    "tps_spmv_stencil5_const_vec_partials": ((_I, _I, _I, _I), _I),
+    **{f"tps_spmv_stencil5_const_vec_{t}": ((_P, _P, _P, _P, _I, _I, _I, _D, _D, _P, _P, _P,
+                                            _P), ctypes.c_int) for t in _STATES},
     **{f"tps_stencil5_const_pupdate_dot_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,
                                                 _P, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_cg_const_update_recompute_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,

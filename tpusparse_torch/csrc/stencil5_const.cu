@@ -44,9 +44,28 @@
 // computed in f32 and rounded to bf16 in the Pallas kernel's order, diag and offdiag
 // rounded to bf16 first, and the dot accumulated in f32 (reduce.cuh); 4 B a point.
 //
+// K3 has two bodies.  The scalar body (spmv_kernel, tps_spmv_stencil5_const_*) is the
+// shared tile above, one element a thread a load: it reached 70% of its bound in f32 and
+// 37% at a bf16 state on the H100.  The vector body (spmv_vec_kernel,
+// tps_spmv_stencil5_const_vec_*) keeps the tile and its order and gives each thread one
+// 16-byte vector of columns (8 bf16, 4 f32, 2 f64) of consecutive rows instead of one
+// element: every thread issues all its loads first (its rows' vectors and the rows just
+// above and below, which the warps beside it load too and L1 serves), takes W/E across
+// lanes by shuffles, and stores y with 16-byte streaming stores.  At a bf16 state it
+// computes two elements an instruction (add.rn/mul.rn.bf16x2, the same bits as f32 then
+// bf16; see add_bf16x2).  What bounds it is HBM, and how close a read+write stream comes
+// to it depends on how many places in memory are read at once: the hardware starts blocks
+// in index order, so the tiles in flight lie in a band of a few rows, as a plain copy's
+// addresses do.  A ring of x's rows in shared memory, fed by cp.async or by TMA bulk
+// copies, keeps more bytes in flight but reads as many places as there are row runs in
+// flight, and streamed slower on the H100 (bench/k3_layouts.cu).  Its dot finishes in the
+// same launch (store_partial_and_finish on the caller's ticket counter).  The vector body
+// needs x, y and the halo rows 16-byte aligned and g * sizeof(S) a multiple of 16; the
+// Python wrapper launches the scalar body otherwise.
+//
 // Every entry point launches on the stream it is given, allocates nothing (the caller
-// passes the partials buffer, sized by tps_stencil5_partials) and returns
-// cudaGetLastError().
+// passes the partials buffer, sized by tps_stencil5_partials, or for K3's vector body by
+// tps_spmv_stencil5_const_vec_partials) and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,6 +115,164 @@ spmv_kernel(const S* __restrict__ x, const S* __restrict__ hp, const S* __restri
     }
   }
   if (partials != nullptr) store_partial(acc, partials);
+}
+
+// ---------------------------------------------------------------------------
+// K3's vector body
+// ---------------------------------------------------------------------------
+
+// A tile is kTX 16-byte vectors of columns by kTileRows rows (the scalar body's tile
+// rows), each thread of a kTX x kTY block one vector of kTileRows / kTY consecutive rows.
+// A block takes a stack of `stack` tiles, one under the other, in turn; blockIdx.x runs
+// along a row of stacks.  The hardware starts blocks in index order, so the tiles in
+// flight lie in a band of a few stacks' rows that sweeps down the grid, as a plain copy's
+// addresses do; a grid-stride walk of the tiles by the blocks the card holds would let the
+// blocks drift apart over the grid.  A stack spreads a block's fixed costs, its dot's
+// reduction, fence and ticket, over more tiles.
+constexpr int kVecRows = kTileRows / kTY;
+
+template <typename S>
+__host__ __device__ constexpr int vec_elems() { return 16 / (int)sizeof(S); }
+
+template <typename S>
+dim3 vec_grid(int64_t rows, int64_t g, int64_t stack) {
+  const int64_t stack_rows = kTileRows * stack;
+  return dim3((unsigned)((g / vec_elems<S>() + kTX - 1) / kTX),
+              (unsigned)((rows + stack_rows - 1) / stack_rows));
+}
+
+// The bf16 field operations two at a time: add.rn / mul.rn of bf16x2 round the exact sum
+// or product of two bf16 values to bf16 once.  The scalar body computes it in f32 and
+// rounds to bf16; f32 has more than 2 * 8 + 2 bits, so that double rounding never
+// differs from the single one, and both bodies give the same bits.
+__device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned mul_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// the low and the high bf16 of a bf16x2 word, widened to f32 (exact)
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// y's vector from the thread's vectors of rows i - 1, i and i + 1 (zero where a row is
+// missing) and x at the columns just left and right of it (``left``, ``right``: the raw
+// element, zero off the grid), with stencil_at's operations in its order; acc += c * v in
+// element order when kDot.
+template <typename S, bool kDot>
+__device__ __forceinline__ uint4 stencil_vec(const uint4& north, const uint4& mid,
+                                             const uint4& south, S left, S right,
+                                             compute_t<S> d, compute_t<S> o,
+                                             compute_t<S>& acc) {
+  using T = compute_t<S>;
+  constexpr int V = vec_elems<S>();
+  uint4 out;
+  if constexpr (sizeof(S) == 2) {
+    const unsigned* nw = reinterpret_cast<const unsigned*>(&north);
+    const unsigned* cw = reinterpret_cast<const unsigned*>(&mid);
+    const unsigned* sw = reinterpret_cast<const unsigned*>(&south);
+    unsigned* yw = reinterpret_cast<unsigned*>(&out);
+    const unsigned lw = (unsigned)__bfloat16_as_ushort(left) << 16;  // in the high half
+    const unsigned rw = (unsigned)__bfloat16_as_ushort(right);      // in the low half
+    const unsigned dd = __bfloat16_as_ushort(narrow<S>(d)) * 0x10001u;
+    const unsigned oo = __bfloat16_as_ushort(narrow<S>(o)) * 0x10001u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // W and E of elements 2k and 2k + 1: x one column left and one right
+      const unsigned w = __byte_perm(k > 0 ? cw[k - 1] : lw, cw[k], 0x5432);
+      const unsigned e = __byte_perm(cw[k], k < 3 ? cw[k + 1] : rw, 0x5432);
+      const unsigned nb = add_bf16x2(add_bf16x2(add_bf16x2(nw[k], sw[k]), w), e);
+      yw[k] = add_bf16x2(mul_bf16x2(dd, cw[k]), mul_bf16x2(oo, nb));
+      if (kDot) {
+        acc = fma_rn(bf16_lo(cw[k]), bf16_lo(yw[k]), acc);
+        acc = fma_rn(bf16_hi(cw[k]), bf16_hi(yw[k]), acc);
+      }
+    }
+  } else {
+    const S* nv = reinterpret_cast<const S*>(&north);
+    const S* cv = reinterpret_cast<const S*>(&mid);
+    const S* sv = reinterpret_cast<const S*>(&south);
+    S* yv = reinterpret_cast<S*>(&out);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const T vw = e > 0 ? cv[e - 1] : left;
+      const T ve = e + 1 < V ? cv[e + 1] : right;
+      const T nb = add_s<S>(add_s<S>(add_s<S>(nv[e], sv[e]), vw), ve);
+      const T v = add_s<S>(mul_s<S>(d, cv[e]), mul_s<S>(o, nb));
+      yv[e] = v;
+      if (kDot) acc = fma_rn(cv[e], v, acc);
+    }
+  }
+  return out;
+}
+
+// K3's vector body: y = A x, and <x, y> into dot[0] in the same launch when partials !=
+// nullptr.  Each thread issues the loads of all its rows and the two beside them before
+// computing any (HBM reads x once: the rows beside are other warps' rows of the tile and
+// come from L1; lanes 0 and kTX - 1 also load the element beyond the tile's edge), takes
+// W/E across lanes by shuffles, and writes y with streaming 16-byte stores.
+template <typename S, bool kDot>
+__global__ void __launch_bounds__(kTX * kTY)
+spmv_vec_kernel(const S* __restrict__ x, const S* __restrict__ hp, const S* __restrict__ hn,
+                S* __restrict__ y, int64_t rows, int64_t g, int stack, compute_t<S> diag,
+                compute_t<S> offdiag, compute_t<S>* partials, unsigned int* tickets,
+                compute_t<S>* dot) {
+  using T = compute_t<S>;
+  constexpr int V = vec_elems<S>();
+  const int lane = threadIdx.x;
+  const T d = rnd<S>(diag), o = rnd<S>(offdiag);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  T acc = T(0);
+  const int64_t c = ((int64_t)blockIdx.x * kTX + lane) * V;  // the thread's first column
+  const bool mine = c < g;
+  // the element beyond the tile's edge: west of lane 0, east of the last lane
+  const bool edge = (lane == 0 && c > 0) || (lane == kTX - 1 && c + V < g);
+  const int64_t ec = lane == 0 ? c - 1 : c + V;
+  for (int m = 0; m < stack; ++m) {
+    // this thread's rows first .. first + kVecRows - 1 of the tile
+    const int64_t first = ((int64_t)blockIdx.y * stack + m) * kTileRows
+                          + (int64_t)threadIdx.y * kVecRows;
+    if (first - (int64_t)threadIdx.y * kVecRows >= rows) break;  // the same for the block
+    // x's rows first - 1 .. first + kVecRows: each row's north and south come from the
+    // same thread's registers, the row before the first and the one after the last from
+    // the warps beside it (L1) or the halo rows; zero beyond them
+    uint4 v[kVecRows + 2];
+    S beyond[kVecRows];
+#pragma unroll
+    for (int k = 0; k < kVecRows + 2; ++k) {
+      const int64_t i = first - 1 + k;
+      const S* row = i < 0 ? hp : (i < rows ? x + i * g : (i == rows ? hn : nullptr));
+      v[k] = mine && row != nullptr ? __ldg(reinterpret_cast<const uint4*>(row + c)) : zero;
+    }
+#pragma unroll
+    for (int k = 0; k < kVecRows; ++k) {
+      const int64_t i = first + k;
+      beyond[k] = i < rows && edge ? x[i * g + ec] : narrow<S>(T(0));
+    }
+#pragma unroll
+    for (int k = 0; k < kVecRows; ++k) {
+      const int64_t i = first + k;
+      if (i >= rows) break;  // the same for the whole warp, and for its later rows
+      // W of the first element: the lane before's last; E of the last: the lane after's
+      // first; off the grid zero (x's side columns), selected, never multiplied
+      const S* cv = reinterpret_cast<const S*>(&v[k + 1]);
+      S left = __shfl_up_sync(0xffffffffu, cv[V - 1], 1);
+      S right = __shfl_down_sync(0xffffffffu, cv[0], 1);
+      if (lane == 0) left = beyond[k];
+      if (lane == kTX - 1) right = beyond[k];
+      if (c == 0) left = narrow<S>(T(0));
+      if (c + V >= g) right = narrow<S>(T(0));
+      if (mine) {
+        __stcs(reinterpret_cast<uint4*>(y + i * g + c),
+               stencil_vec<S, kDot>(v[k], v[k + 1], v[k + 2], left, right, d, o, acc));
+      }
+    }
+  }
+  if (kDot) store_partial_and_finish(acc, partials, tickets, dot);
 }
 
 // K1 and K10: p' = r + beta*p into pout, y = A p' into y when kStoreY (K10), and the
@@ -184,6 +361,35 @@ int spmv(const void* x, const void* hp, const void* hn, void* y, int64_t rows, i
   return finish_dot<T>(part, (int64_t)grid.x * grid.y, (T*)dot, s);
 }
 
+// K3's vector body: y = A x, and <x, y> into dot in the same launch when dot != nullptr
+// (partials: one a block, tps_spmv_stencil5_const_vec_partials; tickets: a zeroed
+// counter no concurrent launch shares).
+// Refuses (cudaErrorInvalidValue) what the body cannot take: misaligned operands, a row
+// that is not a whole number of 16-byte vectors, a stack outside [1, 1024].
+template <typename S>
+int spmv_vec(const void* x, const void* hp, const void* hn, void* y, int64_t rows, int64_t g,
+             int64_t stack, double diag, double offdiag, void* partials, void* tickets,
+             void* dot, void* stream) {
+  using T = compute_t<S>;
+  const auto misaligned = [](const void* q) { return ((uintptr_t)q & 15u) != 0; };
+  if (stack < 1 || stack > 1024 || (g * (int64_t)sizeof(S)) % 16 != 0 || misaligned(x)
+      || misaligned(y) || misaligned(hp) || misaligned(hn)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid = vec_grid<S>(rows, g, stack), block(kTX, kTY);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dot != nullptr) {
+    spmv_vec_kernel<S, true><<<grid, block, 0, s>>>(
+        (const S*)x, (const S*)hp, (const S*)hn, (S*)y, rows, g, (int)stack, (T)diag,
+        (T)offdiag, (T*)partials, (unsigned int*)tickets, (T*)dot);
+  } else {
+    spmv_vec_kernel<S, false><<<grid, block, 0, s>>>(
+        (const S*)x, (const S*)hp, (const S*)hn, (S*)y, rows, g, (int)stack, (T)diag,
+        (T)offdiag, nullptr, nullptr, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int pupdate_dot(const void* beta, const void* r, const void* p, const void* hp,
                 const void* hn, void* pout, int64_t rows, int64_t g, double diag,
@@ -253,6 +459,45 @@ int tps_spmv_stencil5_const_bf16(const void* x, const void* hp, const void* hn, 
                                  int64_t rows, int64_t g, double diag, double offdiag,
                                  void* partials, void* dot, void* stream) {
   return spmv<__nv_bfloat16>(x, hp, hn, y, rows, g, diag, offdiag, partials, dot, stream);
+}
+
+// K3's vector body (see the header): the partials its dot needs over a (rows, g) band of
+// elem_size-byte elements in stacks of `stack` tiles (one a block), and its three
+// instances.
+int64_t tps_spmv_stencil5_const_vec_partials(int64_t rows, int64_t g, int64_t elem_size,
+                                             int64_t stack) {
+  dim3 grid;
+  switch (elem_size) {
+    case 2: grid = vec_grid<__nv_bfloat16>(rows, g, stack); break;
+    case 4: grid = vec_grid<float>(rows, g, stack); break;
+    case 8: grid = vec_grid<double>(rows, g, stack); break;
+    default: return -1;
+  }
+  return (int64_t)grid.x * grid.y;
+}
+
+int tps_spmv_stencil5_const_vec_f32(const void* x, const void* hp, const void* hn, void* y,
+                                    int64_t rows, int64_t g, int64_t stack, double diag,
+                                    double offdiag, void* partials, void* tickets, void* dot,
+                                    void* stream) {
+  return spmv_vec<float>(x, hp, hn, y, rows, g, stack, diag, offdiag, partials, tickets, dot,
+                         stream);
+}
+
+int tps_spmv_stencil5_const_vec_f64(const void* x, const void* hp, const void* hn, void* y,
+                                    int64_t rows, int64_t g, int64_t stack, double diag,
+                                    double offdiag, void* partials, void* tickets, void* dot,
+                                    void* stream) {
+  return spmv_vec<double>(x, hp, hn, y, rows, g, stack, diag, offdiag, partials, tickets, dot,
+                          stream);
+}
+
+int tps_spmv_stencil5_const_vec_bf16(const void* x, const void* hp, const void* hn, void* y,
+                                     int64_t rows, int64_t g, int64_t stack, double diag,
+                                     double offdiag, void* partials, void* tickets, void* dot,
+                                     void* stream) {
+  return spmv_vec<__nv_bfloat16>(x, hp, hn, y, rows, g, stack, diag, offdiag, partials,
+                                 tickets, dot, stream);
 }
 
 int tps_stencil5_const_pupdate_dot_f32(const void* beta, const void* r, const void* p,

@@ -28,6 +28,12 @@ a bf16 state, so their wrappers raise ``ValueError`` for one on a card.
 ``LAUNCHES[name]`` counts the kernel launches of each wrapper (twins do not count).
 K3 and K8 take ``out=``, a field to write y into: the sharded solver writes a
 band's rows piece by piece into one y.
+
+K3 has two CUDA bodies (``csrc/stencil5_const.cu``): the vector body, a 16-byte vector of
+columns a thread, which finishes its dot in the same launch, and the scalar body, one
+element a thread.  ``spmv_stencil5_const`` launches the vector body whenever
+``const_vector_fits`` holds and the scalar body otherwise; ``LAUNCHES["spmv_stencil5_const"]``
+counts both, ``LAUNCHES["spmv_stencil5_const_scalar"]`` the scalar body's launches alone.
 """
 
 from __future__ import annotations
@@ -38,14 +44,15 @@ import torch
 
 from .. import _build
 from ..formats import C, E, N, S, W
-from ._launch import (SUFFIX, check_apart, check_field, check_state, dot_buffers, overlaps,
-                      ptr, scalar, stream)
+from ._launch import (SUFFIX, check_apart, check_field, check_state, dot_buffers, dot_tickets,
+                      overlaps, ptr, scalar, stream)
 from .blas1 import dot_plain as _dot
 
 LAUNCHES = {
     "spmv_stencil5": 0,
     "spmv_stencil5_pupdate": 0,
     "spmv_stencil5_const": 0,
+    "spmv_stencil5_const_scalar": 0,  # K3's scalar body: its share of the count above
     "spmv_stencil5_const_pupdate_dot": 0,
     "cg_const_update_recompute": 0,
     "spmv_stencil5_const_pupdate": 0,
@@ -53,6 +60,11 @@ LAUNCHES = {
 
 # planes dtype -> the part of the K8/K9 entry points' suffix before the state's
 _PLANES_SUFFIX = {torch.float32: "", torch.float64: "", torch.bfloat16: "bf16_"}
+# tiles of 32 rows one block of K3's vector body takes, one under the other
+# (csrc/stencil5_const.cu), without and with the dot: a block's share of the dot (its
+# reduction, fence and ticket) costs about what streaming a tile does, so a block of the
+# dot's launch takes four; bench/k3_layouts.py times 1 to 8 (PERF.md section 6)
+VEC_STACK = {False: 1, True: 4}
 
 
 def reset_launches() -> None:
@@ -207,24 +219,53 @@ def spmv_stencil5_pupdate(planes, beta, r, p, halo_prev=None, halo_next=None, *,
     return out, y, dot
 
 
+def const_vector_fits(x, halo_prev=None, halo_next=None, out=None) -> bool:
+    """Whether K3's vector body takes these operands: a contiguous 2-D field x of f32, f64 or
+    bf16 whose rows are whole 16-byte vectors (g·itemsize a multiple of 16), and x, the
+    halo rows and ``out`` (each when given) contiguous and 16-byte aligned.  Then every row
+    of x and y starts on a 16-byte boundary.  A plain function of shapes, strides and
+    addresses: it holds for CPU tensors too."""
+    if x.dim() != 2 or x.dtype not in SUFFIX or x.shape[1] * x.element_size() % 16:
+        return False
+    return all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (x, halo_prev, halo_next, out) if t is not None)
+
+
 def spmv_stencil5_const(x, halo_prev=None, halo_next=None, *, diag, offdiag,
-                        with_dot=False, out=None):
+                        with_dot=False, out=None, _scalar_body=False):
     """y = A·x, or (y, <x, A·x>) when ``with_dot``; ``out`` as in ``spmv_stencil5``.
 
     Replaces the Pallas kernels ``spmv_stencil5_const_pipelined`` and
-    ``spmv_stencil5_const_pallas`` (tpusparse/kernels/stencil5.py): one CUDA kernel backs
-    both, since they differ only in how the TPU moved data."""
+    ``spmv_stencil5_const_pallas`` (tpusparse/kernels/stencil5.py): one CUDA wrapper backs
+    both, since they differ only in how the TPU moved data.  On a card it launches the
+    vector body when ``const_vector_fits(x, halo_prev, halo_next, y)`` holds (y: ``out``
+    or the new field), else the scalar body: the rule is alignment, never a failure, and
+    an error of either body raises.  Both give the same y bit for bit; the vector body's
+    dot is summed in its own fixed order, in one launch.  ``_scalar_body=True`` forces the
+    scalar body (for tests and timings that hold the two side by side)."""
     if x.device.type == "cpu":
         return spmv_stencil5_const_plain(x, halo_prev, halo_next, diag=diag, offdiag=offdiag,
                                          with_dot=with_dot, out=out)
     rows, g = _check_band(x, x)
     _check_halos(halo_prev, halo_next, x)
     y = _spmv_out(out, x, halo_prev, halo_next)
-    dot, part = dot_buffers(x, _partials(rows, g)) if with_dot else (None, None)
-    fn = getattr(_build.lib(), f"tps_spmv_stencil5_const_{SUFFIX[x.dtype]}")
-    _build.check(fn(x.data_ptr(), ptr(halo_prev), ptr(halo_next), y.data_ptr(), rows, g,
-                    float(diag), float(offdiag), ptr(part), ptr(dot), stream(x)),
-                 "spmv_stencil5_const")
+    s = stream(x)
+    if not _scalar_body and const_vector_fits(x, halo_prev, halo_next, y):
+        stack = VEC_STACK[bool(with_dot)]
+        dot, part = (dot_buffers(x, _vec_partials(rows, g, x.element_size(), stack))
+                     if with_dot else (None, None))
+        fn = getattr(_build.lib(), f"tps_spmv_stencil5_const_vec_{SUFFIX[x.dtype]}")
+        _build.check(fn(x.data_ptr(), ptr(halo_prev), ptr(halo_next), y.data_ptr(), rows, g,
+                        stack, float(diag), float(offdiag), ptr(part),
+                        ptr(dot_tickets(x, s)) if with_dot else None, ptr(dot), s),
+                     "spmv_stencil5_const (vector body)")
+    else:
+        dot, part = dot_buffers(x, _partials(rows, g)) if with_dot else (None, None)
+        fn = getattr(_build.lib(), f"tps_spmv_stencil5_const_{SUFFIX[x.dtype]}")
+        _build.check(fn(x.data_ptr(), ptr(halo_prev), ptr(halo_next), y.data_ptr(), rows, g,
+                        float(diag), float(offdiag), ptr(part), ptr(dot), s),
+                     "spmv_stencil5_const (scalar body)")
+        LAUNCHES["spmv_stencil5_const_scalar"] += 1
     LAUNCHES["spmv_stencil5_const"] += 1
     return (y, dot) if with_dot else y
 
@@ -386,3 +427,8 @@ def _max_rows():
 @functools.lru_cache(maxsize=64)
 def _partials(rows, g):
     return _build.lib().tps_stencil5_partials(rows, g)
+
+
+@functools.lru_cache(maxsize=64)
+def _vec_partials(rows, g, elem_size, stack):
+    return _build.lib().tps_spmv_stencil5_const_vec_partials(rows, g, elem_size, stack)
