@@ -83,17 +83,28 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      K1 and K2 on the 4-rank band, in f32 and f64.  K3's vector body against its forced
      scalar body in turns (vector/scalar/scalar/vector) at 20480² and in the three pieces
      of every band and block shape, in f32, f64 and bf16, each beside the bound (and, in
-     phase 8, the measured ceiling).  The bf16-state instances the same way (fields bit for bit): K3, K4-K7 and K8
-     (bf16 planes) at 20480², against F.conv2d in bf16, torch.add and torch.dot on bf16
-     (held to the kernel at 1e-2: the library rounds once where the kernel rounds each
-     operation), K11 and the ELL kernel (against bcoo at bf16), the rectangular ELL call,
-     and K3 and K8 in the band and block pieces.  Each kernel's bound: the bytes its call
-     must move (inputs read once, outputs written once) over 3.35 TB/s, or its operations
-     over the data sheet's peak rate, whichever is larger (a bf16 state computes in f32);
+     phase 8, the measured ceiling).  The bf16-state instances the same way (fields bit
+     for bit): K3, K4-K7 and K8 (bf16 planes) at 20480², against F.conv2d in bf16,
+     torch.add and torch.dot on bf16 (held to the kernel at 1e-2: the library rounds once
+     where the kernel rounds each operation), K11 and the ELL kernel (against bcoo at
+     bf16), the rectangular ELL call, and K3 and K8 in the band and block pieces.  Each
+     kernel's bound: the bytes its call must move (inputs read once, outputs written
+     once) over 3.35 TB/s, or its operations over the data sheet's peak rate, whichever is
+     larger (a bf16 state computes in f32);
      the solves' median times, next to the card's name and power limit;
   7. one solve of each CG run of phase 5 (bcoo f64 included; of the bf16 runs, stencil5
-     only), and of each fused solve, under torch.profiler, its device time split by kernel, and its idle time: phase 5's
-     unprofiled median less the profiled device time (PERF.md section 5);
+     only), and of each fused solve, under torch.profiler, its device time split by
+     kernel (the graph loop's replayed kernels, its condition kernel among them), and its
+     idle time: phase 5's unprofiled median less the profiled device time (PERF.md
+     section 5);
+ 11. (run after phase 7) the CG graph loop, cg_solve's default on a card, against the
+     eager loop (graph=False) at gen:20480 in every single-device loop, mode and dtype it
+     runs (GRAPH_RUNS: stencil5-const f64/f32 recompute, f32 and bf16 classic; stencil5
+     f64/f32/bf16; stencil5-bf16c f32; csr and dia f64; the fused loop on stencil5 and
+     stencil5-const, f64): the same iterations (14 in f64) and x bit for bit, the graph
+     loop reading the card once a solve (one replay) and the eager loop once an
+     iteration and twice more; their medians over GRAPH_ROUNDS rounds of eager, graph,
+     graph, eager solves (chiprun_out/chip_smoke_graph.json);
   8. the CG CLI's host-stepped loop and its other flags at gen:20480, each run from its own
      launch counts: --timers on stencil5 f64 (exactly 14 iterations, loop host-stepped,
      the spmv, blas1 and reduction buckets each > 0 and summing to no more than the
@@ -141,8 +152,15 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      exchange nothing; each median beside phase 9's 4-rank row-band median of its mode,
      and the rank-time max/min/imbalance.
 
+On a card every cg_solve of phases 5, 7 and 8 runs the graph loop: a path's launch
+counts are its wrappers' eager launches plus its replays' (``cg.LAUNCHES``: the iterations
+run, read from the card, times one captured iteration's launches).  Phase 3 also holds
+the graph's condition kernel (csrc/graph.cu, which ports no Pallas kernel) to its twin
+and times it.
+
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5, 9 and 10) and then {"ok": true, "device": {...}}.
+record (launches summed over phases 5, 9 and 10; the condition kernel's entry last) and
+then {"ok": true, "device": {...}}.
 Exports go to chiprun_out/.
 """
 
@@ -192,6 +210,11 @@ KERNELS = {
     "spmv_ell": ("K12", "spmv_ell_kernel", "tpusparse_torch/csrc/ell.cu",
                  "tpusparse/kernels/gather_ell.py:283, tpusparse/kernels/gather_ell.py:645"),
 }
+# the CG graph loop's condition kernel (csrc/graph.cu, kernels/graph.py): it ports no
+# Pallas kernel; it is the counterpart of the JAX loop's lax.while_loop condition
+COND = "cg_cond"
+COND_ENTRY = ("cond", "cond_kernel", "tpusparse_torch/csrc/graph.cu",
+              "tpusparse/solvers/cg.py:360 (lax.while_loop's cond; no pallas_call)")
 # K3's scalar body's share of K3's launches (stencil5.LAUNCHES): every field of the main
 # paths, the sharded runs and phase 6's shapes is aligned for the vector body, so none of
 # them may launch the scalar body
@@ -259,7 +282,10 @@ FUSED_RUNS = {
 }
 FUSED_FORBID = ("p_update", "spmv_stencil5", "spmv_stencil5_const",
                 "spmv_stencil5_const_pupdate_dot", "cg_const_update_recompute")
-FUSED_TIMED = 5  # timed solves of each, after one warm-up
+FUSED_TIMED = 3  # timed solves of each, after one warm-up (phase 11 times them too)
+# launches a plain twin's time is averaged over in phase 6 (a kernel's: 10); the twins run
+# 2-20 times as long as their kernels
+PLAIN_REPS = 3
 # phase 8: the CG CLI's host-stepped runs and its other flags: label -> (arguments, the
 # export's loop, iterations required, kernels required)
 TRACE_DIR = OUT / "trace"
@@ -325,6 +351,25 @@ MESH2D_RUNS = {
                                  "stencil5 f64", STENCIL5_BLOCK, "sharded stencil5 bf16 x2"),
 }
 SHARDED_DIR = OUT / "sharded"
+# phase 11: the CG graph loop (cg_solve's default on a card) against the eager loop
+# (graph=False) at G_BIG² in every single-device loop, mode and dtype that the graph runs:
+# label -> (mode, dtype name, cg_solve's loop arguments)
+GRAPH_RUNS = {
+    "const f64 recompute": ("stencil5-const", "float64", {"recompute_ap": True}),
+    "const f32 recompute": ("stencil5-const", "float32", {"recompute_ap": True}),
+    "const f32 classic": ("stencil5-const", "float32", {"recompute_ap": False}),
+    "const bf16 classic": ("stencil5-const", "bfloat16", {"recompute_ap": False}),
+    "stencil5 f64": ("stencil5", "float64", {}),
+    "stencil5 f32": ("stencil5", "float32", {}),
+    "stencil5 bf16": ("stencil5", "bfloat16", {}),
+    "bf16c f32": ("stencil5-bf16c", "float32", {}),
+    "csr f64": ("csr", "float64", {}),
+    "dia f64": ("dia", "float64", {}),
+    "fused stencil5 f64": ("stencil5", "float64", {"fused_pupdate": True}),
+    "fused const f64": ("stencil5-const", "float64", {"fused_pupdate": True}),
+}
+GRAPH_ROUNDS = 3  # rounds of eager, graph, graph, eager after a warm-up solve of each
+COND_NODES = 1000  # IF nodes in the graph that times the condition kernel
 # two of phase 5's CLI medians as PERF.md section 6 records them before the solver had
 # phase scopes (NVIDIA H100 80GB HBM3, 700.00 W), in ms
 RECORDED_MEDIANS = {"stencil5 f64": 255.3, "const f64 recompute": 144.78}
@@ -356,7 +401,10 @@ def dname(dtype) -> str:
 
 
 def short(name) -> str:
-    """A wrapper's short name: K1-K12, or the wrapper's own for the streaming probes."""
+    """A wrapper's short name: K1-K12, "cond" for the graph condition kernel, or the
+    wrapper's own for the streaming probes."""
+    if name == COND:
+        return COND_ENTRY[0]
     return KERNELS[name][0] if name in KERNELS else name
 
 
@@ -371,22 +419,34 @@ def k3_scalar_launched(label, counts):
 class PathCounts:
     """The launch counts of the main paths, read path by path: every count is set to 0
     just before a path runs and read just after, and the path must have launched each
-    kernel it names (K3 through its vector body only)."""
+    kernel it names (K3 through its vector body only).  A path's count of a kernel is its
+    wrapper's eager launches plus the launches that replays of the CG loop's graph made
+    (``cg.LAUNCHES``: the iterations each replay ran, read from the card, times one
+    captured iteration's launches; the condition kernel's), printed as "(n replayed)"."""
 
     def __init__(self, counters):
-        self.counters = counters
+        from tpusparse_torch.kernels import graph as graph_kernels
+        from tpusparse_torch.solvers import cg
+
+        self.counters = (*counters, graph_kernels)
+        self.replays = cg
         self.by_path = {}
 
     def run(self, label, needs, fn, forbid=()):
-        for counter in self.counters:
+        for counter in (*self.counters, self.replays):
             counter.reset_launches()
         out = fn()
-        counts = {name: c.LAUNCHES[name] for c in self.counters for name in c.LAUNCHES
-                  if c.LAUNCHES[name]}
+        counts = {}
+        for c in (*self.counters, self.replays):
+            for name, n in c.LAUNCHES.items():
+                if n:
+                    counts[name] = counts.get(name, 0) + n
+        replayed = self.replays.LAUNCHES
         self.by_path[label] = counts
         order = [n for n in KERNELS if n in counts] + [n for n in counts if n not in KERNELS]
-        print(f"[launches] {label}: " + ", ".join(f"{short(n)} {counts[n]}" for n in order),
-              flush=True)
+        print(f"[launches] {label}: " + ", ".join(
+            f"{short(n)} {counts[n]}" + (f" ({replayed[n]} replayed)" if replayed.get(n) else "")
+            for n in order), flush=True)
         missing = [f"{short(n)} {n}" for n in needs if counts.get(n, 0) <= 0]
         if missing:
             raise AssertionError(f"{label}: kernels of this path never launched: {missing}")
@@ -397,9 +457,10 @@ class PathCounts:
         return out
 
     def totals(self):
-        """{wrapper: launches summed over the paths}, K3's scalar body's too."""
+        """{wrapper: launches summed over the paths}, K3's scalar body's and the graph
+        condition kernel's too."""
         return {name: sum(c.get(name, 0) for c in self.by_path.values())
-                for name in (*KERNELS, K3_SCALAR)}
+                for name in (*KERNELS, K3_SCALAR, COND)}
 
 
 class Compare:
@@ -968,7 +1029,7 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
     fused = phase_fused(torch, counts, st, results)
     launches = counts.totals()
     (OUT / "chip_smoke_launches.json").write_text(json.dumps(counts.by_path, indent=1))
-    missing = [f"{KERNELS[n][0]} {n}" for n in KERNELS if launches[n] <= 0]
+    missing = [f"{short(n)} {n}" for n in (*KERNELS, COND) if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
     return results, fused, launches
@@ -977,7 +1038,9 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
 def phase_fused(torch, counts, st, results):
     """The fused p-update solves through cg.cg_solve(fused_pupdate=True), each path with
     its own launch counts: one warm-up, then FUSED_TIMED timed solves (the port's stats:
-    the median).  Returns {label: (median ms, iterations)}."""
+    the median), then one more whose x is checked.  A timed solve drops its x, as the CG
+    CLI's do: a solve whose every earlier x is still held captures the graph loop on a
+    new solution field (``cg.DeviceLoop``).  Returns {label: (median ms, iterations)}."""
     from tpusparse_torch import ops
     from tpusparse_torch.bench import stats
     from tpusparse_torch.solvers import cg
@@ -987,16 +1050,19 @@ def phase_fused(torch, counts, st, results):
         dtype = getattr(torch, dtype_name)
         op = ops.get_operator(mode, st, dtype=dtype, device="cuda")
 
-        def solve():
+        def solve(keep_x=False):
             t0 = time.perf_counter()
             x, s = cg.cg_solve(op, b_is_ones=True, fused_pupdate=True)
             torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3, (x, s)
+            return (time.perf_counter() - t0) * 1e3, (x if keep_x else None, s)
 
-        bench, (x, s) = counts.run(
-            label, (fused_pass, "cg_update", "dot"),
-            lambda: stats.benchmark_solver_with_stats(solve, num_runs=FUSED_TIMED, warmup=1),
-            forbid=FUSED_FORBID)
+        def timed():
+            bench, _ = stats.benchmark_solver_with_stats(solve, num_runs=FUSED_TIMED,
+                                                         warmup=1)
+            return bench, solve(keep_x=True)[1]
+
+        bench, (x, s) = counts.run(label, (fused_pass, "cg_update", "dot"), timed,
+                                   forbid=FUSED_FORBID)
         op.free()
         del op
         xd = x.double()
@@ -1037,9 +1103,9 @@ def phase_fused(torch, counts, st, results):
 
 def run_spmv_cli(spmv_cli, counts, g, modes, name, dtype="f32", extra=()):
     """The SpMV CLI at gen:g in ``dtype`` with ``extra`` arguments, one run per mode, each
-    with its own launch counts; the wall time of a run includes its operator's build.  Raises unless every
-    mode gives the same checksums, and those of y = A·ones to 1e-12 (``generate.
-    stencil5_spmv_checksums``).  Returns {mode: kernel ms}."""
+    with its own launch counts; the wall time of a run includes its operator's build.
+    Raises unless every mode gives the same checksums, and those of y = A·ones to 1e-12
+    (``generate.stencil5_spmv_checksums``).  Returns {mode: kernel ms}."""
     from tpusparse_torch import generate
 
     want = generate.stencil5_spmv_checksums(g, DIAG, OFFDIAG)
@@ -1109,7 +1175,8 @@ def _time_pairs(torch, times, key, pairs, label, smi):
     each, beside the kernel's bound.  pairs: {name: (kernel, plain, (bytes, operations),
     library call or None)}."""
     for name, (kern, plain, work, lib) in pairs.items():
-        t_p1, t_k1, t_k2, t_p2 = (_time_ms(torch, f) for f in (plain, kern, kern, plain))
+        t_p1, t_k1, t_k2, t_p2 = (_time_ms(torch, f, n) for f, n in (
+            (plain, PLAIN_REPS), (kern, 10), (kern, 10), (plain, PLAIN_REPS)))
         e = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2), "library_ms": None}
         if lib is not None:
             _time_library(torch, e, kern, lib)
@@ -1540,14 +1607,15 @@ def time_ell_band(torch, ell, generate, cmp, square, dtype, smi):
 
 def phase_profile(torch, smi, medians):
     """Where a solve's time goes: one solve of each CG run and each fused solve of phase 5
-    under torch.profiler at G_BIG² (after two unprofiled ones), its device time split by
-    kernel.  "idle" is the solve's unprofiled median from phase 5 (``medians``: label ->
-    ms) minus the summed device time of the profiled solve's kernels, memsets and copies:
-    a difference, not a timeline.  The profiled solve's own wall time is printed beside it
-    only as an aside, since it also holds the profiler's cost of recording the phase
-    ranges.  The full tables go to chiprun_out/profile.txt.  The solver's phase scopes
-    (``bench.profiling``) are ranges, not device work, and stay out of the sums.  Returns
-    {label: {kernel group: device ms}}."""
+    under torch.profiler at G_BIG² (after an unprofiled one, which captures the graph
+    loop), its device time split by kernel.  "idle" is the solve's unprofiled median from
+    phase 5 (``medians``: label -> ms) minus the summed device time of the profiled
+    solve's kernels, memsets and copies: a difference, not a timeline.  The profiled
+    solve's own wall time is printed beside it only as an aside, since it also holds the
+    profiler's cost.  The full tables go to chiprun_out/profile.txt.  The solver's phase
+    scopes (``bench.profiling``) are ranges, not device work, and stay out of the sums
+    (the graph loop enters them at its capture only).  Returns {label: {kernel group:
+    device ms}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1558,9 +1626,17 @@ def phase_profile(torch, smi, medians):
     groups = [(short, re.compile(rf"(?<![a-z_]){fn}")) for short, fn, _s, _r in
               KERNELS.values()]
     groups.append(("final sums", re.compile(r"(?<![a-z_])final_sum_kernel")))
+    groups.append(("cond", re.compile(r"(?<![a-z_])cond_kernel")))
     groups.append(("cuSPARSE", re.compile(r"cusparse|csrmv", re.IGNORECASE)))
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
     tables, splits = [], {}
+    # CUPTI reports every kernel of a CUDA graph only if it was running when the graph was
+    # captured: on the H100 a replay of a graph captured before the process's first profile
+    # showed the WHILE body's first pass only (2 of 17 iterations' kernels), one captured
+    # after a profile all of them.  So a profile runs before any capture here.
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
     dtypes = {"--dtype=f64": torch.float64, "--dtype=bf16": torch.bfloat16}
     solves = [(label, mode, next((dt for a, dt in dtypes.items() if a in extra), torch.float32),
                {"recompute_ap": False if "--loop=classic" in extra else None})
@@ -1570,8 +1646,7 @@ def phase_profile(torch, smi, medians):
                for label, (mode, dtype_name, _iters, _pass) in FUSED_RUNS.items()]
     for label, mode, dtype, kwargs in solves:
         op = ops.get_operator(mode, st, dtype=dtype, device="cuda")
-        for _ in range(2):
-            cg.cg_solve(op, b_is_ones=True, **kwargs)
+        cg.cg_solve(op, b_is_ones=True, **kwargs)  # the graph loop's capture
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1606,6 +1681,128 @@ def phase_profile(torch, smi, medians):
     OUT.mkdir(exist_ok=True)
     (OUT / "profile.txt").write_text("\n\n".join(tables))
     return splits
+
+
+def compare_cond(torch, smi):
+    """The graph condition kernel against its twin (``graph.cond_plain``, the condition
+    read on the host): an IF node whose body sets a flag, replayed for (k, rr, tol²)
+    around the edges (equal, zero, NaN), in f32 and f64; then its time: a graph of
+    COND_NODES IF nodes whose condition is false, so that each costs its kernel and the
+    skipped node, against the twin's two reads on the host clock.  Returns its kernels
+    line entry (max_abs_err: the largest |kernel - twin| over the flags)."""
+    from tpusparse_torch.kernels import graph as graph_kernels
+
+    cases = [(0, 1.0, 0.5), (6, 1.0, 0.5), (7, 1.0, 0.5), (8, 1.0, 0.5), (0, 0.0, 0.0),
+             (0, 0.5, 0.5), (0, 0.5, 0.25), (0, float("nan"), 0.1), (3, 1e-30, 0.0),
+             (-1, 2.0, 1.0)]
+    graph_kernels.preload("cuda")
+    err, checked = 0.0, 0
+    for acc in (torch.float32, torch.float64):
+        k = torch.zeros((), dtype=torch.int64, device="cuda")
+        rr, tol2 = (torch.zeros((), dtype=acc, device="cuda") for _ in range(2))
+        flag = torch.zeros((), dtype=torch.int32, device="cuda")
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            with graph_kernels.conditional(graph_kernels.IF, k, 7, rr, tol2):
+                flag.fill_(1)
+        for kv, rv, tv in cases:
+            k.fill_(kv)
+            rr.fill_(rv)
+            tol2.fill_(tv)
+            flag.zero_()
+            g.replay()
+            err = max(err, abs(int(flag) - int(graph_kernels.cond_plain(k, 7, rr, tol2))))
+            checked += 1
+        del g
+    print(f"[compare] cond {COND}: {checked} conditions, largest |kernel - twin| {err} "
+          f"(tol 0)", flush=True)
+    if err:
+        raise AssertionError("the graph condition kernel disagrees with its twin")
+    k = torch.full((), 7, dtype=torch.int64, device="cuda")
+    rr, tol2 = (torch.ones((), dtype=torch.float64, device="cuda") for _ in range(2))
+    flag = torch.zeros((), dtype=torch.int32, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(COND_NODES):
+            with graph_kernels.conditional(graph_kernels.IF, k, 7, rr, tol2):
+                flag.fill_(1)
+    ms = _time_ms(torch, g.replay) / COND_NODES
+    if int(flag):
+        raise AssertionError("a false condition ran its node's body")
+    t0 = time.perf_counter()
+    for _ in range(200):
+        graph_kernels.cond_plain(k, 7, rr, tol2)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 200
+    bound_ms, bound_by = bound((nbytes(k, rr, tol2), 2), "f64")
+    print(f"[time] cond {COND} f64: kernel and skipped IF node {ms!r} ms, plain (two "
+          f"reads) {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}) [{smi}]", flush=True)
+    return {"max_abs_err": err, "max_rel_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_graph(torch, smi):
+    """Phase 11: the CG graph loop against the eager loop at G_BIG² in every case of
+    GRAPH_RUNS: after one warm-up solve of each (the graph's: its capture), the same
+    iterations (14 in f64) and x bit for bit; then GRAPH_ROUNDS rounds of eager, graph,
+    graph, eager solves, host clock around each (a solve ends in its read of the card),
+    their medians and each loop's host reads and replays a solve (the graph's: one of
+    each).  Writes chiprun_out/chip_smoke_graph.json; returns it."""
+    import statistics
+
+    from tpusparse_torch import ops
+    from tpusparse_torch.formats import Stencil5
+    from tpusparse_torch.solvers import cg
+
+    t_phase = time.perf_counter()
+    st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
+    out = {}
+    for label, (mode, dtype_name, kwargs) in GRAPH_RUNS.items():
+        op = ops.get_operator(mode, st, dtype=getattr(torch, dtype_name), device="cuda")
+
+        def solve(graph):
+            cg.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, s = cg.cg_solve(op, b_is_ones=True, graph=graph, **kwargs)
+            return (time.perf_counter() - t0) * 1e3, x, s, dict(cg.COUNTS)
+
+        _, x_e, s_e, reads_e = solve(False)
+        _, x_g, s_g, reads_g = solve(True)
+        same = torch.equal(x_g, x_e)
+        del x_e, x_g
+        iters = s_e.iterations
+        if not (s_e.converged and s_g.iterations == iters and same
+                and (dtype_name != "float64" or iters == 14)):
+            raise AssertionError(f"graph {label}: {s_g.iterations} iterations against the "
+                                 f"eager loop's {iters}, x bit for bit: {same}")
+        times = {False: [], True: []}
+        for _ in range(GRAPH_ROUNDS):
+            for graph in (False, True, True, False):
+                ms, x, s, reads = solve(graph)
+                del x
+                times[graph].append(ms)
+                want = {"host_reads": 1, "replays": 1} if graph else \
+                    {"host_reads": iters + 2, "replays": 0}
+                if s.iterations != iters or reads != want:
+                    raise AssertionError(f"graph {label} (graph={graph}): {s.iterations} "
+                                         f"iterations, {reads}, want {iters} and {want}")
+        e_ms, g_ms = statistics.median(times[False]), statistics.median(times[True])
+        out[label] = {"mode": mode, "dtype": dtype_name, **kwargs, "iterations": iters,
+                      "eager_median_ms": e_ms, "graph_median_ms": g_ms,
+                      "eager_ms": times[False], "graph_ms": times[True],
+                      "eager_host_reads": iters + 2, "graph_host_reads": 1,
+                      "graph_replays": 1, "x_bit_for_bit": same, "device": smi}
+        print(f"[graph] {label} {G_BIG}²: {iters} iterations, x bit for bit; median graph "
+              f"{g_ms!r} ms against eager {e_ms!r} ms (eager - graph {e_ms - g_ms!r} ms) "
+              f"over {len(times[True])} solves each; host reads a solve: graph 1 (1 replay), "
+              f"eager {iters + 2} [{smi}]", flush=True)
+        op.free()
+        del op
+        torch.cuda.empty_cache()
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_graph.json").write_text(json.dumps(out, indent=1))
+    print(f"[graph] phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def check_trace(smi):
@@ -1862,8 +2059,8 @@ def run_multichip(label, n, argv, loop, ref_label, needs, halo_missing, results,
     counts: every rank must launch ``needs``, ``halo_missing(r, counts)`` says what rank r
     lacks on its exchanged halos, the solution must equal phase 5's ``ref_label`` to
     1e-10 in 14 iterations (a bf16 state's: to BF16_TOL, in any count), and a
-    host-stepped run's four buckets must be > 0 and sum to no more than its median.  Adds the ranks' launches to ``launches``; returns the
-    export."""
+    host-stepped run's four buckets must be > 0 and sum to no more than its median.  Adds
+    the ranks' launches to ``launches``; returns the export."""
     from tpusparse_torch import dist
 
     slug = re.sub(r"[^a-z0-9]+", "_", label)
@@ -1994,22 +2191,34 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def done(phases):
+        print(f"[phase] {phases} done {time.perf_counter() - t_start:.1f} s after the start",
+              flush=True)
+
     smi = phase_card(torch, sysinfo)
     phase_build(_build)
     print(f"[build] host Matrix Market library (g++): "
           f"{'in use' if native.available() else 'absent, the numpy readers run'}", flush=True)
     cmp = Compare(torch)
     phase_compare(torch, st5, blas1, ell, dia, cmp)
+    cond = compare_cond(torch, smi)
     phase_checksum(torch, st5, ell, dia, generate)
+    done("1-4")
     results, fused, launches = phase_main_path(torch, (st5, blas1, ell, dia), cg_cli,
                                                spmv_cli)
+    done(5)
     times = phase_full_size(torch, st5, blas1, cmp, smi)
     phase_full_size_bf16(torch, st5, blas1, cmp, smi, times)
     phase_full_size_bands(torch, st5, cmp, smi, times)
     phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times)
+    done(6)
     medians = {label: res["timing"]["total_median_ms"] for label, res in results.items()}
     medians.update({label: median_ms for label, (median_ms, _its) in fused.items()})
     splits = phase_profile(torch, smi, medians)
+    done(7)
+    phase_graph(torch, smi)
     phase_stepped(torch, (st5, blas1, ell, dia, stream_probe), cg_cli, spmv_cli, results,
                   splits, times, smi)
     for name, count in phase_sharded(torch, results, smi).items():
@@ -2042,6 +2251,10 @@ def main() -> int:
             if key != "f32":
                 entry.update({f"{k}_{key}": v for k, v in e.items() if k != "bound_by"})
         record["kernels"].append(entry)
+    short_name, _fn, source, replaces = COND_ENTRY
+    record["kernels"].append({"name": COND, "short": short_name, "route": "cuda",
+                              "source": source, "replaces": replaces,
+                              "launches": launches[COND], **cond})
     print(f"nvidia-smi: {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

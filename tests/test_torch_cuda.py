@@ -13,7 +13,8 @@ every operation as PyTorch does (K4, K5, K7, K8, K9, K10, K11 and the ELL kernel
 K12/K13).  The bf16-state instances (K3-K8, K11, the ELL kernel) equal their twins bit for
 bit, their f32 dots within 1e-4, and a bf16 classic solve on the card converges within
 one iteration of the CPU twins' solve.  K5 and K6 are also held on fields of 1, 3, 1369
-and 10^6 elements in f32, f64 and bf16, aligned and offset by one element, and K6 to be bitwise repeatable over 1000 calls and on two streams.
+and 10^6 elements in f32, f64 and bf16, aligned and offset by one element, and K6 to be
+bitwise repeatable over 1000 calls and on two streams.
 ``bcoo`` runs in row bands on the stencil CSR made on the card.  The host-stepped solve
 (``cg_solve_stepped``) is held to ``cg_solve``'s iteration count and x (f64 1e-12, f32
 1e-5); a probe's chain runs as a CUDA graph, and a chain whose passes allocate a field
@@ -26,8 +27,12 @@ y.  K3's two bodies (the vector body, the scalar body) are each held bit for bit
 twin at widths 1 to 4096 and bands of 1 to 2049 rows, each launch taking the body the
 alignment rule names (``stencil5.const_vector_fits``; views off a 16-byte boundary take
 the scalar body), and the vector body's dot is one launch, repeatable bit for bit.  The
-matrices come from the
-port's own ``formats`` and ``generate``: this file imports nothing of the JAX package.
+graph loop (``cg.DeviceLoop``, ``cg_solve``'s default on a card) is held to the eager loop
+(``graph=False``) bit for bit with equal iterations in every loop and dtype it runs, reads
+the device once a solve, leaves a returned x alone, keeps device memory flat over 20
+solves, frees its graphs with the operator, and its condition kernel equals its twin.  The
+matrices come from the port's own ``formats`` and ``generate``: this file imports nothing
+of the JAX package.
 """
 
 import numpy as np
@@ -40,6 +45,7 @@ from tpusparse_torch import convert, formats, generate, ops
 from tpusparse_torch.bench import probes, profiling
 from tpusparse_torch.formats import Stencil5
 from tpusparse_torch.kernels import _launch, blas1, dia, ell, stream_probe
+from tpusparse_torch.kernels import graph as graph_kernels
 from tpusparse_torch.kernels import stencil5 as st5
 from tpusparse_torch.solvers import cg
 
@@ -434,10 +440,12 @@ def test_fused_cg_on_card(dev, mode, dtype):
     st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
     op = ops.get_operator(mode, st, dtype=dtype, device=dev)
     st5.reset_launches()
+    cg.reset_launches()
     x, s = cg.cg_solve(op, b_is_ones=True, fused_pupdate=True)
     fused = ("spmv_stencil5_const_pupdate" if mode == "stencil5-const"
              else "spmv_stencil5_pupdate")
-    assert st5.LAUNCHES[fused] == s.iterations
+    # the graph loop's replays count in cg.LAUNCHES, the wrappers' eager launches in theirs
+    assert st5.LAUNCHES[fused] + cg.LAUNCHES.get(fused, 0) == s.iterations
     assert st5.LAUNCHES["spmv_stencil5"] == st5.LAUNCHES["spmv_stencil5_const"] == 0
     _, s_classic = cg.cg_solve(op, b_is_ones=True, recompute_ap=False)
     cpu = ops.get_operator(mode, st, dtype=dtype, device="cpu")
@@ -605,14 +613,15 @@ def test_stream_probe_kernels_match_twins(dev, n):
 
 
 def test_scopes_reach_the_profiler(dev, tmp_path):
-    """A profiled classic solve carries the phase names (record_function, with NVTX
-    ranges of the same names) and the kernels' names in its trace."""
+    """A profiled classic solve of the eager loop carries the phase names (record_function,
+    with NVTX ranges of the same names) and the kernels' names in its trace.  (The graph
+    loop enters its scopes at capture only: ``test_graph_kernels_reach_the_profiler``.)"""
     import json
 
     st = Stencil5(grid_size=64, planes=None, constant=(5.0, -1.0))
     op = ops.get_operator("stencil5", st, dtype=torch.float64, device=dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        cg.cg_solve(op, b_is_ones=True)
+        cg.cg_solve(op, b_is_ones=True, graph=False)
         torch.cuda.synchronize()
     keys = {e.key for e in prof.key_averages()}
     assert {profiling.PHASE_SPMV, profiling.PHASE_AXPY, profiling.PHASE_UPDATE_P} <= keys
@@ -893,3 +902,200 @@ def test_bf16_classic_solve_on_card(dev, mode):
     if mode == "stencil5-const":
         with pytest.raises(ValueError, match="bf16"):
             cg.cg_solve(ops.get_operator(mode, st, dtype=BF16, device=dev), b_is_ones=True)
+
+
+# the graph loop's solves against the eager loop's: (mode, dtype, loop); the loops and
+# dtypes the graph runs (bf16: the classic loop only, as in the JAX package)
+GRAPH_CASES = [("stencil5-const", torch.float32, "recompute"),
+               ("stencil5-const", torch.float64, "recompute"),
+               ("stencil5-const", torch.float32, "classic"),
+               ("stencil5-const", BF16, "classic"),
+               ("stencil5", torch.float32, "classic"), ("stencil5", torch.float64, "classic"),
+               ("stencil5", BF16, "classic"), ("stencil5-bf16c", torch.float32, "classic"),
+               ("csr", torch.float64, "classic"), ("dia", torch.float64, "classic"),
+               ("stencil5", torch.float64, "fused"), ("stencil5-const", torch.float64, "fused")]
+LOOP_ARGS = {"recompute": {"recompute_ap": True}, "classic": {"recompute_ap": False},
+             "fused": {"fused_pupdate": True}}
+
+
+def _solve_counted(op, *args, **kwargs):
+    """cg_solve with the wrappers' and the replays' launch counts and cg.COUNTS reset just
+    before it; returns (x, stats, eager launches, replayed launches, counts)."""
+    for counter in (st5, blas1, ell, dia, graph_kernels, cg):
+        counter.reset_launches()
+    cg.reset_counts()
+    x, s = cg.cg_solve(op, *args, **kwargs)
+    eager = {n: v for c in (st5, blas1, ell, dia, graph_kernels) for n, v in c.LAUNCHES.items()
+             if v}
+    return x, s, eager, dict(cg.LAUNCHES), dict(cg.COUNTS)
+
+
+@pytest.mark.parametrize("mode,dtype,loop", GRAPH_CASES)
+def test_graph_loop_equals_eager_on_card(dev, mode, dtype, loop):
+    """The graph loop (the default) against the eager loop on the same operator at
+    g = 256: the same iterations and x bit for bit, one replay and one read a solve (the
+    eager loop reads once an iteration and once more), and the replays' launches k times
+    one iteration's, the start's (K6) launched eagerly."""
+    st = Stencil5(grid_size=256, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator(mode, st, dtype=dtype, device=dev)
+    x_e, s_e, _, _, counts_e = _solve_counted(op, b_is_ones=True, graph=False,
+                                              **LOOP_ARGS[loop])
+    assert counts_e == {"host_reads": s_e.iterations + 2, "replays": 0}
+    for _ in range(2):  # the capture, then a replay of the cached graph
+        x, s, eager, replayed, counts = _solve_counted(op, b_is_ones=True, **LOOP_ARGS[loop])
+        assert s.converged and s.iterations == s_e.iterations
+        assert torch.equal(x, x_e)
+        assert counts == {"host_reads": 1, "replays": 1}
+        assert eager == {"dot": 1}
+        loop_obj = op.graphs[cg.DeviceLoop.key(op, loop, 1000, 1e-6)]
+        per = loop_obj.per_iteration
+        assert {n: v for n, v in replayed.items() if n != "cg_cond"} == \
+            {n: s.iterations * v for n, v in per.items()}
+        assert replayed["cg_cond"] == 1 + cg.UNROLL * -(-s.iterations // cg.UNROLL)
+        assert s.residual_norm == s_e.residual_norm
+
+
+@pytest.mark.parametrize("case", ["zero b", "max_iters 5", "seeded x0", "given b"])
+@pytest.mark.parametrize("loop", ["recompute", "classic", "fused"])
+def test_graph_loop_edge_cases_on_card(dev, case, loop):
+    """The JAX loop's edge cases, graph against eager bit for bit: a zero b runs 0
+    iterations, max_iters = 5 stops mid-way (unconverged), a seeded x0 is held to ‖b‖,
+    and a given b."""
+    g = 64
+    st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5-const", st, dtype=torch.float64, device=dev)
+    rng = np.random.RandomState(3)
+    b, x0, config = op.ones_b(), None, cg.CGConfig()
+    if case == "zero b":
+        b = torch.zeros_like(b)
+    elif case == "max_iters 5":
+        config = cg.CGConfig(max_iters=5)
+    elif case == "seeded x0":
+        x0 = torch.from_numpy(rng.randn(g, g)).to(dev)
+    else:
+        b = torch.from_numpy(rng.rand(g, g)).to(dev)
+    runs = [cg.cg_solve(op, b, x0, config=config, graph=graph, **LOOP_ARGS[loop])
+            for graph in (False, True)]
+    (x_e, s_e), (x, s) = runs
+    assert s.iterations == s_e.iterations and s.converged == s_e.converged
+    assert torch.equal(x, x_e)
+    if case == "zero b":
+        assert s.iterations == 0 and not x.any()
+    if case == "max_iters 5":
+        assert s.iterations == 5 and not s.converged
+
+
+def test_graph_returned_x_survives_a_later_solve(dev):
+    """An x the caller holds is never written by a later solve: the loop captures a second
+    slot, and reuses the first once its x is dropped."""
+    st = Stencil5(grid_size=128, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5", st, dtype=torch.float64, device=dev)
+    x1, _ = cg.cg_solve(op, b_is_ones=True)
+    keep = x1.clone()
+    b = torch.from_numpy(np.random.RandomState(5).rand(128, 128)).to(dev)
+    x2, _ = cg.cg_solve(op, b)
+    (loop,) = op.graphs.values()
+    assert torch.equal(x1, keep) and not torch.equal(x2, keep)
+    assert len(loop.slots) == 2
+    flat = x1.reshape(-1)  # a view keeps the first slot busy
+    del x1
+    x3, _ = cg.cg_solve(op, b_is_ones=True)
+    assert len(loop.slots) == 3 and torch.equal(flat, keep.reshape(-1))
+    del flat, x3
+    x4, _ = cg.cg_solve(op, b_is_ones=True)
+    assert len(loop.slots) == 3 and torch.equal(x4, keep)
+
+
+def test_graph_memory_is_flat_over_20_solves(dev):
+    """20 solves of one operator, each x dropped by the next assignment: device memory
+    after the third equals memory after the twentieth (the graph, its pool and its fields
+    are made once, and two slots alternate)."""
+    st = Stencil5(grid_size=512, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5-const", st, dtype=torch.float64, device=dev)
+    used = []
+    for _ in range(20):
+        x, s = cg.cg_solve(op, b_is_ones=True)
+        assert s.converged
+        torch.cuda.synchronize()
+        used.append(torch.cuda.memory_allocated(dev))
+    assert used[2:] == [used[2]] * 18
+
+
+def test_graph_free_releases_the_graphs(dev):
+    """``op.free()`` drops the operator's captured loops, their graphs and fields."""
+    st = Stencil5(grid_size=1024, planes=None, constant=(5.0, -1.0))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    op = ops.get_operator("stencil5-const", st, dtype=torch.float64, device=dev)
+    x, s = cg.cg_solve(op, b_is_ones=True)
+    x2, s2 = cg.cg_solve(op, b_is_ones=True, recompute_ap=False)
+    assert len(op.graphs) == 2 and s.iterations == s2.iterations
+    held = torch.cuda.memory_allocated(dev)
+    field = x.numel() * x.element_size()
+    assert held - base >= 8 * field  # each loop's x and r, two p; p and Ap
+    del x, x2
+    op.free()
+    torch.cuda.synchronize()
+    assert not op.graphs and torch.cuda.memory_allocated(dev) - base < field
+
+
+def test_graph_refuses_what_it_cannot_capture(dev):
+    """graph=True raises where the loop cannot be captured (bcoo, the plain twins, plain
+    BLAS1 ops); the default runs those eagerly."""
+    st = Stencil5(grid_size=64, planes=None, constant=(5.0, -1.0))
+    for mode in ("bcoo", "stencil5-xla", "csr-xla"):
+        op = ops.get_operator(mode, st, dtype=torch.float64, device=dev)
+        assert not op.captures
+        with pytest.raises(ValueError, match="graph=True"):
+            cg.cg_solve(op, b_is_ones=True, graph=True)
+        cg.reset_counts()
+        _, s = cg.cg_solve(op, b_is_ones=True)
+        assert s.converged and cg.COUNTS["replays"] == 0 and not op.graphs
+    op = ops.get_operator("stencil5", st, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="graph=True"):
+        cg.cg_solve(op, b_is_ones=True, graph=True, use_pallas_blas1=False)
+
+
+def test_graph_cond_kernel_matches_twin(dev):
+    """The condition kernel against its twin: an IF node whose body sets a flag, replayed
+    for k, max_iters, rr and tol² around the edges (equal, zero, NaN), in f32 and f64."""
+    for acc in (torch.float32, torch.float64):
+        k = torch.zeros((), dtype=torch.int64, device=dev)
+        rr, tol2 = (torch.zeros((), dtype=acc, device=dev) for _ in range(2))
+        flag = torch.zeros((), dtype=torch.int32, device=dev)
+        graph_kernels.preload(dev)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            with graph_kernels.conditional(graph_kernels.IF, k, 7, rr, tol2):
+                flag.fill_(1)
+        for kv, rv, tv in [(0, 1.0, 0.5), (6, 1.0, 0.5), (7, 1.0, 0.5), (8, 1.0, 0.5),
+                           (0, 0.0, 0.0), (0, 0.5, 0.5), (0, 0.5, 0.25), (0, float("nan"), 0.1),
+                           (3, 1e-30, 0.0), (-1, 2.0, 1.0)]:
+            k.fill_(kv)
+            rr.fill_(rv)
+            tol2.fill_(tv)
+            flag.zero_()
+            g.replay()
+            assert bool(flag) == graph_kernels.cond_plain(k, 7, rr, tol2), (acc, kv, rv, tv)
+
+
+def test_graph_kernels_reach_the_profiler(dev):
+    """A replayed solve shows its kernels with their device time under torch.profiler:
+    phase 7 of chip_smoke.py splits the graph loop's solves by kernel.  CUPTI reports a
+    graph's kernels in full only if it ran when the graph was captured, so a profile
+    comes first (as in phase 7)."""
+    st = Stencil5(grid_size=256, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5", st, dtype=torch.float64, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    cg.cg_solve(op, b_is_ones=True)  # the capture, outside the profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, s = cg.cg_solve(op, b_is_ones=True)
+        torch.cuda.synchronize()
+    rows = {e.key: e for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    for kernel in ("spmv_planes_kernel", "cg_update_kernel", "p_update", "cond_kernel"):
+        hits = [r for name, r in rows.items() if kernel in name]
+        assert hits and sum(r.self_device_time_total for r in hits) > 0, kernel
+    assert sum(r.count for name, r in rows.items() if "cg_update_kernel" in name) == \
+        s.iterations

@@ -23,7 +23,8 @@ __version__ = "0.1.0"
 
 def clear_caches() -> None:
     """Drop every cached operator and the device memory it pins: the sharded solver's
-    operators of synthesized operands, row bands and 2-D blocks.  (The single-device solver caches nothing.)  Sweeps
+    operators of synthesized operands, row bands and 2-D blocks.  (The single-device
+    solver's captured loops live on their operator, and ``op.free()`` drops them.)  Sweeps
     over grid sizes call this between points."""
     from .solvers import cg_sharded
 

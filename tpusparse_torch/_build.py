@@ -68,6 +68,14 @@ _SIGNATURES = {
        for t in _STATES},
     **{f"tps_spmv_dia_{t}": ((_P, _P, _P, _P, _I, _I, _P, _P, _P), ctypes.c_int)
        for t in _STATES},
+    "tps_graph_preload": ((), ctypes.c_int),
+    **{f"tps_graph_cond_begin_{t}": ((ctypes.c_int, _P, _I, _P, _P, _P, _P,
+                                      ctypes.POINTER(ctypes.c_ulonglong)), ctypes.c_int)
+       for t in ("f32", "f64")},
+    **{f"tps_graph_cond_set_{t}": ((ctypes.c_ulonglong, _P, _I, _P, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64")},
+    "tps_graph_cond_end": ((_P,), ctypes.c_int),
+    "tps_graph_stream_create": ((ctypes.POINTER(ctypes.c_void_p),), ctypes.c_int),
     "tps_probe_read_partials": ((_I,), _I),
     "tps_probe_read_f32": ((_P, _I, _P, _P), ctypes.c_int),
     "tps_probe_copy_f32": ((_P, _P, _I, _P), ctypes.c_int),

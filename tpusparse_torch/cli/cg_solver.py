@@ -18,9 +18,11 @@ K4-K8, K11 and the ELL kernel in their bf16 instances; ``bcoo`` in f32 with x an
 rounded once) and the stepped one; ``--loop=recompute``, and ``--loop=auto`` on
 stencil5-const, return 2 there, where the JAX CLI fails.
 
-b = ones, x0 = 0; the device-native loop (``--device``, the default): 3 warm-up solves,
-then 10 timed solves with the reference's statistics (median, 2σ outlier rejection);
-Sum(x)/Norm2(x) checksums and, for the stencil5 modes, the RMS-vs-ones heuristic.
+b = ones, x0 = 0; the device-native loop (``--device``, the default; on a card
+``cg.cg_solve`` replays it from a captured CUDA graph, the convergence test on the card, as
+the JAX CLI's ran under ``lax.while_loop``): 3 warm-up solves, then 10 timed solves with
+the reference's statistics (median, 2σ outlier rejection); Sum(x)/Norm2(x) checksums and,
+for the stencil5 modes, the RMS-vs-ones heuristic.
 ``--timers`` runs the host-stepped classic loop (``cg.cg_solve_stepped``) under the same
 statistics, with the SpMV/BLAS1/reduction split of its median run; ``--host`` runs that loop
 once untimed and once timed, the reference's host path (cg_solver.cu:172-181).  Either one

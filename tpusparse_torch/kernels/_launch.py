@@ -15,9 +15,10 @@ contract, the JAX package's, in every kernel and in its plain twin:
    ``acc + data[d]·x`` per diagonal from 0.  The ELL kernel follows its JAX kernel's own
    f32 accumulator: the products (exact in f32) summed in f32 in slot order, y rounded to
    bf16 once; its body rounds each product to bf16 first, but XLA folds that round trip
-   away, and the JAX kernel's y is the exact products' sum (``csrc/ell.cu``).  This is what eager PyTorch bf16 ops and XLA's CPU compute, so
-   the plain twins are plain bf16 torch expressions in that order, and kernel, twin and
-   JAX agree bit for bit on fields.
+   away, and the JAX kernel's y is the exact products' sum (``csrc/ell.cu``).  This is
+   what eager PyTorch bf16 ops and XLA's CPU compute, so the plain twins are plain bf16
+   torch expressions in that order, and kernel, twin and JAX agree bit for bit on
+   fields.
 2. α and β are bf16 0-d tensors on the device, as in JAX: ``scalar`` casts them to the
    state's dtype.
 3. Dots accumulate in f32 (``_device.acc_dtype``, the counterpart of the JAX package's
@@ -32,6 +33,7 @@ contract, the JAX package's, in every kernel and in its plain twin:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -83,7 +85,13 @@ def check_apart(written, read):
 
 
 def scalar(v, like):
-    """α/β as a 0-d tensor on ``like``'s device and dtype (a no-op when it already is)."""
+    """α/β as a 0-d tensor on ``like``'s device and dtype (a no-op when it already is); a
+    cast goes into a workspace buffer while one is in use."""
+    ws = _WORKSPACE
+    if ws is not None and not (torch.is_tensor(v) and v.dtype == like.dtype
+                               and v.device == like.device):
+        t = ws.take((), like.dtype, like.device)
+        return t.copy_(v.reshape(())) if torch.is_tensor(v) else t.fill_(v)
     t = torch.as_tensor(v, dtype=like.dtype, device=like.device)
     if t.numel() != 1:
         raise ValueError(f"expected a scalar, got shape {tuple(t.shape)}")
@@ -100,8 +108,12 @@ def check_state(t, what):
 
 def dot_buffers(like, nparts):
     """The 0-d result and the ``nparts`` per-block partials of a kernel's dot, in the
-    dtype its dot accumulates in (``acc_dtype``: f32 for a bf16 state)."""
+    dtype its dot accumulates in (``acc_dtype``: f32 for a bf16 state); a workspace's
+    buffers while one is in use."""
     acc = acc_dtype(like.dtype)
+    ws = _WORKSPACE
+    if ws is not None:
+        return ws.take((), acc, like.device), ws.take((nparts,), acc, like.device)
     return (torch.empty((), dtype=acc, device=like.device),
             torch.empty(nparts, dtype=acc, device=like.device))
 
@@ -110,16 +122,72 @@ _TICKETS = {}
 
 
 def dot_tickets(like, cuda_stream):
-    """The ticket counter of the one-launch dots (K6) on ``like``'s device and the stream
-    ``cuda_stream``: a zeroed int32 tensor, made at its first use and kept.  The kernel's
-    last block resets it to 0, so it needs no reset from the host between launches, nor in
-    a CUDA graph; launches on other streams may run at the same time, so each stream has
-    its own."""
+    """The ticket counter of the one-launch dots (K6, K3's vector body) on ``like``'s
+    device and the stream ``cuda_stream``: a zeroed int32 tensor, made at its first use and
+    kept; the workspace's own while one is in use.  The kernel's last block resets it to
+    0, so it needs no reset from the host between launches, nor in a CUDA graph; launches
+    on other streams may run at the same time, so each stream has its own."""
+    if _WORKSPACE is not None:
+        return _WORKSPACE.tickets
     key = (like.device, cuda_stream)
     t = _TICKETS.get(key)
     if t is None:
         t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=like.device)
     return t
+
+
+class Workspace:
+    """The buffers that the wrappers called by a captured loop write their dots, partials
+    and cast scalars into, and the ticket counter of their one-launch dots.
+
+    The body of a conditional node is captured on a stream that PyTorch's allocator knows
+    nothing of (``kernels/graph.py``), so it may allocate nothing.  An eager pass of the
+    same calls, in the same order, first records the buffers they ask for (``use(ws)``
+    while ``ws.recording``); the capture then hands them out again in that order
+    (``ws.rewind()`` before each pass of the calls), checking shape and dtype.  Captured
+    iterations run one after another, so they may share the buffers.  The ticket counter
+    is the graph's own, never a stream's: the body's stream is not the one a replay runs
+    on."""
+
+    def __init__(self, device):
+        self.tickets = torch.zeros(1, dtype=torch.int32, device=device)
+        self.buffers = []
+        self.recording = True
+        self._next = 0
+
+    def take(self, shape, dtype, device):
+        if self.recording:
+            t = torch.empty(shape, dtype=dtype, device=device)
+            self.buffers.append(t)
+            return t
+        if self._next >= len(self.buffers):
+            raise RuntimeError("the captured calls asked for more buffers than the "
+                               "recorded pass")
+        t = self.buffers[self._next]
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
+            raise RuntimeError(f"the captured calls asked for {tuple(shape)} {dtype} where "
+                               f"the recorded pass had {tuple(t.shape)} {t.dtype}")
+        self._next += 1
+        return t
+
+    def rewind(self):
+        """Stop recording; the next ``take`` hands out the first buffer again."""
+        self.recording = False
+        self._next = 0
+
+
+_WORKSPACE = None
+
+
+@contextlib.contextmanager
+def use(ws):
+    """Route ``dot_buffers``, ``scalar``'s casts and ``dot_tickets`` to ``ws``."""
+    global _WORKSPACE
+    prev, _WORKSPACE = _WORKSPACE, ws
+    try:
+        yield ws
+    finally:
+        _WORKSPACE = prev
 
 
 def ptr(t):
@@ -128,6 +196,20 @@ def ptr(t):
 
 def stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def row_out(out, x, shape):
+    """The y of a row kernel (ELL, DIA): ``out`` once checked (a contiguous tensor of
+    ``shape`` on x's device and dtype that does not overlap x), else a new one."""
+    if out is None:
+        return x.new_empty(shape)
+    if out.device != x.device or out.dtype != x.dtype or tuple(out.shape) != tuple(shape) \
+            or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {tuple(shape)} {x.dtype} tensor on "
+                         f"{x.device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
+    if overlaps(out, x):
+        raise ValueError("out must not overlap x: the kernel reads x while y is written")
+    return out
 
 
 # the library's size query, asked once per size so that a launch makes one foreign call,

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._launch import SUFFIX, check_field, dot_buffers, ptr, row_partials, stream
+from ._launch import SUFFIX, check_field, dot_buffers, ptr, row_out, row_partials, stream
 from .blas1 import dot_plain
 
 LAUNCHES = {"spmv_dia": 0}
@@ -38,7 +38,7 @@ def reset_launches() -> None:
     LAUNCHES["spmv_dia"] = 0
 
 
-def spmv_dia_plain(data, offsets, x, *, with_dot=False):
+def spmv_dia_plain(data, offsets, x, *, with_dot=False, out=None):
     """Plain twin of ``spmv_dia``: per diagonal, one multiply-add over the rows where it
     lies inside the matrix (``dia-xla``'s slices)."""
     xf = x.reshape(-1)
@@ -48,19 +48,20 @@ def spmv_dia_plain(data, offsets, x, *, with_dot=False):
         lo, hi = max(0, -off), min(n, n - off)
         if hi > lo:
             y[lo:hi] += data[d, lo:hi] * xf[lo + off:hi + off]
-    y = y.reshape(x.shape)
+    y = y.reshape(x.shape) if out is None else out.copy_(y.reshape(x.shape))
     return (y, dot_plain(xf, y)) if with_dot else y
 
 
-def spmv_dia(data, offsets, x, *, with_dot=False):
-    """y = A·x for the DIA operand (data, offsets), or (y, <x, A·x>) when ``with_dot``.
+def spmv_dia(data, offsets, x, *, with_dot=False, out=None):
+    """y = A·x for the DIA operand (data, offsets), or (y, <x, A·x>) when ``with_dot``; y
+    goes into ``out`` when given (a field like x that does not overlap it).
 
     Replaces the Pallas kernel ``spmv_dia_pallas`` (tpusparse/kernels/dia.py)."""
     if x.device.type == "cpu":
-        return spmv_dia_plain(data, offsets, x, with_dot=with_dot)
+        return spmv_dia_plain(data, offsets, x, with_dot=with_dot, out=out)
     n = check_field(x, x)
     _check_operand(data, offsets, x, n)
-    y = torch.empty_like(x)
+    y = row_out(out, x, x.shape)
     dot, part = dot_buffers(x, row_partials(n)) if with_dot else (None, None)
     fn = getattr(_build.lib(), f"tps_spmv_dia_{SUFFIX[x.dtype]}")
     _build.check(fn(data.data_ptr(), offsets.data_ptr(), x.data_ptr(), y.data_ptr(),

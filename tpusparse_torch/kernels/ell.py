@@ -35,7 +35,7 @@ import torch
 
 from .. import _build
 from .._device import acc_dtype
-from ._launch import SUFFIX, check_field, dot_buffers, ptr, row_partials, stream
+from ._launch import SUFFIX, check_field, dot_buffers, ptr, row_out, row_partials, stream
 from .blas1 import dot_plain
 
 LAUNCHES = {"spmv_ell": 0}
@@ -45,7 +45,7 @@ def reset_launches() -> None:
     LAUNCHES["spmv_ell"] = 0
 
 
-def spmv_ell_plain(vals, cols, x, *, with_dot=False, dot_offset=0):
+def spmv_ell_plain(vals, cols, x, *, with_dot=False, dot_offset=0, out=None):
     """Plain twin of ``spmv_ell``: one gather and one multiply-add per slot, in
     ``acc_dtype``, and y rounded to x's dtype once: a bf16 state's products (exact in f32)
     are summed in f32, as the JAX kernel accumulates; f32 and f64 compute in the state's
@@ -59,22 +59,26 @@ def spmv_ell_plain(vals, cols, x, *, with_dot=False, dot_offset=0):
     y = y.to(xf.dtype)
     if n == xf.numel():
         y = y.reshape(x.shape)
+    if out is not None:
+        y = out.copy_(y)
     return (y, dot_plain(xf[dot_offset:dot_offset + n], y)) if with_dot else y
 
 
-def spmv_ell(vals, cols, x, *, with_dot=False, dot_offset=0):
+def spmv_ell(vals, cols, x, *, with_dot=False, dot_offset=0, out=None):
     """y = A·x for the slot-major ELL operand (vals, cols) of n rows, or (y, <x[dot_offset
     : dot_offset + n], y>) when ``with_dot``.  x holds m >= n elements; y has x's shape
-    when m == n, else (n,).  Columns must lie in [0, m): the kernel reads x at them
-    unchecked.
+    when m == n, else (n,); it goes into ``out`` when given (a contiguous tensor of y's
+    shape, x's device and dtype, that does not overlap x), else into a new one.  Columns
+    must lie in [0, m): the kernel reads x at them unchecked.
 
     Replaces the Pallas kernels ``_spmv_gather_jit`` and ``_spmv_affine_jit``
     (tpusparse/kernels/gather_ell.py): one CUDA kernel backs both."""
     if x.device.type == "cpu":
-        return spmv_ell_plain(vals, cols, x, with_dot=with_dot, dot_offset=dot_offset)
+        return spmv_ell_plain(vals, cols, x, with_dot=with_dot, dot_offset=dot_offset,
+                              out=out)
     m = check_field(x, x)
     n = _check_operand(vals, cols, x, m, dot_offset)
-    y = torch.empty_like(x) if n == m else x.new_empty(n)
+    y = row_out(out, x, x.shape if n == m else (n,))
     dot, part = dot_buffers(x, row_partials(n)) if with_dot else (None, None)
     fn = getattr(_build.lib(), f"tps_spmv_ell_{SUFFIX[x.dtype]}")
     _build.check(fn(vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),

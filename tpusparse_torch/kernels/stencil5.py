@@ -27,7 +27,9 @@ a bf16 state, so their wrappers raise ``ValueError`` for one on a card.
 
 ``LAUNCHES[name]`` counts the kernel launches of each wrapper (twins do not count).
 K3 and K8 take ``out=``, a field to write y into: the sharded solver writes a
-band's rows piece by piece into one y.
+band's rows piece by piece into one y.  K9 and K10 take ``y_out=`` for their y: the
+device-resident CG loop hands every wrapper its fields, so that its captured body
+allocates nothing.
 
 K3 has two CUDA bodies (``csrc/stencil5_const.cu``): the vector body, a 16-byte vector of
 columns a thread, which finishes its dot in the same launch, and the scalar body, one
@@ -122,30 +124,34 @@ def spmv_stencil5_const_pupdate_dot_plain(beta, r, p, halo_prev=None, halo_next=
     return pnew, dot
 
 
-def _pupdate_plain(spmv, beta, r, p, out):
-    """p' = r + β·p, y = spmv(p') and <p', y>, p' copied into ``out`` when given."""
+def _pupdate_plain(spmv, beta, r, p, out, y_out=None):
+    """p' = r + β·p, y = spmv(p') and <p', y>, p' copied into ``out`` and y into ``y_out``
+    when given."""
     pnew = r + scalar(beta, r) * p
     y = spmv(pnew)
     dot = _dot(pnew, y)
     if out is not None:
         _check_out(out, r, p)
         pnew = out.copy_(pnew)
+    if y_out is not None:
+        _check_y_out(y_out, r, p, pnew)
+        y = y_out.copy_(y)
     return pnew, y, dot
 
 
 def spmv_stencil5_pupdate_plain(planes, beta, r, p, halo_prev=None, halo_next=None, *,
-                                out=None):
+                                out=None, y_out=None):
     """Plain twin of ``spmv_stencil5_pupdate``."""
     return _pupdate_plain(lambda f: spmv_stencil5_plain(planes, f, halo_prev, halo_next),
-                          beta, r, p, out)
+                          beta, r, p, out, y_out)
 
 
 def spmv_stencil5_const_pupdate_plain(beta, r, p, halo_prev=None, halo_next=None, *, diag,
-                                      offdiag, out=None):
+                                      offdiag, out=None, y_out=None):
     """Plain twin of ``spmv_stencil5_const_pupdate``."""
     return _pupdate_plain(lambda f: spmv_stencil5_const_plain(f, halo_prev, halo_next,
                                                               diag=diag, offdiag=offdiag),
-                          beta, r, p, out)
+                          beta, r, p, out, y_out)
 
 
 def cg_const_update_recompute_plain(alpha, x, r, p, halo_prev=None, halo_next=None, *,
@@ -167,8 +173,9 @@ def cg_const_update_recompute_plain(alpha, x, r, p, halo_prev=None, halo_next=No
 def spmv_stencil5(planes, x, halo_prev=None, halo_next=None, *, with_dot=False, out=None):
     """y = A·x for the coefficient planes (5, rows, g) in the order N, W, C, E, S, or
     (y, <x, A·x>) when ``with_dot``.  Planes are x's dtype, or bfloat16 (the
-    ``stencil5-bf16c`` operator) for an f32 or f64 x; a bf16 x takes bf16 planes.  y goes into ``out`` when given (a
-    field like x that overlaps neither x nor a halo row), else into a new field.
+    ``stencil5-bf16c`` operator) for an f32 or f64 x; a bf16 x takes bf16 planes.  y goes
+    into ``out`` when given (a field like x that overlaps neither x nor a halo row), else
+    into a new field.
 
     Replaces the Pallas kernels ``spmv_stencil5_pipelined`` and ``spmv_stencil5_pallas``
     (tpusparse/kernels/stencil5.py): one CUDA kernel backs both, since they differ only in
@@ -190,23 +197,26 @@ def spmv_stencil5(planes, x, halo_prev=None, halo_next=None, *, with_dot=False, 
     return (y, dot) if with_dot else y
 
 
-def spmv_stencil5_pupdate(planes, beta, r, p, halo_prev=None, halo_next=None, *, out=None):
+def spmv_stencil5_pupdate(planes, beta, r, p, halo_prev=None, halo_next=None, *, out=None,
+                          y_out=None):
     """(p', A·p', <p', A·p'>) with p' = r + β·p and the coefficient planes of
     ``spmv_stencil5``: the fused top of a CG iteration.  β = 0 with p = 0 gives the first
     iteration (p' = r).
 
     Replaces the Pallas kernel ``spmv_stencil5_pupdate_pipelined``.  p' never overwrites
     p: pass ``out`` (a field that overlaps neither r nor p) to reuse a buffer, else a new
-    one is allocated; y is always new.  Halo rows are the neighbours' p' rows."""
+    one is allocated; y goes into ``y_out`` (a field that overlaps none of r, p and p')
+    when given, else into a new field.  Halo rows are the neighbours' p' rows."""
     if r.device.type == "cpu":
-        return spmv_stencil5_pupdate_plain(planes, beta, r, p, halo_prev, halo_next, out=out)
+        return spmv_stencil5_pupdate_plain(planes, beta, r, p, halo_prev, halo_next, out=out,
+                                           y_out=y_out)
     rows, g = _check_band(r, r)
     check_state(r, "spmv_stencil5_pupdate (K9)")
     check_field(p, r)
     _check_planes(planes, r)
     _check_halos(halo_prev, halo_next, r)
     out = _pupdate_out(out, r, p)
-    y = torch.empty_like(r)
+    y = _pupdate_y(y_out, r, p, out)
     beta = scalar(beta, r)
     dot, part = dot_buffers(r, _partials(rows, g))
     suffix = _PLANES_SUFFIX[planes.dtype] + SUFFIX[r.dtype]
@@ -297,21 +307,21 @@ def spmv_stencil5_const_pupdate_dot(beta, r, p, halo_prev=None, halo_next=None, 
 
 
 def spmv_stencil5_const_pupdate(beta, r, p, halo_prev=None, halo_next=None, *, diag,
-                                offdiag, out=None):
+                                offdiag, out=None, y_out=None):
     """(p', A·p', <p', A·p'>) with p' = r + β·p: ``spmv_stencil5_pupdate`` for the
     constant stencil, and K1 with A·p' stored.
 
-    Replaces the Pallas kernel ``spmv_stencil5_const_pupdate_pipelined``.  ``out``, y and
-    the halo rows as in ``spmv_stencil5_pupdate``."""
+    Replaces the Pallas kernel ``spmv_stencil5_const_pupdate_pipelined``.  ``out``,
+    ``y_out`` and the halo rows as in ``spmv_stencil5_pupdate``."""
     if r.device.type == "cpu":
         return spmv_stencil5_const_pupdate_plain(beta, r, p, halo_prev, halo_next, diag=diag,
-                                                 offdiag=offdiag, out=out)
+                                                 offdiag=offdiag, out=out, y_out=y_out)
     rows, g = _check_band(r, r)
     check_state(r, "spmv_stencil5_const_pupdate (K10)")
     check_field(p, r)
     _check_halos(halo_prev, halo_next, r)
     out = _pupdate_out(out, r, p)
-    y = torch.empty_like(r)
+    y = _pupdate_y(y_out, r, p, out)
     beta = scalar(beta, r)
     dot, part = dot_buffers(r, _partials(rows, g))
     fn = getattr(_build.lib(), f"tps_stencil5_const_pupdate_spmv_{SUFFIX[r.dtype]}")
@@ -415,6 +425,22 @@ def _pupdate_out(out, r, p):
     check_field(out, r)
     _check_out(out, r, p)
     return out
+
+
+def _check_y_out(y_out, r, p, pnew):
+    for name, t in (("r", r), ("p", p), ("p'", pnew)):
+        if overlaps(y_out, t):
+            raise ValueError(f"y_out must not overlap {name}: the kernel reads or writes it "
+                             "while y is written")
+
+
+def _pupdate_y(y_out, r, p, pnew):
+    """The y of K9 and K10: ``y_out`` once checked, else a new field."""
+    if y_out is None:
+        return torch.empty_like(r)
+    check_field(y_out, r)
+    _check_y_out(y_out, r, p, pnew)
+    return y_out
 
 
 # the library's size queries, asked once per library and shape so that a launch makes

@@ -72,19 +72,24 @@ from .kernels import stencil5 as _st5
 class DeviceOperator:
     """Operator contract (reference ``SpmvOperator``, include/spmv.h:125-134):
 
-    - ``run_device(x) -> y``; ``run_device_dot(x) -> (y, <x, y>)``;
+    - ``run_device(x) -> y``; ``run_device_dot(x) -> (y, <x, y>)``, and for the operators
+      that ``captures`` ``run_device_dot(x, out=y)``, y written into the field given;
     - ``run_timed(x_host) -> (y_host, ms)`` and ``run_timed_resident(x) -> (y, ms)``;
     - optional recompute-Ap CG passes (8 words/point/iteration, Ap never stored):
       ``run_pupdate_dot_op(beta, r, p, out=None) -> (p', <p', A·p'>)`` and
       ``run_update_recompute_op(alpha, x, r, p) -> (x, r, <r, r>)`` (x, r in place);
     - optional fused p-update pass of ``cg_solve(fused_pupdate=True)``:
-      ``run_fused_pupdate_op(beta, r, p, out=None) -> (p', A·p', <p', A·p'>)`` with
-      p' = r + β·p (K9 on ``stencil5``/``stencil5-bf16c``, K10 on ``stencil5-const``);
+      ``run_fused_pupdate_op(beta, r, p, out=None, y_out=None) -> (p', A·p', <p', A·p'>)``
+      with p' = r + β·p (K9 on ``stencil5``/``stencil5-bf16c``, K10 on ``stencil5-const``);
     - ``planes``: the coefficient planes of the values-carrying modes, else None;
     - ``operand``: the generic modes' device operand by name (ELL ``vals``/``cols``, DIA
       ``data``/``offsets``, the ``bcoo`` CSR ``row_ptr``/``col``/``val`` and its row
       ``bands``, ``(r0, r1, sparse CSR tensor)`` each), else None;
-    - ``free()`` drops the operator's callables, planes and operand."""
+    - ``captures``: every callable runs a port kernel and takes the buffers it writes, so
+      ``cg_solve`` may capture its loop into a CUDA graph (``solvers/cg.DeviceLoop``); the
+      plain twins' modes and ``bcoo`` do not;
+    - ``graphs``: the captured loops, by ``DeviceLoop.key``;
+    - ``free()`` drops the operator's callables, planes, operand and captured loops."""
 
     name: str
     num_rows: int
@@ -101,6 +106,8 @@ class DeviceOperator:
     run_fused_pupdate_op: Optional[Callable] = None
     planes: Optional[torch.Tensor] = None
     operand: Optional[dict] = None
+    captures: bool = False
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def field_elems(self) -> int:
@@ -178,8 +185,9 @@ class DeviceOperator:
         return best
 
     def free(self):
-        """Drop the operator's callables, planes and operand (the callables hold them too);
-        it is unusable afterwards."""
+        """Drop the operator's callables, planes, operand and captured loops (the callables
+        hold them too; each loop its graphs, their memory pools and its fields); it is
+        unusable afterwards."""
         def _freed(*_a, **_k):
             raise RuntimeError("operator was freed; re-create it with get_operator()")
 
@@ -190,6 +198,7 @@ class DeviceOperator:
         self.run_fused_pupdate_op = None
         self.planes = None
         self.operand = None
+        self.graphs.clear()
 
 
 # numpy has no bfloat16: a bf16 state's host vector is f32, cast on the device
@@ -237,19 +246,19 @@ def _init_stencil5(st: Stencil5, dtype, device, coeff_dtype=None, name="stencil5
     def run_device(x):
         return spmv(planes, x)
 
-    def run_device_dot(x):
-        return spmv(planes, x, with_dot=True)
+    def run_device_dot(x, out=None):
+        return spmv(planes, x, with_dot=True, out=out)
 
-    def run_fused_pupdate_op(beta, r, p, out=None):
+    def run_fused_pupdate_op(beta, r, p, out=None, y_out=None):
         """(p', A·p', <p', A·p'>) with p' = r + β·p in one pass (kernel K9)."""
-        return fused(planes, beta, r, p, out=out)
+        return fused(planes, beta, r, p, out=out, y_out=y_out)
 
     return DeviceOperator(
         name=name, num_rows=g * g, num_cols=g * g, nnz=st.nnz, grid_size=g,
         field_shape=(g, g), device=device, dtype=dtype, run_device=run_device,
         run_device_dot=run_device_dot,
         run_fused_pupdate_op=run_fused_pupdate_op if fused is not None else None,
-        planes=planes,
+        planes=planes, captures=spmv is _st5.spmv_stencil5,
     )
 
 
@@ -260,8 +269,9 @@ def _init_stencil5_const(st: Stencil5, dtype, device) -> DeviceOperator:
     def run_device(x):
         return _st5.spmv_stencil5_const(x, diag=diag, offdiag=offdiag)
 
-    def run_device_dot(x):
-        return _st5.spmv_stencil5_const(x, diag=diag, offdiag=offdiag, with_dot=True)
+    def run_device_dot(x, out=None):
+        return _st5.spmv_stencil5_const(x, diag=diag, offdiag=offdiag, with_dot=True,
+                                        out=out)
 
     def run_pupdate_dot_op(beta, r, p, out=None):
         """Pass A of the recompute-Ap iteration: (p', <p', A·p'>) (kernel K1)."""
@@ -272,17 +282,17 @@ def _init_stencil5_const(st: Stencil5, dtype, device) -> DeviceOperator:
         """Pass B: (x', r', <r', r'>) with A·p recomputed from p (kernel K2)."""
         return _st5.cg_const_update_recompute(alpha, x, r, p, diag=diag, offdiag=offdiag)
 
-    def run_fused_pupdate_op(beta, r, p, out=None):
+    def run_fused_pupdate_op(beta, r, p, out=None, y_out=None):
         """(p', A·p', <p', A·p'>) with p' = r + β·p in one pass (kernel K10)."""
         return _st5.spmv_stencil5_const_pupdate(beta, r, p, diag=diag, offdiag=offdiag,
-                                                out=out)
+                                                out=out, y_out=y_out)
 
     return DeviceOperator(
         name="stencil5-const", num_rows=g * g, num_cols=g * g, nnz=st.nnz, grid_size=g,
         field_shape=(g, g), device=device, dtype=dtype, run_device=run_device,
         run_device_dot=run_device_dot, run_pupdate_dot_op=run_pupdate_dot_op,
         run_update_recompute_op=run_update_recompute_op,
-        run_fused_pupdate_op=run_fused_pupdate_op,
+        run_fused_pupdate_op=run_fused_pupdate_op, captures=True,
     )
 
 
@@ -368,13 +378,13 @@ def _init_ell(mat, dtype, device, name="csr", spmv=_ell.spmv_ell) -> DeviceOpera
     def run_device(x):
         return spmv(vals, cols, x)
 
-    def run_device_dot(x):
-        return spmv(vals, cols, x, with_dot=True)
+    def run_device_dot(x, out=None):
+        return spmv(vals, cols, x, with_dot=True, out=out)
 
     return DeviceOperator(
         name=name, num_rows=n, num_cols=n, nnz=nnz, grid_size=g, field_shape=(n,),
         device=device, dtype=dtype, run_device=run_device, run_device_dot=run_device_dot,
-        operand={"vals": vals, "cols": cols},
+        operand={"vals": vals, "cols": cols}, captures=spmv is _ell.spmv_ell,
     )
 
 
@@ -387,13 +397,13 @@ def _init_dia(mat, dtype, device, name="dia", spmv=_dia.spmv_dia) -> DeviceOpera
     def run_device(x):
         return spmv(data, offsets, x)
 
-    def run_device_dot(x):
-        return spmv(data, offsets, x, with_dot=True)
+    def run_device_dot(x, out=None):
+        return spmv(data, offsets, x, with_dot=True, out=out)
 
     return DeviceOperator(
         name=name, num_rows=n, num_cols=n, nnz=nnz, grid_size=g, field_shape=(n,),
         device=device, dtype=dtype, run_device=run_device, run_device_dot=run_device_dot,
-        operand={"data": data, "offsets": offsets},
+        operand={"data": data, "offsets": offsets}, captures=spmv is _dia.spmv_dia,
     )
 
 

@@ -27,7 +27,8 @@ rank adds them in rank order in the partials' dtype: every rank holds the same b
 the sum is the same on every run (an ``all_reduce`` would add them in the transport's
 order).  α and β go back to the device as 0-d tensors, which the kernels read through a
 device pointer.  So the loops are host-stepped by nature: two reads a iteration, where
-``cg.cg_solve`` reads one flag.
+``cg.cg_solve`` reads once a solve on a card (its graph loop) and one flag an iteration in
+its eager loop; nothing here can be captured into a CUDA graph.
 
 Kernels, all with the halo rows as pointers (``kernels.stencil5``, ``kernels.ell``):
 
