@@ -150,7 +150,24 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      neighbour must exchange columns and consume each in a side-column correction
      (cg_sharded.HALO_CALLS: column_exchange, column_correction), and one with neither
      exchange nothing; each median beside phase 9's 4-rank row-band median of its mode,
-     and the rank-time max/min/imbalance.
+     and the rank-time max/min/imbalance;
+ 12. the port's scripts (tpusparse_torch.scripts), each through its main(argv) and read
+     from its own launch counts, writing into chiprun_out/scripts: detect_config (every
+     mode's largest grid), then one stencil5-const f32 recompute solve at the largest grid
+     it names (past 2^31 elements a field; capture, then replay), each taking exactly the
+     iterations of CG in exact arithmetic at that grid (exact_cg_iterations, from the
+     stencil's spectrum), its true relative residual (A·x by K3, the norm summed in f64)
+     at most 1e-5, K3 bit for bit its twin on the band holding element 2^31 and the last
+     band, its time and peak memory as a share of the card's; audit_cg_iteration at
+     1024² and G_BIG² (each phase launching its kernel exactly as its chains say, both
+     loops converging in the exact count, their closure printed, and within 80-120% at
+     G_BIG²); profile_kernel gen:4096 on stencil5 and
+     stencil5-const, PROFILE_REPS applies a mode (each trace naming its kernel); run_all
+     --size=4096; sweep spmv at
+     its defaults; sharded_compare --grid 1024 --devices 2; then the SpMV exports of the
+     sweep, run_all and phase 5 under the format table's names (spmv_<g>_h100_<mode>.json)
+     with run_all's CG exports and phase 8's probe, and format_table over them (its CSV and
+     document; a cell for every mode of TABLE_MODES at 4096² and G_BIG²).
 
 On a card every cg_solve of phases 5, 7 and 8 runs the graph loop: a path's launch
 counts are its wrappers' eager launches plus its replays' (``cg.LAUNCHES``: the iterations
@@ -159,7 +176,7 @@ the graph's condition kernel (csrc/graph.cu, which ports no Pallas kernel) to it
 and times it.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5, 9 and 10; the condition kernel's entry last) and
+record (launches summed over phases 5, 9, 10 and 12; the condition kernel's entry last) and
 then {"ok": true, "device": {...}}.
 Exports go to chiprun_out/.
 """
@@ -368,7 +385,7 @@ GRAPH_RUNS = {
     "fused stencil5 f64": ("stencil5", "float64", {"fused_pupdate": True}),
     "fused const f64": ("stencil5-const", "float64", {"fused_pupdate": True}),
 }
-GRAPH_ROUNDS = 3  # rounds of eager, graph, graph, eager after a warm-up solve of each
+GRAPH_ROUNDS = 2  # rounds of eager, graph, graph, eager after a warm-up solve of each
 COND_NODES = 1000  # IF nodes in the graph that times the condition kernel
 # two of phase 5's CLI medians as PERF.md section 6 records them before the solver had
 # phase scopes (NVIDIA H100 80GB HBM3, 700.00 W), in ms
@@ -384,6 +401,36 @@ SCOPE_PAIRS = 100_000  # scopes entered and left to time one on the host
 # outside the tensor cores, at the 700 W limit); a bf16 state computes in f32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 67e12}
+# phase 12: the port's scripts (tpusparse_torch.scripts), each through its main(argv), with
+# their outputs in SCRIPTS_DIR; the format table's exports in TABLE_DIR
+SCRIPTS_DIR = OUT / "scripts"
+TABLE_DIR = SCRIPTS_DIR / "results"
+# detect_config's mode whose largest grid (past 2^31 elements a field) one solve runs at;
+# its true relative residual's bar; rows a band of the residual's f64 sum
+BIG_LABEL = "stencil5-const f32 recompute"
+RESIDUAL_TOL = 1e-5
+RESIDUAL_BAND = 1024
+# the audit's kernels (its five phases and its solves' <r0, r0>), and the launches each
+# phase makes: one eager launch, then replays of its graphs: a warm-up chain of 4, then 3
+# chains of 4 and 3 of 16
+AUDIT_NEEDS = ("spmv_stencil5_const", "cg_update", "p_update",
+               "spmv_stencil5_const_pupdate_dot", "cg_const_update_recompute", "dot")
+AUDIT_CHAIN_LAUNCHES = 1 + 4 + 3 * (4 + 16)
+# the audit's grids: 1024² (L2-resident fields: the loop's one-element kernels show) and
+# G_BIG², where the phases must add up to the measured iteration within 80-120%
+AUDIT_GRIDS = (1024, G_BIG)
+# profile_kernel's applies a trace: this process has profiled for minutes by phase 12, and
+# its later traces lost their first kernel records (all 5 of the default --reps in two
+# runs), so the trace covers enough applies to keep some
+PROFILE_REPS = 200
+# run_all's grid, and the kernels its SpMV (stencil5, stencil5-const, csr) and CG runs
+# (stencil5 and csr) launch
+RUN_ALL_GRID = 4096
+RUN_ALL_NEEDS = ("spmv_stencil5", "spmv_stencil5_const", "spmv_ell", "cg_update", "p_update",
+                 "dot")
+TABLE_SIZES = (1024, 2048, 4096, G_HOST, G_BIG)
+# the modes whose cells the table must hold at RUN_ALL_GRID and G_BIG
+TABLE_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr", "bcoo")
 
 
 def rel(a, b) -> float:
@@ -2175,6 +2222,266 @@ def phase_mesh2d(torch, results, smi):
     return launches
 
 
+def exact_cg_iterations(g, diag=DIAG, offdiag=OFFDIAG, tol=1e-6, nodes=64):
+    """(iterations, [relative residual after each]) of CG in exact arithmetic on the g x g
+    constant stencil with b = ones, x0 = 0, stopping once ‖r‖ <= tol·‖b‖: the count a
+    solve at g must take, whatever g, with no solve at g.
+
+    A = diag·I + offdiag·(S⊗I + I⊗S), S the path's adjacency (eigenvalues 2cos(kπ/(g+1)),
+    sine eigenvectors), so b = 1⊗1 meets eigenvalue a_i + a_j (a_k = diag/2 +
+    offdiag·2cos(kπ/(g+1))) with weight c_i²c_j² (c_k the eigenvector's sum, in closed
+    form).  CG's residuals are the orthogonal polynomials of that measure, so the k-th
+    residual depends only on its moments up to 2k.  The moments of a sum of two
+    independent draws are the binomial convolution of the one-dimensional ones, so the
+    product of two ``nodes``-point Gauss rules of the one-dimensional measure (Lanczos
+    on diag(a) from c, fully reorthogonalized) has the same moments up to 2·nodes − 1:
+    CG on that diagonal problem of nodes² points, in f64 (condition number at most 9),
+    gives the first nodes − 1 residuals of the g² problem."""
+    import numpy as np
+
+    k = np.arange(1, g + 1, dtype=np.float64)
+    theta = np.pi / (g + 1)
+    a = diag / 2 + offdiag * 2 * np.cos(k * theta)
+    c = (np.sqrt(2 / (g + 1)) * np.sin(g * k * theta / 2) * np.sin(k * np.pi / 2)
+         / np.sin(k * theta / 2))
+    n = min(nodes, g)
+    complete = n == g  # the rule has every point of the measure
+    q_basis = np.zeros((g, n))
+    alpha, beta = np.zeros(n), np.zeros(n)
+    q = c / np.linalg.norm(c)
+    for j in range(n):
+        q_basis[:, j] = q
+        v = a * q
+        alpha[j] = q @ v
+        for _ in range(2):
+            v -= q_basis[:, :j + 1] @ (q_basis[:, :j + 1].T @ v)
+        beta[j] = np.linalg.norm(v)
+        if beta[j] < 1e-13 * np.abs(a).max():  # the measure has j + 1 points
+            n, complete = j + 1, True
+            break
+        q = v / beta[j]
+    lam, vecs = np.linalg.eigh(np.diag(alpha[:n]) + np.diag(beta[:n - 1], 1)
+                               + np.diag(beta[:n - 1], -1))
+    w = vecs[0] ** 2 * (c @ c)
+    lam2 = (lam[:, None] + lam[None, :]).ravel()
+    r = np.sqrt(w[:, None] * w[None, :]).ravel()
+    p, rr = r.copy(), r @ r
+    bb, res = rr, []
+    while rr > tol * tol * bb:
+        if len(res) >= n - 1 and not complete:
+            raise ValueError(f"more than {n - 1} iterations: raise nodes")
+        ap = lam2 * p
+        step = rr / (p @ ap)
+        r = r - step * ap
+        rr_new = r @ r
+        p = r + (rr_new / rr) * p
+        rr = rr_new
+        res.append(float(np.sqrt(rr / bb)))
+    return len(res), res
+
+
+def big_solve(torch, counts, smi):
+    """detect_config's largest f32 stencil5-const recompute grid (more than 2^31 elements a
+    field): one solve that captures the graph loop, then one replay, each taking exactly
+    the iterations of CG in exact arithmetic at that grid (``exact_cg_iterations``: 14 at
+    20480², fewer on larger grids, where the boundary layer that the later iterations
+    resolve is a smaller share of ‖b‖); then, the operator's loop freed, the true
+    relative residual ‖1 − A·x‖ / ‖1‖ with A·x from K3 and the norm summed in f64 over row
+    bands, at most RESIDUAL_TOL; K3's rows of the band that holds element 2^31 and of the
+    last band equal its plain twin's bit for bit.  Returns the record phase 12 keeps."""
+    from tpusparse_torch import ops
+    from tpusparse_torch.formats import Stencil5
+    from tpusparse_torch.kernels import stencil5 as st5
+    from tpusparse_torch.scripts import detect_config
+    from tpusparse_torch.solvers import cg
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    g, wpp, _cap = detect_config.grids(total)[BIG_LABEL]
+    if g * g < 2 ** 31:
+        raise AssertionError(f"detect_config's {BIG_LABEL} grid {g} holds {g * g} < 2^31 "
+                             "elements a field")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    op = ops.get_operator("stencil5-const", Stencil5(grid_size=g, planes=None,
+                                                     constant=(DIAG, OFFDIAG)),
+                          dtype=torch.float32, device="cuda")
+
+    def solve():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x, s = cg.cg_solve(op, b_is_ones=True, recompute_ap=True)
+        return (time.perf_counter() - t) * 1e3, x, s
+
+    first_ms, x, s_first = counts.run(f"detect_config big solve {g}² (capture)", RECOMPUTE,
+                                      solve)
+    del x
+    solve_ms, x, s = counts.run(f"detect_config big solve {g}² (replay)", RECOMPUTE, solve)
+    op.free()
+    del op
+    y = counts.run(f"detect_config big solve {g}²: A·x", ("spmv_stencil5_const",),
+                   lambda: st5.spmv_stencil5_const(x, diag=DIAG, offdiag=OFFDIAG))
+    finite = bool(torch.isfinite(x).all())
+    twin_equal = []
+    for i0 in (2 ** 31 // g - RESIDUAL_BAND // 2, g - RESIDUAL_BAND):
+        i1 = i0 + RESIDUAL_BAND
+        twin = st5.spmv_stencil5_const_plain(
+            x[i0:i1], x[i0 - 1:i0], x[i1:i1 + 1] if i1 < g else None, diag=DIAG,
+            offdiag=OFFDIAG)
+        twin_equal.append(bool(torch.equal(twin, y[i0:i1])))
+        del twin
+    del x
+    rr = torch.zeros((), dtype=torch.float64, device="cuda")
+    for i0 in range(0, g, RESIDUAL_BAND):
+        rr += y[i0:i0 + RESIDUAL_BAND].double().sub_(1.0).square_().sum()
+    residual = float(rr.sqrt()) / g  # ‖b‖ = g for b = ones
+    del y
+    peak = torch.cuda.max_memory_allocated()
+    exact, exact_res = exact_cg_iterations(g)
+    rec = {"label": BIG_LABEL, "grid": g, "elements": g * g, "words_per_point": wpp,
+           "iterations": [s_first.iterations, s.iterations], "exact_iterations": exact,
+           "exact_relative_residual": exact_res[-1], "k3_twin_bands_equal": twin_equal,
+           "converged": [s_first.converged, s.converged], "first_solve_ms": first_ms,
+           "solve_ms": solve_ms, "true_relative_residual": residual,
+           "recurrence_relative_residual": s.relative_residual, "x_finite": finite,
+           "peak_allocated_bytes": peak, "held_before_bytes": held,
+           "card_total_bytes": total, "peak_share": peak / total,
+           "wall_s": time.perf_counter() - t0, "device": smi}
+    print(f"[detect_config] {BIG_LABEL} at detect_config's largest grid {g}² ({g * g} "
+          f"elements a field, {g * g / 2 ** 31:.3f} × 2^31): {s_first.iterations} / "
+          f"{s.iterations} iterations (capture / replay; exact arithmetic: {exact}, its "
+          f"relative residual {exact_res[-1]!r}), first solve {first_ms!r} ms, "
+          f"replayed solve {solve_ms!r} ms; true relative residual {residual!r} (tol "
+          f"{RESIDUAL_TOL:g}; the recurrence's {s.relative_residual!r}); K3 against its "
+          f"twin on the band at element 2^31 and the last band: {twin_equal}; peak allocated "
+          f"{peak / 1e9:.2f} GB = {100 * peak / total:.1f}% of the card's {total / 1e9:.2f} GB "
+          f"({held / 1e9:.2f} GB held before) [{smi}]", flush=True)
+    if not (s_first.iterations == s.iterations == exact and s.converged and finite
+            and residual <= RESIDUAL_TOL and all(twin_equal)):
+        raise AssertionError(f"detect_config big solve at {g}²: {rec}")
+    return rec
+
+
+def collect_table_exports():
+    """The exports phase 5 and phase 12 wrote, under the format table's names in
+    TABLE_DIR: spmv_<g>_h100_<mode>.json (the sweep's 1024²-4096², run_all's 4096², phase
+    5's 20480² and 10240² SpMV CLI runs, f32), run_all's CG exports as
+    cg[_baseline_<mode>]_4096_h100.json, and phase 8's probe_ceiling.json."""
+    import shutil
+
+    TABLE_DIR.mkdir(parents=True, exist_ok=True)
+    pairs = []
+    for p in (SCRIPTS_DIR / "sweep").glob("sweep_spmv_*_*.json"):
+        g, mode = re.match(r"sweep_spmv_(\d+)_(.+)\.json$", p.name).groups()
+        pairs.append((p, f"spmv_{g}_h100_{mode}.json"))
+    jdir = SCRIPTS_DIR / "run_all" / "json"
+    for p in jdir.glob("spmv_*.json"):
+        pairs.append((p, f"spmv_{RUN_ALL_GRID}_h100_{p.stem[len('spmv_'):]}.json"))
+    for stem, g in (("chip_smoke_spmv", G_BIG), ("chip_smoke_spmv_host", G_HOST)):
+        for p in OUT.glob(f"{stem}_*.json"):
+            mode = p.stem[len(stem) + 1:]
+            if mode in SPMV_NEEDS:
+                pairs.append((p, f"spmv_{g}_h100_{mode}.json"))
+    pairs += [(jdir / "cg_single.json", f"cg_{RUN_ALL_GRID}_h100.json"),
+              (jdir / "cg_baseline_bcoo.json", f"cg_baseline_bcoo_{RUN_ALL_GRID}_h100.json"),
+              (jdir / "cg_baseline_csr.json", f"cg_baseline_csr_{RUN_ALL_GRID}_h100.json"),
+              (OUT / "probe_ceiling.json", "probe_ceiling.json")]
+    for src, name in pairs:
+        shutil.copyfile(src, TABLE_DIR / name)
+    print(f"[scripts] {len(pairs)} exports under the format table's names in {TABLE_DIR}",
+          flush=True)
+
+
+def phase_scripts(torch, counters, smi):
+    """Phase 12: the port's scripts (tpusparse_torch.scripts), each through main(argv),
+    writing into SCRIPTS_DIR, each run read from its own launch counts.  Returns
+    {wrapper: launches summed over its runs}."""
+    from tpusparse_torch.scripts import (audit_cg_iteration, detect_config, format_table,
+                                         profile_kernel, run_all, sharded_compare, sweep)
+
+    t_phase = time.perf_counter()
+    counts = PathCounts(counters)
+    SCRIPTS_DIR.mkdir(parents=True, exist_ok=True)
+
+    def run(label, needs, main, argv):
+        t0 = time.perf_counter()
+        rc = counts.run(label, needs, lambda: main(argv))
+        print(f"[scripts] {label}: rc {rc} in {time.perf_counter() - t0:.1f} s", flush=True)
+        if rc != 0:
+            raise AssertionError(f"{label}: rc {rc}")
+
+    torch.cuda.empty_cache()
+    run("detect_config", (), detect_config.main, [])
+    big = big_solve(torch, counts, smi)
+
+    audits = {}
+    for g in AUDIT_GRIDS:
+        path = TABLE_DIR / f"cg_iter_audit_{g}_h100.json"
+        run(f"audit_cg_iteration {g}²", AUDIT_NEEDS, audit_cg_iteration.main,
+            [f"--grid={g}", f"--out={path}"])
+        audits[g] = audit = json.loads(path.read_text())
+        for name, phase in audit["phases"].items():
+            wrapper = audit_cg_iteration.PHASES[name][1]
+            if phase["launches"] != AUDIT_CHAIN_LAUNCHES:
+                raise AssertionError(f"audit {g}² phase {name}: {phase['launches']} "
+                                     f"launches of {wrapper}, want {AUDIT_CHAIN_LAUNCHES}")
+            print(f"[audit] {g}² {name}: {phase['ms']!r} ms, {phase['launches']} launches of "
+                  f"{short(wrapper)} {wrapper}, {100 * phase['bound_share']:.1f}% of its "
+                  f"bound {phase['bound_ms']!r} ms [{smi}]", flush=True)
+        for loop in ("classic_loop", "recompute_loop"):
+            r = audit[loop]
+            print(f"[audit] {g}² {loop}: {r['iterations']} iterations, phases "
+                  f"{r['phase_sum_ms']!r} ms against the measured iteration "
+                  f"{r['per_iter_ms']!r} ms ((solve {r['solve_ms']!r} - fixed "
+                  f"{audit['fixed_overhead_ms']!r}) / {r['iterations']}): closure "
+                  f"{r['closure_pct']!r}% [{smi}]", flush=True)
+            if r["iterations"] != exact_cg_iterations(g)[0]:
+                raise AssertionError(f"audit {g}² {loop}: {r['iterations']} iterations")
+            if g == G_BIG and not 80 <= r["closure_pct"] <= 120:
+                raise AssertionError(f"audit {g}² {loop}: closure {r['closure_pct']}%")
+
+    traces = SCRIPTS_DIR / "traces"
+    run("profile_kernel gen:4096", ("spmv_stencil5", "spmv_stencil5_const"),
+        profile_kernel.main, ["gen:4096", "--mode=stencil5,stencil5-const",
+                              f"--reps={PROFILE_REPS}", f"--outdir={traces}"])
+    for mode, wrapper in (("stencil5", "spmv_stencil5"), ("stencil5-const",
+                                                          "spmv_stencil5_const")):
+        found = sorted((traces / f"stencil5-4096x4096_{mode}").glob("*.pt.trace.json"))
+        events = json.loads(found[-1].read_text())["traceEvents"] if found else []
+        named = [e for e in events if e.get("cat") == "kernel"
+                 and re.search(KERNELS[wrapper][1], e.get("name", ""))]
+        if not named:
+            raise AssertionError(f"profile_kernel {mode}: no trace naming "
+                                 f"{KERNELS[wrapper][1]} in {found}")
+        print(f"[scripts] profile_kernel {mode}: {found[-1].name} holds {len(named)} "
+              f"records of {KERNELS[wrapper][1]} for its {PROFILE_REPS} applies", flush=True)
+
+    run(f"run_all --size={RUN_ALL_GRID}", RUN_ALL_NEEDS, run_all.main,
+        [f"--size={RUN_ALL_GRID}", f"--outdir={SCRIPTS_DIR / 'run_all'}"])
+    run("sweep spmv", ("spmv_stencil5", "spmv_ell"), sweep.main,
+        ["spmv", f"--outdir={SCRIPTS_DIR / 'sweep'}"])
+    # its ranks are processes of their own: their launches are not this process's
+    run("sharded_compare --grid 1024 --devices 2", (), sharded_compare.main,
+        ["--grid=1024", "--devices=2", f"--outdir={SCRIPTS_DIR / 'sharded'}"])
+    collect_table_exports()
+    run("format_table", (), format_table.main,
+        [f"--dir={TABLE_DIR}", f"--sizes={','.join(map(str, TABLE_SIZES))}",
+         f"--csv={TABLE_DIR / 'spmv_format_table.csv'}",
+         f"--write-doc={SCRIPTS_DIR / 'GENERIC_COMPARISON.md'}"])
+    rows = format_table.load_rows(TABLE_DIR)
+    missing = [(m, g) for m in TABLE_MODES for g in (G_BIG, RUN_ALL_GRID) if (m, g) not in rows]
+    if missing:
+        raise AssertionError(f"format_table: no cell for {missing}")
+    (SCRIPTS_DIR / "chip_smoke_scripts.json").write_text(json.dumps(
+        {"big_solve": big, "audit": {g: {k: v for k, v in a.items() if k != "device"}
+                                     for g, a in audits.items()},
+         "seconds": time.perf_counter() - t_phase}, indent=1))
+    print(f"[scripts] phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts.totals()
+
+
 def main() -> int:
     import torch
 
@@ -2225,6 +2532,10 @@ def main() -> int:
         launches[name] += count
     for name, count in phase_mesh2d(torch, results, smi).items():
         launches[name] += count
+    done("11, 8-10")
+    for name, count in phase_scripts(torch, (st5, blas1, ell, dia), smi).items():
+        launches[name] += count
+    done(12)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "

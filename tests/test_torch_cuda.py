@@ -30,10 +30,14 @@ the scalar body), and the vector body's dot is one launch, repeatable bit for bi
 graph loop (``cg.DeviceLoop``, ``cg_solve``'s default on a card) is held to the eager loop
 (``graph=False``) bit for bit with equal iterations in every loop and dtype it runs, reads
 the device once a solve, leaves a returned x alone, keeps device memory flat over 20
-solves, frees its graphs with the operator, and its condition kernel equals its twin.  The
-matrices come from the port's own ``formats`` and ``generate``: this file imports nothing
-of the JAX package.
+solves, frees its graphs with the operator, and its condition kernel equals its twin; its
+edge cases include max_iters = 0 (the audit's fixed-overhead solve) and 1.
+``scripts.audit_cg_iteration`` at 4096² launches each phase's kernel as its chains say and
+closes within 80-120%.  The matrices come from the port's own ``formats`` and
+``generate``: this file imports nothing of the JAX package.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -955,12 +959,14 @@ def test_graph_loop_equals_eager_on_card(dev, mode, dtype, loop):
         assert s.residual_norm == s_e.residual_norm
 
 
-@pytest.mark.parametrize("case", ["zero b", "max_iters 5", "seeded x0", "given b"])
+@pytest.mark.parametrize("case", ["zero b", "max_iters 0", "max_iters 1", "max_iters 5",
+                                  "seeded x0", "given b"])
 @pytest.mark.parametrize("loop", ["recompute", "classic", "fused"])
 def test_graph_loop_edge_cases_on_card(dev, case, loop):
     """The JAX loop's edge cases, graph against eager bit for bit: a zero b runs 0
-    iterations, max_iters = 5 stops mid-way (unconverged), a seeded x0 is held to ‖b‖,
-    and a given b."""
+    iterations, max_iters = 0 runs none (the audit's fixed-overhead solve: x = 0,
+    unconverged), max_iters = 1 and 5 stop mid-way (unconverged), a seeded x0 is held to
+    ‖b‖, and a given b."""
     g = 64
     st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
     op = ops.get_operator("stencil5-const", st, dtype=torch.float64, device=dev)
@@ -968,8 +974,8 @@ def test_graph_loop_edge_cases_on_card(dev, case, loop):
     b, x0, config = op.ones_b(), None, cg.CGConfig()
     if case == "zero b":
         b = torch.zeros_like(b)
-    elif case == "max_iters 5":
-        config = cg.CGConfig(max_iters=5)
+    elif case.startswith("max_iters"):
+        config = cg.CGConfig(max_iters=int(case.split()[1]))
     elif case == "seeded x0":
         x0 = torch.from_numpy(rng.randn(g, g)).to(dev)
     else:
@@ -979,10 +985,29 @@ def test_graph_loop_edge_cases_on_card(dev, case, loop):
     (x_e, s_e), (x, s) = runs
     assert s.iterations == s_e.iterations and s.converged == s_e.converged
     assert torch.equal(x, x_e)
-    if case == "zero b":
+    if case in ("zero b", "max_iters 0"):
         assert s.iterations == 0 and not x.any()
-    if case == "max_iters 5":
-        assert s.iterations == 5 and not s.converged
+    if case.startswith("max_iters"):
+        assert s.iterations == config.max_iters and not s.converged
+
+
+def test_audit_closes_on_card(dev, tmp_path):
+    """audit_cg_iteration at 4096²: every phase launched its kernel in its chains, both
+    loops converge, and the phases add up to the measured iteration within 80-120%.
+    4096² is the smallest power-of-two grid whose fields (64 MiB) exceed the card's 50 MiB
+    L2; at 1024² the phases were 45-85% of the iteration in five runs (chip_smoke.py phase
+    12 prints it): the loop's one-element kernels (α, β, rr, k and the condition), which
+    no phase times, take a third or more of its ~20-36 µs there."""
+    from tpusparse_torch.scripts import audit_cg_iteration
+
+    out = tmp_path / "audit.json"
+    assert audit_cg_iteration.main(["--grid=4096", f"--out={out}"]) == 0
+    res = json.loads(out.read_text())
+    # one eager launch, a warm-up chain of 4, then three chains of 4 and three of 16
+    assert all(p["launches"] == 1 + 4 + 3 * (4 + 16) for p in res["phases"].values())
+    for loop in ("classic_loop", "recompute_loop"):
+        assert res[loop]["iterations"] > 0
+        assert 80 <= res[loop]["closure_pct"] <= 120, res[loop]
 
 
 def test_graph_returned_x_survives_a_later_solve(dev):
