@@ -168,6 +168,20 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      sweep, run_all and phase 5 under the format table's names (spmv_<g>_h100_<mode>.json)
      with run_all's CG exports and phase 8's probe, and format_table over them (its CSV and
      document; a cell for every mode of TABLE_MODES at 4096² and G_BIG²).
+ 13. (run after phase 12) the top-level entry points, each from its own launch counts: the
+     headline benchmark (python -m tpusparse_torch.bench.headline's main) for --metric=cg
+     and --metric=spmv, each alone in a fresh process (this script with HEADLINE_CHILD,
+     which writes the process's launch counts to chiprun_out/headline/), exactly one JSON
+     line each: the CG line with bench.py's keys and device, 14 iterations, at least 8
+     valid runs, the faster loop named and its median within 10% of phase 5's CLI median
+     of the same solve; the SpMV line's share of the HBM peak at most 1.05;
+     K8 held to its twin on the SpMV line's own inputs (10240², f32, x from seed 0);
+     tpusparse_torch.entry.entry()'s forward (K8 with its dot at 256², f32) held to the
+     plain twin on its x = ones and on a random x; tpusparse_torch.entry.dryrun_multichip
+     on 2 and 4 ranks sharing the card (f64, exact parity with the single-device solve),
+     every rank launching K8 on exchanged halo rows, K4, K5 and K6, and those kernels held
+     to their twins in f64 at the dryrun's shapes: each rank's band or block with halo
+     rows (K8 also in the overlapped SpMV's three pieces) and the one-device grids.
 
 On a card every cg_solve of phases 5, 7 and 8 runs the graph loop: a path's launch
 counts are its wrappers' eager launches plus its replays' (``cg.LAUNCHES``: the iterations
@@ -176,7 +190,7 @@ the graph's condition kernel (csrc/graph.cu, which ports no Pallas kernel) to it
 and times it.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5, 9, 10 and 12; the condition kernel's entry last) and
+record (launches summed over phases 5, 9, 10, 12 and 13; the condition kernel's entry last) and
 then {"ok": true, "device": {...}}.
 Exports go to chiprun_out/.
 """
@@ -431,6 +445,28 @@ RUN_ALL_NEEDS = ("spmv_stencil5", "spmv_stencil5_const", "spmv_ell", "cg_update"
 TABLE_SIZES = (1024, 2048, 4096, G_HOST, G_BIG)
 # the modes whose cells the table must hold at RUN_ALL_GRID and G_BIG
 TABLE_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr", "bcoo")
+# phase 13: the top-level entry points.  The headline benchmark (tpusparse_torch.bench.headline)
+# runs in a fresh process a metric (this script with HEADLINE_CHILD): metric -> the kernels
+# it must launch (cg: the classic loop K3 K4 K5 K6, the recompute loop K1 K2 K6, the bf16c
+# companion K8 K4 K5 K6, each solve a graph replay with the condition kernel; spmv: K8)
+HEADLINE_CHILD = "--headline-child"
+HEADLINE_DIR = OUT / "headline"
+HEADLINE_RUNS = {"cg": RECOMPUTE + ("spmv_stencil5_const", "cg_update", "p_update",
+                                    "spmv_stencil5", COND),
+                 "spmv": ("spmv_stencil5",)}
+HEADLINE_TIMEOUT = 600
+HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline", "mode", "loop", "classic_loop_ms",
+                 "dtype", "iterations", "total_runs", "valid_runs", "std_ms",
+                 "values_carrying_bf16c_ms", "vs_baseline_bf16c", "device")
+# the headline's median against phase 5's CLI median of the same loop, relative
+HEADLINE_TOL = 0.10
+HEADLINE_LOOPS = {"recompute-ap": "const f32 recompute", "classic": "const f32 classic"}
+HEADLINE_MIN_VALID = 8
+SPMV_MAX_FRACTION = 1.05
+# dryrun_multichip's rank counts, and the kernels every rank must launch: K8 on its row
+# pieces with halo rows, K4, K5 and K6 (f64)
+DRYRUN_RANKS = (2, 4)
+DRYRUN_NEEDS = ("spmv_stencil5", "cg_update", "p_update", "dot")
 
 
 def rel(a, b) -> float:
@@ -463,6 +499,16 @@ def k3_scalar_launched(label, counts):
                              f"for the vector body")
 
 
+def launch_counts(counters) -> dict:
+    """{wrapper: launches} summed over the counters' ``LAUNCHES``, zero counts left out."""
+    counts = {}
+    for c in counters:
+        for name, n in c.LAUNCHES.items():
+            if n:
+                counts[name] = counts.get(name, 0) + n
+    return counts
+
+
 class PathCounts:
     """The launch counts of the main paths, read path by path: every count is set to 0
     just before a path runs and read just after, and the path must have launched each
@@ -483,12 +529,13 @@ class PathCounts:
         for counter in (*self.counters, self.replays):
             counter.reset_launches()
         out = fn()
-        counts = {}
-        for c in (*self.counters, self.replays):
-            for name, n in c.LAUNCHES.items():
-                if n:
-                    counts[name] = counts.get(name, 0) + n
-        replayed = self.replays.LAUNCHES
+        self.record(label, needs, launch_counts((*self.counters, self.replays)),
+                    self.replays.LAUNCHES, forbid)
+        return out
+
+    def record(self, label, needs, counts, replayed, forbid=()):
+        """Keep and check one path's counts ({wrapper: launches}; ``replayed``: the share
+        of them that graph replays made): this process's, or another process's."""
         self.by_path[label] = counts
         order = [n for n in KERNELS if n in counts] + [n for n in counts if n not in KERNELS]
         print(f"[launches] {label}: " + ", ".join(
@@ -501,7 +548,6 @@ class PathCounts:
         if stray:
             raise AssertionError(f"{label}: kernels of another path launched: {stray}")
         k3_scalar_launched(label, counts)
-        return out
 
     def totals(self):
         """{wrapper: launches summed over the paths}, K3's scalar body's and the graph
@@ -2482,6 +2528,179 @@ def phase_scripts(torch, counters, smi):
     return counts.totals()
 
 
+def _headline_child(metric, counts_path) -> int:
+    """A phase-13 headline run, alone in a fresh process: ``headline.main`` for one metric,
+    every launch count set to 0 just before it and written, with the share graph replays
+    made, to ``counts_path`` just after.  Its stdout is the headline's one line."""
+    from tpusparse_torch.bench import headline
+    from tpusparse_torch.kernels import blas1, dia, ell
+    from tpusparse_torch.kernels import graph as graph_kernels
+    from tpusparse_torch.kernels import stencil5 as st5
+    from tpusparse_torch.solvers import cg
+
+    counters = (st5, blas1, ell, dia, graph_kernels, cg)
+    for c in counters:
+        c.reset_launches()
+    rc = headline.main([f"--metric={metric}"])
+    pathlib.Path(counts_path).write_text(json.dumps(
+        {"counts": launch_counts(counters), "replayed": dict(cg.LAUNCHES)}))
+    return rc
+
+
+def run_headline(metric, needs, counts, smi) -> dict:
+    """``python -m tpusparse_torch.bench.headline --metric=<metric>``'s work in a fresh
+    process (``_headline_child``): rc 0, exactly one JSON line on stdout, its progress
+    lines printed here, its launch counts recorded as a path of ``counts``.  Returns the
+    line."""
+    import subprocess
+
+    HEADLINE_DIR.mkdir(parents=True, exist_ok=True)
+    counts_path = HEADLINE_DIR / f"launches_{metric}.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-u", str(ROOT / "chip_smoke.py"), HEADLINE_CHILD,
+                           metric, str(counts_path)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=HEADLINE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    (HEADLINE_DIR / f"{metric}.log").write_text(proc.stdout + proc.stderr)
+    for line in proc.stderr.splitlines():
+        if line.startswith("[headline]"):
+            print(line, flush=True)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"headline --metric={metric}: rc {proc.returncode}, "
+                             f"{len(lines)} stdout lines:\n{proc.stdout[-2000:]}"
+                             f"{proc.stderr[-4000:]}")
+    res = json.loads(lines[0])
+    child = json.loads(counts_path.read_text())
+    counts.record(f"headline --metric={metric}", needs, child["counts"], child["replayed"])
+    print(f"[headline] --metric={metric}: {lines[0]} (the process's wall {wall:.1f} s) "
+          f"[{smi}]", flush=True)
+    return res
+
+
+def check_headline_cg(res, results, smi) -> None:
+    """The CG line: bench.py's keys and ``device``, 14 iterations, at least
+    HEADLINE_MIN_VALID valid runs, the faster loop named, and its median within
+    HEADLINE_TOL of phase 5's CLI median of the same solve."""
+    missing = [k for k in HEADLINE_KEYS if k not in res]
+    loop_ref = HEADLINE_LOOPS.get(res.get("loop"))
+    if missing or loop_ref is None:
+        raise AssertionError(f"headline cg: keys missing {missing}, loop {res.get('loop')}")
+    faster = min(res["value"], res["classic_loop_ms"])
+    ref = {label: results[label]["timing"]["total_median_ms"]
+           for label in (*HEADLINE_LOOPS.values(), "bf16c f32")}
+    off = abs(res["value"] - ref[loop_ref]) / ref[loop_ref]
+    print(f"[headline] cg: {res['loop']} median {res['value']!r} ms against phase 5's "
+          f"{loop_ref} CLI median {ref[loop_ref]!r} ms ({100 * off:.2f}% apart, tol "
+          f"{100 * HEADLINE_TOL:g}%); classic {res['classic_loop_ms']!r} ms against "
+          f"{ref['const f32 classic']!r}; bf16c {res['values_carrying_bf16c_ms']!r} ms "
+          f"against {ref['bf16c f32']!r}; vs_baseline {res['vs_baseline']!r}, bf16c "
+          f"{res['vs_baseline_bf16c']!r}; {res['iterations']} iterations, "
+          f"{res['valid_runs']}/{res['total_runs']} valid runs [{smi}]", flush=True)
+    if res["iterations"] != 14 or res["valid_runs"] < HEADLINE_MIN_VALID \
+            or res["value"] != faster or not off <= HEADLINE_TOL:
+        raise AssertionError(f"headline cg: {res}")
+
+
+def compare_dryrun_shapes(torch, st5, blas1, cmp):
+    """K8 (with and without its dot) and K4-K7 against their twins in f64 at the shapes
+    ``dryrun_multichip`` gives them on DRYRUN_RANKS ranks (seeded random fields and
+    planes): each rank's band or 2-D block with exchanged halo rows, K8 in the overlapped
+    SpMV's three pieces and over the whole piece; the one-device solves' whole grids (the
+    single-device oracle and the one-rank leg) with no halo."""
+    from tpusparse_torch import entry
+
+    dev = torch.device("cuda")
+    shapes = set()
+    for n in DRYRUN_RANKS:
+        g, g_large, mesh2 = entry.dryrun_grids(n)
+        shapes |= {(g // n, g, True), (g_large // n, g_large, True), (g, g, False),
+                   (g_large, g_large, False)}
+        if mesh2 is not None:
+            shapes.add((g // mesh2[0], g // mesh2[1], True))
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev, dtype=torch.float64)
+
+    for rows, width, halos in sorted(shapes):
+        p, planes = rand(rows, width), rand(5, rows, width)
+        if halos:
+            hp, hn = rand(1, width), rand(1, width)
+            lab = f"dryrun piece {rows}×{width} f64 + halos"
+            compare_band_pieces(torch, st5, cmp, planes, p, hp, hn, lab + ", three pieces")
+            compare_k8(torch, st5, cmp, planes, p, (hp, hn), lab)
+        else:
+            lab = f"dryrun one-device grid {rows}×{width} f64"
+            compare_k8(torch, st5, cmp, planes, p, (), lab)
+        compare_blas1(torch, blas1, cmp, p, *(rand(rows, width) for _ in range(3)), lab)
+
+
+def phase_entry(torch, counters, results, cmp, smi):
+    """Phase 13: the top-level entry points, each from its own launch counts.  The headline
+    benchmark's two metrics, each in a fresh process (``run_headline``), and K8 against
+    its twin on the SpMV metric's inputs (``headline.spmv_inputs``, f32); ``entry()``'s
+    forward, K8 with its dot at 256², held to the plain twin on its x = ones and on a
+    random x (f32: y 1e-5, the dot 1e-4); ``dryrun_multichip`` on 2 and 4 ranks sharing
+    the card (f64, exact parity), its process's solves and each rank's launches recorded
+    as paths, and its kernels against their twins at its shapes
+    (``compare_dryrun_shapes``).  Returns {wrapper: launches summed over its paths}."""
+    from tpusparse_torch import entry
+    from tpusparse_torch.bench import headline
+    from tpusparse_torch.kernels import blas1
+    from tpusparse_torch.kernels import stencil5 as st5
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    counts = PathCounts(counters)
+    lines = {metric: run_headline(metric, needs, counts, smi)
+             for metric, needs in HEADLINE_RUNS.items()}
+    check_headline_cg(lines["cg"], results, smi)
+    spmv = lines["spmv"]
+    print(f"[headline] spmv: K8 {spmv['grid']}² f32 {spmv['ms_per_apply']!r} ms an apply, "
+          f"{spmv['value']!r} of the HBM peak (at most {SPMV_MAX_FRACTION:g}), vs_baseline "
+          f"{spmv['vs_baseline']!r} [{smi}]", flush=True)
+    if not 0 < spmv["value"] <= SPMV_MAX_FRACTION:
+        raise AssertionError(f"headline spmv: {spmv}")
+    planes, x = headline.spmv_inputs(spmv["grid"], torch.device("cuda"))
+    compare_k8(torch, st5, cmp, planes, x, (),
+               f"headline --metric=spmv inputs {spmv['grid']}² f32, x from seed 0")
+    del planes, x
+    torch.cuda.empty_cache()
+
+    def forward():
+        fwd, (planes, x) = entry.entry()
+        return fwd, planes, x, fwd(planes, x)
+
+    fwd, planes, x, out = counts.run("entry()", ("spmv_stencil5",), forward)
+    xr = torch.randn(x.shape, generator=torch.Generator(x.device).manual_seed(3),
+                     device=x.device)
+    for what, xin, (y, dot) in (("x = ones", x, out), ("random x", xr, fwd(planes, xr))):
+        y_ref, dot_ref = st5.spmv_stencil5_plain(planes, xin, with_dot=True)
+        cmp.check("spmv_stencil5", f"entry() {entry.ENTRY_GRID}² f32, {what}", torch.float32,
+                  [("y", y, y_ref, "field"), ("dot", dot, dot_ref, "dot")])
+    del planes, x, xr, out, y, dot
+    compare_dryrun_shapes(torch, st5, blas1, cmp)
+
+    for n in DRYRUN_RANKS:
+        t0 = time.perf_counter()
+        res = counts.run(f"dryrun_multichip({n}) in this process", DRYRUN_NEEDS,
+                         lambda n=n: entry.dryrun_multichip(n))
+        for r, (rank_counts, halo) in enumerate(zip(res["launches"], res["halo_calls"])):
+            counts.record(f"dryrun_multichip({n}) rank {r}", DRYRUN_NEEDS, rank_counts, {})
+            missing = _band_halo_missing(n, r, {"HALO_CALLS": halo, "LAUNCHES": rank_counts},
+                                         ("spmv_stencil5",))
+            if missing:
+                raise AssertionError(f"dryrun_multichip({n}) rank {r}: never launched "
+                                     f"{missing}")
+        print(f"[dryrun] n={n}: {res['iterations']} iterations at {res['grid']}², "
+              f"{res['large_iterations']} at {res['large_grid']}², f64, parity exact; "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    (HEADLINE_DIR / "launches.json").write_text(json.dumps(counts.by_path, indent=1))
+    print(f"[entry] phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts.totals()
+
+
 def main() -> int:
     import torch
 
@@ -2536,6 +2755,9 @@ def main() -> int:
     for name, count in phase_scripts(torch, (st5, blas1, ell, dia), smi).items():
         launches[name] += count
     done(12)
+    for name, count in phase_entry(torch, (st5, blas1, ell, dia), results, cmp, smi).items():
+        launches[name] += count
+    done(13)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "
@@ -2575,6 +2797,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [HEADLINE_CHILD]:
+        sys.exit(_headline_child(*sys.argv[2:4]))
     t0 = time.perf_counter()
     rc = main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

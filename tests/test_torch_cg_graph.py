@@ -241,6 +241,41 @@ def test_workspace_hands_out_its_recorded_buffers_in_order():
     assert _launch.dot_buffers(like, 7)[1] is not part
 
 
+def test_set_apart_takes_a_capture_out_of_the_counts_and_replays_count_apart():
+    """The one counting rule of a captured graph (``_launch``), which the graph loop, the
+    probe chains and the iteration audit share: the launches counted inside
+    ``set_apart`` leave the wrappers' counts for its dict, every count put back, also
+    when the block raises, a counter registered inside it from 0; ``count_replay`` adds a
+    replay's launches to ``REPLAYED`` (``cg.LAUNCHES``), never to a wrapper's count.
+    Every kernel module's counter is registered."""
+    assert cg.LAUNCHES is _launch.REPLAYED
+    for c in (st5.LAUNCHES, ell.LAUNCHES, dia.LAUNCHES, graph_kernels.LAUNCHES):
+        assert any(c is r for r in _launch.COUNTERS)
+    for counter in (st5, graph_kernels, cg):
+        counter.reset_launches()
+    st5.LAUNCHES["spmv_stencil5"] = 2
+    with _launch.set_apart() as launches:
+        st5.LAUNCHES["spmv_stencil5"] += 3
+        graph_kernels.LAUNCHES["cg_cond"] += 1
+        late = _launch.counter(("late",))
+        late["late"] += 1
+    _launch.COUNTERS.remove(late)
+    assert launches == {"spmv_stencil5": 3, "cg_cond": 1, "late": 1}
+    assert (st5.LAUNCHES["spmv_stencil5"], graph_kernels.LAUNCHES["cg_cond"],
+            late["late"]) == (2, 0, 0)
+    del launches["late"]
+    _launch.count_replay(launches)
+    _launch.count_replay(launches, 4)
+    assert cg.LAUNCHES == {"spmv_stencil5": 15, "cg_cond": 5}
+    assert st5.LAUNCHES["spmv_stencil5"] == 2
+    with pytest.raises(ValueError), _launch.set_apart():
+        st5.LAUNCHES["spmv_stencil5"] += 1
+        raise ValueError
+    assert st5.LAUNCHES["spmv_stencil5"] == 2
+    for counter in (st5, graph_kernels, cg):
+        counter.reset_launches()
+
+
 def test_out_arguments_write_the_twins_results_into_given_fields():
     """The fields the graph loop hands the wrappers: ELL's and DIA's ``out=``, K9's and
     K10's ``y_out=``; the same values as without them, in the given tensors."""

@@ -120,6 +120,37 @@ def test_csr_conversions_match(name):
             formats.csr_to_stencil5(csr)
 
 
+@pytest.mark.parametrize("name", list(CSRS))
+def test_csr_to_coo_matches(name):
+    """Every field equal to the JAX package's, and no array shared with the CSR."""
+    ref = CSRS[name]()
+    csr = carry(ref)
+    coo = formats.csr_to_coo(csr)
+    _same(coo, jformats.csr_to_coo(ref))
+    for got in (coo.row, coo.col, coo.val):
+        for src in (csr.row_ptr, csr.col_idx, csr.val):
+            assert not np.shares_memory(got, src)
+    _same(formats.coo_to_csr(coo), csr)  # and back
+
+
+def test_csr_to_coo_random_csr():
+    rng = np.random.RandomState(13)
+    n, m = 40, 25
+    lens = rng.randint(0, 6, size=n)
+    lens[[3, 17]] = 0  # empty rows
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    col = np.concatenate([np.sort(rng.choice(m, k, replace=False)) for k in lens]
+                         ).astype(np.int64)
+    val = rng.randn(int(row_ptr[-1]))
+    ref = jformats.CSRMatrix(num_rows=n, num_cols=m, row_ptr=row_ptr, col_idx=col, val=val)
+    csr = carry(ref)
+    coo = formats.csr_to_coo(csr)
+    _same(coo, jformats.csr_to_coo(ref))
+    for got in (coo.row, coo.col, coo.val):
+        for src in (csr.row_ptr, csr.col_idx, csr.val, ref.col_idx, ref.val):
+            assert not np.shares_memory(got, src)
+
+
 def test_carry_checks_its_input():
     with pytest.raises(ValueError, match="inconsistent CSR"):
         convert.csr_from_numpy(3, 3, [0, 1, 2], [0, 1], [1.0, 1.0])

@@ -55,7 +55,8 @@ def test_no_module_imports_jax():
                 "tpusparse_torch.bench.probes", "tpusparse_torch.bench.profiling",
                 "tpusparse_torch.cli.generate_matrix", "tpusparse_torch.dist",
                 "tpusparse_torch.solvers.cg_sharded", "tpusparse_torch.cli.cg_solver_multichip",
-                "tpusparse_torch.bench.sharded_overlap"):
+                "tpusparse_torch.bench.sharded_overlap", "tpusparse_torch.bench.headline",
+                "tpusparse_torch.entry"):
         assert mod in res["mods"]
 
 

@@ -65,7 +65,7 @@ from typing import Dict, Optional
 import torch
 
 from .._device import resolve_device
-from ..kernels import stream_probe
+from ..kernels import _launch, stream_probe
 from . import sysinfo
 
 PROBES = ("read", "copy", "triad", "mix7", "read6", "read_kernel", "copy_kernel")
@@ -133,7 +133,9 @@ def _allocated_bytes(device) -> int:
 def _chain(one_pass, k: int, device, bytes_per_pass: int):
     """k passes as one callable: on a card the replay of a CUDA graph captured over them,
     on the CPU a loop.  Raises when the captured passes allocated more than
-    ``ALLOC_SHARE`` of the bytes they move."""
+    ``ALLOC_SHARE`` of the bytes they move.  A kernel wrapper's count holds the eager
+    pass before the capture; the capture launches nothing, and each replay counts its
+    launches as replayed (``_launch.count_replay``)."""
     if device.type != "cuda":
         def run():
             for _ in range(k):
@@ -143,14 +145,19 @@ def _chain(one_pass, k: int, device, bytes_per_pass: int):
     torch.cuda.synchronize(device)
     before = _allocated_bytes(device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with _launch.set_apart() as launches, torch.cuda.graph(graph):
         for _ in range(k):
             one_pass()
     grown = _allocated_bytes(device) - before
     if grown > ALLOC_SHARE * k * bytes_per_pass:
         raise RuntimeError(f"a probe chain of {k} passes allocated {grown} bytes: its passes "
                            "write temporaries the byte count does not hold")
-    return graph.replay
+
+    def replay():
+        graph.replay()
+        _launch.count_replay(launches)
+
+    return replay
 
 
 def _timed_best(run, reps: int, device) -> float:

@@ -173,6 +173,14 @@ def coo_to_csr(coo: COOMatrix) -> CSRMatrix:
                      val=coo.val[order].astype(np.float64), grid_size=coo.grid_size)
 
 
+def csr_to_coo(csr: CSRMatrix) -> COOMatrix:
+    """CSR -> COO in row order; the index and value arrays are copies, never views of the
+    CSR's."""
+    row = np.repeat(np.arange(csr.num_rows, dtype=np.int64), np.diff(csr.row_ptr))
+    return COOMatrix(num_rows=csr.num_rows, num_cols=csr.num_cols, row=row,
+                     col=csr.col_idx.copy(), val=csr.val.copy(), grid_size=csr.grid_size)
+
+
 def _pad_with_last_column(col, row_lens, w):
     """Pad slots repeat the row's last real column (val stays 0); an empty row keeps
     col = row.  Any in-range column is right with a zero value; this one keeps a short

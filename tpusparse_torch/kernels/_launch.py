@@ -190,6 +190,43 @@ def use(ws):
         _WORKSPACE = prev
 
 
+# every kernel module's launch counts ({wrapper: launches}), registered at its import
+COUNTERS = []
+# the launches that CUDA-graph replays made, by wrapper: a capture records launches and
+# runs none, so it sets them apart (``set_apart``) and each replay adds them here
+# (``count_replay``); a wrapper's own count holds its eager launches only
+REPLAYED = {}
+
+
+def counter(names):
+    """A kernel module's launch counts, one per wrapper name, each 0, registered."""
+    counts = dict.fromkeys(names, 0)
+    COUNTERS.append(counts)
+    return counts
+
+
+@contextlib.contextmanager
+def set_apart():
+    """Yields a dict that holds, after the block, the launches the wrappers counted inside
+    it ({wrapper: launches}), and puts every count back as it was before the block: a
+    capture (whose replays ``count_replay`` counts) or a graph's warm-up (set-up)."""
+    before = [dict(c) for c in COUNTERS]
+    launches = {}
+    try:
+        yield launches
+    finally:
+        for i, c in enumerate(COUNTERS):  # a module imported in the block starts at 0
+            b = before[i] if i < len(before) else dict.fromkeys(c, 0)
+            launches.update({n: v - b[n] for n, v in c.items() if v != b[n]})
+            c.update(b)
+
+
+def count_replay(launches, times=1):
+    """One replay's launches ({wrapper: launches}), ``times`` over, into ``REPLAYED``."""
+    for name, n in launches.items():
+        REPLAYED[name] = REPLAYED.get(name, 0) + n * times
+
+
 def ptr(t):
     return None if t is None else t.data_ptr()
 

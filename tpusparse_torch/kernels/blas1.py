@@ -45,10 +45,10 @@ import torch
 
 from .. import _build
 from .._device import acc_dtype
-from ._launch import (SUFFIX, check_apart, check_field, dot_buffers, dot_tickets, scalar,
-                      stream)
+from ._launch import (SUFFIX, check_apart, check_field, counter, dot_buffers, dot_tickets,
+                      scalar, stream)
 
-LAUNCHES = {"cg_update": 0, "p_update": 0, "dot": 0, "axpby_dot": 0}
+LAUNCHES = counter(("cg_update", "p_update", "dot", "axpby_dot"))
 
 
 def reset_launches() -> None:

@@ -28,10 +28,11 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._launch import SUFFIX, check_field, dot_buffers, ptr, row_out, row_partials, stream
+from ._launch import (SUFFIX, check_field, counter, dot_buffers, ptr, row_out, row_partials,
+                      stream)
 from .blas1 import dot_plain
 
-LAUNCHES = {"spmv_dia": 0}
+LAUNCHES = counter(("spmv_dia",))
 
 
 def reset_launches() -> None:

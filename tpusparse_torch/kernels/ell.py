@@ -35,10 +35,11 @@ import torch
 
 from .. import _build
 from .._device import acc_dtype
-from ._launch import SUFFIX, check_field, dot_buffers, ptr, row_out, row_partials, stream
+from ._launch import (SUFFIX, check_field, counter, dot_buffers, ptr, row_out, row_partials,
+                      stream)
 from .blas1 import dot_plain
 
-LAUNCHES = {"spmv_ell": 0}
+LAUNCHES = counter(("spmv_ell",))
 
 
 def reset_launches() -> None:

@@ -31,9 +31,9 @@ import ctypes
 import torch
 
 from .. import _build
-from ._launch import stream
+from ._launch import counter, stream
 
-LAUNCHES = {"cg_cond": 0}
+LAUNCHES = counter(("cg_cond",))
 IF, WHILE = 0, 1
 # the dots' dtype -> the suffix of the C entry points
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -46,19 +46,19 @@ import torch
 
 from .. import _build
 from ..formats import C, E, N, S, W
-from ._launch import (SUFFIX, check_apart, check_field, check_state, dot_buffers, dot_tickets,
-                      overlaps, ptr, scalar, stream)
+from ._launch import (SUFFIX, check_apart, check_field, check_state, counter, dot_buffers,
+                      dot_tickets, overlaps, ptr, scalar, stream)
 from .blas1 import dot_plain as _dot
 
-LAUNCHES = {
-    "spmv_stencil5": 0,
-    "spmv_stencil5_pupdate": 0,
-    "spmv_stencil5_const": 0,
-    "spmv_stencil5_const_scalar": 0,  # K3's scalar body: its share of the count above
-    "spmv_stencil5_const_pupdate_dot": 0,
-    "cg_const_update_recompute": 0,
-    "spmv_stencil5_const_pupdate": 0,
-}
+LAUNCHES = counter((
+    "spmv_stencil5",
+    "spmv_stencil5_pupdate",
+    "spmv_stencil5_const",
+    "spmv_stencil5_const_scalar",
+    "spmv_stencil5_const_pupdate_dot",
+    "cg_const_update_recompute",
+    "spmv_stencil5_const_pupdate",
+))
 
 # planes dtype -> the part of the K8/K9 entry points' suffix before the state's
 _PLANES_SUFFIX = {torch.float32: "", torch.float64: "", torch.bfloat16: "bf16_"}

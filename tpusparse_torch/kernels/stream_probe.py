@@ -21,9 +21,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._launch import check_field, stream
+from ._launch import check_field, counter, stream
 
-LAUNCHES = {"probe_read": 0, "probe_copy": 0}
+LAUNCHES = counter(("probe_read", "probe_copy"))
 
 
 def reset_launches() -> None:

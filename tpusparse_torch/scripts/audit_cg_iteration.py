@@ -18,9 +18,9 @@ of the grid's indices), each chain captured as a CUDA graph and timed by CUDA ev
 around its replay, best of ``--reps``, and the slope between them
 (``bench.probes.slope_seconds``); on the CPU the host clock stands in.  Launches on one
 stream run in order, so no fence between them is needed (the JAX audit's
-``optimization_barrier``).  Each phase's kernel launches are counted (the wrapper's
-``LAUNCHES``, set to 0 before the phase: its eager launch and k a replay; the twins on the
-CPU count none).
+``optimization_barrier``).  Each phase's kernel launches are counted: its eager launch
+(the wrapper's ``LAUNCHES``) and k a replay (``_launch.REPLAYED``); the twins on the CPU
+count none.
 
 The solves: graph-loop solves (``cg_solve``'s default on a card), b = ones, x0 = 0, the
 median of ``--runs`` after two warm-ups, at max_iters = 0 (the fixed overhead: the start,
@@ -84,15 +84,15 @@ def field(g, seed, dtype, device):
             + torch.cos(i * (3e-7 * (seed + 2)))[None, :])
 
 
-def chain_ms(launch, device, wrapper, counts, k_lo=4, k_hi=16, reps=3) -> float:
+def chain_ms(launch, device, wrapper, k_lo=4, k_hi=16, reps=3) -> float:
     """Milliseconds of one ``launch()`` from the slope between chains of k_lo and k_hi
     launches, best of ``reps``.  On a card each chain is one CUDA graph, captured after
     one eager launch that records the wrappers' buffers (``_launch.Workspace``, as the
     graph loop records its body's) and timed by CUDA events around its replay: the
     chain's device time, as in the graph loop, with no host launch cost between the
-    kernels.  ``counts[wrapper]`` (the wrapper's ``LAUNCHES``) counts the eager launch and
-    k a replay; the capture itself launches nothing and leaves the counts as they were.
-    On the CPU the chain is a loop on the host clock."""
+    kernels.  The wrapper's own count holds the eager launch; the capture launches
+    nothing (``_launch.set_apart``) and each replay counts its k launches as replayed
+    (``_launch.count_replay``).  On the CPU the chain is a loop on the host clock."""
     if device.type != "cuda":
         def run(k):
             t0 = time.perf_counter()
@@ -108,28 +108,27 @@ def chain_ms(launch, device, wrapper, counts, k_lo=4, k_hi=16, reps=3) -> float:
         torch.cuda.synchronize(device)
 
         def capture(k):
-            before = dict(counts)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph), _launch.use(ws):
+            with _launch.set_apart() as launches, torch.cuda.graph(graph), _launch.use(ws):
                 for _ in range(k):
                     ws.rewind()
                     launch()
-            captured = counts[wrapper] - before[wrapper]
-            if captured != k:
-                raise RuntimeError(f"a chain of {k} captured {captured} launches of {wrapper}")
-            counts.update(before)
-            return graph
+            if launches.get(wrapper) != k:
+                raise RuntimeError(f"a chain of {k} captured {launches.get(wrapper)} "
+                                   f"launches of {wrapper}")
+            return graph, launches
 
         graphs = {k_lo: capture(k_lo), k_hi: capture(k_hi)}
 
         def run(k):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            graph, launches = graphs[k]
             start.record()
-            graphs[k].replay()
+            graph.replay()
             end.record()
             end.synchronize()
-            counts[wrapper] += k
+            _launch.count_replay(launches)
             return start.elapsed_time(end) / 1e3
 
         run(k_lo)
@@ -168,10 +167,11 @@ def audit_phases(op, g, device, reps):
     phases = {}
     for name, launch in runs.items():
         words, wrapper, counts = PHASES[name]
-        counts[wrapper] = 0
-        ms = chain_ms(launch, device, wrapper, counts, reps=reps)
-        phases[name] = {"words_pt": words, "ms": ms, "launches": counts[wrapper]}
-        print(f"[audit] {name}: {ms:.4f} ms, {counts[wrapper]} launches", file=sys.stderr)
+        before = counts[wrapper] + _launch.REPLAYED.get(wrapper, 0)
+        ms = chain_ms(launch, device, wrapper, reps=reps)
+        n = counts[wrapper] + _launch.REPLAYED.get(wrapper, 0) - before
+        phases[name] = {"words_pt": words, "ms": ms, "launches": n}
+        print(f"[audit] {name}: {ms:.4f} ms, {n} launches", file=sys.stderr)
     return phases
 
 

@@ -66,7 +66,7 @@ from torch.multiprocessing.reductions import StorageWeakRef
 
 from .._device import acc_dtype
 from ..bench import profiling
-from ..kernels import _launch, blas1, dia, ell, stencil5
+from ..kernels import _launch, blas1
 from ..kernels import graph as graph_kernels
 
 
@@ -266,11 +266,11 @@ def _eager_loop(op, b, x0, b_is_ones, config, loop, kernels):
 # cg_solve's device-to-host reads (the eager loop's flag each iteration and its closing
 # read; the graph loop's one read a solve) and graph replays, summed over its calls
 COUNTS = {"host_reads": 0, "replays": 0}
-# the kernel launches that graph replays made, by wrapper name: the iterations a replay ran
-# (k, read from the card) times the launches of one captured iteration, and the condition
-# kernel's; a wrapper's own count (``LAUNCHES`` of its module) holds the eager launches
-# only (the start's), since a capture puts the counts back as they were before it
-LAUNCHES = {}
+# the kernel launches that graph replays made, by wrapper name (``_launch.REPLAYED``): the
+# iterations a replay ran (k, read from the card) times the launches of one captured
+# iteration, and the condition kernel's; a wrapper's own count (``LAUNCHES`` of its module)
+# holds the eager launches only (the start's), since a capture sets its launches apart
+LAUNCHES = _launch.REPLAYED
 
 
 def reset_counts() -> None:
@@ -517,28 +517,22 @@ class DeviceLoop:
         they run one after another.  The capture is set-up, not a solve: the wrappers'
         counts are put back as they were before it, warm-up included, and one captured
         iteration's share is kept in ``per_iteration``."""
-        counters = _counters()
-        before = [dict(c) for c in counters]
         if self.workspace is None:
             graph_kernels.preload(self.device)
             self.workspace = _launch.Workspace(self.device)
-            with _launch.use(self.workspace):
+            with _launch.set_apart(), _launch.use(self.workspace):
                 self._iteration(x, 0)
 
         def step(parity):
             self.workspace.rewind()
             self._iteration(x, parity)
 
-        warm = [dict(c) for c in counters]
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g), _launch.use(self.workspace):
+        with _launch.set_apart() as captured, torch.cuda.graph(g), \
+                _launch.use(self.workspace):
             allocs = _allocations(self.device)
             self._structure(self._capture_node, step)
             made = _allocations(self.device) - allocs
-        captured = {}
-        for c, w, b in zip(counters, warm, before):
-            captured.update({n: v - w[n] for n, v in c.items() if v != w[n]})
-            c.update(b)
         if made:
             raise RuntimeError(f"the captured CG loop allocated {made} buffers: its body "
                                "must allocate nothing")
@@ -568,16 +562,9 @@ class DeviceLoop:
     def _count_replay(self, k):
         """Add a replay's launches to ``LAUNCHES``: k iterations, and the condition kernel
         once before the WHILE node and ``unroll`` times in each body that ran."""
-        for name, n in self.per_iteration.items():
-            LAUNCHES[name] = LAUNCHES.get(name, 0) + k * n
+        _launch.count_replay(self.per_iteration, k)
         bodies = -(-k // self.unroll)
-        LAUNCHES["cg_cond"] = LAUNCHES.get("cg_cond", 0) + 1 + self.unroll * bodies
-
-
-def _counters():
-    """The wrappers' launch counts that a captured iteration can reach."""
-    return [blas1.LAUNCHES, stencil5.LAUNCHES, ell.LAUNCHES, dia.LAUNCHES,
-            graph_kernels.LAUNCHES]
+        _launch.count_replay({"cg_cond": 1 + self.unroll * bodies})
 
 
 def _allocations(device) -> int:
