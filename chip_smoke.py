@@ -178,10 +178,32 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      K8 held to its twin on the SpMV line's own inputs (10240², f32, x from seed 0);
      tpusparse_torch.entry.entry()'s forward (K8 with its dot at 256², f32) held to the
      plain twin on its x = ones and on a random x; tpusparse_torch.entry.dryrun_multichip
-     on 2 and 4 ranks sharing the card (f64, exact parity with the single-device solve),
-     every rank launching K8 on exchanged halo rows, K4, K5 and K6, and those kernels held
-     to their twins in f64 at the dryrun's shapes: each rank's band or block with halo
-     rows (K8 also in the overlapped SpMV's three pieces) and the one-device grids.
+     on meshes of 2 and 4 shards sharing the card (f64, exact parity with the
+     single-device solve), launching K8 on exchanged halo rows, K4, K5 and K6, and those
+     kernels held to their twins in f64 at the dryrun's shapes: each shard's band or block
+     with halo rows (K8 also in the overlapped SpMV's three pieces) and the one-device
+     grids.
+ 14. (run after phase 13) the sharded CG over a mesh of shards that one process drives
+     (the multichip CLI without a process group: cg_sharded.MeshOperator, halos copied on
+     the card, the dots summed on it in shard order, the loop one CUDA graph replay a
+     solve), every shard on the card, at gen:20480 uncut, each run from its own launch
+     counts: stencil5 f64 on 2 and 4 shards, stencil5-const f32 recompute on 2 and 4 (the
+     headline's problem) and f64 on 4, csr f64 on 2 and 4, --mesh2d=2x2 stencil5 f64 and
+     const f64 classic, stencil5 bf16 on 2 shards and 2x2, and --timers stencil5 f64 on 4:
+     14 iterations (bf16: any), Sum/Norm2 against phase 5's single-device solve (f64
+     1e-10, f32 1e-5, bf16 1e-2 against stencil5 f64) and bit for bit against the phase
+     9/10 gloo run of the same decomposition where there is one, every shard on
+     cuda:0, one replay and one read a solve (none in the stepped loop), and exactly the
+     launches and halo counts its iterations make (the graph's replays counted through
+     _launch.count_replay); each median beside the single-device and the gloo medians;
+     four of its solves profiled beside phase 7's single-device split of the same solve
+     (chiprun_out/profile_mesh.txt); the mesh's x bit for bit the gloo ranks' at 2048² in
+     eleven cases (2 and 4 ranks
+     sharing the card); a halo exchange and an ordered sum each timed in a CUDA graph on
+     2 and 4 bands and a 2 x 2 mesh; K4-K7 at the 2- and 4-shard band and the 2 x 2 block
+     shapes (f32, f64, bf16), K6 on a side column, K1 and K2 on the 2-shard band and the
+     ELL kernel's rectangular call over its gather domain, against their twins
+     (chiprun_out/chip_smoke_mesh.json).
 
 On a card every cg_solve of phases 5, 7 and 8 runs the graph loop: a path's launch
 counts are its wrappers' eager launches plus its replays' (``cg.LAUNCHES``: the iterations
@@ -190,7 +212,8 @@ the graph's condition kernel (csrc/graph.cu, which ports no Pallas kernel) to it
 and times it.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5, 9, 10, 12 and 13; the condition kernel's entry last) and
+record (launches summed over phases 5, 9, 10, 12, 13 and 14; the condition kernel's entry
+last) and
 then {"ok": true, "device": {...}}.
 Exports go to chiprun_out/.
 """
@@ -463,10 +486,70 @@ HEADLINE_TOL = 0.10
 HEADLINE_LOOPS = {"recompute-ap": "const f32 recompute", "classic": "const f32 classic"}
 HEADLINE_MIN_VALID = 8
 SPMV_MAX_FRACTION = 1.05
-# dryrun_multichip's rank counts, and the kernels every rank must launch: K8 on its row
+# dryrun_multichip's shard counts, and the kernels its mesh must launch: K8 on its row
 # pieces with halo rows, K4, K5 and K6 (f64)
 DRYRUN_RANKS = (2, 4)
 DRYRUN_NEEDS = ("spmv_stencil5", "cg_update", "p_update", "dot")
+# phase 14: the multichip CLI without a process group, so one process drives a mesh of
+# shards (cg_sharded.MeshOperator), every shard on the card: label -> (mesh shape,
+# arguments, the export's loop, the phase-5 run whose solution it must equal, the phase 9/10
+# gloo run of the same decomposition whose Sum/Norm2 it must equal bit for bit, or None)
+MESH_RUNS = {
+    "mesh stencil5 f64 x2": ((2,), ["--mode=stencil5", "--dtype=f64"], "classic",
+                             "stencil5 f64", "sharded stencil5 f64 x2"),
+    "mesh stencil5 f64 x4": ((4,), ["--mode=stencil5", "--dtype=f64"], "classic",
+                             "stencil5 f64", "sharded stencil5 f64 x4"),
+    "mesh const f32 recompute x2": ((2,), ["--mode=stencil5-const", "--dtype=f32"],
+                                    "recompute-ap", "const f32 recompute", None),
+    "mesh const f32 recompute x4": ((4,), ["--mode=stencil5-const", "--dtype=f32"],
+                                    "recompute-ap", "const f32 recompute", None),
+    "mesh const f64 recompute x4": ((4,), ["--mode=stencil5-const", "--dtype=f64"],
+                                    "recompute-ap", "const f64 recompute",
+                                    "sharded const f64 recompute x4"),
+    "mesh csr f64 x2": ((2,), ["--mode=csr", "--dtype=f64"], "classic", "csr f64", None),
+    "mesh csr f64 x4": ((4,), ["--mode=csr", "--dtype=f64"], "classic", "csr f64",
+                        "sharded csr f64 x4"),
+    "mesh stencil5 f64 2x2": ((2, 2), ["--mode=stencil5", "--dtype=f64"], "classic",
+                              "stencil5 f64", "mesh2d stencil5 f64 2x2"),
+    "mesh const f64 2x2": ((2, 2), ["--mode=stencil5-const", "--dtype=f64"], "classic",
+                           "const f64 recompute", "mesh2d const f64 2x2"),
+    "mesh stencil5 bf16 x2": ((2,), ["--mode=stencil5", "--dtype=bf16"], "classic",
+                              "stencil5 f64", "sharded stencil5 bf16 x2"),
+    "mesh stencil5 bf16 2x2": ((2, 2), ["--mode=stencil5", "--dtype=bf16"], "classic",
+                               "stencil5 f64", "mesh2d stencil5 bf16 2x2"),
+    "mesh stencil5 f64 --timers x4": ((4,), ["--mode=stencil5", "--dtype=f64", "--timers"],
+                                      "host-stepped", "stencil5 f64",
+                                      "sharded stencil5 f64 --timers x4"),
+}
+MESH_ARGS = ["--runs=3", "--warmup=1"]
+MESH_SOLVES = 5  # a run's solves: the warm-up, three timed, the one that gives x
+# Sum/Norm2 against phase 5's single-device solve of the same mode and dtype: f64 as phases
+# 9-10, f32 at its rounding (the shards' partial dots are summed in another order); a bf16
+# state against stencil5 f64 within BF16_TOL
+MESH_TOL = {"f64": 1e-10, "f32": 1e-5, "bf16": BF16_TOL}
+# the grid at which the mesh's x must equal the gloo ranks' bit for bit, and those cases:
+# label -> (shards, gloo ranks' 2-D mesh shape or None, mode, dtype name, solver arguments)
+MESH_X_GRID = 2048
+MESH_X_CASES = {
+    "stencil5 f64 x2": (2, None, "stencil5", "float64", {}),
+    "const f32 recompute x2": (2, None, "stencil5-const", "float32", {}),
+    "csr f64 x2": (2, None, "csr", "float64", {}),
+    "stencil5 bf16 x2": (2, None, "stencil5", "bfloat16", {}),
+    "stencil5 f64 x4": (4, None, "stencil5", "float64", {}),
+    "const f32 recompute x4": (4, None, "stencil5-const", "float32", {}),
+    "const f64 recompute x4": (4, None, "stencil5-const", "float64", {}),
+    "csr f64 x4": (4, None, "csr", "float64", {}),
+    "stencil5 f64 --timers x4": (4, None, "stencil5", "float64", {"stepped": True}),
+    "stencil5 f64 2x2": (4, (2, 2), "stencil5", "float64", {}),
+    "const f64 2x2": (4, (2, 2), "stencil5-const", "float64", {}),
+}
+# exchanges and ordered sums a graph times, to read each one's device time
+TRANSPORT_REPS = 50
+# the mesh solves phase 14 profiles beside phase 7's single-device split of the same solve
+MESH_PROFILED = {"mesh stencil5 f64 x4": "stencil5 f64",
+                 "mesh const f32 recompute x4": "const f32 recompute",
+                 "mesh stencil5 f64 2x2": "stencil5 f64",
+                 "mesh stencil5 bf16 x2": "stencil5 bf16"}
 
 
 def rel(a, b) -> float:
@@ -1709,18 +1792,12 @@ def phase_profile(torch, smi, medians):
     scopes (``bench.profiling``) are ranges, not device work, and stay out of the sums
     (the graph loop enters them at its capture only).  Returns {label: {kernel group:
     device ms}}."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tpusparse_torch import ops
     from tpusparse_torch.formats import Stencil5
     from tpusparse_torch.solvers import cg
 
-    groups = [(short, re.compile(rf"(?<![a-z_]){fn}")) for short, fn, _s, _r in
-              KERNELS.values()]
-    groups.append(("final sums", re.compile(r"(?<![a-z_])final_sum_kernel")))
-    groups.append(("cond", re.compile(r"(?<![a-z_])cond_kernel")))
-    groups.append(("cuSPARSE", re.compile(r"cusparse|csrmv", re.IGNORECASE)))
     st = Stencil5(grid_size=G_BIG, planes=None, constant=(DIAG, OFFDIAG))
     tables, splits = [], {}
     # CUPTI reports every kernel of a CUDA graph only if it was running when the graph was
@@ -1741,39 +1818,55 @@ def phase_profile(torch, smi, medians):
         op = ops.get_operator(mode, st, dtype=dtype, device="cuda")
         cg.cg_solve(op, b_is_ones=True, **kwargs)  # the graph loop's capture
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            x, stats = cg.cg_solve(op, b_is_ones=True, **kwargs)
-            wall = (time.perf_counter() - t0) * 1e3
-        del x
-        # the solver's phase scopes appear as device rows too (their ranges on the card's
-        # timeline): leave them out, or their kernels would count twice
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.key not in PHASE_NAMES]
-        if not rows:
-            raise AssertionError(f"profile {label}: the profiler saw no device time")
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
-        split = {}
-        for e in rows:
-            g = next((g for g, pat in groups if pat.search(e.key)), "other device")
-            split[g] = split.get(g, 0.0) + e.self_device_time_total / 1e3
-        splits[label] = split
-        median = medians[label]
-        parts = ", ".join(f"{g} {ms!r} ms ({100 * ms / median:.1f}%)"
-                          for g, ms in split.items())
-        print(f"[profile] {label} {G_BIG}², {stats.iterations} iterations: phase 5's median "
-              f"{median!r} ms, device busy {busy!r} ms; {parts}; idle (median - busy) "
-              f"{median - busy!r} ms ({100 * (median - busy) / median:.1f}%); the profiled "
-              f"solve's wall {wall!r} ms [{smi}]", flush=True)
-        tables.append(f"=== {label}: wall {wall!r} ms\n"
-                      + prof.key_averages().table(sort_by="self_device_time_total",
-                                                  row_limit=16, max_name_column_width=70))
+        splits[label] = profile_split(torch, lambda: cg.cg_solve(op, b_is_ones=True, **kwargs),
+                                      f"{label} {G_BIG}²", medians[label], "phase 5's",
+                                      tables, smi)
         op.free()
         del op
         torch.cuda.empty_cache()
     OUT.mkdir(exist_ok=True)
     (OUT / "profile.txt").write_text("\n\n".join(tables))
     return splits
+
+
+def profile_split(torch, solve, label, median, whose, tables, smi):
+    """One ``solve()`` (returning (x, CGStats)) under torch.profiler: its device time by
+    kernel group, printed beside ``median`` (``whose`` unprofiled median of the same solve)
+    and the idle share, median - busy; its table appended to ``tables``.  Returns {kernel
+    group: device ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = [(short, re.compile(rf"(?<![a-z_]){fn}")) for short, fn, _s, _r in
+              KERNELS.values()]
+    groups.append(("final sums", re.compile(r"(?<![a-z_])final_sum_kernel")))
+    groups.append(("cond", re.compile(r"(?<![a-z_])cond_kernel")))
+    groups.append(("cuSPARSE", re.compile(r"cusparse|csrmv", re.IGNORECASE)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        x, stats = solve()
+        wall = (time.perf_counter() - t0) * 1e3
+    del x
+    # the solver's phase scopes appear as device rows too (their ranges on the card's
+    # timeline): leave them out, or their kernels would count twice
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in PHASE_NAMES]
+    if not rows:
+        raise AssertionError(f"profile {label}: the profiler saw no device time")
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    split = {}
+    for e in rows:
+        g = next((g for g, pat in groups if pat.search(e.key)), "other device")
+        split[g] = split.get(g, 0.0) + e.self_device_time_total / 1e3
+    parts = ", ".join(f"{g} {ms!r} ms ({100 * ms / median:.1f}%)" for g, ms in split.items())
+    print(f"[profile] {label}, {stats.iterations} iterations: {whose} median {median!r} ms, "
+          f"device busy {busy!r} ms; {parts}; idle (median - busy) {median - busy!r} ms "
+          f"({100 * (median - busy) / median:.1f}%); the profiled solve's wall {wall!r} ms "
+          f"[{smi}]", flush=True)
+    tables.append(f"=== {label}: wall {wall!r} ms\n"
+                  + prof.key_averages().table(sort_by="self_device_time_total",
+                                              row_limit=16, max_name_column_width=70))
+    return split
 
 
 def compare_cond(torch, smi):
@@ -2604,8 +2697,8 @@ def check_headline_cg(res, results, smi) -> None:
 
 def compare_dryrun_shapes(torch, st5, blas1, cmp):
     """K8 (with and without its dot) and K4-K7 against their twins in f64 at the shapes
-    ``dryrun_multichip`` gives them on DRYRUN_RANKS ranks (seeded random fields and
-    planes): each rank's band or 2-D block with exchanged halo rows, K8 in the overlapped
+    ``dryrun_multichip`` gives them on DRYRUN_RANKS shards (seeded random fields and
+    planes): each shard's band or 2-D block with exchanged halo rows, K8 in the overlapped
     SpMV's three pieces and over the whole piece; the one-device solves' whole grids (the
     single-device oracle and the one-rank leg) with no halo."""
     from tpusparse_torch import entry
@@ -2641,9 +2734,9 @@ def phase_entry(torch, counters, results, cmp, smi):
     benchmark's two metrics, each in a fresh process (``run_headline``), and K8 against
     its twin on the SpMV metric's inputs (``headline.spmv_inputs``, f32); ``entry()``'s
     forward, K8 with its dot at 256², held to the plain twin on its x = ones and on a
-    random x (f32: y 1e-5, the dot 1e-4); ``dryrun_multichip`` on 2 and 4 ranks sharing
-    the card (f64, exact parity), its process's solves and each rank's launches recorded
-    as paths, and its kernels against their twins at its shapes
+    random x (f32: y 1e-5, the dot 1e-4); ``dryrun_multichip`` on meshes of 2 and 4 shards
+    sharing the card (f64, exact parity), each recorded as a path, its shards' K8 launches
+    taking exchanged halo rows, and its kernels against their twins at its shapes
     (``compare_dryrun_shapes``).  Returns {wrapper: launches summed over its paths}."""
     from tpusparse_torch import entry
     from tpusparse_torch.bench import headline
@@ -2686,18 +2779,343 @@ def phase_entry(torch, counters, results, cmp, smi):
         t0 = time.perf_counter()
         res = counts.run(f"dryrun_multichip({n}) in this process", DRYRUN_NEEDS,
                          lambda n=n: entry.dryrun_multichip(n))
-        for r, (rank_counts, halo) in enumerate(zip(res["launches"], res["halo_calls"])):
-            counts.record(f"dryrun_multichip({n}) rank {r}", DRYRUN_NEEDS, rank_counts, {})
-            missing = _band_halo_missing(n, r, {"HALO_CALLS": halo, "LAUNCHES": rank_counts},
-                                         ("spmv_stencil5",))
-            if missing:
-                raise AssertionError(f"dryrun_multichip({n}) rank {r}: never launched "
-                                     f"{missing}")
+        halo = res["halo_calls"]
+        if not 0 < halo["exchange"] <= halo["spmv_stencil5"] \
+                <= res["launches"].get("spmv_stencil5", 0):
+            raise AssertionError(f"dryrun_multichip({n}): launches {res['launches']}, halo "
+                                 f"counts {halo}: its shards' K8 never took exchanged rows")
         print(f"[dryrun] n={n}: {res['iterations']} iterations at {res['grid']}², "
               f"{res['large_iterations']} at {res['large_grid']}², f64, parity exact; "
               f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     (HEADLINE_DIR / "launches.json").write_text(json.dumps(counts.by_path, indent=1))
     print(f"[entry] phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts.totals()
+
+
+def mesh_per_iteration(shape, mode, stepped):
+    """({wrapper: launches}, {HALO_CALLS name: count}) of one iteration of a mesh run over
+    all its shards (bands of 3 rows or more: the classic SpMV in three row pieces); the
+    stepped loop's launches are eager, and also launch K6 for <p, A·p> (``mesh_launches``)."""
+    from tpusparse_torch.solvers import cg_sharded
+
+    n = 1
+    for v in shape:
+        n *= v
+    nr, nc = shape if len(shape) == 2 else (shape[0], 1)
+    halo = dict.fromkeys(cg_sharded.HALO_CALLS, 0)
+    if mode == "stencil5-const" and len(shape) == 1 and not stepped:
+        passes = ("spmv_stencil5_const_pupdate_dot", "cg_const_update_recompute")
+        halo.update({"exchange": n, **dict.fromkeys(passes, n)} if n > 1 else {})
+        return dict.fromkeys(passes, n), halo
+    spmv = {"stencil5": "spmv_stencil5", "stencil5-const": "spmv_stencil5_const",
+            "csr": "spmv_ell"}[mode]
+    sides = nr * (2 * nc - 2)  # the blocks' side columns that have a neighbour
+    launches = {spmv: (1 if mode == "csr" else 3) * n, "cg_update": n, "p_update": n}
+    if sides and not stepped:  # each side column's term of <p, A·p> (K6)
+        launches["dot"] = sides
+    if nr > 1:
+        halo["exchange"] = n
+        halo[spmv] = n if mode == "csr" else nc * (2 * nr - 2)
+    if nc > 1:
+        halo["column_exchange"], halo["column_correction"] = n, sides
+    return launches, halo
+
+
+def mesh_launches(per, n, k, stepped):
+    """{wrapper: launches} of a mesh run's MESH_SOLVES solves of k iterations on n shards:
+    the graph loop's replays (``per`` k times a solve, the condition kernel once and twice
+    a body) and each solve's <r0, r0> (K6, eager, a shard); the stepped loop's eager
+    launches (no K5 after the last iteration, K6 for <r0, r0> and each <p, A·p>)."""
+    solves = MESH_SOLVES
+    if stepped:
+        want = {w: v * k * solves for w, v in per.items()}
+        want["p_update"] = per["p_update"] * (k - 1) * solves
+        want["dot"] = n * (k + 1) * solves
+        return want
+    want = {w: v * k * solves for w, v in per.items()}
+    want["dot"] = want.get("dot", 0) + n * solves
+    want[COND] = solves * (1 + 2 * -(-k // 2))
+    return want
+
+
+def _mesh_x_rank(device, grid, cases):
+    """One gloo rank of the phase-14 parity check (spawned by dist.launch_local): each
+    case solved at ``grid``², the solution gathered; rank 0 returns {label: (x, k)}."""
+    import torch
+
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    out = {}
+    for label, (_n, blocks, mode, dtype, kw) in cases.items():
+        solve_kw = dict(mode=mode, dtype=getattr(torch, dtype), device=device)
+        if blocks is not None:
+            x, s = cg_sharded.cg_solve_sharded_2d(blocks, grid, **solve_kw)
+            x = dist.gather_blocks_to_host(x, blocks)
+        else:
+            solve = (cg_sharded.cg_solve_sharded_stepped if kw.get("stepped")
+                     else cg_sharded.cg_solve_sharded)
+            x, s = solve(grid, **solve_kw)
+            x = dist.gather_to_host(x, rows=grid)
+        out[label] = (x, s.iterations)
+        cg_sharded.clear_caches()
+    return out if dist.rank() == 0 else None
+
+
+def check_mesh_x(torch, smi):
+    """The mesh's x against the gloo ranks' bit for bit at MESH_X_GRID² in every case of
+    MESH_X_CASES, one group of ranks sharing the card a shard count."""
+    from tpusparse_torch import dist
+    from tpusparse_torch._device import host_numpy
+    from tpusparse_torch.solvers import cg_sharded
+
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        cases = {label: c for label, c in MESH_X_CASES.items() if c[0] == n}
+        gloo = dist.launch_local(_mesh_x_rank, n, MESH_X_GRID, cases, device="cuda")
+        for label, (_n, blocks, mode, dtype, kw) in cases.items():
+            solve_kw = dict(mode=mode, dtype=getattr(torch, dtype))
+            if blocks is not None:
+                x, s = cg_sharded.cg_solve_sharded_2d(dist.make_mesh(blocks), MESH_X_GRID,
+                                                      **solve_kw)
+            else:
+                solve = (cg_sharded.cg_solve_sharded_stepped if kw.get("stepped")
+                         else cg_sharded.cg_solve_sharded)
+                x, s = solve(MESH_X_GRID, mesh=dist.make_band_mesh(n), **solve_kw)
+            x = host_numpy(x)
+            cg_sharded.clear_caches()
+            xg, its = gloo[label]
+            same = s.iterations == its and x.dtype == xg.dtype and bool((x == xg).all())
+            print(f"[mesh] x at {MESH_X_GRID}² {label}: {s.iterations} iterations (gloo "
+                  f"{its}), x bit for bit the gloo ranks': {same}", flush=True)
+            if not same:
+                raise AssertionError(f"mesh {label} at {MESH_X_GRID}²: x differs from the "
+                                     f"gloo ranks' ({s.iterations} vs {its} iterations)")
+        print(f"[mesh] {n} shards against {n} gloo ranks at {MESH_X_GRID}²: "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+
+
+def time_transport(torch, smi):
+    """The mesh's transport on the card, each in a CUDA graph of TRANSPORT_REPS, timed with
+    CUDA events over 10 replays: a halo exchange and an ordered sum of the shards' partials
+    on 2 and 4 bands and a 2 x 2 mesh at G_BIG² f64.  Returns {label: µs}."""
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    out = {}
+    for shape in ((2,), (4,), (2, 2)):
+        op = cg_sharded.make_mesh_operator(G_BIG, dist.make_mesh(shape, ("x", "y")[:len(shape)]),
+                                           mode="stencil5-const", dtype=torch.float64)
+        fields = [sh.p_buffer() for sh in op.shards]
+        parts = [torch.ones((), dtype=torch.float64, device="cuda") for _ in op.shards]
+        for what, fn in (("halo exchange", lambda: op.exchange(fields)),
+                         ("ordered sum", lambda: op.sum(parts))):
+            fn()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(TRANSPORT_REPS):
+                    fn()
+            g.replay()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            for _ in range(10):
+                g.replay()
+            e1.record()
+            torch.cuda.synchronize()
+            us = e0.elapsed_time(e1) * 1e3 / (10 * TRANSPORT_REPS)
+            label = f"{what} {'x'.join(map(str, shape))}"
+            out[label] = us
+            print(f"[mesh] {label} at {G_BIG}² f64: {us!r} µs each on the device [{smi}]",
+                  flush=True)
+            del g
+        del op, fields
+        cg_sharded.clear_caches()
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare_mesh_shapes(torch, st5, blas1, ell, generate, cmp):
+    """The kernels phase 14's mesh drives, against their twins at the shard shapes phase 6
+    does not hold them at (seeded random fields): K4-K7 on the bands of 2 and 4 shards
+    and the 2 x 2 block in f32, f64 and bf16, K6 on a block's side column (its term of
+    <p, A·p>), K1 and K2 on the 2-shard band with halo rows (f32, f64), and the ELL
+    kernel's rectangular call over the 2-shard band's gather domain (f64)."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        def rand(*shape):
+            return torch.rand(*shape, generator=gen, device=dev, dtype=dtype)
+
+        for label, (rows, width) in (("2-shard band", (G_BIG // 2, G_BIG)),
+                                     ("4-shard band", (G_BIG // 4, G_BIG)),
+                                     ("2x2 block", (G_BIG // 2, G_BIG // 2))):
+            lab = f"mesh {label} {rows}×{width} {dname(dtype)}"
+            fields = [rand(rows, width) for _ in range(4)]
+            compare_blas1(torch, blas1, cmp, *fields, lab)
+            if label == "2x2 block":
+                col, term = rand(rows), rand(rows)
+                cmp.check("dot", f"{lab} side column", dtype,
+                          [("<p[:, 0], W h_w>", blas1.dot(col, term),
+                            blas1.dot_plain(col, term), "dot")])
+            if label == "2-shard band" and dtype != torch.bfloat16:  # no bf16 K1, K2
+                p, r, x = fields[:3]
+                hp, hn = rand(1, width), rand(1, width)
+                s = torch.tensor(0.37, dtype=dtype, device=dev)
+                pk, dk = st5.spmv_stencil5_const_pupdate_dot(s, r, p, hp, hn,
+                                                             out=torch.empty_like(p), **kw)
+                pp, dp = st5.spmv_stencil5_const_pupdate_dot_plain(s, r, p, hp, hn, **kw)
+                cmp.check("spmv_stencil5_const_pupdate_dot", f"{lab} + halos", dtype,
+                          [("p'", pk, pp, "field"), ("<p',Ap'>", dk, dp, "dot")])
+                del pk, pp
+                xk, rk, dk = st5.cg_const_update_recompute(s, x.clone(), r.clone(), p, hp, hn,
+                                                           **kw)
+                xp, rp, dp = st5.cg_const_update_recompute_plain(s, x.clone(), r.clone(), p,
+                                                                 hp, hn, **kw)
+                cmp.check("cg_const_update_recompute", f"{lab} + halos", dtype,
+                          [("x'", xk, xp, "field"), ("r'", rk, rp, "field"),
+                           ("<r',r'>", dk, dp, "dot")])
+                del xk, rk, xp, rp
+            if label == "2-shard band" and dtype == torch.float64:
+                vals, cols = ell_band(torch, generate, G_BIG, 0, rows, dtype)
+                dom = rand((rows + 2) * G_BIG)
+                y, d = ell.spmv_ell(vals, cols, dom, with_dot=True, dot_offset=G_BIG)
+                yp, dp = ell.spmv_ell_plain(vals, cols, dom, with_dot=True, dot_offset=G_BIG)
+                cmp.check("spmv_ell", f"{lab} over its gather domain", dtype,
+                          [("y", y, yp, "exact"), ("dot", d, dp, "dot")])
+                del vals, cols, dom, y, yp
+            del fields
+            torch.cuda.empty_cache()
+
+
+def profile_mesh(torch, summary, splits, smi):
+    """One solve of each MESH_PROFILED run under torch.profiler after a solve that captures
+    its graph: its device time by kernel group beside phase 7's split of the single-device
+    solve (``splits``) and its idle share against the run's median (``summary``); tables
+    to chiprun_out/profile_mesh.txt.  Returns {label: {kernel group: device ms}}."""
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    tables, out = [], {}
+    for label, single in MESH_PROFILED.items():
+        shape, extra, _loop, _ref, _gloo = MESH_RUNS[label]
+        mode, dtype = (a.split("=")[1] for a in extra[:2])
+        op = cg_sharded.make_mesh_operator(
+            G_BIG, dist.make_mesh(shape, ("x", "y")[:len(shape)]), mode=mode,
+            dtype={"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}[dtype])
+        op.solve()  # the capture
+        torch.cuda.synchronize()
+        out[label] = profile_split(torch, op.solve, f"{label} {G_BIG}²",
+                                   summary[label]["median_ms"], "phase 14's", tables, smi)
+        print(f"[profile] {label} beside one device's {single} (phase 7): " + ", ".join(
+            f"{g} {out[label].get(g, 0.0)!r} / {splits[single].get(g, 0.0)!r} ms"
+            for g in dict.fromkeys([*out[label], *splits[single]])) + f" [{smi}]", flush=True)
+        del op
+        cg_sharded.clear_caches()
+        torch.cuda.empty_cache()
+    (OUT / "profile_mesh.txt").write_text("\n\n".join(tables))
+    return out
+
+
+def phase_mesh(torch, counters, results, cmp, smi, splits):
+    """Phase 14: the multichip CLI without a process group, so this process drives a mesh
+    of shards sharing the card (cg_sharded.MeshOperator), each run of MESH_RUNS at G_BIG²
+    uncut from its own launch counts: 14 iterations (a bf16 state: any), Sum/Norm2 against
+    phase 5's single-device solve (MESH_TOL) and bit for bit against the phase 9/10 gloo run
+    of the same decomposition, every shard on the card, one replay and one read a solve
+    (the stepped loop: none), and its launches and halo counts exactly those its iterations
+    make (``mesh_per_iteration``: the graph's replays through ``_launch.count_replay``).
+    Then a few of those solves profiled beside phase 7's single-device ones
+    (``profile_mesh``; ``splits``: phase 7's), the mesh's x against the gloo ranks' bit
+    for bit at MESH_X_GRID² (``check_mesh_x``),
+    the transport's device time (``time_transport``) and the kernels at the shard shapes
+    (``compare_mesh_shapes``).  Returns {wrapper: launches summed over the runs}."""
+    from tpusparse_torch import generate
+    from tpusparse_torch.cli import cg_solver_multichip
+    from tpusparse_torch.kernels import blas1, ell
+    from tpusparse_torch.kernels import stencil5 as st5
+    from tpusparse_torch.solvers import cg, cg_sharded
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    counts = PathCounts(counters)
+    card = torch.cuda.get_device_name(0)
+    summary = {}
+    for label, (shape, extra, loop, ref_label, gloo_label) in MESH_RUNS.items():
+        n = shape[0] * (shape[1] if len(shape) == 2 else 1)
+        slug = re.sub(r"[^a-z0-9]+", "_", label)
+        path = OUT / f"chip_smoke_{slug}.json"
+        split = [f"--mesh2d={shape[0]}x{shape[1]}"] if len(shape) == 2 else [f"--chips={n}"]
+        mode = extra[0].removeprefix("--mode=")
+        stepped = loop == "host-stepped"
+        per, halo_per = mesh_per_iteration(shape, mode, stepped)
+        cg.reset_counts()
+        cg_sharded.reset_halo_calls()
+        t0 = time.perf_counter()
+        rc = counts.run(label, tuple(per), lambda: cg_solver_multichip.main(
+            [f"gen:{G_BIG}", *extra, *split, *MESH_ARGS, f"--json={path}"]))
+        wall = time.perf_counter() - t0
+        reads, halo = dict(cg.COUNTS), dict(cg_sharded.HALO_CALLS)
+        res = json.loads(path.read_text())
+        its, dtype, topo = res["convergence"]["iterations"], res["dtype"], res["topology"]
+        if rc != 0 or res["loop"] != loop or (its != 14 and dtype != "bf16"):
+            raise AssertionError(f"{label}: rc {rc}, loop {res['loop']}, {its} iterations")
+        if topo["transport"] != "mesh" or topo["num_processes"] != 1 \
+                or topo["devices"] != ["cuda:0"] * n or topo["device_kinds"] != [card]:
+            raise AssertionError(f"{label}: a shard off the card: {topo}")
+        want = mesh_launches(per, n, its, stepped)
+        got = {k: v for k, v in counts.by_path[label].items() if v}
+        want_reads = ({"host_reads": 0, "replays": 0} if stepped
+                      else {"host_reads": MESH_SOLVES, "replays": MESH_SOLVES})
+        want_halo = {k: v * its * MESH_SOLVES for k, v in halo_per.items()}
+        if got != want or reads != want_reads or halo != want_halo:
+            raise AssertionError(f"{label}: launches {got} (want {want}), reads {reads} (want "
+                                 f"{want_reads}), halo counts {halo} (want {want_halo})")
+        ref = results[ref_label]["validation"]
+        errs = {k: abs(res["validation"][k] - ref[k]) / abs(ref[k])
+                for k in ("solution_sum", "solution_norm")}
+        if not max(errs.values()) <= MESH_TOL[dtype]:
+            raise AssertionError(f"{label}: Sum/Norm2 against {ref_label}: {errs}")
+        single_label = "stencil5 bf16" if dtype == "bf16" else ref_label
+        t, single = res["timing"], results[single_label]["timing"]["total_median_ms"]
+        line = (f"[mesh] {label}: {its} iterations, median {t['total_median_ms']!r} ms "
+                f"(single device {single!r} ms, {single_label})")
+        gloo_ms = None
+        if gloo_label is not None:
+            gloo = json.loads((OUT / f"chip_smoke_{re.sub(r'[^a-z0-9]+', '_', gloo_label)}"
+                                     f".json").read_text())
+            if gloo["validation"] != res["validation"] \
+                    or gloo["convergence"]["iterations"] != its:
+                raise AssertionError(f"{label}: Sum/Norm2 {res['validation']} are not the "
+                                     f"gloo run's {gloo['validation']} ({gloo_label})")
+            gloo_ms = gloo["timing"]["total_median_ms"]
+            line += f", gloo {gloo_ms!r} ms ({gloo_label}; Sum/Norm2 bit for bit)"
+        line += (f"; Sum rel {errs['solution_sum']:.3e}, Norm2 rel {errs['solution_norm']:.3e} "
+                 f"(tol {MESH_TOL[dtype]:g}); {reads['host_reads']} reads, "
+                 f"{reads['replays']} replays in {MESH_SOLVES} solves; assembly "
+                 f"{t['allgather_ms']!r} ms; the run's wall {wall:.1f} s [{smi}]")
+        print(line, flush=True)
+        if stepped:
+            buckets = {k: t[f"{k}_ms"] for k in ("halo", "spmv", "allreduce", "blas1")}
+            print(f"[mesh] {label} buckets: " + ", ".join(f"{k} {v!r} ms"
+                                                          for k, v in buckets.items())
+                  + f"; sum {sum(buckets.values())!r} of the median {t['total_median_ms']!r}"
+                  f" ms [{smi}]", flush=True)
+            if not (min(buckets.values()) > 0
+                    and sum(buckets.values()) <= t["total_median_ms"]):
+                raise AssertionError(f"{label}: buckets {buckets}")
+        summary[label] = {"median_ms": t["total_median_ms"], "single_device": single_label,
+                          "single_device_ms": single,
+                          "gloo_ms": gloo_ms, "iterations": its, "reads": reads,
+                          "assembly_ms": t["allgather_ms"], "launches": got}
+        torch.cuda.empty_cache()
+    summary["profiles"] = profile_mesh(torch, summary, splits, smi)
+    check_mesh_x(torch, smi)
+    summary["transport_us"] = time_transport(torch, smi)
+    compare_mesh_shapes(torch, st5, blas1, ell, generate, cmp)
+    summary["card"] = smi
+    (OUT / "chip_smoke_mesh.json").write_text(json.dumps(summary, indent=1))
+    print(f"[mesh] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts.totals()
 
 
@@ -2758,6 +3176,10 @@ def main() -> int:
     for name, count in phase_entry(torch, (st5, blas1, ell, dia), results, cmp, smi).items():
         launches[name] += count
     done(13)
+    for name, count in phase_mesh(torch, (st5, blas1, ell, dia), results, cmp, smi,
+                                  splits).items():
+        launches[name] += count
+    done(14)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "

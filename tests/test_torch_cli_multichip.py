@@ -2,17 +2,19 @@
 package's (tpusparse/cli/cg_solver_multichip.py).
 
 - the flags: the JAX CLI's, none missing, and ``--platform``;
-- ``gen:16`` on 1, 2 and 4 chips (the port's ranks: gloo processes on the CPU; the JAX
-  CLI's: virtual CPU devices): the same mode, iterations and Sum/Norm2 (1e-10) in the
-  shared export schema, the port's export also saying which loop ran and on how many
-  ranks, with the gather's time and, on several ranks, their measured times;
+- ``gen:16`` on 1, 2 and 4 chips (the port's: a mesh of CPU shards in one process; the
+  JAX CLI's: virtual CPU devices): the same mode, iterations and Sum/Norm2 (1e-10) in the
+  shared export schema, the port's export also saying which loop ran, on how many
+  shards, the assembly's time and the mesh's topology (one process);
+- the same run in a group of gloo ranks (as under torchrun) takes the gloo path: one
+  process a rank, their measured times, and the mesh's Sum/Norm2 bit for bit;
 - a stencil .mtx read by every rank, and a padded ``stencil5-const`` request recorded as
   the ``stencil5`` that ran, both as in JAX;
 - the refusals, each rc 2: a non-stencil .mtx without ``--mode=csr`` (as in JAX),
   ``--mode=csr`` with ``--mesh2d`` (as in JAX), a malformed ``--mesh2d`` and
   ``--dtype=bf16`` (no bf16 state);
 - ``--timers`` on 2 ranks: the host-stepped loop with its halo and allreduce buckets;
-- ``--mesh2d=2x2`` (four ranks, blocks of the 2-D decomposition) against the JAX CLI's
+- ``--mesh2d=2x2`` (four shards, blocks of the 2-D decomposition) against the JAX CLI's
   ``--mesh2d=2x2``: the same mode, iterations and Sum/Norm2 (1e-10), solver
   ``tpusparse-cg-sharded2d-2x2``, and with ``--timers`` its four buckets.
 """
@@ -70,11 +72,39 @@ def test_cli_matches_jax_cli(tmp_path, capfd, chips):
     assert port["statistics"]["total_runs"] == ref["statistics"]["total_runs"] == 3
     t = port["timing"]
     assert t["num_chips"] == chips and t["allgather_ms"] > 0
-    assert ("solve_time_max_ms" in t) == (chips > 1)
-    if chips > 1:
-        assert len(t["per_process_ms"]) == chips and t["load_imbalance_pct"] >= 0
+    assert "solve_time_max_ms" not in t  # one process: no ranks to time
+    topo = port["topology"]
+    assert topo["transport"] == "mesh" and topo["axes"] == {"x": chips}
+    assert topo["num_devices"] == chips and topo["num_processes"] == 1
+    assert topo["process_of_device"] == [0] * chips and topo["device_kinds"] == ["cpu"]
+    assert out.count("Iterations:") == 1
+    assert f"[INFO] mesh: {chips} x cpu (1 process(es))" in out
+
+
+def _cli_json_in_group(device, argv, path):
+    rc = port_cli.main([*argv, f"--json={path}"])
+    return rc, (json.loads(path.read_text()) if dist.rank() == 0 else None)
+
+
+@pytest.mark.parametrize("chips", [2, 4])
+def test_cli_in_a_group_takes_the_gloo_path(tmp_path, capfd, chips):
+    """Every process of a gloo group runs the CLI, as under torchrun: one rank a process,
+    rank 0 reporting, the ranks' measured times, and Sum/Norm2 bit for bit the mesh's."""
+    argv = ["gen:16", "--dtype=f64", "--runs=3", "--warmup=0", "--platform=cpu",
+            f"--chips={chips}"]
+    rc, gloo = dist.launch_local(_cli_json_in_group, chips, argv, tmp_path / "gloo.json",
+                                 device="cpu")
+    out = capfd.readouterr().out
+    rc_m, mesh = _run(port_cli.main, tmp_path, "mesh", argv)
+    assert rc == rc_m == 0
+    assert gloo["topology"]["transport"] == "gloo"
+    assert gloo["topology"]["num_processes"] == chips
+    assert len(gloo["timing"]["per_process_ms"]) == chips
+    assert gloo["timing"]["load_imbalance_pct"] >= 0
+    assert f"[INFO] ranks: {chips} x cpu ({chips} process(es), gloo)" in out
     assert out.count("Iterations:") == 1  # rank 0 alone reports
-    assert f"[INFO] ranks: {chips} x cpu" in out
+    assert gloo["convergence"] == mesh["convergence"]
+    assert gloo["validation"] == mesh["validation"]
 
 
 def test_cli_reads_an_mtx_on_every_rank(tmp_path):
@@ -144,7 +174,7 @@ def test_cli_refuses_a_malformed_mesh2d(capsys, mesh):
 
 
 def test_cli_mesh2d_refuses_a_grid_that_does_not_divide(capfd):
-    """Every rank of four returns 2; rank 0 alone says why."""
+    """A mesh of four shards returns 2 and says why once."""
     assert port_cli.main(["gen:18", "--platform=cpu", "--mesh2d=1x4", "--runs=1",
                           "--warmup=0"]) == 2
     assert capfd.readouterr().err.count("must divide the mesh extents (1, 4)") == 1
@@ -193,8 +223,9 @@ def test_cli_mesh2d_matches_jax_cli(tmp_path, capfd, timers):
     assert port["loop"] == ("host-stepped" if timers else "classic")
     t = port["timing"]
     assert t["num_chips"] == 4 and t["allgather_ms"] > 0  # --chips is ignored, as in JAX
-    assert len(t["per_process_ms"]) == 4 and t["load_imbalance_pct"] >= 0
-    assert "[INFO] ranks: 4 x cpu" in out and out.count("Iterations:") == 1
+    assert port["topology"]["axes"] == {"x": 2, "y": 2}
+    assert port["topology"]["num_processes"] == 1
+    assert "[INFO] mesh: 4 x cpu (1 process(es))" in out and out.count("Iterations:") == 1
     if timers:
         assert min(t["halo_ms"], t["allreduce_ms"], t["spmv_ms"], t["blas1_ms"]) > 0
 

@@ -4,8 +4,9 @@
 - ``entry(device="cpu")``: the same planes and x as ``__graft_entry__.entry()`` (bit for
   bit), and its ``fwd`` on those inputs against the JAX ``fwd`` (K8 with its dot, Pallas
   in interpret mode): y to 1e-5 and the dot to 1e-4, f32;
-- ``dryrun_multichip(n, device="cpu")`` on 2 and 4 gloo ranks: every leg passes and prints
-  its line, the iteration count equal to the JAX single-device solve's at g = 8n;
+- ``dryrun_multichip(n, device="cpu")`` on meshes of 2 and 4 CPU shards in this process:
+  every leg passes and prints its line, the iteration count equal to the JAX
+  single-device solve's at g = 8n;
 - a planted fault (the single-device oracle reporting one more iteration) raises
   AssertionError; without a card, nothing runs unless the CPU is asked for.
 """
@@ -68,9 +69,9 @@ def test_dryrun_multichip_on_cpu_ranks(capsys, n):
     assert res["iterations"] == _jax_single_device_iterations(8 * n)
     assert abs(res["sum_diff"]) <= 1e-12 * 8 * n * 8 * n
     assert min(res["stepped"].values()) > 0
-    assert len(res["launches"]) == len(res["halo_calls"]) == n
-    # every rank exchanged halo rows and gave them to the SpMV (the twins count no launch)
-    assert all(0 < h["exchange"] <= h["spmv_stencil5"] for h in res["halo_calls"])
+    # the shards exchanged halo rows and gave them to the SpMV (the twins count no launch)
+    halo = res["halo_calls"]
+    assert res["launches"] == {} and 0 < halo["exchange"] <= halo["spmv_stencil5"]
     if n == 4:
         assert res["mesh2d"] == [2, 2] and res["mesh2d_iterations"] == res["iterations"]
 

@@ -2,7 +2,7 @@
 
 - Importing every module of tpusparse_torch, in a fresh interpreter, leaves ``jax`` and
   the JAX package (``tpusparse``, ``tpusparse.*``) out of ``sys.modules``.
-- No source file of the port, nor chip_smoke.py, nor the card's test file, has an
+- No source file of the port, nor chip_smoke.py, nor the card's test files, has an
   ``import tpusparse...`` or ``from tpusparse... import``: the port keeps its own copies
   of the host code it needs.
 - A CUDA device requested where there is no CUDA raises.
@@ -56,7 +56,8 @@ def test_no_module_imports_jax():
                 "tpusparse_torch.cli.generate_matrix", "tpusparse_torch.dist",
                 "tpusparse_torch.solvers.cg_sharded", "tpusparse_torch.cli.cg_solver_multichip",
                 "tpusparse_torch.bench.sharded_overlap", "tpusparse_torch.bench.headline",
-                "tpusparse_torch.entry"):
+                "tpusparse_torch.entry", "tpusparse_torch.scripts.sharded_compare",
+                "tpusparse_torch.bench.mesh_scaling", "tpusparse_torch.bench.shard_kernels"):
         assert mod in res["mods"]
 
 
@@ -78,7 +79,8 @@ def _imports_of_the_jax_package(path):
 
 def test_no_file_of_the_port_imports_the_jax_package():
     files = sorted((ROOT / "tpusparse_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+              ROOT / "tests" / "test_torch_cuda_mesh.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): imp for f in files if (imp := _imports_of_the_jax_package(f))}
     assert bad == {}

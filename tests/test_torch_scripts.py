@@ -175,7 +175,7 @@ def test_sharded_compare_matches_the_jax_cli(tmp_path, capfd):
                                  "--dtype=f64", "--platform=cpu",
                                  f"--outdir={tmp_path}"]) == 0
     out = capfd.readouterr().out
-    assert f"| sharded CG @ {g}² on {n} ranks |" in out and "†" not in out
+    assert f"| sharded CG @ {g}² on {n} shards (mesh) |" in out and "†" not in out
     for mode in modes:
         port = _load(tmp_path / f"cg_sharded_compare_{g}_{mode}_{n}dev.json")
         assert port["loop"] == "host-stepped"

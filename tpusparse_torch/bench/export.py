@@ -266,12 +266,16 @@ def print_human_cg(result: Dict[str, Any]) -> None:
             # single-chip reductions; in sharded runs the Allreduce line IS this bucket
             print(f"  Reduce:   {t['reductions_ms']:.2f} ms "
                   f"({100 * t['reductions_ms'] / tot:.0f}%)")
+        # a mesh of one process copies halos between devices; gloo ranks stage them
+        mesh = result.get("topology", {}).get("transport") == "mesh"
         if t.get("halo_ms"):
             print(f"  Halo:     {t['halo_ms']:.2f} ms ({100 * t['halo_ms'] / tot:.0f}%)  "
-                  f"[D2H, gloo, H2D]")
+                  + ("[device copies]" if mesh else "[D2H, gloo, H2D]"))
         if t.get("allreduce_ms"):
             print(f"  Allreduce:{t['allreduce_ms']:.2f} ms "
-                  f"({100 * t['allreduce_ms'] / tot:.0f}%)  [dot reads + gloo gather]")
+                  f"({100 * t['allreduce_ms'] / tot:.0f}%)  "
+                  + ("[dots summed on the device + read]" if mesh
+                     else "[dot reads + gloo gather]"))
     v = result["validation"]
     print("=== Solution Checksum ===")
     print(f"Sum(x)   = {v['solution_sum']:.16f}")

@@ -8,16 +8,19 @@ src/main/cg_solver_mgpu_stencil.cu):
         [--runs=10] [--warmup=3] [--dtype=f32|f64|bf16] [--mesh2d=RxC] [--timers]
         [--trace=<logdir>] [--multihost] [--platform=cuda|cpu]
 
-``--chips=N`` is the number of ranks (default: one per visible card, one on the CPU).
-One command drives them: the CLI spawns N processes on this host
-(``dist.launch_local``), rank i on card i % device_count, joined by gloo; with more
-ranks than cards the ranks share a card, and rank 0 says so, since their times are then no
-measurement of scaling.  Under torchrun (``WORLD_SIZE`` set), with ``--multihost``, or in
-a process that already belongs to a group, each process is one rank and the CLI joins
-the group instead.  Halo rows and dots pass through the host (``solvers.cg_sharded``).
+``--chips=N`` is the number of shards (default: one per visible card, one on the CPU).
+This process drives them all over a mesh of devices (``dist.make_band_mesh``), as the JAX
+CLI does: shard i on card i % device_count, halos copied from device to device, the dots
+summed on the mesh's first device, and on one card the whole solve replayed from one CUDA
+graph (``solvers.cg_sharded.MeshOperator``).  With more shards than cards the shards
+share a card, and the CLI says so, since their times are then no measurement of scaling.
+Under torchrun (``WORLD_SIZE`` set), with ``--multihost``, or in a process that already
+belongs to a group, each process is one rank of a gloo group instead (the JAX CLI's
+multi-host mode): halo rows and dots pass through the host.
 
-``gen:<g>`` synthesizes each rank's band on its device; a ``.mtx`` is read by every rank,
-which keeps its rows (the reference's per-rank load, :50-60 of its main).  The stencil
+``gen:<g>`` synthesizes each shard's band on its device; a ``.mtx`` is read once a
+process, and each shard keeps its rows (the reference's per-rank load, :50-60 of its
+main).  The stencil
 modes need a 5-point-stencil-extractable matrix, ``stencil5-const`` uniform coefficients,
 ``csr`` any g²×g² matrix whose nonzeros lie within one grid row of their row; each of
 these refusals returns 2.  ``--dtype=bf16`` runs a bf16 state through the classic and
@@ -25,19 +28,21 @@ stepped loops; ``stencil5-const`` on row bands, whose loop is the recompute one,
 at bf16 without ``--timers`` (the JAX CLI fails there).
 
 ``--mesh2d=RxC`` runs the 2-D block decomposition instead (``cg_sharded.
-cg_solve_sharded_2d``): R·C ranks (``--chips`` is ignored, as in the JAX CLI), rank
+cg_solve_sharded_2d``): an R×C mesh (``--chips`` is ignored, as in the JAX CLI), shard
 i·C + j holding grid block (i, j), rows and columns exchanged with its four neighbours.
 The grid must divide by R and C and the mode be a stencil one; ``csr``, a malformed RxC,
 a grid that does not divide, or a group of another size than R·C returns 2.  The export's
 solver is ``tpusparse-cg-sharded2d-RxC``.
 
 The protocol is the reference's: 3 warm-up solves, 10 timed solves with its statistics,
-Sum(x)/Norm2(x) of the solution gathered to rank 0 (``dist.gather_to_host``, timed as
-``allgather_ms``), and with several ranks one more solve after a barrier whose per-rank
-times give the load imbalance (``dist.rank_time_stats``).  ``--timers`` runs the
-host-stepped loop with its halo/SpMV/allreduce/BLAS1 buckets; ``--trace`` profiles one
-more solve on rank 0.  The export's ``loop`` is ``recompute-ap`` (``stencil5-const``),
-``classic`` or ``host-stepped``.  Only rank 0 prints and writes.
+Sum(x)/Norm2(x) of the solution (the mesh's shards assembled on its first device, a gloo
+group's bands gathered to rank 0, timed as ``allgather_ms``), and with several gloo ranks
+one more solve after a barrier whose per-rank times give the load imbalance
+(``dist.rank_time_stats``).  ``--timers`` runs the host-stepped loop with its
+halo/SpMV/allreduce/BLAS1 buckets; ``--trace`` profiles one more solve (on rank 0).  The
+export's ``loop`` is ``recompute-ap`` (``stencil5-const``), ``classic`` or
+``host-stepped``, and its ``topology`` is ``dist.describe_mesh`` of the mesh or
+``dist.describe_group`` of the gloo group.  Only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import torch
 import torch.distributed as tdist
 
 from .. import dist, formats
-from .._device import resolve_device, resolve_dtype
+from .._device import host_numpy, resolve_device, resolve_dtype
 from ..bench import export, metrics, profiling, stats, sysinfo
 from ..solvers import cg_sharded
 from .spmv_bench import load_operand
@@ -66,9 +71,9 @@ def build_parser():
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("matrix",
                    help=".mtx path (5-point-stencil-extractable for the stencil modes) or "
-                        "gen:<grid_size> (each rank synthesizes its band on its device)")
+                        "gen:<grid_size> (each shard synthesizes its band on its device)")
     p.add_argument("--chips", type=int, default=0,
-                   help="ranks (default: one per visible card; one on the CPU)")
+                   help="shards (default: one per visible card; one on the CPU)")
     p.add_argument("--mode", default="stencil5", choices=list(cg_sharded.MODES),
                    help="SpMV inside the sharded solve; 'csr' is the ELL kernel over each "
                         "band and its halo rows (the role of the reference's in-solver "
@@ -83,18 +88,18 @@ def build_parser():
                    help="state dtype (default f32); bf16 runs the classic and stepped "
                         "loops only")
     p.add_argument("--mesh2d", default=None, metavar="RxC",
-                   help="2-D block decomposition over an RxC grid of ranks (R·C ranks, "
-                        "--chips ignored); the grid must divide both extents")
+                   help="2-D block decomposition over an RxC mesh (R·C shards, --chips "
+                        "ignored); the grid must divide both extents")
     p.add_argument("--multihost", action="store_true",
-                   help="join the process group from the torchrun environment (one process "
-                        "per rank) instead of spawning the ranks")
+                   help="join the process group from the torchrun environment (one gloo "
+                        "rank per process) instead of driving a mesh in this process")
     p.add_argument("--timers", action="store_true",
                    help="per-phase timing via the host-stepped sharded loop (adds syncs)")
     p.add_argument("--trace", default=None, metavar="LOGDIR",
                    help="profile ONE extra solve on rank 0 into a Chrome trace JSON, "
                         "excluded from the statistics")
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
-                   help="where the ranks run: the card's kernels, or their plain twins on "
+                   help="where the shards run: the cards' kernels, or their plain twins on "
                         "the CPU")
     return p
 
@@ -125,14 +130,10 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
         return run(args, dist.rank_device(args.platform))
-    device = resolve_device(args.platform)  # raises without a card, before any spawn
-    if mesh is not None:
-        nranks = mesh[0] * mesh[1]
-    else:
-        nranks = args.chips or (torch.cuda.device_count() if device.type == "cuda" else 1)
-    if nranks == 1:
-        return run(args, device)
-    return dist.launch_local(_rank_main, nranks, argv, device=args.platform)
+    device = resolve_device(args.platform)  # raises without a card
+    devices = (dist.make_mesh(mesh, devices=args.platform) if mesh is not None
+               else dist.make_band_mesh(args.chips, devices=args.platform))
+    return run(args, device, devices)
 
 
 def parse_mesh2d(text):
@@ -144,8 +145,9 @@ def parse_mesh2d(text):
     return (r, c) if r >= 1 and c >= 1 else None
 
 
-def _rank_main(device, argv):
-    """One spawned rank: the same arguments, this rank's device."""
+def rank_main(device, argv):
+    """One rank of a gloo group spawned by ``dist.launch_local(rank_main, n, argv)``: the
+    CLI's arguments, this rank's device."""
     return run(build_parser().parse_args(argv), device)
 
 
@@ -175,9 +177,10 @@ def _load(args, say):
     return st.grid_size, planes, None, st.constant, name
 
 
-def run(args, device) -> int:
-    """This rank's part of the CLI: every rank loads, builds its operator and solves;
-    rank 0 reports."""
+def run(args, device, mesh=None) -> int:
+    """The CLI's solves and report: over ``mesh`` (a ``dist.Mesh``) in this process, or
+    as this rank of the gloo group (``mesh`` None; every rank loads, builds its operator
+    and solves; rank 0 reports)."""
     primary = dist.rank() == 0
 
     def say(*a, **kw):
@@ -190,48 +193,61 @@ def run(args, device) -> int:
     g, planes, matrix, const_coeffs, name = loaded
     name = name or f"stencil5-{g}x{g}"
     dtype = resolve_dtype(args.dtype or "f32")
-    nranks = dist.world_size()
     info = sysinfo.get_system_info(device)
-    sharing = dist.ranks_per_card(device)
-    say(f"[INFO] ranks: {nranks} x {info['device_kind']} ({nranks} process(es), gloo)")
+    if mesh is not None:
+        n, sharing, who = mesh.size, mesh.shards_per_card(), "shards"
+        say(f"[INFO] mesh: {n} x {info['device_kind']} (1 process(es))")
+    else:
+        n, sharing, who = dist.world_size(), dist.ranks_per_card(device), "ranks"
+        say(f"[INFO] ranks: {n} x {info['device_kind']} ({n} process(es), gloo)")
     if sharing > 1:
-        say(f"[INFO] {sharing} ranks share each card: their kernels take turns on it, so "
+        say(f"[INFO] {sharing} {who} share each card: their kernels take turns on it, so "
             "these times are no measurement of scaling across cards")
 
     diag, offdiag = const_coeffs if const_coeffs is not None else (5.0, -1.0)
-    mesh = parse_mesh2d(args.mesh2d) if args.mesh2d else None
+    blocks = parse_mesh2d(args.mesh2d) if args.mesh2d else None
+    kw = dict(mode=args.mode, planes=planes, matrix=matrix, diag=diag, offdiag=offdiag,
+              dtype=dtype)
     try:
-        op = cg_sharded.make_sharded_operator(g, mode=args.mode, planes=planes,
-                                              matrix=matrix, diag=diag, offdiag=offdiag,
-                                              dtype=dtype, device=device, mesh_shape=mesh)
+        op = (cg_sharded.make_mesh_operator(g, mesh, **kw) if mesh is not None
+              else cg_sharded.make_sharded_operator(g, device=device, mesh_shape=blocks,
+                                                    **kw))
     except ValueError as e:
-        if mesh is None:
+        if blocks is None:
             raise
         say(f"[ERROR] --mesh2d={args.mesh2d}: {e}", file=sys.stderr)
         return 2
     del planes, matrix
+    if blocks is not None:
+        say(f"[INFO] 2-D mesh {blocks[0]}x{blocks[1]}: shard i·{blocks[1]} + j holds block "
+            f"(i, j) of {op.band}x{op.cols}")
+    loop = ("host-stepped" if args.timers
+            else "recompute-ap" if op.mode == "stencil5-const" and blocks is None
+            else "classic")
+    if loop == "recompute-ap" and dtype == torch.bfloat16:
+        say("[ERROR] --mode=stencil5-const --dtype=bf16: the row bands' recompute loop "
+            "does not take a bf16 state (the JAX CLI fails there too); use --mesh2d, "
+            "--timers or --mode=stencil5", file=sys.stderr)
+        cg_sharded.clear_caches()
+        return 2
     if mesh is not None:
-        say(f"[INFO] 2-D mesh {mesh[0]}x{mesh[1]}: rank i·{mesh[1]} + j holds block (i, j) of "
-            f"{op.band}x{op.cols}")
-        loop = "host-stepped" if args.timers else "classic"
-        solve = (cg_sharded.cg_solve_sharded_2d_stepped if args.timers
-                 else cg_sharded.cg_solve_sharded_2d)
-        solve = functools.partial(solve, mesh)
+        step = op.solve_stepped if args.timers else op.solve
+
+        def solve():
+            return step(tolerance=args.tol, max_iters=args.maxiter)
     else:
-        loop = ("host-stepped" if args.timers
-                else "recompute-ap" if op.mode == "stencil5-const" else "classic")
-        if loop == "recompute-ap" and dtype == torch.bfloat16:
-            say(f"[ERROR] --mode=stencil5-const --dtype=bf16: the row bands' recompute loop "
-                "does not take a bf16 state (the JAX CLI fails there too); use --mesh2d, "
-                "--timers or --mode=stencil5", file=sys.stderr)
-            cg_sharded.clear_caches()
-            return 2
-        solve = (cg_sharded.cg_solve_sharded_stepped if args.timers
-                 else cg_sharded.cg_solve_sharded)
+        if blocks is not None:
+            solve = functools.partial(cg_sharded.cg_solve_sharded_2d_stepped if args.timers
+                                      else cg_sharded.cg_solve_sharded_2d, blocks)
+        else:
+            solve = (cg_sharded.cg_solve_sharded_stepped if args.timers
+                     else cg_sharded.cg_solve_sharded)
+        solve = functools.partial(solve, g, tolerance=args.tol, max_iters=args.maxiter,
+                                  dtype=dtype, operator=op)
 
     def run_solve(keep_x: bool = False):
         t0 = time.perf_counter()
-        x, st = solve(g, tolerance=args.tol, max_iters=args.maxiter, dtype=dtype, operator=op)
+        x, st = solve()
         ms = (time.perf_counter() - t0) * 1e3
         # the timed payloads keep no solution: a band per run would pile up until the
         # median run is known (cli/cg_solver.py's run_solve)
@@ -242,7 +258,7 @@ def run(args, device) -> int:
     _, (x, _st) = run_solve(keep_x=True)  # deterministic: one more solve gives x
 
     rank_times = None
-    if nranks > 1:  # the reference's MPI_Barrier -> solve -> MAX/MIN (:405, :749-800)
+    if mesh is None and n > 1:  # the reference's MPI_Barrier -> solve -> MAX/MIN
         dist.barrier()
         t_rank = time.perf_counter()
         run_solve()
@@ -257,19 +273,27 @@ def run(args, device) -> int:
     if rank_times is not None:
         say(f"Load imbalance:      {rank_times['load_imbalance_pct']:.2f}% (measured: max "
             f"{rank_times['solve_time_max_ms']:.2f} / min {rank_times['solve_time_min_ms']:.2f}"
-            f" ms across {nranks} ranks)")
-    elif mesh is not None:
-        say("Load imbalance:      0.00% (2-D blocks divide the grid exactly; one rank)")
+            f" ms across {n} ranks)")
+    elif blocks is not None:
+        say("Load imbalance:      0.00% (2-D blocks divide the grid exactly; one process)")
     else:
         imbalance = 100.0 * op.row_pad / op.band if op.band else 0.0
         say(f"Load imbalance:      {imbalance:.2f}% (row padding {op.row_pad} of band "
-            f"{op.band}; one rank)")
-    # the MPI_Gatherv analog, timed as the reference's CGStatsMultiGPU time_allgather
+            f"{op.band}; one process)")
+    # the MPI_Gatherv analog, timed as the reference's CGStatsMultiGPU time_allgather: the
+    # mesh's shards assembled on its first device, or the gloo ranks' gathered to rank 0
     t_gather = time.perf_counter()
-    x_host = (dist.gather_blocks_to_host(x, mesh) if mesh is not None
-              else dist.gather_to_host(x, rows=g))
+    if mesh is not None:
+        x = op.assemble(x)
+        op.sync()
+    else:
+        x = (dist.gather_blocks_to_host(x, blocks) if blocks is not None
+             else dist.gather_to_host(x, rows=g))
     allgather_ms = (time.perf_counter() - t_gather) * 1e3
+    x_host = host_numpy(x) if mesh is not None else x
     del x
+    topology = ({**dist.describe_mesh(mesh), "transport": "mesh"} if mesh is not None
+                else {**dist.describe_group(device), "transport": "gloo"})
     cg_sharded.clear_caches()  # a synthesized operand's operator is cached: drop it
     if not primary:
         return 0 if cg_stats.converged else 1
@@ -278,18 +302,19 @@ def run(args, device) -> int:
            if cg_stats.spmv_time_ms > 0 else None)
     result = export.cg_result_dict(
         # op.mode, not args.mode: a padded stencil5-const runs as stencil5
-        solver=(f"tpusparse-cg-sharded2d-{mesh[0]}x{mesh[1]}" if mesh is not None
-                else f"tpusparse-cg-sharded-{nranks}chip"), mode=op.mode, matrix_name=name,
+        solver=(f"tpusparse-cg-sharded2d-{blocks[0]}x{blocks[1]}" if blocks is not None
+                else f"tpusparse-cg-sharded-{n}chip"), mode=op.mode, matrix_name=name,
         op=op,
         cg_stats=cg_stats, bench_stats=bench, sysinfo=info, sum_x=float(x_host.sum()),
         norm2_x=float(np.linalg.norm(x_host)), gflops_spmv=gfl, loop=loop,
-        extra_timing={"num_chips": nranks, "allgather_ms": allgather_ms,
+        extra_timing={"num_chips": n, "allgather_ms": allgather_ms,
                       **({"spmv_kernel": "the ELL kernel (K12/K13's) over each band's "
                           "gather domain, the band and its two halo rows"}
                          if op.mode == "csr" else {}),
                       **(rank_times or {})},
     )
     result["dtype"] = {torch.float64: "f64", torch.bfloat16: "bf16"}.get(dtype, "f32")
+    result["topology"] = topology
     export.print_human_cg(result)
     if args.json:
         export.write_json(args.json, result)

@@ -3,15 +3,17 @@
 ``entry(device="cuda")``  returns ``fwd, (planes, x)``: one launch of K8 with its dot
                           (``kernels.stencil5.spmv_stencil5(planes, x, with_dot=True)``)
                           at g = 256 in f32, the planes made on the device, x = ones.
-``dryrun_multichip(n)``   solves small grids to convergence through the sharded CG on n
-                          gloo ranks (``dist.launch_local``; on a card the ranks share
-                          it) and asserts parity with the solves on one device: identical
-                          iteration counts and Sum(x)/Norm2(x), the reference's
-                          deterministic multi-GPU validation (its README.md:62).
+``dryrun_multichip(n)``   solves small grids to convergence through the sharded CG on an
+                          n-shard mesh that this process drives (``dist.make_band_mesh``,
+                          as the repo's entry builds its n-device mesh in one process; on
+                          one card the shards share it) and asserts parity with the solves
+                          on one device: identical iteration counts and Sum(x)/Norm2(x),
+                          the reference's deterministic multi-GPU validation (its
+                          README.md:62).
 
 The dryrun's legs, as in the JAX function: (a) ``cg_solve_sharded`` at g = 8n (one 8-row
-band a rank) against the single-device ``cg.cg_solve``; (b) g = 512 (64n when n does not
-divide 512) on n ranks against one rank; (c) ``cg_solve_sharded_stepped`` at g = 8n, its
+band a shard) against the single-device ``cg.cg_solve``; (b) g = 512 (64n when n does not
+divide 512) on n shards against one; (c) ``cg_solve_sharded_stepped`` at g = 8n, its
 ``halo``/``spmv``/``allreduce``/``blas1`` buckets printed; (d) for even n >= 4,
 ``cg_solve_sharded_2d`` on a (2, n/2) mesh against the single-device solve.  f64 on the
 card as on the CPU (the kernels have native f64), so every gate is exact: iterations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from . import dist, generate, ops
-from ._device import resolve_device
+from ._device import host_numpy, resolve_device
 from .kernels import blas1
 from .kernels import stencil5 as st5
 from .solvers import cg, cg_sharded
@@ -55,27 +57,31 @@ def _solve_kw(device):
                 max_iters=MAX_ITERS, dtype=DTYPE, device=device)
 
 
-def _dryrun_rank(device, g, g_large, mesh2):
-    """One rank of the dryrun's group: legs (a)-(d) in order.  Rank 0 returns the gathered
-    solutions, the stats, and every rank's launch and halo counts over the legs."""
-    for counter in (st5, blas1):
+def _legs(n, device, g, g_large, mesh2):
+    """Legs (a)-(d) on an n-shard mesh of ``device``'s kind, in order: the solutions (on
+    the host), the stats, and the launches (eager and replayed) and halo counts over the
+    legs."""
+    for counter in (st5, blas1, cg):
         counter.reset_launches()
     cg_sharded.reset_halo_calls()
+    mesh = dist.make_band_mesh(n, devices=device.type)
     kw = _solve_kw(device)
+    del kw["device"]
     out = {}
-    x, s = cg_sharded.cg_solve_sharded(g, **kw)
-    out["sharded"] = (dist.gather_to_host(x, rows=g), s)
-    x, s = cg_sharded.cg_solve_sharded(g_large, **kw)
-    out["large"] = (dist.gather_to_host(x, rows=g_large), s)
-    _x, out["stepped"] = cg_sharded.cg_solve_sharded_stepped(g, **kw)
+    for leg, grid in (("sharded", g), ("large", g_large)):
+        x, s = cg_sharded.cg_solve_sharded(grid, mesh=mesh, **kw)
+        out[leg] = (host_numpy(x), s)
+    _x, out["stepped"] = cg_sharded.cg_solve_sharded_stepped(g, mesh=mesh, **kw)
     if mesh2 is not None:
-        x, s = cg_sharded.cg_solve_sharded_2d(mesh2, g, **kw)
-        out["2d"] = (dist.gather_blocks_to_host(x, mesh2), s)
-    launches = {n: v for c in (st5, blas1) for n, v in c.LAUNCHES.items() if v}
-    out["launches"] = dist._all_objects(launches)
-    out["halo_calls"] = dist._all_objects(dict(cg_sharded.HALO_CALLS))
+        x, s = cg_sharded.cg_solve_sharded_2d(
+            dist.make_mesh(mesh2, devices=device.type), g, **kw)
+        out["2d"] = (host_numpy(x), s)
+    out["launches"] = {n: v for c in (st5, blas1) for n, v in c.LAUNCHES.items() if v}
+    for name, v in cg.LAUNCHES.items():
+        out["launches"][name] = out["launches"].get(name, 0) + v
+    out["halo_calls"] = dict(cg_sharded.HALO_CALLS)
     cg_sharded.clear_caches()
-    return out if dist.rank() == 0 else None
+    return out
 
 
 def _single_device(g, device):
@@ -90,10 +96,13 @@ def _single_device(g, device):
     return x, s
 
 
-def _one_rank(g, device):
-    """The sharded solve on one rank: this process, outside any group."""
-    x, s = cg_sharded.cg_solve_sharded(g, **_solve_kw(device))
-    x = dist.gather_to_host(x, rows=g)
+def _one_shard(g, device):
+    """The sharded solve on a mesh of one shard."""
+    kw = _solve_kw(device)
+    del kw["device"]
+    x, s = cg_sharded.cg_solve_sharded(g, mesh=dist.make_band_mesh(1, devices=device.type),
+                                       **kw)
+    x = host_numpy(x)
     cg_sharded.clear_caches()
     return x, s
 
@@ -108,23 +117,24 @@ def _close(a: float, b: float) -> bool:
 
 
 def dryrun_grids(n: int):
-    """(g, g_large, mesh2) of the dryrun on n ranks: leg (a)'s grid, one 8-row band a
-    rank; leg (b)'s, 512 (64n when n does not divide 512); leg (d)'s (2, n/2) mesh, or
+    """(g, g_large, mesh2) of the dryrun on n shards: leg (a)'s grid, one 8-row band a
+    shard; leg (b)'s, 512 (64n when n does not divide 512); leg (d)'s (2, n/2) mesh, or
     None when n is odd or under 4."""
     g_large = 512 if 512 % n == 0 else 64 * n
     return 8 * n, g_large, ((2, n // 2) if n >= 4 and n % 2 == 0 else None)
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> dict:
-    """Legs (a)-(d) on ``n_devices`` ranks, each gate asserted (AssertionError), one
+    """Legs (a)-(d) on an n_devices-shard mesh, each gate asserted (AssertionError), one
     ``[dryrun_multichip]`` line a leg.  Returns the legs' iterations and differences, and
-    each rank's launch counts (``launches``) and halo counts (``halo_calls``) over them."""
+    the launch counts (``launches``: each wrapper's eager launches and its graph replays')
+    and the halo counts (``halo_calls``, summed over the shards) over them."""
     n = int(n_devices)
     dev = resolve_device(device)
     g, g_large, mesh2 = dryrun_grids(n)
-    ranks = dist.launch_local(_dryrun_rank, n, g, g_large, mesh2, device=dev.type)
+    legs = _legs(n, dev, g, g_large, mesh2)
 
-    xn, sn = ranks["sharded"]
+    xn, sn = legs["sharded"]
     _check(xn.shape == (g, g), n, f"sharded x of shape {xn.shape}")
     _check(sn.converged, n, f"sharded solve did not converge: {sn}")
     x1, s1 = _single_device(g, dev)
@@ -140,8 +150,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
           f"{sn.iterations}, |ΔSum|={abs(sum_n - sum_1):.3e}, "
           f"|ΔNorm2|={abs(nrm_n - nrm_1):.3e} ≤ {PARITY_TOL:g} rel)", flush=True)
 
-    xl_n, sl_n = ranks["large"]
-    xl_1, sl_1 = _one_rank(g_large, dev)
+    xl_n, sl_n = legs["large"]
+    xl_1, sl_1 = _one_shard(g_large, dev)
     _check(sl_n.converged and sl_1.converged, n, f"large-grid leg: {sl_n}, {sl_1}")
     _check(sl_n.iterations == sl_1.iterations, n,
            f"large-grid leg iterations {sl_n.iterations} vs {sl_1.iterations}")
@@ -150,9 +160,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     print(f"[dryrun_multichip] large-grid leg g={g_large}: {sl_n.iterations} iterations "
           f"on {n} and 1 device(s), |ΔSum|={abs(sum_ln - sum_l1):.3e} — "
           "determinism-across-device-counts ASSERTED (14-iter regime needs g≳10⁴: "
-          "chip_smoke.py solves 20480² on 1, 2 and 4 ranks)", flush=True)
+          "chip_smoke.py solves 20480² on 1, 2 and 4 shards)", flush=True)
 
-    st = ranks["stepped"]
+    st = legs["stepped"]
     _check(st.converged and st.iterations == sn.iterations, n,
            f"stepped solve {st.iterations} iterations vs {sn.iterations}")
     print(f"[dryrun_multichip] stepped buckets ({st.iterations} iters): "
@@ -166,7 +176,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
                "stepped": {k: getattr(st, f"{k}_time_ms")
                            for k in ("halo", "spmv", "allreduce", "blas1")}}
     if mesh2 is not None:
-        x2, s2 = ranks["2d"]
+        x2, s2 = legs["2d"]
         _check(s2.converged and s2.iterations == s1.iterations, n,
                f"2-D mesh {mesh2}: {s2.iterations} iterations vs {s1.iterations}")
         d2 = abs(float(x2.sum()) - sum_1)
@@ -176,5 +186,5 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
               f"|ΔSum|={d2:.3e} — 2-D parity ASSERTED", flush=True)
         summary.update(mesh2d=list(mesh2), mesh2d_iterations=s2.iterations,
                        mesh2d_sum_diff=float(x2.sum()) - sum_1)
-    summary.update(launches=ranks["launches"], halo_calls=ranks["halo_calls"])
+    summary.update(launches=legs["launches"], halo_calls=legs["halo_calls"])
     return summary

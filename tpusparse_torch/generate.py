@@ -165,18 +165,24 @@ def make_stencil5_planes_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAU
 
 
 def ones_band(grid_size: int, rows=None, pad_rows=0, dtype=torch.float32, device="cuda",
-              cols=None):
+              cols=None, out=None):
     """The canonical b = ones on grid rows [lo, hi) (``rows``, default all), with
-    ``pad_rows`` zero rows appended: a rank's band of the right-hand side, made on the
+    ``pad_rows`` zero rows appended: a shard's band of the right-hand side, made on the
     device (the JAX package's ``_local_ones_b``, ``cg_sharded.py:406-412``); with
-    ``cols=(lo, hi)`` only those columns, a rank's block (the JAX 2-D solver's
-    ``jnp.ones((g // nr, g // nc))``, ``cg_sharded.py:1072``)."""
+    ``cols=(lo, hi)`` only those columns, a shard's block (the JAX 2-D solver's
+    ``jnp.ones((g // nr, g // nc))``, ``cg_sharded.py:1072``).  Written into ``out`` (a
+    field of that shape) when given, else into a new field."""
     g = int(grid_size)
     lo, hi = _band(g, rows, pad_rows)
     c0, c1 = _band(g, cols, 0, "columns")
-    b = torch.ones((hi - lo + pad_rows, c1 - c0), dtype=dtype, device=resolve_device(device))
-    b[hi - lo:].zero_()
-    return b
+    shape = (hi - lo + pad_rows, c1 - c0)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=resolve_device(device))
+    elif tuple(out.shape) != shape:
+        raise ValueError(f"out must be a {shape} field, got {tuple(out.shape)}")
+    out.fill_(1)
+    out[hi - lo:].zero_()
+    return out
 
 
 def _band(g, rows, pad_rows, what="rows"):

@@ -106,16 +106,20 @@ def check_state(t, what):
                          "and fused CG loops reject a bf16 state; use the classic loop")
 
 
+def buffer(shape, dtype, device):
+    """A buffer for a result: the workspace's while one is in use, else a new one."""
+    ws = _WORKSPACE
+    if ws is not None:
+        return ws.take(tuple(shape), dtype, device)
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
 def dot_buffers(like, nparts):
     """The 0-d result and the ``nparts`` per-block partials of a kernel's dot, in the
     dtype its dot accumulates in (``acc_dtype``: f32 for a bf16 state); a workspace's
     buffers while one is in use."""
     acc = acc_dtype(like.dtype)
-    ws = _WORKSPACE
-    if ws is not None:
-        return ws.take((), acc, like.device), ws.take((nparts,), acc, like.device)
-    return (torch.empty((), dtype=acc, device=like.device),
-            torch.empty(nparts, dtype=acc, device=like.device))
+    return buffer((), acc, like.device), buffer((nparts,), acc, like.device)
 
 
 _TICKETS = {}

@@ -296,16 +296,23 @@ UNROLL = 2
 
 @dataclasses.dataclass
 class _Slot:
-    """A solution field and the graph captured on it: free again once no tensor but
-    ``x`` uses its storage (the x a solve returned was dropped)."""
+    """A solution (a field, or a mesh's tuple of shard fields) and the graph captured on
+    it: free again once no tensor but the slot's uses their storage (the x a solve
+    returned was dropped)."""
 
-    x: torch.Tensor
+    x: object
     graph: object
-    ref: StorageWeakRef
-    free_uses: int
+    refs: list  # (StorageWeakRef, its use count while only the slot holds it) a field
+
+    @classmethod
+    def of(cls, x):
+        """x's slot, no graph captured yet."""
+        fields = x if isinstance(x, tuple) else (x,)
+        refs = [StorageWeakRef(t.untyped_storage()) for t in fields]
+        return cls(x, None, [(ref, torch._C._storage_Use_Count(ref.cdata)) for ref in refs])
 
     def free(self) -> bool:
-        return torch._C._storage_Use_Count(self.ref.cdata) <= self.free_uses
+        return all(torch._C._storage_Use_Count(ref.cdata) <= uses for ref, uses in self.refs)
 
 
 class DeviceLoop:
@@ -346,37 +353,45 @@ class DeviceLoop:
     """
 
     def __init__(self, op, loop, max_iters, tolerance, unroll=UNROLL):
-        if unroll < 2 or unroll % 2:
-            raise ValueError(f"unroll must be even and at least 2, got {unroll}")
-        if loop not in ("recompute", "fused", "classic"):
-            raise ValueError(f"unknown loop {loop!r}")
-        check_loop(op.dtype, loop)
-        self.loop, self.max_iters, self.tolerance, self.unroll = loop, max_iters, tolerance, \
-            unroll
-        self.device, self.dtype, self.shape = op.device, op.dtype, tuple(op.field_shape)
+        self._init_loop(loop, op.dtype, op.device, max_iters, tolerance, unroll)
+        self.graphed = self.device.type == "cuda"
+        self.shape = tuple(op.field_shape)
         self._spmv, self._spmv_dot = op.run_device, op.run_device_dot
         self._pupdate_dot, self._update_recompute = (op.run_pupdate_dot_op,
                                                      op.run_update_recompute_op)
         self._fused = op.run_fused_pupdate_op
-        acc = acc_dtype(self.dtype)
+        self.r = self._new_x()
+        self.p = (self._new_x(),) if loop == "classic" else (self._new_x(), self._new_x())
+        self.ap = None if loop == "recompute" else self._new_x()
 
-        def field():
-            return torch.empty(self.shape, dtype=self.dtype, device=self.device)
+    def _init_loop(self, loop, dtype, device, max_iters, tolerance, unroll):
+        """The loop's settings and its scalars on ``device``: rr, the previous rr, <b, b>,
+        tol², α, β (in the dots' dtype), 0, the first-iteration flag and k."""
+        if unroll < 2 or unroll % 2:
+            raise ValueError(f"unroll must be even and at least 2, got {unroll}")
+        if loop not in ("recompute", "fused", "classic"):
+            raise ValueError(f"unknown loop {loop!r}")
+        check_loop(dtype, loop)
+        self.loop, self.max_iters, self.tolerance, self.unroll = loop, max_iters, tolerance, \
+            unroll
+        self.device, self.dtype = device, dtype
+        acc = acc_dtype(dtype)
 
         def word(dtype=acc):
-            return torch.empty((), dtype=dtype, device=self.device)
+            return torch.empty((), dtype=dtype, device=device)
 
-        self.r = field()
-        self.p = (field(),) if loop == "classic" else (field(), field())
-        self.ap = None if loop == "recompute" else field()
         self.rr, self.rr_prev, self.bb, self.tol2, self.alpha, self.beta = (
             word() for _ in range(6))
-        self.zero = torch.zeros((), dtype=acc, device=self.device)
+        self.zero = torch.zeros((), dtype=acc, device=device)
         self.first = word(torch.bool)
-        self.k = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.k = torch.zeros((), dtype=torch.int64, device=device)
         self.slots = []
         self.workspace = None
         self.per_iteration = None  # wrapper -> launches of one captured iteration
+
+    def _new_x(self):
+        """A field of the loop's shape: a solution slot's, or a state field."""
+        return torch.empty(self.shape, dtype=self.dtype, device=self.device)
 
     @staticmethod
     def key(op, loop, max_iters, tolerance):
@@ -396,8 +411,14 @@ class DeviceLoop:
     def solve(self, b, x0=None, b_is_ones=False):
         """One solve: (x, iterations, rr, <b, b>), the last two Python floats.  b is a
         field of the loop's shape, device and dtype (ignored when ``b_is_ones``)."""
+        x, k, rr_f, bb_f = self._run(lambda x: self._start(x, b, x0, b_is_ones))
+        return x.view(self.shape), k, rr_f, bb_f
+
+    def _run(self, start):
+        """Take a free slot, ``start(x)`` on its solution, run the loop (one replay, or on
+        the host) and read (rr, <b, b>, k) in one read: (x, k, rr, <b, b>)."""
         slot = self._slot()
-        self._start(slot.x, b, x0, b_is_ones)
+        start(slot.x)
         if slot.graph is None:
             self._run_host(slot.x)
         else:
@@ -408,7 +429,7 @@ class DeviceLoop:
         k = int(k)
         if slot.graph is not None:
             self._count_replay(k)
-        return slot.x.view(self.shape), k, rr_f, bb_f
+        return slot.x, k, rr_f, bb_f
 
     def _start(self, x, b, x0, b_is_ones):
         """r0, x0, <r0, r0>, <b, b>, tol², k = 0 and the loop's first p into the state,
@@ -502,12 +523,11 @@ class DeviceLoop:
         for slot in self.slots:
             if slot.free():
                 return slot
-        x = torch.empty(self.shape, dtype=self.dtype, device=self.device)
-        ref = StorageWeakRef(x.untyped_storage())
-        free_uses = torch._C._storage_Use_Count(ref.cdata)
-        g = self._capture(x) if self.device.type == "cuda" else None
-        self.slots.append(_Slot(x, g, ref, free_uses))
-        return self.slots[-1]
+        slot = _Slot.of(self._new_x())
+        if self.graphed:
+            slot.graph = self._capture(slot.x)
+        self.slots.append(slot)
+        return slot
 
     def _capture(self, x):
         """The graph of the loop on the solution field x.  The first capture loads the
