@@ -204,6 +204,21 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      shapes (f32, f64, bf16), K6 on a side column, K1 and K2 on the 2-shard band and the
      ELL kernel's rectangular call over its gather domain, against their twins
      (chiprun_out/chip_smoke_mesh.json).
+ 15. (run after phase 14) the per-card loop (cg_sharded.CardLoop, per_shard=True): one CUDA
+     graph a shard, replayed on its stream, the shards meeting through csrc/mesh_sync.cu's
+     kernels (rows and dot partials stored into the other shards' buffers, each shard
+     waiting for them and adding the partials in shard order itself), its shards sharing
+     the card, at 20480² against the mesh's one graph: stencil5 f64 on 2 and 4 shards,
+     const f32 recompute and csr f64 on 4, stencil5 bf16 on 2, 2 x 2 stencil5 f64; a
+     first solve of each loop, then three rounds in turns (medians of 3); the per-card
+     solves are the path, read from their own counts: x bit for bit the mesh's, 14
+     iterations (bf16: the mesh's), one read and N replays a solve, exactly the launches
+     its iterations make (the sync kernels' among them); the sync kernels against their
+     twins bit for bit (2 and 4 shards, f64, f32 and bf16 rows, a strided column, both
+     waits, a wait past its bound), each timed in a CUDA graph of 50; and the
+     withheld-shard child (chip_smoke.py --withheld-child <bound>: shard 1 of 2 never
+     replayed, shard 0's waits must give up within the bound and the solve raise, and a new
+     loop then solve) (chiprun_out/chip_smoke_cards.json).
 
 On a card every cg_solve of phases 5, 7 and 8 runs the graph loop: a path's launch
 counts are its wrappers' eager launches plus its replays' (``cg.LAUNCHES``: the iterations
@@ -212,9 +227,9 @@ the graph's condition kernel (csrc/graph.cu, which ports no Pallas kernel) to it
 and times it.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5, 9, 10, 12, 13 and 14; the condition kernel's entry
-last) and
-then {"ok": true, "device": {...}}.
+record (launches summed over phases 5, 9, 10 and 12-15; the condition kernel's entry and
+the three sync kernels' last: like it they port no Pallas kernel) and then {"ok": true,
+"device": {...}}.
 Exports go to chiprun_out/.
 """
 
@@ -550,6 +565,38 @@ MESH_PROFILED = {"mesh stencil5 f64 x4": "stencil5 f64",
                  "mesh const f32 recompute x4": "const f32 recompute",
                  "mesh stencil5 f64 2x2": "stencil5 f64",
                  "mesh stencil5 bf16 x2": "stencil5 bf16"}
+# phase 15: the per-card loop (cg_sharded.CardLoop, per_shard=True: a CUDA graph a shard,
+# the shards meeting through csrc/mesh_sync.cu), its shards sharing the card, against the
+# mesh's one graph (MeshLoop) at G_BIG²: label -> (mesh shape, mode, dtype, loop arguments)
+CARD_RUNS = {
+    "stencil5 f64 x2": ((2,), "stencil5", "float64", {}),
+    "stencil5 f64 x4": ((4,), "stencil5", "float64", {}),
+    "const f32 recompute x4": ((4,), "stencil5-const", "float32", {}),
+    "csr f64 x4": ((4,), "csr", "float64", {}),
+    "stencil5 bf16 x2": ((2,), "stencil5", "bfloat16", {}),
+    "stencil5 f64 2x2": ((2, 2), "stencil5", "float64", {}),
+}
+CARD_TIMED = 3  # rounds of one solve of each loop, in turns, after a first solve of each
+SYNC_REPS = 50  # launches of a sync kernel in the graph that times it
+# the withheld-shard child: a per-card loop of 2 shards at WITHHELD_GRID² f64 whose shard 1
+# never runs; shard 0's waits must give up after WITHHELD_BOUND_S
+WITHHELD_CHILD = "--withheld-child"
+WITHHELD_GRID = 2048
+WITHHELD_BOUND_S = 2.0
+# the sync kernels (csrc/mesh_sync.cu, kernels/mesh_sync.py): they port no Pallas kernel;
+# they are the counterparts of the JAX loop's ppermute and psum
+SYNC_KERNELS = {
+    "mesh_publish_rows": ("sync rows", "publish_rows_kernel",
+                          "tpusparse_torch/csrc/mesh_sync.cu",
+                          "tpusparse/solvers/cg_sharded.py:468 (lax.ppermute in the "
+                          "while_loop; no pallas_call)"),
+    "mesh_publish_partial": ("sync partial", "publish_partial_kernel",
+                             "tpusparse_torch/csrc/mesh_sync.cu",
+                             "tpusparse/solvers/cg_sharded.py:427 (lax.psum in the "
+                             "while_loop; no pallas_call)"),
+    "mesh_wait": ("sync wait", "wait_kernel", "tpusparse_torch/csrc/mesh_sync.cu",
+                  "tpusparse/solvers/cg_sharded.py:446 (lax.psum's sum; no pallas_call)"),
+}
 
 
 def rel(a, b) -> float:
@@ -3119,6 +3166,312 @@ def phase_mesh(torch, counters, results, cmp, smi, splits):
     return counts.totals()
 
 
+def uncounted(fn):
+    """fn() with every count put back as it was: the wrappers' launches, the graph
+    replays' launches, the host reads and replays, the halo counts (a solve run beside a
+    path, not on it)."""
+    from tpusparse_torch.kernels import _launch
+    from tpusparse_torch.solvers import cg, cg_sharded
+
+    replayed, reads, halo = dict(_launch.REPLAYED), dict(cg.COUNTS), dict(cg_sharded.HALO_CALLS)
+    with _launch.set_apart():
+        out = fn()
+    _launch.REPLAYED.clear()
+    _launch.REPLAYED.update(replayed)
+    cg.COUNTS.update(reads)
+    cg_sharded.HALO_CALLS.update(halo)
+    return out
+
+
+def card_launches(shape, mode, k, solves):
+    """{wrapper: launches} of ``solves`` per-card solves of k iterations: the mesh's
+    kernels (``mesh_per_iteration``, <r0, r0> a shard), the condition kernel once before
+    each shard's WHILE node and twice a body, and the sync kernels (a shard's rows with
+    more than one shard, its two partials, a wait at each)."""
+    per, _halo = mesh_per_iteration(shape, mode, False)
+    n = 1
+    for v in shape:
+        n *= v
+    rows = n > 1
+    want = {w: v * k * solves for w, v in per.items()}
+    want["dot"] = want.get("dot", 0) + n * solves
+    want[COND] = n * solves * (1 + 2 * -(-k // 2))
+    want.update({"mesh_publish_rows": n * k * rows * solves,
+                 "mesh_publish_partial": 2 * n * k * solves,
+                 "mesh_wait": (2 + rows) * n * k * solves})
+    return {w: v for w, v in want.items() if v}
+
+
+def compare_sync(torch, smi):
+    """The sync kernels against their twins (the same calls on CPU copies, everything
+    compared bit for bit): at 2 and 4 shards, f64, f32 and bf16 rows, a G_BIG-wide row and
+    a G_BIG/2-long strided column (a 2 x 2 block's) into a neighbour's halo buffers, a
+    partial into every shard's slots, the wait on the rows' flags and the wait that sums
+    the slots, and a wait that passes its bound (its code, NaN).  Then each timed in a
+    CUDA graph of SYNC_REPS launches (f64, 4 shards), beside its twin's host time and its
+    byte bound.  Returns {wrapper: its kernels line entry}."""
+    from tpusparse_torch.kernels import mesh_sync
+
+    def case(t, n):
+        """The calls on the inputs ``t`` (on the card or the CPU), for n shards."""
+        device, acc = t["row_src"].device, t["slots"].dtype
+        row, col = torch.zeros_like(t["row_src"]), torch.zeros_like(t["block"][:, -1])
+        ctl = torch.tensor([40 + n, 0], dtype=torch.int64, device=device)
+        flags = torch.zeros((n, 4 + n), dtype=torch.int64, device=device)
+        slots = t["slots"][:n, :n].clone()
+        mesh_sync.publish_rows(ctl, mesh_sync.row_links(
+            [(t["row_src"], row, flags[1, 0]), (t["block"][:, -1], col, flags[1, 2])],
+            device))
+        mesh_sync.publish_partial(ctl, t["part"], mesh_sync.partial_links(
+            [(slots[j, 0], flags[j, 4]) for j in range(n)], device))
+        flags[:, 5:].fill_(41 + n)
+        mesh_sync.wait(ctl, flags[1, :4], 0b0101, 99, 10 ** 9)
+        ctl[0] = 40 + n
+        out = torch.empty((), dtype=acc, device=device)
+        mesh_sync.wait(ctl, flags[0, 4:], (1 << n) - 1, 98, 10 ** 9, slots=slots[0], out=out)
+        late = torch.zeros(2, dtype=torch.int64, device=device)
+        nan = torch.empty((), dtype=acc, device=device)
+        mesh_sync.wait(late, flags[1, :4], 0b0010, 97, 0 if device.type == "cpu" else 1000)
+        mesh_sync.wait(late, flags[1, 4:], 1, 96, 1000, slots=slots[1], out=nan)
+        return {"mesh_publish_rows": (row, col, flags[1, :4]),
+                "mesh_publish_partial": (slots[:, 0], flags[:, 4]),
+                "mesh_wait": (out, ctl, late, torch.nan_to_num(nan, nan=7.0))}
+
+    err = dict.fromkeys(mesh_sync.LAUNCHES, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        acc = torch.float32 if dtype == torch.bfloat16 else dtype
+        cuda = {"row_src": torch.randn(G_BIG, generator=gen, device="cuda").to(dtype),
+                "block": torch.randn((G_BIG // 2, G_BIG // 2), generator=gen,
+                                     device="cuda").to(dtype),
+                "slots": torch.randn((4, 4), generator=gen, device="cuda").to(acc),
+                "part": torch.randn((), generator=gen, device="cuda").to(acc)}
+        host = {k: v.cpu() for k, v in cuda.items()}
+        for n in (2, 4):
+            got, want = case(cuda, n), case(host, n)
+            torch.cuda.synchronize()
+            for name, pairs in want.items():
+                for k, p in zip(got[name], pairs):
+                    err[name] = max(err[name], abs_err(k.cpu(), p))
+                    if not torch.equal(k.cpu(), p):
+                        raise AssertionError(f"{name} {n} shards {dname(dtype)}: the kernel's "
+                                             f"{tuple(p.shape)} differs from its twin's")
+            print(f"[compare] sync {n} shards {dname(dtype)}: a {G_BIG}-wide row, a "
+                  f"{G_BIG // 2}-long column {G_BIG // 2} apart, the partials, both waits and "
+                  f"a wait past its bound equal their twins bit for bit", flush=True)
+        del cuda, host
+    n, f64 = 4, torch.float64
+    block = torch.rand((G_BIG // 2, G_BIG), dtype=f64, device="cuda")
+    row, col = torch.zeros(G_BIG, dtype=f64, device="cuda"), torch.zeros(G_BIG // 2, dtype=f64,
+                                                                          device="cuda")
+    ctl = torch.zeros(2, dtype=torch.int64, device="cuda")
+    flags = torch.full((n, 4 + n), 1 << 62, dtype=torch.int64, device="cuda")
+    slots, out = torch.rand((n, n), dtype=f64, device="cuda"), torch.empty((), dtype=f64,
+                                                                             device="cuda")
+    part = torch.rand((), dtype=f64, device="cuda")
+    links = mesh_sync.row_links([(block[-1], row, flags[1, 0]), (block[:, -1], col,
+                                                                  flags[1, 2])], "cuda")
+    dests = mesh_sync.partial_links([(slots[j, 0], flags[j, 4]) for j in range(n)], "cuda")
+    calls = {
+        "mesh_publish_rows": (lambda: mesh_sync.publish_rows(ctl, links),
+                              (2 * nbytes(row, col), 0)),
+        "mesh_publish_partial": (lambda: mesh_sync.publish_partial(ctl, part, dests),
+                                 (nbytes(part) + n * (8 + 8), 0)),
+        "mesh_wait": (lambda: mesh_sync.wait(ctl, flags[0, 4:], (1 << n) - 1, 98, 10 ** 9,
+                                             slots=slots[0], out=out),
+                      (nbytes(flags[0, 4:], slots[0], out) + 2 * 8, 0)),
+        "mesh_wait rows": (lambda: mesh_sync.wait(ctl, flags[1, :4], 0b0101, 99, 10 ** 9),
+                           (2 * 8 + 2 * 8, 0)),
+    }
+    cpu = {"ctl": ctl.cpu(), "flags": flags.cpu(), "slots": slots.cpu(), "out": out.cpu(),
+           "part": part.cpu(), "block": block.cpu(), "row": row.cpu(), "col": col.cpu()}
+    cpu_links = mesh_sync.row_links([(cpu["block"][-1], cpu["row"], cpu["flags"][1, 0]),
+                                     (cpu["block"][:, -1], cpu["col"], cpu["flags"][1, 2])],
+                                    "cpu")
+    cpu_dests = mesh_sync.partial_links([(cpu["slots"][j, 0], cpu["flags"][j, 4])
+                                         for j in range(n)], "cpu")
+    twins = {
+        "mesh_publish_rows": lambda: mesh_sync.publish_rows(cpu["ctl"], cpu_links),
+        "mesh_publish_partial": lambda: mesh_sync.publish_partial(cpu["ctl"], cpu["part"],
+                                                                  cpu_dests),
+        "mesh_wait": lambda: mesh_sync.wait(cpu["ctl"].zero_(), cpu["flags"][0, 4:],
+                                            (1 << n) - 1, 98, 10 ** 9, slots=cpu["slots"][0],
+                                            out=cpu["out"]),
+        "mesh_wait rows": lambda: mesh_sync.wait(cpu["ctl"].zero_(), cpu["flags"][1, :4],
+                                                 0b0101, 99, 10 ** 9),
+    }
+    entries = {}
+    for name, (fn, work) in calls.items():
+        fn()
+        if name.startswith("mesh_wait"):  # every wait finds its flags there (the twin's
+            flags.fill_(1 << 62)          # at epoch 1, its epoch set back to 0 each call)
+            cpu["flags"].fill_(1)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(SYNC_REPS):
+                fn()
+        us = _time_ms(torch, g.replay) * 1e3 / SYNC_REPS
+        del g
+        t0 = time.perf_counter()
+        for _ in range(SYNC_REPS):
+            twins[name]()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / SYNC_REPS
+        bound_ms, bound_by = bound(work, "f64")
+        print(f"[time] sync {name} f64, {n} shards: {us!r} µs a launch in a graph of "
+              f"{SYNC_REPS}, twin {plain_ms * 1e3!r} µs on the host, bound {bound_ms * 1e3!r} "
+              f"µs ({bound_by}) [{smi}]", flush=True)
+        entries[name] = {"max_abs_err": err.get(name, 0.0), "max_rel_err": 0.0,
+                         "ms": us / 1e3, "plain_ms": plain_ms, "library_ms": None,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+    if int(ctl[1].item()) or any(torch.isnan(out).reshape(1).tolist()):
+        raise AssertionError("a timed sync kernel took its error path")
+    entries["mesh_wait"]["rows_wait_ms"] = entries.pop("mesh_wait rows")["ms"]
+    return entries
+
+
+def _withheld_child(bound_s) -> int:
+    """A per-card loop of 2 shards on the card with shard 1's graph withheld: prints
+    {"error": ..., "seconds": ..., "iterations": [before, after]} (the solve's
+    RuntimeError, its wall time, and the iterations of a solve before it and of one by a
+    new loop after it)."""
+    import torch
+
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    cg_sharded.WAIT_BOUND_S = float(bound_s)
+    op = cg_sharded.make_mesh_operator(WITHHELD_GRID, dist.make_band_mesh(2), mode="stencil5",
+                                       dtype=torch.float64)
+    _xs, before = op.solve(per_shard=True)
+    loop = next(lp for lp in op.graphs.values() if isinstance(lp, cg_sharded.CardLoop))
+    loop.withheld = 1
+    t0 = time.perf_counter()
+    try:
+        op.solve(per_shard=True)
+        error = None
+    except RuntimeError as e:
+        error = str(e)
+    seconds = time.perf_counter() - t0
+    _xs, after = op.solve(per_shard=True)
+    print(json.dumps({"error": error, "seconds": seconds,
+                      "iterations": [before.iterations, after.iterations]}))
+    return 0
+
+
+def run_withheld(smi):
+    """The withheld-shard child (a process of its own: its waits spin until the bound):
+    shard 0's wait must give up within [bound, bound + 5 s] and the solve raise, and a new
+    loop must then solve in as many iterations as before.  Returns its record."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), WITHHELD_CHILD,
+                          str(WITHHELD_BOUND_S)], cwd=ROOT, capture_output=True, text=True,
+                         timeout=180)
+    if out.returncode != 0:
+        raise AssertionError(f"the withheld-shard child failed ({out.returncode}):\n"
+                             f"{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    its = res["iterations"]
+    ok = (res["error"] is not None and "shard 0's wait" in res["error"]
+          and WITHHELD_BOUND_S <= res["seconds"] < WITHHELD_BOUND_S + 5
+          and its[0] == its[1] > 0)
+    print(f"[cards] withheld shard 1 of 2 at {WITHHELD_GRID}²: the solve raised after "
+          f"{res['seconds']:.3f} s (bound {WITHHELD_BOUND_S:g} s): {res['error']!r}; "
+          f"{its[0]} iterations before, {its[1]} by a new loop after; the child's wall "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    if not ok:
+        raise AssertionError(f"withheld shard: {res}")
+    return res
+
+
+def phase_cards(torch, counters, smi):
+    """Phase 15: the per-card loop (cg_sharded.CardLoop, ``per_shard=True``), a graph a
+    shard, its shards sharing the card, against the mesh's one graph (MeshLoop) at G_BIG²
+    in every case of CARD_RUNS: a first solve of each loop, then CARD_TIMED rounds in
+    turns; the per-card solves are the path (counts set to 0 before, read after; the
+    mesh's solves beside it uncounted): its x bit for bit the mesh's, 14 iterations (bf16:
+    the mesh's), one read and N replays a solve, and exactly the launches its iterations
+    make (``card_launches``).  Then the sync kernels against their twins and timed
+    (``compare_sync``) and the withheld-shard child (``run_withheld``).  Returns
+    ({wrapper: launches summed over the runs}, {sync wrapper: its kernels line entry})."""
+    from tpusparse_torch import dist
+    from tpusparse_torch.kernels import mesh_sync
+    from tpusparse_torch.solvers import cg, cg_sharded
+
+    t_phase = time.perf_counter()
+    counts = PathCounts((*counters, mesh_sync))
+    summary = {}
+    for label, (shape, mode, dtype_name, kw) in CARD_RUNS.items():
+        t0 = time.perf_counter()
+        n = 1
+        for v in shape:
+            n *= v
+        op = cg_sharded.make_mesh_operator(
+            G_BIG, dist.make_mesh(shape, ("x", "y")[:len(shape)]), mode=mode,
+            dtype=getattr(torch, dtype_name))
+        times = {"mesh": [], "cards": []}
+
+        def timed(name, **solve_kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            xs, s = op.solve(**solve_kw, **kw)
+            times[name].append((time.perf_counter() - t) * 1e3)
+            return xs, s
+
+        xs_m, s_m = uncounted(lambda: op.solve(**kw))
+        x_m = [x.clone() for x in xs_m]
+        del xs_m
+        first = {}
+
+        def path():
+            cg.reset_counts()
+            xs, s = op.solve(per_shard=True, **kw)
+            first["same"] = all(torch.equal(a, b) for a, b in zip(xs, x_m))
+            first["iterations"] = s.iterations
+            del xs
+            for r in range(CARD_TIMED):
+                for name in (("mesh", "cards") if r % 2 == 0 else ("cards", "mesh")):
+                    if name == "mesh":
+                        uncounted(lambda: timed("mesh"))
+                    else:
+                        timed("cards", per_shard=True)
+            return dict(cg.COUNTS)
+
+        needs = tuple(card_launches(shape, mode, 1, 1))
+        reads = counts.run(f"cards {label}", needs, path)
+        k, solves = first["iterations"], 1 + CARD_TIMED
+        want = card_launches(shape, mode, k, solves)
+        got = {w: v for w, v in counts.by_path[f"cards {label}"].items() if v}
+        want_reads = {"host_reads": solves, "replays": n * solves}
+        its_ok = k == s_m.iterations and (k == 14 or dtype_name == "bfloat16")
+        if not (first["same"] and its_ok and got == want and reads == want_reads):
+            raise AssertionError(f"cards {label}: x bit for bit {first['same']}, iterations "
+                                 f"{k} (mesh {s_m.iterations}), launches {got} (want {want}), "
+                                 f"reads {reads} (want {want_reads})")
+        med = {name: sorted(v)[len(v) // 2] for name, v in times.items()}
+        print(f"[cards] {label} {G_BIG}², {n} shards sharing the card: per-card graphs median "
+              f"{med['cards']!r} ms, the mesh's one graph {med['mesh']!r} ms (per card / mesh "
+              f"{med['cards'] / med['mesh']:.4f}; medians of {CARD_TIMED} in turns); {k} "
+              f"iterations, x bit for bit the mesh's; {reads['host_reads']} reads, "
+              f"{reads['replays']} replays in {solves} solves; the run's wall "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+        summary[label] = {"cards_ms": med["cards"], "mesh_ms": med["mesh"], "iterations": k,
+                          "reads": reads, "launches": got}
+        del op, x_m
+        cg_sharded.clear_caches()
+        torch.cuda.empty_cache()
+    sync = compare_sync(torch, smi)
+    summary["sync"] = sync
+    summary["withheld"] = run_withheld(smi)
+    summary["card"] = smi
+    (OUT / "chip_smoke_cards.json").write_text(json.dumps(summary, indent=1))
+    totals = {name: sum(c.get(name, 0) for c in counts.by_path.values())
+              for name in (*KERNELS, K3_SCALAR, COND, *SYNC_KERNELS)}
+    print(f"[cards] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals, sync
+
+
 def main() -> int:
     import torch
 
@@ -3180,6 +3533,10 @@ def main() -> int:
                                   splits).items():
         launches[name] += count
     done(14)
+    cards, sync = phase_cards(torch, (st5, blas1, ell, dia), smi)
+    for name, count in cards.items():
+        launches[name] = launches.get(name, 0) + count
+    done(15)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "
@@ -3210,6 +3567,10 @@ def main() -> int:
     record["kernels"].append({"name": COND, "short": short_name, "route": "cuda",
                               "source": source, "replaces": replaces,
                               "launches": launches[COND], **cond})
+    for name, (short_name, _fn, source, replaces) in SYNC_KERNELS.items():
+        record["kernels"].append({"name": name, "short": short_name, "route": "cuda",
+                                  "source": source, "replaces": replaces,
+                                  "launches": launches[name], **sync[name]})
     print(f"nvidia-smi: {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3221,6 +3582,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [HEADLINE_CHILD]:
         sys.exit(_headline_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == [WITHHELD_CHILD]:
+        sys.exit(_withheld_child(sys.argv[2]))
     t0 = time.perf_counter()
     rc = main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

@@ -16,7 +16,8 @@ process.  f64 unless a case says otherwise.  Bars:
   Sum/Norm2 to 1e-3 of JAX's);
 - against the gloo ranks (``dist.launch_local``) on the same decomposition, bands and
   blocks, classic, recompute, csr, bf16 and stepped: the same iterations and x bit for
-  bit (both add the shards' partial dots in shard order);
+  bit (both add the shards' partial dots in shard order), the per-card loop
+  (``per_shard=True``) too;
 - the eager loop (every solve on the CPU) reads its flag once an iteration, counted in
   ``cg.COUNTS``; the halo counters: every shard with a neighbour exchanged rows once an
   iteration and handed them to its kernels; ``describe_mesh`` has the JAX function's
@@ -209,6 +210,17 @@ def test_mesh_equals_gloo_ranks(gloo, name):
     x, s, _ = _port(blocks or (n,), g, kind=kind, **kw)
     xg, its = gloo[name]
     assert s.iterations == its
+    np.testing.assert_array_equal(x, np.asarray(xg, np.float64))
+
+
+@pytest.mark.parametrize("name", [n for n, c in GLOO.items() if c[3] == "solve"])
+def test_per_card_loop_equals_gloo_ranks(gloo, name):
+    """The per-card loop (``per_shard=True``: a graph a shard on a card, here its twins)
+    against the gloo ranks of the same decomposition: the same iterations, x bit for bit."""
+    n, blocks, g, _kind, kw = GLOO[name]
+    x, s, counts = _port(blocks or (n,), g, per_shard=True, **kw)
+    xg, its = gloo[name]
+    assert s.iterations == its and counts == {"host_reads": 1, "replays": 0}
     np.testing.assert_array_equal(x, np.asarray(xg, np.float64))
 
 

@@ -13,18 +13,31 @@ it where JAX is not installed as tests/test_torch_cuda.py is run:
 - the mesh against gloo ranks sharing the card on the same decomposition: iterations
   equal, x bit for bit;
 - a capture whose iteration allocates raises; the mesh solves again afterwards;
-- the multichip CLI over a 4-shard mesh: one replay and one read a solve.
+- the multichip CLI over a 4-shard mesh: one replay and one read a solve;
+- the per-card loop (``cg_sharded.CardLoop``, ``per_shard=True``: a graph a shard, the
+  shards meeting through ``kernels/mesh_sync.py``) against the mesh's one graph in every
+  case above: the same iterations and every shard's x bit for bit, N replays and one read
+  a solve, the same kernel launches and halo counts, the condition kernel N times;
+- the sync kernels against their twins (rows, a strided column, partials, a wait that
+  sums, one that passes its bound), bit for bit;
+- a shard whose graph is withheld makes the others' waits give up within the bound, and
+  the solve raise (in a child process); a new loop then solves.
 """
 
 import json
+import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
 
 from tpusparse_torch import dist
-from tpusparse_torch.kernels import blas1, ell
+from tpusparse_torch.kernels import blas1, ell, mesh_sync
 from tpusparse_torch.kernels import stencil5 as st5
 from tpusparse_torch.solvers import cg, cg_sharded
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 pytestmark = pytest.mark.cuda
 
@@ -59,7 +72,7 @@ def _mesh(shape):
 
 def _solve(op, **kw):
     """One solve with its counts: (xs, CGStats, cg.COUNTS, cg.LAUNCHES, HALO_CALLS)."""
-    for c in (cg, st5, blas1, ell):
+    for c in (cg, st5, blas1, ell, mesh_sync):
         c.reset_launches()
     cg.reset_counts()
     cg_sharded.reset_halo_calls()
@@ -171,3 +184,115 @@ def test_mesh_cli_reads_once_a_solve(dev, tmp_path):
     assert res["topology"]["transport"] == "mesh"
     assert res["topology"]["num_processes"] == 1 and res["topology"]["num_devices"] == 4
     assert res["loop"] == "classic" and res["convergence"]["converged"]
+
+
+@pytest.mark.parametrize("label", list(CASES))
+def test_per_shard_loop_equals_mesh_loop_on_card(dev, label):
+    """The per-card loop with its shards sharing the card against the mesh's one graph:
+    x bit for bit, one read and N replays a solve, the same launches of every wrapper but
+    the condition kernel (once a shard's graph) and the sync kernels (none in the mesh's)."""
+    shape, mode, dtype, kw = CASES[label]
+    op = cg_sharded.make_mesh_operator(G, _mesh(shape), mode=mode, dtype=dtype)
+    n = op.mesh.size
+    xs_m, s_m, _, launched_m, halo_m = _solve(op, **kw)
+    for _ in range(2):  # the captures, then replays of the cached graphs
+        xs, s, counts, launched, halo = _solve(op, per_shard=True, **kw)
+        assert s.converged and s.iterations == s_m.iterations
+        assert all(torch.equal(a, b) for a, b in zip(xs, xs_m))
+        assert counts == {"host_reads": 1, "replays": n}
+        sync = {k: launched.pop(k, 0) for k in mesh_sync.LAUNCHES}
+        assert launched.pop("cg_cond") == n * launched_m["cg_cond"]
+        assert launched == {k: v for k, v in launched_m.items() if k != "cg_cond"}
+        rows = n > 1  # a shard's waits: its rows (with neighbours), then the two dots
+        k = s.iterations
+        assert sync == {"mesh_publish_rows": n * k * rows, "mesh_publish_partial": 2 * n * k,
+                        "mesh_wait": (2 + rows) * n * k}
+        assert halo == halo_m
+        del xs
+    cg_sharded.clear_caches()
+
+
+def _sync_case(device, dtype, n, rng):
+    """Two shards' sync state on ``device`` (twins on the CPU): shard 0 publishes a row and
+    a strided column into shard 1's halo buffers and its partial into both shards'
+    slots; returns what the checks read."""
+    acc = torch.float32 if dtype == torch.bfloat16 else dtype
+    field = torch.from_numpy(rng.standard_normal((5, 7))).to(dtype).to(device)
+    halo_row, halo_col = torch.zeros(7, dtype=dtype, device=device), torch.zeros(
+        5, dtype=dtype, device=device)
+    ctl = torch.tensor([41, 0], dtype=torch.int64, device=device)
+    flags = torch.zeros((max(n, 2), 4 + n), dtype=torch.int64, device=device)
+    slots = torch.from_numpy(rng.standard_normal((max(n, 2), n))).to(acc).to(device)
+    part = torch.tensor(rng.standard_normal(), dtype=acc, device=device)
+    rows = mesh_sync.row_links([(field[2], halo_row, flags[1, 0]),
+                                (field[:, -1], halo_col, flags[1, 2])], device)
+    dests = mesh_sync.partial_links([(slots[j, 0], flags[j, 4]) for j in range(n)], device)
+    mesh_sync.publish_rows(ctl, rows)
+    mesh_sync.publish_partial(ctl, part, dests)
+    flags[:, 5:].fill_(42)  # every other shard's partial is there
+    out = torch.empty((), dtype=acc, device=device)
+    mesh_sync.wait(ctl, flags[1, :4], 0b0101, 99, 10 ** 9)  # the row and the column
+    ctl[0] = 41
+    mesh_sync.wait(ctl, flags[0, 4:], (1 << n) - 1, 98, 10 ** 9, slots=slots[0], out=out)
+    late = torch.tensor([0, 0], dtype=torch.int64, device=device)  # waits for epoch 1
+    nan = torch.empty((), dtype=acc, device=device)
+    mesh_sync.wait(late, flags[1, :4], 0b0010, 97, 0 if device == "cpu" else 1000,
+                   slots=None)
+    mesh_sync.wait(late, flags[1, 4:], 1, 96, 1000, slots=slots[1], out=nan)
+    return {"halo_row": halo_row, "halo_col": halo_col, "flags": flags, "slots": slots,
+            "ctl": ctl, "out": out, "late": late, "nan": nan}
+
+
+@pytest.mark.parametrize("dtype", [F64, F32, BF16])
+def test_sync_kernels_equal_their_twins(dev, dtype):
+    import numpy as np
+
+    for n in (1, 3, 8):
+        got = _sync_case("cuda", dtype, n, np.random.default_rng(n))
+        want = _sync_case("cpu", dtype, n, np.random.default_rng(n))
+        for name, t in want.items():
+            if name == "nan":
+                assert torch.isnan(got[name].cpu()) and torch.isnan(t), name
+            else:
+                assert torch.equal(got[name].cpu(), t), name
+        assert int(want["ctl"][0]) == 42 and int(want["late"][1]) == 97  # the bound passed
+        # the sum of the slots in shard order, as the mesh adds its partials
+        parts = list(want["slots"][0].unbind())
+        assert torch.equal(want["out"], cg_sharded._sum_in_order(parts))
+
+
+_WITHHELD = """
+import json, sys, time
+import torch
+from tpusparse_torch import dist
+from tpusparse_torch.solvers import cg_sharded
+cg_sharded.WAIT_BOUND_S = float(sys.argv[1])
+op = cg_sharded.make_mesh_operator(256, dist.make_band_mesh(2), mode="stencil5",
+                                   dtype=torch.float64)
+_, s0 = op.solve(per_shard=True)
+loop = next(lp for lp in op.graphs.values() if isinstance(lp, cg_sharded.CardLoop))
+loop.withheld = 1
+t0 = time.perf_counter()
+try:
+    op.solve(per_shard=True)
+    error = None
+except RuntimeError as e:
+    error = str(e)
+seconds = time.perf_counter() - t0
+_, s1 = op.solve(per_shard=True)
+print(json.dumps({"error": error, "seconds": seconds, "iterations": [s0.iterations,
+                                                                     s1.iterations]}))
+"""
+
+
+def test_withheld_shard_raises_within_the_bound(dev):
+    """Shard 1's graph withheld: shard 0's waits give up after the bound, the solve
+    raises RuntimeError naming the wait, and a new loop then solves as before."""
+    bound = 1.0
+    out = subprocess.run([sys.executable, "-c", _WITHHELD, str(bound)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["error"] and "shard 0's wait" in res["error"] and "bound" in res["error"]
+    assert bound <= res["seconds"] < bound + 5
+    assert res["iterations"][0] == res["iterations"][1] > 0

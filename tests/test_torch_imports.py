@@ -57,7 +57,8 @@ def test_no_module_imports_jax():
                 "tpusparse_torch.solvers.cg_sharded", "tpusparse_torch.cli.cg_solver_multichip",
                 "tpusparse_torch.bench.sharded_overlap", "tpusparse_torch.bench.headline",
                 "tpusparse_torch.entry", "tpusparse_torch.scripts.sharded_compare",
-                "tpusparse_torch.bench.mesh_scaling", "tpusparse_torch.bench.shard_kernels"):
+                "tpusparse_torch.bench.mesh_scaling", "tpusparse_torch.bench.shard_kernels",
+                "tpusparse_torch.kernels.mesh_sync", "tpusparse_torch.kernels.graph"):
         assert mod in res["mods"]
 
 

@@ -76,6 +76,13 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     "tps_graph_cond_end": ((_P,), ctypes.c_int),
     "tps_graph_stream_create": ((ctypes.POINTER(ctypes.c_void_p),), ctypes.c_int),
+    "tps_mesh_publish_rows": ((_P, ctypes.c_int, ctypes.c_int, _P, _P), ctypes.c_int),
+    **{f"tps_mesh_publish_partial_{t}": ((_P, _P, ctypes.c_int, _P, _P), ctypes.c_int)
+       for t in ("f32", "f64")},
+    **{f"tps_mesh_wait_{t}": ((_P, _P, ctypes.c_int, ctypes.c_uint64, _P, _P, _I, _I, _P),
+                              ctypes.c_int) for t in ("f32", "f64")},
+    "tps_mesh_preload": ((), ctypes.c_int),
+    "tps_mesh_enable_peer": ((ctypes.c_int, ctypes.c_int), ctypes.c_int),
     "tps_probe_read_partials": ((_I,), _I),
     "tps_probe_read_f32": ((_P, _I, _P, _P), ctypes.c_int),
     "tps_probe_copy_f32": ((_P, _P, _I, _P), ctypes.c_int),

@@ -1,17 +1,26 @@
-"""The sharded CG's mesh across cards against the same mesh of shards on one card.
+"""The sharded CG's mesh across cards, in its two loops, against the same mesh of shards on
+one card.
 
     python -m tpusparse_torch.bench.mesh_scaling [--grid 20480] [--runs 5] [--json PATH]
-        [--platform cuda|cpu]
+        [--platform cuda|cpu] [--profile]
 
 For each case (mesh shape, mode, dtype) the mesh is built twice
 (``cg_sharded.make_mesh_operator``): one shard a card (``dist.make_mesh`` over cards 0 to
-n − 1; the eager loop, its flag read once an iteration), and every shard on card 0 (one
-CUDA graph replay a solve).  Each solves once, then ``--runs`` times; printed: both
-medians and their ratio, the iterations, the host reads and replays a solve
-(``cg.COUNTS``), and whether x is the same bit for bit (it must be: the same kernels on
-the same shards, the dots added in shard order).  Needs as many cards as the largest
-mesh (4) and exits 1 with fewer, or when an x differs.  ``--platform=cpu`` runs both
-meshes on the CPU (a rehearsal of the code path; its times say nothing of a card).
+n − 1), and every shard on card 0.  Three loops solve it: across the cards the per-card
+loop (``per_shard=True``, graph=None's choice there: a CUDA graph a shard, replayed on its
+card, N replays and one read a solve) and the eager loop (``graph=False``, its flag read
+once an iteration), in turns; on card 0 the mesh's one graph (one replay and one read a
+solve).  Each loop solves once, then ``--runs`` times; printed: the three medians, the
+per-card loop's speed-up over the eager loop and over the one card, the iterations, the
+host reads and replays a solve (``cg.COUNTS``), and whether x is the same bit for bit in
+all three (it must be: the same kernels on the same shards, the dots added in shard
+order on every card); and the time of one dot sync point across the cards
+(``_sync_us``).  ``--profile`` adds one profiled per-card solve a
+case: each card's device time in the sync kernels (mostly their waits) and in the rest.
+Needs as many cards as the largest mesh (4) and exits 1 with fewer, or when an x
+differs.  ``--platform=cpu`` runs every mesh on the CPU, the per-card
+loop on the kernels' twins (a rehearsal of the code path; its times say nothing of a
+card).
 """
 
 from __future__ import annotations
@@ -33,29 +42,115 @@ from . import sysinfo
 # (mesh shape, mode, dtype)
 CASES = (((4,), "stencil5", "f64"), ((4,), "stencil5-const", "f32"), ((2, 2), "stencil5", "f64"),
          ((2,), "stencil5", "f64"), ((4,), "csr", "f64"), ((2,), "stencil5", "bf16"))
+# the loops: label -> MeshOperator.solve's arguments; the first two run across the cards
+LOOPS = {"per card": {"per_shard": True}, "eager": {"graph": False}, "one card": {}}
+# dot sync points (a publish and a wait that sums) in the graph a shard that times one
+SYNC_REPS = 1000
 
 
-def _solve(mesh, g, mode, dtype, runs):
-    """(x on the host, iterations, median ms, cg.COUNTS a solve, whether the loop ran from
-    a graph) of ``runs`` solves after a first one."""
-    op = cg_sharded.make_mesh_operator(g, mesh, mode=mode, dtype=dtype)
-    xs, s = op.solve()
-    x = op.assemble(xs).cpu()
-    del xs
-    cg.reset_counts()
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        op.solve()
-        times.append((time.perf_counter() - t0) * 1e3)
-    counts = {k: v / runs for k, v in cg.COUNTS.items()}
-    graphed = op.one_card
+def _solve(op, runs, loops):
+    """{loop: (x on the host, iterations, median ms, cg.COUNTS a solve)} of each loop
+    (``LOOPS``' labels) on ``op``: a first solve each, then ``runs`` rounds of one solve
+    a loop, in turns."""
+    first, times = {}, {name: [] for name in loops}
+    counts = {name: dict.fromkeys(cg.COUNTS, 0) for name in loops}
+    for name in loops:
+        xs, s = op.solve(**LOOPS[name])
+        first[name] = (op.assemble(xs).cpu(), s.iterations)
+        del xs
+    for r in range(runs):
+        for name in (loops if r % 2 == 0 else loops[::-1]):
+            cg.reset_counts()
+            t0 = time.perf_counter()
+            op.solve(**LOOPS[name])
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            for k, v in cg.COUNTS.items():
+                counts[name][k] += v / runs
+    return {name: (*first[name], statistics.median(times[name]), counts[name])
+            for name in loops}
+
+
+def _sync_us(devices, reps=SYNC_REPS):
+    """µs of one dot sync point of the per-card loop on ``devices``, one shard a card:
+    each shard publishes a f64 partial into every shard's slots, then waits for all of
+    them and adds them (``kernels/mesh_sync.py``).  A CUDA graph of ``reps`` sync points a
+    shard, every shard's replayed at once on its own stream, timed on the host clock from
+    the launches to the last card's end (after a first replay); each sync point waits for
+    every shard's publish of it, so this is the round trip the loop pays three times an
+    iteration.  Raises if a wait gave up or a sum is wrong.  The cards must be distinct:
+    this times the round trip between cards."""
+    from ..kernels import graph as graph_kernels
+    from ..kernels import mesh_sync
+
+    n = len(devices)
+    if len(set(devices)) != n:
+        raise ValueError(f"one shard a card, got {devices}")
+    cg_sharded._enable_peers(devices)
+    ctl = [torch.zeros(2, dtype=torch.int64, device=d) for d in devices]
+    flags = [torch.zeros(n, dtype=torch.int64, device=d) for d in devices]
+    slots = [torch.zeros(n, dtype=torch.float64, device=d) for d in devices]
+    parts = [torch.full((), i + 1.0, dtype=torch.float64, device=d)
+             for i, d in enumerate(devices)]
+    outs = [torch.empty((), dtype=torch.float64, device=d) for d in devices]
+    graphs, streams = [], []
+    for i, d in enumerate(devices):
+        links = mesh_sync.partial_links([(slots[j][i], flags[j][i]) for j in range(n)], d)
+        mesh_sync.preload(d)
+        streams.append(graph_kernels.body_stream(d, ("sync round trip", i)))
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.device(d), torch.cuda.graph(graphs[-1], stream=streams[-1]):
+            for _ in range(reps):
+                mesh_sync.publish_partial(ctl[i], parts[i], links)
+                mesh_sync.wait(ctl[i], flags[i], (1 << n) - 1, 16 * (i + 1) + 2, 10 ** 10,
+                               slots=slots[i], out=outs[i])
+
+    def replay():
+        for g, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                g.replay()
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+
+    replay()
+    t0 = time.perf_counter()
+    replay()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    if any(int(c[1]) for c in ctl) or any(float(o) != n * (n + 1) / 2 for o in outs):
+        raise RuntimeError(f"the sync points on {devices} failed: errors "
+                           f"{[int(c[1]) for c in ctl]}, sums {[float(o) for o in outs]}")
+    return us
+
+
+def _profile(op):
+    """One per-card solve of ``op`` under torch.profiler: {card: {"sync": ms, "other":
+    ms}}, the device time of its kernels on each card, the sync kernels' (whose waits spin
+    until the other cards publish) apart from the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import profiling
+
+    scopes = {getattr(profiling, n) for n in dir(profiling) if n.startswith("PHASE_")}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        op.solve(**LOOPS["per card"])
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.key in scopes:
+            continue
+        card = out.setdefault(f"cuda:{e.device_index}", {"sync": 0.0, "other": 0.0})
+        sync = "wait_kernel" in e.key or "publish_" in e.key
+        card["sync" if sync else "other"] += e.self_device_time_total / 1e3
+    if not out:
+        raise RuntimeError("the profiler saw no device time")
+    return out
+
+
+def _free(op, mesh):
     del op
     cg_sharded.clear_caches()
     for d in {d for d in mesh.devices if d.type == "cuda"}:
         with torch.cuda.device(d):
             torch.cuda.empty_cache()
-    return x, s.iterations, statistics.median(times), counts, graphed
 
 
 def main(argv=None) -> int:
@@ -66,6 +161,8 @@ def main(argv=None) -> int:
     p.add_argument("--runs", type=int, default=5)
     p.add_argument("--json", default=None)
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--profile", action="store_true",
+                   help="profile one per-card solve of each case (device time by card)")
     args = p.parse_args(argv)
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     need = max(math.prod(shape) for shape, _m, _d in CASES)
@@ -74,27 +171,53 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     smi = sysinfo.nvidia_smi() if args.platform == "cuda" else "cpu"
+    if args.profile and args.platform == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        # CUPTI sees a graph's kernels only if it ran before the graph was captured
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
     one = "cuda:0" if args.platform == "cuda" else "cpu"
-    rows, ok = [], True
+    rows, ok, sync = [], True, {}
     for shape, mode, dtype_name in CASES:
         axes = ("x", "y")[:len(shape)]
         spread = dist.make_mesh(shape, axes, devices=args.platform)
         shared = dist.make_mesh(shape, axes, devices=[one])
         dtype = resolve_dtype(dtype_name)
-        xa, ka, ma, ca, ga = _solve(spread, args.grid, mode, dtype, args.runs)
-        xb, kb, mb, cb, gb = _solve(shared, args.grid, mode, dtype, args.runs)
-        same = ka == kb and torch.equal(xa, xb)
+        op = cg_sharded.make_mesh_operator(args.grid, spread, mode=mode, dtype=dtype)
+        res = _solve(op, args.runs, ("per card", "eager"))
+        prof = _profile(op) if args.profile and args.platform == "cuda" else None
+        _free(op, spread)
+        op = cg_sharded.make_mesh_operator(args.grid, shared, mode=mode, dtype=dtype)
+        res.update(_solve(op, args.runs, ("one card",)))
+        _free(op, shared)
+        (xc, kc, mc, cc), (xe, ke, me, ce), (xo, ko, mo, co) = (res[n] for n in LOOPS)
+        same = kc == ke == ko and torch.equal(xc, xe) and torch.equal(xc, xo)
         ok &= same
         split = "x".join(map(str, shape))
-        print(f"[mesh scaling] {args.grid}² {split} {mode} {dtype_name}: on "
-              f"{[str(d) for d in spread.devices]} {ka} iterations, median {ma!r} ms "
-              f"({'graph' if ga else 'eager'}, {ca} a solve); every shard on {one}: {kb} "
-              f"iterations, median {mb!r} ms ({'graph' if gb else 'eager'}, {cb} a solve); "
-              f"one card / cards {mb / ma!r}; x bit for bit: {same} [{smi}]", flush=True)
+        sync_us = None
+        if args.platform == "cuda":  # a dot sync point across the cards
+            if spread.devices not in sync:
+                sync[spread.devices] = _sync_us(spread.devices)
+            sync_us = sync[spread.devices]
+            print(f"[mesh scaling] a dot sync point across {len(spread.devices)} cards: "
+                  f"{sync_us!r} µs (a graph of {SYNC_REPS} a card) [{smi}]", flush=True)
+        if prof is not None:
+            print(f"[mesh scaling] {split} {mode} {dtype_name}, one per-card solve profiled, "
+                  "device ms by card: " + ", ".join(
+                      f"{card} sync {v['sync']!r} other {v['other']!r}"
+                      for card, v in sorted(prof.items())) + f" [{smi}]", flush=True)
+        print(f"[mesh scaling] {args.grid}² {split} {mode} {dtype_name} on "
+              f"{[str(d) for d in spread.devices]}: per-card graphs {kc} iterations, median "
+              f"{mc!r} ms ({cc} a solve); eager {ke} iterations, median {me!r} ms ({ce} a "
+              f"solve); every shard on {one}: {ko} iterations, median {mo!r} ms "
+              f"({co} a solve); eager / per card {me / mc!r}, one card / per card "
+              f"{mo / mc!r}; x bit for bit in all three: {same} [{smi}]", flush=True)
         rows.append({"grid": args.grid, "mesh": list(shape), "mode": mode,
                      "dtype": dtype_name, "devices": [str(d) for d in spread.devices],
-                     "iterations": [ka, kb], "median_ms": [ma, mb], "counts": [ca, cb],
-                     "graph": [ga, gb], "x_equal": same, "card": smi})
+                     "loops": list(LOOPS), "iterations": [kc, ke, ko],
+                     "median_ms": [mc, me, mo], "counts": [cc, ce, co], "x_equal": same,
+                     "sync_us": sync_us, "profile": prof, "card": smi})
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1)

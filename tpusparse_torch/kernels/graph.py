@@ -85,7 +85,8 @@ def body_stream(device, kind):
     of the port's own, made at first use (``preload``, before a capture) and kept.
     PyTorch's pool hands out its streams in turn, so one of them may be the stream that
     ``torch.cuda.graph`` captures on.  A capture only records on it; replays run on the
-    caller's stream."""
+    caller's stream.  Another ``kind`` (any other key) names another stream of the
+    port's own: the per-card loop's capture and replay streams."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())

@@ -388,6 +388,7 @@ class DeviceLoop:
         self.slots = []
         self.workspace = None
         self.per_iteration = None  # wrapper -> launches of one captured iteration
+        self.capture_stream = None  # the stream captures run on (None: torch.cuda.graph's)
 
     def _new_x(self):
         """A field of the loop's shape: a solution slot's, or a state field."""
@@ -548,8 +549,8 @@ class DeviceLoop:
             self._iteration(x, parity)
 
         g = torch.cuda.CUDAGraph()
-        with _launch.set_apart() as captured, torch.cuda.graph(g), \
-                _launch.use(self.workspace):
+        with _launch.set_apart() as captured, \
+                torch.cuda.graph(g, stream=self.capture_stream), _launch.use(self.workspace):
             allocs = _allocations(self.device)
             self._structure(self._capture_node, step)
             made = _allocations(self.device) - allocs

@@ -30,8 +30,14 @@ gloo ranks' order, so both transports give the same bits, and the iteration coun
 equal across decompositions.  α and β stay on the device.  With every shard on one card
 the loop runs from a captured CUDA graph (``MeshLoop``, on ``cg.DeviceLoop``'s WHILE and
 IF nodes): one replay and one read a solve, the JAX package's one ``lax.while_loop`` with
-no host round-trip.  Across cards, or with ``graph=False``, the same iteration runs
-eagerly, the flag k < max_iters and rr > tol² read once an iteration.
+no host round-trip.  Across cards (or on one card with ``per_shard=True``) each shard
+runs that loop from a graph of its own on its card (``CardLoop``), as every JAX device
+runs the ``shard_map``-wrapped loop: halo rows and dot partials are stored by kernels
+straight into the other shards' buffers on their cards, each card waits for them and
+adds the partials in shard order itself (``kernels/mesh_sync.py``), so every card holds
+the same sums and runs the same iterations; N replays and one read a solve.  With
+``graph=False`` the iteration runs eagerly, the flag k < max_iters and rr > tol² read
+once an iteration.
 
 **The gloo ranks** (every other entry, each rank calling the solver), the counterpart of
 the JAX package's multi-host mode: gloo takes CPU tensors only, so the halo rows and the
@@ -89,8 +95,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import sys
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -102,8 +110,9 @@ from .._device import resolve_device, resolve_dtype
 from ..bench import profiling
 from ..generate import (make_stencil5, make_stencil5_ell_device, make_stencil5_planes_device,
                         ones_band, stencil5_ell_device_ok, stencil5_nnz)
-from ..kernels import _launch, blas1
+from ..kernels import _launch, blas1, mesh_sync
 from ..kernels import ell as _ell
+from ..kernels import graph as graph_kernels
 from ..kernels import stencil5 as _st5
 from . import cg
 from .cg import CGConfig, CGStats, check_loop
@@ -715,7 +724,7 @@ class MeshOperator:
     shard (``make_sharded_operator(shard=(i, N))``), shard i on ``mesh.devices[i]``; row
     bands on a 1-D mesh, blocks on a 2-D one.  The shards' common attributes (grid_size,
     mode, dtype, band, cols, row_pad, nnz, ...) read as its own.  ``graphs``: its loops
-    (``MeshLoop``), dropped by ``free()``.
+    (``MeshLoop``, ``CardLoop``), dropped by ``free()``.
 
     ``solve`` and ``solve_stepped`` return the shards' fields, ``assemble`` the global
     field; ``exchange`` and ``sum`` are the mesh's transport."""
@@ -739,7 +748,7 @@ class MeshOperator:
 
     @property
     def one_card(self) -> bool:
-        """Whether every shard is on one card (the loop can then run from a graph)."""
+        """Whether every shard is on one card (one graph can then hold the whole loop)."""
         return self.device.type == "cuda" and len(set(self.mesh.devices)) == 1
 
     def exchange(self, fields):
@@ -756,27 +765,53 @@ class MeshOperator:
 
     def solve(self, b=None, *, tolerance: float = 1e-6, max_iters: int = 1000,
               recompute_ap: Optional[bool] = None, use_pallas_blas1: Optional[bool] = None,
-              graph: Optional[bool] = None):
+              graph: Optional[bool] = None, per_shard: bool = False):
         """One solve: (the shards' x fields, CGStats).  ``b``: None is b = ones, else the
         whole (g, g) field.  ``recompute_ap`` and ``use_pallas_blas1`` as in
-        ``cg_solve_sharded``.  ``graph``: None runs the loop from a captured CUDA graph when
-        every shard is on one card and the BLAS1 kernels run, else eagerly; True insists
-        on the graph (ValueError where it cannot run); False runs the eager loop.  A
-        capture that fails raises: nothing falls back."""
+        ``cg_solve_sharded``.  ``graph``: None runs the loop from CUDA graphs on the
+        cards: with every shard on one card one graph (``MeshLoop``), with shards on
+        several cards one graph a shard, each replayed on its card (``CardLoop``); on the
+        CPU, and on one card with ``use_pallas_blas1=False``, the eager loop.  True insists
+        on a graph (ValueError where none can run); False runs the eager loop.
+        ``per_shard``: the per-card loop even where the shards share one card (on the CPU
+        on the kernels' twins).  The per-card loop runs the BLAS1 kernels and needs peer
+        access between its cards (ValueError otherwise).  A capture that fails raises, and
+        so does a solve whose waits passed their bound: nothing falls back."""
         loop = _pick_loop(self, recompute_ap)
         kernels = use_pallas_blas1 is not False
-        can = self.one_card and kernels
-        if graph and not can:
-            raise ValueError(f"graph=True needs every shard on one card and the BLAS1 "
-                             f"kernels; the mesh is on {sorted(map(str, self.mesh.devices))},"
-                             f" use_pallas_blas1={use_pallas_blas1}")
-        graphed = can if graph is None else bool(graph)
-        key = (loop, max_iters, tolerance, kernels, graphed)
-        if key not in self.graphs:
-            self.graphs[key] = MeshLoop(self, loop, max_iters, tolerance, kernels, graphed)
+        cards = {d for d in self.mesh.devices if d.type == "cuda"}
+        per_card = graph is not False and (per_shard or len(cards) > 1)
+        if per_shard and graph is False:
+            raise ValueError("per_shard=True runs a graph a shard; graph=False the eager loop")
+        if per_card:
+            if not kernels:
+                raise ValueError("the per-card loop runs the BLAS1 kernels; pass graph=False "
+                                 "for the eager loop with use_pallas_blas1=False")
+            if graph and not cards:
+                raise ValueError("graph=True needs the shards on cards; the mesh is on "
+                                 f"{sorted(map(str, self.mesh.devices))}")
+            key = ("per card", loop, max_iters, tolerance)
+            if key not in self.graphs:
+                self.graphs[key] = CardLoop(self, loop, max_iters, tolerance)
+        else:
+            can = self.one_card and kernels
+            if graph and not can:
+                raise ValueError(f"graph=True needs every shard on one card and the BLAS1 "
+                                 f"kernels; the mesh is on "
+                                 f"{sorted(map(str, self.mesh.devices))}, "
+                                 f"use_pallas_blas1={use_pallas_blas1}")
+            graphed = can if graph is None else bool(graph)
+            key = (loop, max_iters, tolerance, kernels, graphed)
+            if key not in self.graphs:
+                self.graphs[key] = MeshLoop(self, loop, max_iters, tolerance, kernels, graphed)
         t0 = time.perf_counter()
         bs = None if b is None else [sh.band_of(b) for sh in self.shards]
-        xs, k, rr, bb = self.graphs[key].solve(bs)
+        try:
+            xs, k, rr, bb = self.graphs[key].solve(bs)
+        except RuntimeError:
+            if per_card:  # its epochs may disagree after a wait gave up: make it anew
+                self.graphs.pop(key, None)
+            raise
         return xs, _cg_stats(k, rr, bb, tolerance, t0)
 
     def solve_stepped(self, b=None, *, tolerance: float = 1e-6, max_iters: int = 1000,
@@ -1039,6 +1074,406 @@ class MeshLoop(cg.DeviceLoop):
 
 
 # ---------------------------------------------------------------------------
+# The per-card loop: one graph a shard, the shards meeting on the cards
+# ---------------------------------------------------------------------------
+
+# how long a wait of the per-card loop may spin (``CardLoop``), in seconds: far above an
+# iteration's time on any mesh, far below a hang; read when a loop is made
+WAIT_BOUND_S = 5.0
+# the sync points of an iteration, as a wait's error word names them (the word is
+# 16 · (shard + 1) + point)
+SYNC_POINTS = {1: "rows", 2: "<p, A·p>", 3: "<r, r>"}
+
+
+def _enable_peers(devices) -> None:
+    """Peer access between every two cards of ``devices``, both ways (a shard's partials
+    reach every shard): ValueError naming the first pair that has none, before any access
+    is enabled."""
+    cards = sorted({torch.cuda.current_device() if d.index is None else d.index
+                    for d in devices if d.type == "cuda"})
+    pairs = [(a, b) for a in cards for b in cards if a != b]
+    for a, b in pairs:
+        if not torch.cuda.can_device_access_peer(a, b):
+            raise ValueError(f"the per-card loop needs peer access from cuda:{a} to cuda:{b}, "
+                             "which this machine does not give (graph=False runs the eager "
+                             "loop)")
+    for a, b in pairs:
+        mesh_sync.enable_peer(a, b)
+
+
+class _CardShard(cg.DeviceLoop):
+    """One shard's part of a ``CardLoop``, all of it on the shard's device: its state (r,
+    p, Ap, the recompute loop's p′ rows, rr, the previous rr, <b, b>, tol², α, β, k, and
+    the two sums it waits for), its sync state (``ctl``: the epoch and the error word;
+    ``flags``: one a neighbour's rows, in the order previous, next, west, east, then one a
+    shard for each dot; ``partials``: a slot a shard for each dot), its workspace, and
+    its graphs, captured by ``cg.DeviceLoop``'s machinery on a stream of its card.  It
+    refers to its loop weakly: a cycle would leave the graphs to the cyclic garbage
+    collector, whose destruction of a graph during another capture breaks that capture."""
+
+    def __init__(self, owner, index, sh, n):
+        self._init_loop(owner.loop, sh.dtype, sh.device, owner.max_iters, owner.tolerance,
+                        owner.unroll)
+        self.owner, self.index, self.sh = weakref.ref(owner), index, sh
+        self.shape = tuple(sh.field_shape)
+        self.r = self._new_x()
+        self.p = ((sh.p_buffer(),) if self.loop == "classic"
+                  else (self._new_x(), self._new_x()))
+        self.ap = None if self.loop == "recompute" else self._new_x()
+        self.edges = (torch.empty((min(sh.band, 2), sh.cols), dtype=self.dtype,
+                                  device=self.device) if self.loop == "recompute" else None)
+        acc = self.rr.dtype
+        self.pap, self.rr_new = (torch.empty((), dtype=acc, device=self.device)
+                                 for _ in range(2))
+        self.ctl = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.flags = torch.zeros(4 + 2 * n, dtype=torch.int64, device=self.device)
+        self.row_flags = self.flags[:4]
+        self.dot_flags = (self.flags[4:4 + n], self.flags[4 + n:])
+        self.partials = torch.zeros((2, n), dtype=acc, device=self.device)
+        h = sh.halo
+        self.mask = sum(1 << bit for bit, j in enumerate((h.prev, h.next, h.west, h.east))
+                        if j is not None)
+        self.rows = self.dests = None  # its links, made once every shard has its buffers
+        self.rows_epoch = 0  # on the CPU: the epoch of the rows its kernels read
+        self.halo_per_iteration = {}
+        if self.device.type == "cuda":
+            self.capture_stream = graph_kernels.body_stream(self.device, "capture")
+            self.stream = graph_kernels.body_stream(self.device, ("shard", index))
+
+    def _iteration(self, x, parity):
+        """One iteration on the card: the shard's steps, each sync op launched, except in
+        the eager pass that records the workspace, which leaves them out (it must not wait
+        for shards that are not running)."""
+        dry, owner = self.workspace.recording, self.owner()
+        for op in owner._steps(self.index, x, parity):
+            if not dry:
+                op(owner.bound_ns)
+
+    def _capture(self, x):
+        """``cg.DeviceLoop``'s capture on the shard's card, with the halo counts set apart
+        as it sets the launches apart (``halo_per_iteration``)."""
+        before = dict(HALO_CALLS)
+        runs = self.unroll + (self.workspace is None)  # the first also records an iteration
+        with torch.cuda.device(self.device):
+            mesh_sync.preload(self.device)
+            try:
+                return super()._capture(x)
+            finally:
+                self.halo_per_iteration = {n: (v - before[n]) // runs
+                                           for n, v in HALO_CALLS.items()}
+                HALO_CALLS.update(before)
+
+
+class CardLoop:
+    """The sharded CG loop with one CUDA graph a shard, each replayed on its shard's card:
+    the counterpart of the JAX package's ``shard_map``-wrapped ``lax.while_loop``, in which
+    every device runs the loop and ``psum`` hands each the same sums.  A WHILE node's body
+    may hold kernels of one device only, so no one graph spans the cards.
+
+    Each shard (``_CardShard``) keeps its own copy of the loop's state and scalars on its
+    card and runs ``cg.DeviceLoop``'s graph: a WHILE node, ``unroll`` iterations a body,
+    the further ones under IF nodes, each condition set by the card from its own rr.  An
+    iteration makes the eager mesh's calls in its order (``MeshLoop``), with the mesh's
+    transport replaced by three sync points (``kernels/mesh_sync.py``): the rows (each
+    shard stores its boundary rows, and on a 2-D mesh its side columns, into its
+    neighbours' halo buffers on their cards, then waits for theirs), <p, A·p> and <r, r>
+    (each shard stores its partial into its slot of every shard's slots, then waits for
+    all and adds them in shard order on its own card: ``_mesh_sum``'s bits everywhere).  α
+    and β are then formed on every card by the same torch ops, so every card holds the
+    same scalars, evaluates the same condition and runs the same iterations.  No host
+    read, host copy or event fork-join remains inside a solve: its start runs eagerly as
+    the mesh's (its sums copied into every shard's scalars), then every shard's graph is
+    replayed on a stream of its own with no host wait between them, then one read (every
+    shard's rr, <b, b>, k and error word) ends it; shards that disagree, or a wait that
+    passed its bound (``WAIT_BOUND_S``), raise RuntimeError.
+
+    Why no remote write can land before its reader is done with the last one (k the
+    iteration; a shard's three sync points in an iteration come in the order rows,
+    <p, A·p>, <r, r>, and each wait needs every writer's publish of that sync point):
+
+      - a shard's halo buffers (rows, columns): the neighbour writes them at the rows
+        point of k + 1, after its wait at <r, r> of k, which needs the shard's <r, r>
+        publish of k, which follows the shard's last read of the halos in k (the SpMV in
+        the classic loop, K1 and K2 in the recompute loop);
+      - a shard's <p, A·p> slots: another shard writes them at k + 1 after its wait at
+        <r, r> of k, which needs this shard's <r, r> publish of k, which follows its sum
+        of the <p, A·p> slots in k;
+      - a shard's <r, r> slots: another shard writes them at k + 1 after its wait at
+        <p, A·p> of k + 1, which needs this shard's <p, A·p> publish of k + 1, which
+        follows its sum of the <r, r> slots in k;
+      - a flag: written by its one writer, after its data, to the epoch of the sync point,
+        which rises by one at every sync point on every shard alike and never falls.
+
+    Shards that share a card (``per_shard=True`` on one card, or more shards than cards)
+    spin in their waits side by side, so their graphs must run at once: they do, except
+    after a torch.profiler session begun before the kernels were loaded, which runs them
+    one after another; their waits then pass the bound and the solve raises.
+
+    On the CPU (the tests) ``solve`` runs the same steps on the kernels' twins: every
+    shard's program (``cg.DeviceLoop``'s structure, each node's condition read on the
+    host) is a coroutine that stops at each sync op, and ``_run_host`` interleaves them,
+    the lowest shard that can go on first, or as ``schedule`` (a ``random.Random``) picks;
+    when every shard waits for another, the bound has passed.  Every read of a halo row
+    there checks its flags' epoch (``mesh_sync.check_epochs``), every sum its slots'.
+    ``withheld``: a shard whose graph (or program) a solve leaves out, to test the bound."""
+
+    def __init__(self, op, loop, max_iters, tolerance, unroll=cg.UNROLL):
+        self.loop, self.max_iters, self.tolerance, self.unroll = loop, max_iters, tolerance, \
+            unroll
+        self.shards, self.device, self.dtype = op.shards, op.device, op.dtype
+        self.graphed = self.device.type == "cuda"
+        if self.graphed:
+            _enable_peers(op.mesh.devices)
+        n = len(self.shards)
+        self.parts = tuple(_CardShard(self, i, sh, n) for i, sh in enumerate(self.shards))
+        for i, s in enumerate(self.parts):
+            if n > 1:
+                src = s.p[0] if loop == "classic" else s.edges
+                s.rows = mesh_sync.row_links(self._row_items(i, src), s.device)
+            s.dests = tuple(mesh_sync.partial_links(
+                [(t.partials[d, i], t.dot_flags[d][i]) for t in self.parts], s.device)
+                for d in (0, 1))
+        self.bound_ns = int(WAIT_BOUND_S * 1e9)
+        self.solutions = []
+        self.schedule = None
+        self.withheld = None
+
+    def _row_items(self, i, src):
+        """(source, destination, flag) of shard i's rows: its first row into its previous
+        neighbour's next halo, its last into its next neighbour's previous halo, its first
+        and last columns into its west and east neighbours' halo columns."""
+        h, items = self.shards[i].halo, []
+        for j, row, name, flag in ((h.prev, src[0], "halo_next", 1),
+                                   (h.next, src[-1], "halo_prev", 0),
+                                   (h.west, src[:, 0], "halo_e", 3),
+                                   (h.east, src[:, -1], "halo_w", 2)):
+            if j is not None:
+                items.append((row, getattr(self.shards[j].halo, name).view(-1),
+                              self.parts[j].row_flags[flag]))
+        return items
+
+    def solve(self, bs=None):
+        """One solve from b = ones (``bs`` None) or the shards' parts of b: (the shards' x
+        fields, iterations, rr, <b, b>), the last two Python floats."""
+        slot = self._slot()
+        self._start(slot.x, bs)
+        if slot.graph is None:
+            self._run_host(slot.x)
+        else:
+            self._replay(slot.graph)
+        return (slot.x, *self._read(slot.graph is not None))
+
+    def _slot(self):
+        for slot in self.solutions:
+            if slot.free():
+                return slot
+        slot = cg._Slot.of(tuple(s._new_x() for s in self.parts))
+        if self.graphed:
+            slot.graph = tuple(s._capture(x) for s, x in zip(self.parts, slot.x))
+        self.solutions.append(slot)
+        return slot
+
+    def _start(self, xs, bs):
+        """The mesh's start (``MeshLoop._start``), eagerly: each shard's r0, x0 and
+        <r0, r0> (K6), the sum in shard order, then <r0, r0>, <b, b>, tol², k = 0 and the
+        previous rr into every shard's scalars."""
+        rrs = []
+        for i, sh in _by_shard(self.shards):
+            s = self.parts[i]
+            if bs is None:
+                sh.ones_b(out=s.r)
+            else:
+                s.r.copy_(bs[i])
+            xs[i].zero_()
+            rrs.append(blas1.dot(s.r, s.r))
+            if self.loop == "classic":
+                s.p[0].copy_(s.r)
+            else:
+                s.p[1].zero_()  # the first iteration's p_prev: p' = r + 0·0
+        rr = _mesh_sum(rrs, self.device)
+        for s in self.parts:
+            with _current(s.device):
+                s.rr.copy_(rr)
+                s.bb.copy_(rr)
+                torch.mul(s.bb, self.tolerance * self.tolerance, out=s.tol2)
+                s.k.zero_()
+                s.rr_prev.fill_(1)
+
+    def _replay(self, graphs):
+        """Every shard's graph replayed on its own stream of its card, after the start and
+        before the read, none waiting for another's launch or for the host."""
+        for i, (s, g) in enumerate(zip(self.parts, graphs)):
+            if i == self.withheld:
+                continue
+            s.stream.wait_stream(torch.cuda.current_stream(s.device))
+            with torch.cuda.stream(s.stream):
+                g.replay()
+        for s in self.parts:
+            torch.cuda.current_stream(s.device).wait_stream(s.stream)
+        cg.COUNTS["replays"] += len(graphs) - (self.withheld is not None)
+
+    def _read(self, replayed):
+        """The solve's one read, every shard's rr, <b, b>, k and error word: (k, rr,
+        <b, b>); RuntimeError for a wait past its bound or shards that disagree."""
+        rows = [torch.stack([s.rr.double(), s.bb.double(), s.k.double(),
+                             s.ctl[1].double()]).to(self.device) for s in self.parts]
+        status = cg._read(torch.stack(rows)).tolist()
+        errors = [int(row[3]) for row in status if row[3]]
+        if errors:
+            shared = len({s.device for s in self.parts}) < len(self.parts)
+            raise RuntimeError("the per-card loop stopped: " + "; ".join(
+                f"shard {e // 16 - 1}'s wait at {SYNC_POINTS.get(e % 16, e % 16)} passed its "
+                f"bound of {self.bound_ns / 1e9:g} s" for e in errors)
+                + " (a shard did not publish" + (
+                    "; shards that share a card need their graphs to run at once, which a "
+                    "torch.profiler session begun before the kernels were loaded prevents"
+                    if shared and self.graphed else "") + ")")
+        ks = {int(row[2]) for row in status}
+        if len(ks) > 1 or len({repr(row[0]) for row in status}) > 1:
+            raise RuntimeError(f"the shards disagree: k {[int(r[2]) for r in status]}, rr "
+                               f"{[r[0] for r in status]}")
+        k = ks.pop()
+        if replayed:
+            for s in self.parts:
+                s._count_replay(k)
+                for name, v in s.halo_per_iteration.items():
+                    HALO_CALLS[name] += v * k
+        return k, status[0][0], status[0][1]
+
+    # -- the iteration, as each shard runs it --------------------------------------------
+
+    def _steps(self, i, x, parity):
+        """Shard i's iteration, the eager mesh's calls in its order, as a generator of its
+        sync ops: each is ``op(bound_ns)``, True once it went through (a launch at once; a
+        twin's wait only when its flags are there)."""
+        s, sh = self.parts[i], self.shards[i]
+        if self.loop == "classic":
+            p = s.p[0]
+            if len(self.parts) > 1:
+                yield from self._exchange(s)
+            with profiling.scope(profiling.PHASE_SPMV):
+                self._check_rows(s)
+                pap = sh.spmv_dot(p, s.ap, sh.halo.halos)
+            yield from self._allsum(s, 0, pap, s.pap)
+            torch.div(s.rr, s.pap, out=s.alpha)
+            with profiling.scope(profiling.PHASE_AXPY):
+                rr_local = blas1.cg_update(s.alpha, x, s.r, p, s.ap)[2]
+            yield from self._allsum(s, 1, rr_local, s.rr_new)
+            torch.div(s.rr_new, s.rr, out=s.beta)
+            with profiling.scope(profiling.PHASE_UPDATE_P):
+                blas1.p_update(s.beta, s.r, p)  # p = r + β·p
+        else:
+            p, p_prev = s.p[parity], s.p[1 - parity]
+            kw = {"diag": sh.diag, "offdiag": sh.offdiag}
+            torch.eq(s.k, 0, out=s.first)
+            torch.div(s.rr, s.rr_prev, out=s.beta)
+            torch.where(s.first, s.zero, s.beta, out=s.beta)  # β = 0 on the first
+            if len(self.parts) > 1:
+                sh.edge_rows(s.r, p_prev, s.beta, out=s.edges)
+                yield from self._exchange(s)
+            hp, hn = sh.halo.halo_prev, sh.halo.halo_next
+            with profiling.scope(profiling.PHASE_SPMV):
+                self._check_rows(s)
+                pap = _st5.spmv_stencil5_const_pupdate_dot(s.beta, s.r, p_prev, hp, hn, out=p,
+                                                           **kw)[1]
+                sh.halo.count("spmv_stencil5_const_pupdate_dot", hp, hn)
+            yield from self._allsum(s, 0, pap, s.pap)
+            torch.div(s.rr, s.pap, out=s.alpha)
+            with profiling.scope(profiling.PHASE_AXPY):
+                self._check_rows(s)
+                rr_local = _st5.cg_const_update_recompute(s.alpha, x, s.r, p, hp, hn, **kw)[2]
+                sh.halo.count("cg_const_update_recompute", hp, hn)
+            yield from self._allsum(s, 1, rr_local, s.rr_new)
+            s.rr_prev.copy_(s.rr)
+        s.rr.copy_(s.rr_new)
+        s.k.add_(1)
+
+    def _exchange(self, s):
+        """The rows sync point (a mesh of more than one shard): publish the shard's rows,
+        wait for its neighbours'."""
+        yield functools.partial(_publish, mesh_sync.publish_rows, (s.ctl, s.rows))
+        yield functools.partial(mesh_sync.wait, s.ctl, s.row_flags, s.mask, _code(s, 1))
+        h = s.sh.halo
+        HALO_CALLS["exchange"] += h.has_rows
+        HALO_CALLS["column_exchange"] += h.has_cols
+        if not self.graphed:
+            s.rows_epoch = int(s.ctl[0])
+
+    def _allsum(self, s, d, part, out):
+        """A dot's sync point (d 0: <p, A·p>, 1: <r, r>): publish the shard's partial, wait
+        for every shard's and add them in shard order into ``out``."""
+        yield functools.partial(_publish, mesh_sync.publish_partial, (s.ctl, part, s.dests[d]))
+        yield functools.partial(mesh_sync.wait, s.ctl, s.dot_flags[d],
+                                (1 << len(self.parts)) - 1, _code(s, 2 + d),
+                                slots=s.partials[d], out=out)
+
+    def _check_rows(self, s):
+        """On the CPU, before a kernel reads the halos: their flags hold the epoch of the
+        rows sync point of this iteration (unless a wait gave up: the solve raises)."""
+        if not self.graphed and s.rows is not None and not int(s.ctl[1]):
+            mesh_sync.check_epochs(s.row_flags, s.mask, s.rows_epoch)
+
+    # -- the loop on the CPU ---------------------------------------------------------------
+
+    def _program(self, i, x):
+        """Shard i's loop on the host: ``cg.DeviceLoop._structure``'s nodes, each
+        condition read on the host, its iterations' sync ops yielded."""
+        s = self.parts[i]
+
+        def cond():
+            return graph_kernels.cond_plain(s.k, self.max_iters, s.rr, s.tol2)
+
+        while cond():
+            yield from self._steps(i, x, 0)
+            for j in range(1, self.unroll):
+                if cond():
+                    yield from self._steps(i, x, j % 2)
+
+    def _run_host(self, xs):
+        """Every shard's program, interleaved at its sync ops: the lowest shard that can
+        go on runs (or the one ``schedule`` picks), until each is done; when every shard
+        waits for another, the bound has passed and their waits take the error path."""
+        progs = {i: self._program(i, xs[i]) for i in range(len(self.parts))
+                 if i != self.withheld}
+        ops, blocked = {}, set()
+
+        def advance(i):
+            op = next(progs[i], None)
+            if op is None:
+                ops.pop(i, None)
+            else:
+                ops[i] = op
+
+        for i in progs:
+            advance(i)
+        while ops:
+            ready = sorted(set(ops) - blocked)
+            if not ready:
+                for i in sorted(blocked):
+                    ops[i](0)
+                    advance(i)
+                blocked.clear()
+                continue
+            i = ready[0] if self.schedule is None else self.schedule.choice(ready)
+            if ops[i](self.bound_ns):
+                advance(i)
+                blocked.clear()
+            else:
+                blocked.add(i)
+
+
+def _publish(fn, args, bound_ns):
+    """A publish as a sync op of ``CardLoop._steps``: it goes through at once."""
+    del bound_ns
+    return fn(*args)
+
+
+def _code(s, point):
+    """The error word of shard ``s``'s wait at sync point ``point`` (``SYNC_POINTS``)."""
+    return 16 * (s.index + 1) + point
+
+
+# ---------------------------------------------------------------------------
 # Solvers
 # ---------------------------------------------------------------------------
 
@@ -1076,15 +1511,16 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
                      overlap: bool = True, config: Optional[CGConfig] = None,
                      use_pallas_blas1: Optional[bool] = None, operator=None,
                      recompute_ap: Optional[bool] = None, device="cuda",
-                     mesh: Optional[dist.Mesh] = None, graph: Optional[bool] = None):
+                     mesh: Optional[dist.Mesh] = None, graph: Optional[bool] = None,
+                     per_shard: bool = False):
     """Sharded CG solve over a mesh in this process (``mesh``, or a ``MeshOperator`` as
     ``operator``), or on this gloo rank's band, every rank of the group calling it.
 
     Over a mesh it returns (x, CGStats) with x the global (g, g) field on the mesh's first
     device, as the JAX package returns it (``MeshOperator.solve`` gives the shards' fields
-    instead); ``graph`` as in ``MeshOperator.solve``.  On a gloo rank x is this rank's
-    band, (band, g) on its device, pad rows included; ``dist.gather_to_host(x, rows=g)``
-    gives rank 0 the field.
+    instead); ``graph`` and ``per_shard`` as in ``MeshOperator.solve``.  On a gloo rank x
+    is this rank's band, (band, g) on its device, pad rows included;
+    ``dist.gather_to_host(x, rows=g)`` gives rank 0 the field.
 
     ``b``: None builds each shard's band of b = ones; else the whole (g, g) field, of which
     each shard takes its rows.  ``recompute_ap``: None runs the recompute loop (K1, K2)
@@ -1105,10 +1541,11 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
     if isinstance(op, MeshOperator):
         xs, stats = op.solve(b, tolerance=tolerance, max_iters=max_iters,
                              recompute_ap=recompute_ap, use_pallas_blas1=use_pallas_blas1,
-                             graph=graph)
+                             graph=graph, per_shard=per_shard)
         return op.assemble(xs), stats
-    if graph:
-        raise ValueError("graph=True: a gloo rank's loop is host-stepped; pass a mesh")
+    if graph or per_shard:
+        raise ValueError("graph=True or per_shard=True: a gloo rank's loop is host-stepped; "
+                         "pass a mesh")
     recompute = _pick_loop(op, recompute_ap) == "recompute"
     kernels = use_pallas_blas1 is not False
     dot = blas1.dot if kernels else blas1.dot_plain
@@ -1320,7 +1757,8 @@ def cg_solve_sharded_2d(mesh, grid_size: int, *, mode: str = "stencil5", planes=
                         diag: float = 5.0, offdiag: float = -1.0, tolerance: float = 1e-6,
                         max_iters: int = 1000, dtype=torch.float32, b=None,
                         overlap: bool = True, use_pallas_blas1: Optional[bool] = None,
-                        operator=None, device="cuda", graph: Optional[bool] = None):
+                        operator=None, device="cuda", graph: Optional[bool] = None,
+                        per_shard: bool = False):
     """CG over the 2-D block decomposition (the JAX package's ``cg_solve_sharded_2d``,
     ``cg_sharded.py:828-878``): ``mesh`` a ``dist.Mesh`` of two axes (R, C) that this
     process drives, or an (R, C) shape of the group's gloo ranks, every rank calling it.
@@ -1330,14 +1768,14 @@ def cg_solve_sharded_2d(mesh, grid_size: int, *, mode: str = "stencil5", planes=
     updates).  ``b``: None builds each block of b = ones; else the whole (g, g) field.
     ``planes``: a whole (5, g, g) host array (a file's), else synthesized.  The grid must
     divide by R and C (ValueError; ``cg_solve_sharded`` pads instead).  Returns (x,
-    CGStats): over a mesh the global field (``graph`` as in ``MeshOperator.solve``), on a
-    gloo rank its (g/R, g/C) block, ``dist.gather_blocks_to_host(x, mesh)`` giving rank 0
-    the field."""
+    CGStats): over a mesh the global field (``graph`` and ``per_shard`` as in
+    ``MeshOperator.solve``), on a gloo rank its (g/R, g/C) block,
+    ``dist.gather_blocks_to_host(x, mesh)`` giving rank 0 the field."""
     op = _block_operator(mesh, grid_size, operator, device, mode=mode, planes=planes,
                          diag=diag, offdiag=offdiag, dtype=dtype, overlap=overlap)
     return cg_solve_sharded(grid_size, b=b, tolerance=tolerance, max_iters=max_iters,
                             use_pallas_blas1=use_pallas_blas1, operator=op,
-                            recompute_ap=False, graph=graph)
+                            recompute_ap=False, graph=graph, per_shard=per_shard)
 
 
 def cg_solve_sharded_2d_stepped(mesh, grid_size: int, *, mode: str = "stencil5",
