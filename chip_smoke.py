@@ -205,20 +205,32 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      ELL kernel's rectangular call over its gather domain, against their twins
      (chiprun_out/chip_smoke_mesh.json).
  15. (run after phase 14) the per-card loop (cg_sharded.CardLoop, per_shard=True): one CUDA
-     graph a shard, replayed on its stream, the shards meeting through csrc/mesh_sync.cu's
-     kernels (rows and dot partials stored into the other shards' buffers, each shard
-     waiting for them and adding the partials in shard order itself), its shards sharing
-     the card, at 20480² against the mesh's one graph: stencil5 f64 on 2 and 4 shards,
-     const f32 recompute and csr f64 on 4, stencil5 bf16 on 2, 2 x 2 stencil5 f64; a
-     first solve of each loop, then three rounds in turns (medians of 3); the per-card
-     solves are the path, read from their own counts: x bit for bit the mesh's, 14
-     iterations (bf16: the mesh's), one read and N replays a solve, exactly the launches
-     its iterations make (the sync kernels' among them); the sync kernels against their
-     twins bit for bit (2 and 4 shards, f64, f32 and bf16 rows, a strided column, both
-     waits, a wait past its bound), each timed in a CUDA graph of 50; and the
-     withheld-shard child (chip_smoke.py --withheld-child <bound>: shard 1 of 2 never
-     replayed, shard 0's waits must give up within the bound and the solve raise, and a new
-     loop then solve) (chiprun_out/chip_smoke_cards.json).
+     graph a card, replayed on its stream, its shards in lockstep in it, the shards meeting
+     through csrc/mesh_sync.cu's kernels (rows and dot partials stored into the other
+     shards' buffers, each shard waiting for them and adding the partials in shard order
+     itself), its shards sharing the card, at 20480² against the mesh's one graph:
+     stencil5 f64 on 2 and 4 shards, const f32 recompute and csr f64 on 4, stencil5 bf16
+     on 2, 2 x 2 stencil5 f64; a first solve of each loop, then three rounds in turns
+     (medians of 3); the per-card solves are the path, read from their own counts: x bit
+     for bit the mesh's, 14 iterations (bf16: the mesh's), one read and one replay a card
+     a solve, exactly the launches its iterations make (the sync kernels' among them); the
+     sync kernels against their twins bit for bit (2 and 4 shards, f64, f32 and bf16 rows,
+     a strided column, both waits, a wait past its bound), each timed in a CUDA graph of
+     50; the withheld-shard child (chip_smoke.py --withheld-child <bound>: shard 1 of 2
+     left out of the card's graph, shard 0's waits must give up within the bound and the
+     solve raise, and a new loop then solve); and the profiled child (chip_smoke.py
+     --profiled-child, under a time limit: a torch.profiler session begun before the
+     kernels load, then the per-card loop on 4 shards sharing the card at 2048² f64, x bit
+     for bit the mesh's) (chiprun_out/chip_smoke_cards.json).
+ 16. (run after phase 15) ranks that each drive a mesh of local shards
+     (dist.make_rank_mesh): dist.launch_local with 2 gloo ranks sharing the card, each
+     driving 2 of the 4 shards of one band mesh on cuda:0 (halos copied on the card within
+     a rank, one row each way between the ranks and every dot through the host by gloo,
+     the partials added in global shard order), at 20480², stencil5 f64 and const f32
+     recompute: a first solve, then three timed ones (a solve's time the slowest rank's),
+     each rank's launches set to 0 before and read after; x, by the sha256 of each band's
+     bytes, bit for bit the one-process 4-shard mesh's, 14 iterations both, and the
+     medians side by side (chiprun_out/chip_smoke_ranks.json).
 
 On a card every cg_solve of phases 5, 7 and 8 runs the graph loop: a path's launch
 counts are its wrappers' eager launches plus its replays' (``cg.LAUNCHES``: the iterations
@@ -227,7 +239,7 @@ the graph's condition kernel (csrc/graph.cu, which ports no Pallas kernel) to it
 and times it.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5, 9, 10 and 12-15; the condition kernel's entry and
+record (launches summed over phases 5, 9, 10 and 12-16; the condition kernel's entry and
 the three sync kernels' last: like it they port no Pallas kernel) and then {"ok": true,
 "device": {...}}.
 Exports go to chiprun_out/.
@@ -565,7 +577,7 @@ MESH_PROFILED = {"mesh stencil5 f64 x4": "stencil5 f64",
                  "mesh const f32 recompute x4": "const f32 recompute",
                  "mesh stencil5 f64 2x2": "stencil5 f64",
                  "mesh stencil5 bf16 x2": "stencil5 bf16"}
-# phase 15: the per-card loop (cg_sharded.CardLoop, per_shard=True: a CUDA graph a shard,
+# phase 15: the per-card loop (cg_sharded.CardLoop, per_shard=True: a CUDA graph a card,
 # the shards meeting through csrc/mesh_sync.cu), its shards sharing the card, against the
 # mesh's one graph (MeshLoop) at G_BIG²: label -> (mesh shape, mode, dtype, loop arguments)
 CARD_RUNS = {
@@ -583,6 +595,22 @@ SYNC_REPS = 50  # launches of a sync kernel in the graph that times it
 WITHHELD_CHILD = "--withheld-child"
 WITHHELD_GRID = 2048
 WITHHELD_BOUND_S = 2.0
+# the profiled child: a torch.profiler session begun before the kernels load, then the
+# per-card loop on PROFILED_SHARDS shards sharing the card at WITHHELD_GRID² f64, in a
+# process that is killed after PROFILED_TIMEOUT_S
+PROFILED_CHILD = "--profiled-child"
+PROFILED_SHARDS = 4
+PROFILED_TIMEOUT_S = 240
+# phase 16: RANK_MESH_RANKS gloo ranks sharing the card, each driving its share of one
+# RANK_MESH_SHARDS-shard band mesh (dist.make_rank_mesh) at G_BIG², against the
+# one-process mesh: label -> (mode, dtype, the kernels its path launches)
+RANK_MESH_RANKS, RANK_MESH_SHARDS = 2, 4
+RANK_MESH_RUNS = {
+    "stencil5 f64": ("stencil5", "float64", ("spmv_stencil5", "cg_update", "p_update",
+                                             "dot")),
+    "const f32 recompute": ("stencil5-const", "float32", RECOMPUTE),
+}
+RANK_MESH_TIMED = 3  # timed solves of each, after a first one
 # the sync kernels (csrc/mesh_sync.cu, kernels/mesh_sync.py): they port no Pallas kernel;
 # they are the counterparts of the JAX loop's ppermute and psum
 SYNC_KERNELS = {
@@ -3183,11 +3211,11 @@ def uncounted(fn):
     return out
 
 
-def card_launches(shape, mode, k, solves):
-    """{wrapper: launches} of ``solves`` per-card solves of k iterations: the mesh's
-    kernels (``mesh_per_iteration``, <r0, r0> a shard), the condition kernel once before
-    each shard's WHILE node and twice a body, and the sync kernels (a shard's rows with
-    more than one shard, its two partials, a wait at each)."""
+def card_launches(shape, mode, k, solves, cards=1):
+    """{wrapper: launches} of ``solves`` per-card solves of k iterations on ``cards``
+    cards: the mesh's kernels (``mesh_per_iteration``, <r0, r0> a shard), the condition
+    kernel once before each card's WHILE node and twice a body, and the sync kernels (a
+    shard's rows with more than one shard, its two partials, a wait at each)."""
     per, _halo = mesh_per_iteration(shape, mode, False)
     n = 1
     for v in shape:
@@ -3195,7 +3223,7 @@ def card_launches(shape, mode, k, solves):
     rows = n > 1
     want = {w: v * k * solves for w, v in per.items()}
     want["dot"] = want.get("dot", 0) + n * solves
-    want[COND] = n * solves * (1 + 2 * -(-k // 2))
+    want[COND] = cards * solves * (1 + 2 * -(-k // 2))
     want.update({"mesh_publish_rows": n * k * rows * solves,
                  "mesh_publish_partial": 2 * n * k * solves,
                  "mesh_wait": (2 + rows) * n * k * solves})
@@ -3330,7 +3358,7 @@ def compare_sync(torch, smi):
 
 
 def _withheld_child(bound_s) -> int:
-    """A per-card loop of 2 shards on the card with shard 1's graph withheld: prints
+    """A per-card loop of 2 shards on the card with shard 1 left out of its graph: prints
     {"error": ..., "seconds": ..., "iterations": [before, after]} (the solve's
     RuntimeError, its wall time, and the iterations of a solve before it and of one by a
     new loop after it)."""
@@ -3385,16 +3413,69 @@ def run_withheld(smi):
     return res
 
 
+def _profiled_child() -> int:
+    """A torch.profiler session begun before the kernels load (nothing of the port has
+    launched in this process), then the per-card loop on PROFILED_SHARDS shards sharing
+    cuda:0 at WITHHELD_GRID² f64, one graph for the card; after the session the mesh's
+    one graph on the same operator.  Prints {"iterations": [per card,
+    mesh], "same": x bit for bit, "seconds": the per-card solve's wall, capture included,
+    "wait_records": the profile's records of the wait kernel}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    mesh = dist.make_mesh((PROFILED_SHARDS,), ("x",), devices=["cuda:0"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        op = cg_sharded.make_mesh_operator(WITHHELD_GRID, mesh, mode="stencil5",
+                                           dtype=torch.float64)
+        xs, s = op.solve(per_shard=True)
+        seconds = time.perf_counter() - t0
+    waits = sum(e.count for e in prof.key_averages() if "wait_kernel" in e.key)
+    xs_m, s_m = op.solve()
+    print(json.dumps({"iterations": [s.iterations, s_m.iterations], "seconds": seconds,
+                      "same": all(torch.equal(a, b) for a, b in zip(xs, xs_m)),
+                      "wait_records": waits}))
+    return 0
+
+
+def run_profiled(smi):
+    """The profiled child (a process of its own, killed after PROFILED_TIMEOUT_S): its
+    per-card solve must end, x bit for bit the mesh's in as many iterations.  Returns its
+    record."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), PROFILED_CHILD],
+                         cwd=ROOT, capture_output=True, text=True, timeout=PROFILED_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"the profiled child failed ({out.returncode}):\n"
+                             f"{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    its = res["iterations"]
+    print(f"[cards] profiler begun before the kernels load, {PROFILED_SHARDS} shards sharing "
+          f"the card at {WITHHELD_GRID}²: the per-card solve ended in {its[0]} iterations "
+          f"(mesh {its[1]}), x bit for bit the mesh's: {res['same']}; {res['seconds']:.3f} s "
+          f"with its capture, {res['wait_records']} wait-kernel records in the profile; the "
+          f"child's wall {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    if not (res["same"] and its[0] == its[1] > 0):
+        raise AssertionError(f"profiled child: {res}")
+    return res
+
+
 def phase_cards(torch, counters, smi):
     """Phase 15: the per-card loop (cg_sharded.CardLoop, ``per_shard=True``), a graph a
-    shard, its shards sharing the card, against the mesh's one graph (MeshLoop) at G_BIG²
+    card, its shards sharing the card, against the mesh's one graph (MeshLoop) at G_BIG²
     in every case of CARD_RUNS: a first solve of each loop, then CARD_TIMED rounds in
     turns; the per-card solves are the path (counts set to 0 before, read after; the
     mesh's solves beside it uncounted): its x bit for bit the mesh's, 14 iterations (bf16:
-    the mesh's), one read and N replays a solve, and exactly the launches its iterations
-    make (``card_launches``).  Then the sync kernels against their twins and timed
-    (``compare_sync``) and the withheld-shard child (``run_withheld``).  Returns
-    ({wrapper: launches summed over the runs}, {sync wrapper: its kernels line entry})."""
+    the mesh's), one read and one replay a card a solve, and exactly the launches its
+    iterations make (``card_launches``).  Then the sync kernels against their twins and
+    timed (``compare_sync``), the withheld-shard child (``run_withheld``) and the
+    profiled child (``run_profiled``).  Returns ({wrapper: launches summed over the
+    runs}, {sync wrapper: its kernels line entry})."""
     from tpusparse_torch import dist
     from tpusparse_torch.kernels import mesh_sync
     from tpusparse_torch.solvers import cg, cg_sharded
@@ -3438,19 +3519,20 @@ def phase_cards(torch, counters, smi):
                         timed("cards", per_shard=True)
             return dict(cg.COUNTS)
 
+        cards = len(set(op.mesh.devices))
         needs = tuple(card_launches(shape, mode, 1, 1))
         reads = counts.run(f"cards {label}", needs, path)
         k, solves = first["iterations"], 1 + CARD_TIMED
-        want = card_launches(shape, mode, k, solves)
+        want = card_launches(shape, mode, k, solves, cards)
         got = {w: v for w, v in counts.by_path[f"cards {label}"].items() if v}
-        want_reads = {"host_reads": solves, "replays": n * solves}
+        want_reads = {"host_reads": solves, "replays": cards * solves}
         its_ok = k == s_m.iterations and (k == 14 or dtype_name == "bfloat16")
         if not (first["same"] and its_ok and got == want and reads == want_reads):
             raise AssertionError(f"cards {label}: x bit for bit {first['same']}, iterations "
                                  f"{k} (mesh {s_m.iterations}), launches {got} (want {want}), "
                                  f"reads {reads} (want {want_reads})")
         med = {name: sorted(v)[len(v) // 2] for name, v in times.items()}
-        print(f"[cards] {label} {G_BIG}², {n} shards sharing the card: per-card graphs median "
+        print(f"[cards] {label} {G_BIG}², {n} shards on {cards} card(s): per-card graphs median "
               f"{med['cards']!r} ms, the mesh's one graph {med['mesh']!r} ms (per card / mesh "
               f"{med['cards'] / med['mesh']:.4f}; medians of {CARD_TIMED} in turns); {k} "
               f"iterations, x bit for bit the mesh's; {reads['host_reads']} reads, "
@@ -3464,12 +3546,123 @@ def phase_cards(torch, counters, smi):
     sync = compare_sync(torch, smi)
     summary["sync"] = sync
     summary["withheld"] = run_withheld(smi)
+    summary["profiled"] = run_profiled(smi)
     summary["card"] = smi
     (OUT / "chip_smoke_cards.json").write_text(json.dumps(summary, indent=1))
     totals = {name: sum(c.get(name, 0) for c in counts.by_path.values())
               for name in (*KERNELS, K3_SCALAR, COND, *SYNC_KERNELS)}
     print(f"[cards] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return totals, sync
+
+
+def _rank_mesh_rank(device, runs, timed):
+    """One rank of phase 16 (spawned by dist.launch_local): each run of ``runs`` on this
+    rank's shards of the RANK_MESH_SHARDS-shard mesh across the ranks at G_BIG²: its
+    launch counts set to 0, a first solve, the sha256 of each of its bands' bytes, then
+    ``timed`` solves, each after a barrier, the counts read.  Rank 0 returns {label:
+    [each rank's {"digests", "launches", "iterations", "ms"}]}."""
+    import hashlib
+
+    import torch
+
+    from tpusparse_torch import dist
+    from tpusparse_torch.kernels import blas1, ell
+    from tpusparse_torch.kernels import stencil5 as st5
+    from tpusparse_torch.solvers import cg_sharded
+
+    del device
+    counters = (st5, blas1, ell)
+    mesh = dist.make_rank_mesh(RANK_MESH_SHARDS)
+    out = {}
+    for label, (mode, dtype, _needs) in runs.items():
+        op = cg_sharded.make_mesh_operator(G_BIG, mesh, mode=mode, dtype=getattr(torch, dtype))
+        for c in counters:
+            c.reset_launches()
+        xs, s = op.solve()
+        digests = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest() for x in xs]
+        del xs
+        ms = []
+        for _ in range(timed):
+            dist.barrier()
+            t0 = time.perf_counter()
+            op.solve()  # ends in the loop's read: the card is done
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {n: v for c in counters for n, v in c.LAUNCHES.items() if v}
+        out[label] = dist._all_objects({"digests": digests, "launches": launches,
+                                        "iterations": s.iterations, "ms": ms})
+        del op
+        cg_sharded.clear_caches()
+        torch.cuda.empty_cache()
+    return out if dist.rank() == 0 else None
+
+
+def phase_rank_mesh(torch, counters, smi):
+    """Phase 16: ranks that each drive a mesh of local shards (``dist.make_rank_mesh``),
+    RANK_MESH_RANKS gloo ranks sharing the card, against the one-process
+    RANK_MESH_SHARDS-shard mesh (its one graph, beside the path, uncounted) in every run
+    of RANK_MESH_RUNS at G_BIG²: the ranks' launches are the path (each rank's set to 0
+    before and read after its solves); x bit for bit by the sha256 of each band's bytes,
+    14 iterations both; the medians of RANK_MESH_TIMED solves (a solve's time the slowest
+    rank's).  Returns {wrapper: launches summed over the runs}."""
+    import hashlib
+
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg_sharded
+
+    t_phase = time.perf_counter()
+    counts = PathCounts(counters)
+    torch.cuda.empty_cache()
+    ranks = dist.launch_local(_rank_mesh_rank, RANK_MESH_RANKS, RANK_MESH_RUNS,
+                              RANK_MESH_TIMED, device="cuda")
+    print(f"[ranks] {RANK_MESH_RANKS} ranks × {RANK_MESH_SHARDS // RANK_MESH_RANKS} shards: "
+          f"{time.perf_counter() - t_phase:.1f} s with the spawn [{smi}]", flush=True)
+    summary = {"card": smi}
+    for label, (mode, dtype, needs) in RANK_MESH_RUNS.items():
+        every = ranks[label]
+        launches = {}
+        for r in every:
+            for name, v in r["launches"].items():
+                launches[name] = launches.get(name, 0) + v
+        counts.record(f"rank mesh {label}", needs, launches, {})
+        op = cg_sharded.make_mesh_operator(G_BIG, dist.make_band_mesh(RANK_MESH_SHARDS),
+                                           mode=mode, dtype=getattr(torch, dtype))
+
+        def mesh_solves():
+            xs, s = op.solve()
+            digests = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest() for x in xs]
+            del xs
+            ms = []
+            for _ in range(RANK_MESH_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                op.solve()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return digests, s.iterations, ms
+
+        digests, k_mesh, ms_mesh = uncounted(mesh_solves)
+        del op
+        cg_sharded.clear_caches()
+        torch.cuda.empty_cache()
+        ranks_ms = [max(r["ms"][i] for r in every) for i in range(RANK_MESH_TIMED)]
+        med = sorted(ranks_ms)[len(ranks_ms) // 2]
+        med_mesh = sorted(ms_mesh)[len(ms_mesh) // 2]
+        its = [r["iterations"] for r in every]
+        same = [d for r in every for d in r["digests"]] == digests
+        print(f"[ranks] {label} {G_BIG}², {RANK_MESH_RANKS} ranks × "
+              f"{RANK_MESH_SHARDS // RANK_MESH_RANKS} shards sharing the card: median "
+              f"{med!r} ms (the slowest rank; each {ranks_ms}), the one-process "
+              f"{RANK_MESH_SHARDS}-shard mesh {med_mesh!r} ms (ranks / mesh "
+              f"{med / med_mesh:.4f}); iterations {its} (mesh {k_mesh}), x bit for bit by "
+              f"each band's sha256: {same} [{smi}]", flush=True)
+        if not (same and set(its) == {k_mesh} and k_mesh == 14):
+            raise AssertionError(f"rank mesh {label}: x bit for bit {same}, iterations {its} "
+                                 f"(mesh {k_mesh})")
+        summary[label] = {"ranks_ms": ranks_ms, "median_ms": med, "mesh_ms": ms_mesh,
+                          "mesh_median_ms": med_mesh, "iterations": k_mesh,
+                          "launches": launches}
+    (OUT / "chip_smoke_ranks.json").write_text(json.dumps(summary, indent=1))
+    print(f"[ranks] phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts.totals()
 
 
 def main() -> int:
@@ -3537,6 +3730,9 @@ def main() -> int:
     for name, count in cards.items():
         launches[name] = launches.get(name, 0) + count
     done(15)
+    for name, count in phase_rank_mesh(torch, (st5, blas1, ell, dia), smi).items():
+        launches[name] = launches.get(name, 0) + count
+    done(16)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "
@@ -3584,6 +3780,8 @@ if __name__ == "__main__":
         sys.exit(_headline_child(*sys.argv[2:4]))
     if sys.argv[1:2] == [WITHHELD_CHILD]:
         sys.exit(_withheld_child(sys.argv[2]))
+    if sys.argv[1:2] == [PROFILED_CHILD]:
+        sys.exit(_profiled_child())
     t0 = time.perf_counter()
     rc = main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

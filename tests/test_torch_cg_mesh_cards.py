@@ -1,10 +1,12 @@
-"""The per-card sharded CG loop (``cg_sharded.CardLoop``: a CUDA graph a shard, the shards
+"""The per-card sharded CG loop (``cg_sharded.CardLoop``: a CUDA graph a card, the shards
 meeting through ``kernels/mesh_sync.py``) on the CPU, against the JAX package's sharded
 CG on the conftest's virtual CPU mesh and against the port's own eager mesh loop.
 
-On the CPU the loop runs on the kernels' twins: each shard's program is a coroutine that
-stops at every sync op, and the loop interleaves them, each node's condition read on the
-host (``cg.DeviceLoop``'s structure).  f64 unless a case says otherwise.  Bars:
+On the CPU the loop runs on the kernels' twins: each model card's program (its shards in
+lockstep) is a coroutine that stops at every sync op, and the loop interleaves them, each
+node's condition read on the host (``cg.DeviceLoop``'s structure).  ``loop.card_of`` puts
+the shards on model cards (one a shard unless a test says otherwise).  f64 unless a case
+says otherwise.  Bars:
 
 - the sync twins: a publish of every shard's partial and each shard's wait sum the
   partials to ``_mesh_sum``'s bits, for 1 to 8 shards and f64, f32 and bf16-state (f32)
@@ -16,6 +18,12 @@ host (``cg.DeviceLoop``'s structure).  f64 unless a case says otherwise.  Bars:
   read of a halo row or a slot checked against the epoch it expects (a flag beyond it, or
   short of it where data is read, raises), x bit for bit the same under every schedule;
   a withheld shard ends every other shard's loop in the error path, not a hang;
+- the same with 4 and 8 shards on 2 model cards and 8 on 4, placed as the mesh places
+  them (shard i on card i % cards), over the cards' programs (bands classic, recompute, a
+  2-D mesh); a card whose shards run strictly one after another (every shard on one model
+  card) finishes with no wait ever finding a flag short, where one model card a shard
+  has to interleave them; a withheld shard on a shared card still ends the others' loops
+  in the error path;
 - the loop against JAX's ``cg_solve_sharded`` and ``cg_solve_sharded_2d`` on 1, 2 and 4
   bands (classic and recompute) and a 2 x 2 mesh: equal iterations, x to 1e-12; and bit
   for bit against the eager mesh loop there and in more cases (``csr``, const classic, a
@@ -171,6 +179,96 @@ def test_withheld_shard_ends_in_the_error_path(name):
     cg_sharded.clear_caches()
 
 
+# shards on shared model cards: name -> (mesh shape, grid, solver arguments, model cards)
+SHARED = {f"{name} on {cards}": (shape, g, kw, cards)
+          for cards, cases in (
+              (2, {"bands classic x4": ((4,), 16, dict(mode="stencil5")),
+                   "bands recompute x4": ((4,), 16, dict(mode="stencil5-const")),
+                   "blocks 2x2": ((2, 2), 16, dict(mode="stencil5")),
+                   "bands classic x8": ((8,), 16, dict(mode="stencil5")),
+                   "bands recompute x8": ((8,), 16, dict(mode="stencil5-const")),
+                   "blocks 2x4": ((2, 4), 16, dict(mode="stencil5"))}),
+              (4, {"bands classic x8": ((8,), 16, dict(mode="stencil5")),
+                   "bands recompute x8": ((8,), 16, dict(mode="stencil5-const")),
+                   "blocks 2x4": ((2, 4), 16, dict(mode="stencil5"))}))
+          for name, (shape, g, kw) in cases.items()}
+
+
+def _on_cards(loop, cards):
+    """Shard i on model card i % cards, as ``dist.make_mesh`` places shards on cards."""
+    loop.card_of = tuple(i % cards for i in range(len(loop.parts)))
+
+
+@pytest.mark.parametrize("name", list(SHARED))
+def test_protocol_holds_on_shared_cards(name):
+    """Shards sharing model cards, each card's shards in lockstep, the cards' programs
+    interleaved by a seeded random scheduler, SEEDS seeds: every read sees its own epoch,
+    and x is the eager mesh's bit for bit in as many iterations."""
+    shape, g, kw, cards = SHARED[name]
+    op = cg_sharded.make_mesh_operator(g, _mesh(shape), dtype=F64, **kw)
+    want, s0 = op.solve(graph=False, max_iters=MODEL_ITERS)
+    loop = _card_loop(op)
+    _on_cards(loop, cards)
+    assert [len(c.members) for c in loop.cards()] == [op.mesh.size // cards] * cards
+    for seed in range(SEEDS):
+        loop.schedule = random.Random(seed)
+        xs, s = op.solve(per_shard=True, max_iters=MODEL_ITERS)
+        assert s.iterations == s0.iterations == MODEL_ITERS
+        assert all(torch.equal(a, b) for a, b in zip(xs, want)), seed
+    assert all(int(p.ctl[1]) == 0 for p in loop.parts)
+    assert {int(p.ctl[0]) for p in loop.parts} == {int(loop.parts[0].ctl[0])}
+    cg_sharded.clear_caches()
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_shards_of_a_card_need_not_run_at_once(monkeypatch, n):
+    """Every shard on one model card, run strictly in order (one program, nothing to
+    interleave): it finishes, x the eager mesh's bit for bit, and no wait ever finds a
+    flag short.  With one model card a shard the same solve has waits that do, which
+    shards sharing a card could only pass by running side by side."""
+    short = []
+    wait = mesh_sync.wait
+
+    def counted(*args, **kw):
+        went = wait(*args, **kw)
+        short.append(not went)
+        return went
+
+    monkeypatch.setattr(mesh_sync, "wait", counted)
+    op = cg_sharded.make_mesh_operator(16, _mesh((n,)), mode="stencil5", dtype=F64)
+    want, s0 = op.solve(graph=False, max_iters=MODEL_ITERS)
+    loop = _card_loop(op)
+    for cards, blocked in ((1, False), (n, True)):
+        _on_cards(loop, cards)
+        short.clear()
+        xs, s = op.solve(per_shard=True, max_iters=MODEL_ITERS)
+        assert s.iterations == s0.iterations == MODEL_ITERS
+        assert all(torch.equal(a, b) for a, b in zip(xs, want))
+        assert short.count(False) == 3 * n * MODEL_ITERS and any(short) == blocked
+        del xs
+    cg_sharded.clear_caches()
+
+
+@pytest.mark.parametrize("name", ["bands classic x4 on 2", "bands recompute x8 on 4"])
+def test_withheld_shard_on_a_shared_card_ends_in_the_error_path(name):
+    """A shard left out of a shared model card's program: the other shards' loops, on its
+    card and on the others, end in the error path and the solve raises; a new loop then
+    solves."""
+    shape, g, kw, cards = SHARED[name]
+    op = cg_sharded.make_mesh_operator(g, _mesh(shape), dtype=F64, **kw)
+    loop = _card_loop(op)
+    _on_cards(loop, cards)
+    loop.withheld = 2
+    with pytest.raises(RuntimeError, match="passed its bound"):
+        op.solve(per_shard=True, max_iters=MODEL_ITERS)
+    stopped = [int(p.ctl[1]) for i, p in enumerate(loop.parts) if i != 2]
+    assert all(stopped) and int(loop.parts[2].ctl[1]) == 0
+    assert loop not in op.graphs.values()
+    _xs, s = op.solve(per_shard=True, max_iters=MODEL_ITERS)
+    assert s.iterations == MODEL_ITERS
+    cg_sharded.clear_caches()
+
+
 # --------------------------------------------------------------------------- the loop
 
 
@@ -271,6 +369,22 @@ def test_solvers_take_per_shard():
     x2e, _ = cg_sharded.cg_solve_sharded_2d(_mesh((2, 2)), 16, dtype=F64, graph=False)
     assert torch.equal(x2, x2e)
     cg_sharded.clear_caches()
+
+
+def test_mesh_scaling_runs_two_shards_a_card(tmp_path):
+    """``bench.mesh_scaling --per-card 2`` on the CPU: the row-band cases with twice the
+    shards, x bit for bit in all three loops."""
+    import json
+
+    from tpusparse_torch.bench import mesh_scaling
+
+    out = tmp_path / "scaling.json"
+    assert mesh_scaling.main(["--grid=16", "--runs=1", "--platform=cpu", "--per-card=2",
+                              f"--json={out}"]) == 0
+    rows = json.loads(out.read_text())
+    bands = [c for c in mesh_scaling.CASES if len(c[0]) == 1]
+    assert [r["mesh"] for r in rows] == [[2 * c[0][0]] for c in bands]
+    assert all(r["x_equal"] for r in rows)
 
 
 # --------------------------------------------------------------------------- refusals

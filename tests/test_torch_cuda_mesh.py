@@ -14,14 +14,15 @@ it where JAX is not installed as tests/test_torch_cuda.py is run:
   equal, x bit for bit;
 - a capture whose iteration allocates raises; the mesh solves again afterwards;
 - the multichip CLI over a 4-shard mesh: one replay and one read a solve;
-- the per-card loop (``cg_sharded.CardLoop``, ``per_shard=True``: a graph a shard, the
-  shards meeting through ``kernels/mesh_sync.py``) against the mesh's one graph in every
-  case above: the same iterations and every shard's x bit for bit, N replays and one read
-  a solve, the same kernel launches and halo counts, the condition kernel N times;
+- the per-card loop (``cg_sharded.CardLoop``, ``per_shard=True``: a graph a card, its
+  shards in lockstep, meeting through ``kernels/mesh_sync.py``) against the mesh's one
+  graph in every case above: the same iterations and every shard's x bit for bit, one
+  replay (the card's) and one read a solve, the same kernel launches and halo counts, the
+  condition kernel's included;
 - the sync kernels against their twins (rows, a strided column, partials, a wait that
   sums, one that passes its bound), bit for bit;
-- a shard whose graph is withheld makes the others' waits give up within the bound, and
-  the solve raise (in a child process); a new loop then solves.
+- a shard left out of its card's graph makes the others' waits give up within the bound,
+  and the solve raise (in a child process); a new loop then solves.
 """
 
 import json
@@ -189,8 +190,8 @@ def test_mesh_cli_reads_once_a_solve(dev, tmp_path):
 @pytest.mark.parametrize("label", list(CASES))
 def test_per_shard_loop_equals_mesh_loop_on_card(dev, label):
     """The per-card loop with its shards sharing the card against the mesh's one graph:
-    x bit for bit, one read and N replays a solve, the same launches of every wrapper but
-    the condition kernel (once a shard's graph) and the sync kernels (none in the mesh's)."""
+    x bit for bit, one read and one replay (the card's graph) a solve, the same launches
+    of every wrapper but the sync kernels (none in the mesh's)."""
     shape, mode, dtype, kw = CASES[label]
     op = cg_sharded.make_mesh_operator(G, _mesh(shape), mode=mode, dtype=dtype)
     n = op.mesh.size
@@ -199,10 +200,9 @@ def test_per_shard_loop_equals_mesh_loop_on_card(dev, label):
         xs, s, counts, launched, halo = _solve(op, per_shard=True, **kw)
         assert s.converged and s.iterations == s_m.iterations
         assert all(torch.equal(a, b) for a, b in zip(xs, xs_m))
-        assert counts == {"host_reads": 1, "replays": n}
+        assert counts == {"host_reads": 1, "replays": 1}
         sync = {k: launched.pop(k, 0) for k in mesh_sync.LAUNCHES}
-        assert launched.pop("cg_cond") == n * launched_m["cg_cond"]
-        assert launched == {k: v for k, v in launched_m.items() if k != "cg_cond"}
+        assert launched == launched_m
         rows = n > 1  # a shard's waits: its rows (with neighbours), then the two dots
         k = s.iterations
         assert sync == {"mesh_publish_rows": n * k * rows, "mesh_publish_partial": 2 * n * k,
@@ -286,8 +286,8 @@ print(json.dumps({"error": error, "seconds": seconds, "iterations": [s0.iteratio
 
 
 def test_withheld_shard_raises_within_the_bound(dev):
-    """Shard 1's graph withheld: shard 0's waits give up after the bound, the solve
-    raises RuntimeError naming the wait, and a new loop then solves as before."""
+    """Shard 1 left out of the card's graph: shard 0's waits give up after the bound, the
+    solve raises RuntimeError naming the wait, and a new loop then solves as before."""
     bound = 1.0
     out = subprocess.run([sys.executable, "-c", _WITHHELD, str(bound)], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -2,20 +2,22 @@
 one card.
 
     python -m tpusparse_torch.bench.mesh_scaling [--grid 20480] [--runs 5] [--json PATH]
-        [--platform cuda|cpu] [--profile]
+        [--platform cuda|cpu] [--profile] [--per-card K]
 
 For each case (mesh shape, mode, dtype) the mesh is built twice
 (``cg_sharded.make_mesh_operator``): one shard a card (``dist.make_mesh`` over cards 0 to
-n − 1), and every shard on card 0.  Three loops solve it: across the cards the per-card
-loop (``per_shard=True``, graph=None's choice there: a CUDA graph a shard, replayed on its
-card, N replays and one read a solve) and the eager loop (``graph=False``, its flag read
-once an iteration), in turns; on card 0 the mesh's one graph (one replay and one read a
-solve).  Each loop solves once, then ``--runs`` times; printed: the three medians, the
-per-card loop's speed-up over the eager loop and over the one card, the iterations, the
-host reads and replays a solve (``cg.COUNTS``), and whether x is the same bit for bit in
-all three (it must be: the same kernels on the same shards, the dots added in shard
-order on every card); and the time of one dot sync point across the cards
-(``_sync_us``).  ``--profile`` adds one profiled per-card solve a
+n − 1), and every shard on card 0.  ``--per-card K`` runs the row-band cases with K times
+the shards instead, K a card (shard i on card i % (n / K), as ``dist.make_mesh`` places
+more shards than cards).  Three loops solve it: across the cards the per-card loop
+(``per_shard=True``, graph=None's choice there: a CUDA graph a card, its shards in
+lockstep, replayed on its card, one replay a card and one read a solve) and the eager
+loop (``graph=False``, its flag read once an iteration), in turns; on card 0 the mesh's
+one graph (one replay and one read a solve).  Each loop solves once, then ``--runs``
+times; printed: the three medians, the per-card loop's speed-up over the eager loop and
+over the one card, the iterations, the host reads and replays a solve (``cg.COUNTS``),
+and whether x is the same bit for bit in all three (it must be: the same kernels on the
+same shards, the dots added in shard order on every card); and the time of one dot sync
+point across the cards (``_sync_us``).  ``--profile`` adds one profiled per-card solve a
 case: each card's device time in the sync kernels (mostly their waits) and in the rest.
 Needs as many cards as the largest mesh (4) and exits 1 with fewer, or when an x
 differs.  ``--platform=cpu`` runs every mesh on the CPU, the per-card
@@ -163,9 +165,14 @@ def main(argv=None) -> int:
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--profile", action="store_true",
                    help="profile one per-card solve of each case (device time by card)")
+    p.add_argument("--per-card", type=int, default=1,
+                   help="shards a card: the row-band cases with this many times the shards")
     args = p.parse_args(argv)
+    k = args.per_card
+    cases = CASES if k == 1 else tuple(((n * k,), m, d) for (n, *rest), m, d in CASES
+                                       if not rest)
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    need = max(math.prod(shape) for shape, _m, _d in CASES)
+    need = max(math.prod(shape) for shape, _m, _d in cases) // k
     if args.platform == "cuda" and cards < need:
         print(f"mesh_scaling: needs {need} CUDA cards, {cards} visible (or --platform=cpu)",
               file=sys.stderr)
@@ -179,9 +186,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
     one = "cuda:0" if args.platform == "cuda" else "cpu"
     rows, ok, sync = [], True, {}
-    for shape, mode, dtype_name in CASES:
+    for shape, mode, dtype_name in cases:
         axes = ("x", "y")[:len(shape)]
-        spread = dist.make_mesh(shape, axes, devices=args.platform)
+        spread = dist.make_mesh(shape, axes, devices=args.platform if args.platform == "cpu"
+                                else [f"cuda:{i}" for i in range(math.prod(shape) // k)])
         shared = dist.make_mesh(shape, axes, devices=[one])
         dtype = resolve_dtype(dtype_name)
         op = cg_sharded.make_mesh_operator(args.grid, spread, mode=mode, dtype=dtype)
@@ -197,10 +205,11 @@ def main(argv=None) -> int:
         split = "x".join(map(str, shape))
         sync_us = None
         if args.platform == "cuda":  # a dot sync point across the cards
-            if spread.devices not in sync:
-                sync[spread.devices] = _sync_us(spread.devices)
-            sync_us = sync[spread.devices]
-            print(f"[mesh scaling] a dot sync point across {len(spread.devices)} cards: "
+            used = tuple(dict.fromkeys(spread.devices))
+            if used not in sync:
+                sync[used] = _sync_us(used)
+            sync_us = sync[used]
+            print(f"[mesh scaling] a dot sync point across {len(used)} cards: "
                   f"{sync_us!r} µs (a graph of {SYNC_REPS} a card) [{smi}]", flush=True)
         if prof is not None:
             print(f"[mesh scaling] {split} {mode} {dtype_name}, one per-card solve profiled, "

@@ -16,7 +16,12 @@ graph (``solvers.cg_sharded.MeshOperator``).  With more shards than cards the sh
 share a card, and the CLI says so, since their times are then no measurement of scaling.
 Under torchrun (``WORLD_SIZE`` set), with ``--multihost``, or in a process that already
 belongs to a group, each process is one rank of a gloo group instead (the JAX CLI's
-multi-host mode): halo rows and dots pass through the host.
+multi-host mode), and ``--chips=N`` is the global count of shards, as in the JAX CLI: N
+a multiple of the W ranks, each rank driving a mesh of N / W of them
+(``dist.make_rank_mesh``: halos copied device to device within a rank, one row each way
+between neighbouring ranks and every dot through the host by gloo, its partials added in
+global shard order), or with ``--chips=0`` (or N = W) one band a rank.  An N that is not
+a multiple of W returns 2.
 
 ``gen:<g>`` synthesizes each shard's band on its device; a ``.mtx`` is read once a
 process, and each shard keeps its rows (the reference's per-rank load, :50-60 of its
@@ -41,7 +46,8 @@ one more solve after a barrier whose per-rank times give the load imbalance
 (``dist.rank_time_stats``).  ``--timers`` runs the host-stepped loop with its
 halo/SpMV/allreduce/BLAS1 buckets; ``--trace`` profiles one more solve (on rank 0).  The
 export's ``loop`` is ``recompute-ap`` (``stencil5-const``), ``classic`` or
-``host-stepped``, and its ``topology`` is ``dist.describe_mesh`` of the mesh or
+``host-stepped``, and its ``topology`` is ``dist.describe_mesh`` of the mesh (transport
+``mesh``, or ``gloo`` across ranks, with its shards and processes) or
 ``dist.describe_group`` of the gloo group.  Only rank 0 prints and writes.
 """
 
@@ -73,7 +79,8 @@ def build_parser():
                    help=".mtx path (5-point-stencil-extractable for the stencil modes) or "
                         "gen:<grid_size> (each shard synthesizes its band on its device)")
     p.add_argument("--chips", type=int, default=0,
-                   help="shards (default: one per visible card; one on the CPU)")
+                   help="shards (default: one per visible card; one on the CPU; in a "
+                        "process group one a rank, else a multiple of the ranks)")
     p.add_argument("--mode", default="stencil5", choices=list(cg_sharded.MODES),
                    help="SpMV inside the sharded solve; 'csr' is the ELL kernel over each "
                         "band and its halo rows (the role of the reference's in-solver "
@@ -125,11 +132,7 @@ def main(argv=None) -> int:
             print(f"[ERROR] --mesh2d={args.mesh2d} needs {mesh[0] * mesh[1]} ranks but the "
                   f"group has {dist.world_size()}", file=sys.stderr)
             return 2
-        if mesh is None and args.chips and args.chips != dist.world_size():
-            print(f"[ERROR] --chips={args.chips} but the group has {dist.world_size()} ranks",
-                  file=sys.stderr)
-            return 2
-        return run(args, dist.rank_device(args.platform))
+        return _in_group(args, dist.rank_device(args.platform))
     device = resolve_device(args.platform)  # raises without a card
     devices = (dist.make_mesh(mesh, devices=args.platform) if mesh is not None
                else dist.make_band_mesh(args.chips, devices=args.platform))
@@ -148,7 +151,21 @@ def parse_mesh2d(text):
 def rank_main(device, argv):
     """One rank of a gloo group spawned by ``dist.launch_local(rank_main, n, argv)``: the
     CLI's arguments, this rank's device."""
-    return run(build_parser().parse_args(argv), device)
+    return _in_group(build_parser().parse_args(argv), device)
+
+
+def _in_group(args, device) -> int:
+    """This rank's run in a group of W ranks: one band a rank (``--chips`` 0 or W, or
+    ``--mesh2d``), else a mesh of ``--chips`` shards across the ranks; 2 when W does not
+    divide ``--chips``."""
+    w = dist.world_size()
+    if args.mesh2d or args.chips in (0, w):
+        return run(args, device)
+    if args.chips % w:
+        print(f"[ERROR] --chips={args.chips} is not a multiple of the group's {w} ranks",
+              file=sys.stderr)
+        return 2
+    return run(args, device, dist.make_rank_mesh(args.chips, devices=args.platform))
 
 
 def _load(args, say):
@@ -196,7 +213,8 @@ def run(args, device, mesh=None) -> int:
     info = sysinfo.get_system_info(device)
     if mesh is not None:
         n, sharing, who = mesh.size, mesh.shards_per_card(), "shards"
-        say(f"[INFO] mesh: {n} x {info['device_kind']} (1 process(es))")
+        say(f"[INFO] mesh: {n} x {info['device_kind']} ({mesh.processes} process(es)"
+            f"{', gloo' if mesh.processes > 1 else ''})")
     else:
         n, sharing, who = dist.world_size(), dist.ranks_per_card(device), "ranks"
         say(f"[INFO] ranks: {n} x {info['device_kind']} ({n} process(es), gloo)")
@@ -258,7 +276,7 @@ def run(args, device, mesh=None) -> int:
     _, (x, _st) = run_solve(keep_x=True)  # deterministic: one more solve gives x
 
     rank_times = None
-    if mesh is None and n > 1:  # the reference's MPI_Barrier -> solve -> MAX/MIN
+    if dist.world_size() > 1:  # the reference's MPI_Barrier -> solve -> MAX/MIN
         dist.barrier()
         t_rank = time.perf_counter()
         run_solve()
@@ -273,7 +291,7 @@ def run(args, device, mesh=None) -> int:
     if rank_times is not None:
         say(f"Load imbalance:      {rank_times['load_imbalance_pct']:.2f}% (measured: max "
             f"{rank_times['solve_time_max_ms']:.2f} / min {rank_times['solve_time_min_ms']:.2f}"
-            f" ms across {n} ranks)")
+            f" ms across {dist.world_size()} ranks)")
     elif blocks is not None:
         say("Load imbalance:      0.00% (2-D blocks divide the grid exactly; one process)")
     else:
@@ -286,13 +304,15 @@ def run(args, device, mesh=None) -> int:
     if mesh is not None:
         x = op.assemble(x)
         op.sync()
-    else:
-        x = (dist.gather_blocks_to_host(x, blocks) if blocks is not None
-             else dist.gather_to_host(x, rows=g))
+    if mesh is None and blocks is not None:
+        x = dist.gather_blocks_to_host(x, blocks)
+    elif dist.world_size() > 1:
+        x = dist.gather_to_host(x, rows=g)
     allgather_ms = (time.perf_counter() - t_gather) * 1e3
-    x_host = host_numpy(x) if mesh is not None else x
+    x_host = host_numpy(x) if torch.is_tensor(x) else x
     del x
-    topology = ({**dist.describe_mesh(mesh), "transport": "mesh"} if mesh is not None
+    topology = ({**dist.describe_mesh(mesh),
+                 "transport": "gloo" if mesh.processes > 1 else "mesh"} if mesh is not None
                 else {**dist.describe_group(device), "transport": "gloo"})
     cg_sharded.clear_caches()  # a synthesized operand's operator is cached: drop it
     if not primary:

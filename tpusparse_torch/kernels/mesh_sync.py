@@ -137,9 +137,10 @@ def wait_plain(ctl, flags, mask, code, bound_ns, slots=None, out=None) -> bool:
     """Plain twin of ``wait``: False, nothing changed, if a flag of ``mask`` is below the
     epoch and ``bound_ns`` > 0; else the wait done (the error path if a flag is below it),
     True.  RuntimeError if a flag is beyond it."""
-    epoch = int(ctl[0]) + 1
-    if int(ctl[1]) == 0:
-        seen = {j: int(flags[j]) for j in range(flags.numel()) if (mask >> j) & 1}
+    epoch, error = ctl.tolist()
+    epoch += 1
+    if error == 0:
+        seen = {j: v for j, v in enumerate(flags.tolist()) if (mask >> j) & 1}
         ahead = {j: v for j, v in seen.items() if v > epoch}
         if ahead:
             raise RuntimeError(f"flags {ahead} are beyond epoch {epoch}: a writer ran ahead "
@@ -163,8 +164,7 @@ def check_epochs(flags, mask, epoch) -> None:
     """On the CPU: raise unless every flag of ``mask`` holds ``epoch``, the epoch of the
     sync point whose data is about to be read (a writer that ran ahead would have raised
     it)."""
-    bad = {j: int(flags[j]) for j in range(flags.numel())
-           if (mask >> j) & 1 and int(flags[j]) != epoch}
+    bad = {j: v for j, v in enumerate(flags.tolist()) if (mask >> j) & 1 and v != epoch}
     if bad:
         raise RuntimeError(f"flags {bad} do not hold epoch {epoch} where their data is read")
 

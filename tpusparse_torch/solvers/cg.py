@@ -505,9 +505,13 @@ class DeviceLoop:
 
         node(graph_kernels.WHILE, body)
 
+    def _cond_state(self):
+        """(k, max_iters, rr, tol²): what the loop's condition reads."""
+        return self.k, self.max_iters, self.rr, self.tol2
+
     def _run_host(self, x):
         def cond():
-            return graph_kernels.cond_plain(self.k, self.max_iters, self.rr, self.tol2)
+            return graph_kernels.cond_plain(*self._cond_state())
 
         def node(kind, body):
             if kind == graph_kernels.WHILE:
@@ -561,7 +565,7 @@ class DeviceLoop:
         return g
 
     def _capture_node(self, kind, body):
-        state = (self.k, self.max_iters, self.rr, self.tol2)
+        state = self._cond_state()
         with graph_kernels.conditional(kind, *state) as handle:
             body()
             if kind == graph_kernels.WHILE:

@@ -5,8 +5,10 @@ bands (reference ``cg_solve_mgpu_partitioned``, src/solvers/cg_solver_mgpu_parti
   reference (CUDA + MPI)          JAX package                  this port
   ------------------------------  ---------------------------  ----------------------------
   1 MPI rank = 1 GPU              1 process drives a Mesh      mesh: 1 process drives a
-                                  (multi-host: 1 a host)       ``dist.Mesh``; gloo: 1 rank
-                                                               = 1 process on 1 device
+                                  (multi-host: 1 a host)       ``dist.Mesh`` (or its share
+                                                               of one across ranks); gloo:
+                                                               1 rank = 1 process on 1
+                                                               device
   row bands n/P (+ remainder)     rows sharded P("x"), zero    the same bands, (−g mod P)
                                   pad rows                     zero pad rows at the end
   pinned-host staged halo         ``ppermute`` of one row      mesh: device copies into
@@ -30,14 +32,19 @@ gloo ranks' order, so both transports give the same bits, and the iteration coun
 equal across decompositions.  α and β stay on the device.  With every shard on one card
 the loop runs from a captured CUDA graph (``MeshLoop``, on ``cg.DeviceLoop``'s WHILE and
 IF nodes): one replay and one read a solve, the JAX package's one ``lax.while_loop`` with
-no host round-trip.  Across cards (or on one card with ``per_shard=True``) each shard
-runs that loop from a graph of its own on its card (``CardLoop``), as every JAX device
+no host round-trip.  Across cards (or on one card with ``per_shard=True``) each card runs
+that loop over its shards from a graph of its own (``CardLoop``), as every JAX device
 runs the ``shard_map``-wrapped loop: halo rows and dot partials are stored by kernels
-straight into the other shards' buffers on their cards, each card waits for them and
-adds the partials in shard order itself (``kernels/mesh_sync.py``), so every card holds
-the same sums and runs the same iterations; N replays and one read a solve.  With
+straight into the other shards' buffers, each shard waits for them and adds the partials
+in shard order itself (``kernels/mesh_sync.py``), so every card holds the same sums and
+runs the same iterations; a card's shards meet each sync point in lockstep, so only the
+waits for other cards spin; one replay a card and one read a solve.  With
 ``graph=False`` the iteration runs eagerly, the flag k < max_iters and rr > tol² read
-once an iteration.
+once an iteration.  A mesh across the ranks of a gloo group (``dist.make_rank_mesh``,
+the JAX package's multi-host mode: each rank drives its share of the shards) runs the
+eager loop: a rank's halos by device copies, one row each way between neighbouring ranks
+and every dot's partials by gloo through the host, added in global shard order
+(``_RankLink``), so x is the one-process mesh's bit for bit.
 
 **The gloo ranks** (every other entry, each rank calling the solver), the counterpart of
 the JAX package's multi-host mode: gloo takes CPU tensors only, so the halo rows and the
@@ -260,21 +267,24 @@ class _HaloExchange(_Halo):
         return self.finish()
 
 
-def _allsum(local):
-    """The sum over the ranks of each rank's partial (a 0-d tensor on its device), as a
-    0-d CPU tensor in the partial's dtype: gloo gathers the partials and every rank adds
-    them in rank order, so every rank holds the same bits."""
+def _allsum(*parts):
+    """The sum over the ranks of each rank's partials (0-d tensors, in shard order: one a
+    rank, or a mesh across ranks' rank's share), as a 0-d CPU tensor in their dtype: each
+    rank's go to its host in one copy, gloo gathers every rank's, and every rank adds all
+    of them left to right in global shard order (``_mesh_sum``'s order), so every rank
+    holds the same bits."""
     with profiling.annotate(profiling.PHASE_DOT):
-        host = local.detach().reshape(1).to("cpu")
+        host = torch.stack([t.detach().reshape(()).to(parts[0].device)
+                            for t in parts]).to("cpu")
         n = dist.world_size()
-        if n == 1:
-            return host.reshape(())
-        parts = [torch.empty_like(host) for _ in range(n)]
-        tdist.all_gather(parts, host)
-        total = parts[0].clone()
-        for t in parts[1:]:
+        every = [host] if n == 1 else [torch.empty_like(host) for _ in range(n)]
+        if n > 1:
+            tdist.all_gather(every, host)
+        flat = torch.cat(every)
+        total = flat[0].clone()
+        for t in flat[1:]:
             total += t
-        return total.reshape(())
+        return total
 
 
 def _on(t, device, dtype):
@@ -731,6 +741,7 @@ class MeshOperator:
 
     mesh: dist.Mesh
     shards: tuple
+    link: Optional["_RankLink"] = None
     graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     _SHARED = frozenset(("grid_size", "mode", "diag", "offdiag", "dtype", "band", "cols",
@@ -743,8 +754,8 @@ class MeshOperator:
 
     @property
     def device(self) -> torch.device:
-        """The mesh's first device: the dots' sums, the loop's scalars, the global field."""
-        return self.mesh.devices[0]
+        """The first shard's device: the dots' sums, the loop's scalars, the global field."""
+        return self.shards[0].device
 
     @property
     def one_card(self) -> bool:
@@ -753,13 +764,14 @@ class MeshOperator:
 
     def exchange(self, fields):
         """Fill every shard's halo buffers from its neighbours' ``fields``."""
-        _mesh_exchange(self.shards, [f[0] for f in fields], [f[-1] for f in fields], fields)
+        _mesh_exchange(self.shards, [f[0] for f in fields], [f[-1] for f in fields], fields,
+                       self.link)
 
     def sum(self, parts):
-        return _mesh_sum(parts, self.device)
+        return _mesh_sum(parts, self.device, self.link)
 
     def sync(self) -> None:
-        for d in set(self.mesh.devices):
+        for d in {sh.device for sh in self.shards}:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
@@ -770,14 +782,22 @@ class MeshOperator:
         whole (g, g) field.  ``recompute_ap`` and ``use_pallas_blas1`` as in
         ``cg_solve_sharded``.  ``graph``: None runs the loop from CUDA graphs on the
         cards: with every shard on one card one graph (``MeshLoop``), with shards on
-        several cards one graph a shard, each replayed on its card (``CardLoop``); on the
+        several cards one graph a card, each replayed on its card (``CardLoop``); on the
         CPU, and on one card with ``use_pallas_blas1=False``, the eager loop.  True insists
         on a graph (ValueError where none can run); False runs the eager loop.
-        ``per_shard``: the per-card loop even where the shards share one card (on the CPU
-        on the kernels' twins).  The per-card loop runs the BLAS1 kernels and needs peer
-        access between its cards (ValueError otherwise).  A capture that fails raises, and
-        so does a solve whose waits passed their bound: nothing falls back."""
+        ``per_shard``: the per-card loop even where every shard is on one card, which it
+        then runs from one graph (on the CPU on the kernels' twins).  The per-card loop
+        runs the BLAS1 kernels and needs peer access between its cards (ValueError
+        otherwise).  A mesh across ranks (``dist.make_rank_mesh``) runs the eager loop:
+        ``graph=True`` and ``per_shard=True`` raise ValueError there.  A capture that fails
+        raises, and so does a solve whose waits passed their bound: nothing falls back."""
         loop = _pick_loop(self, recompute_ap)
+        if self.link is not None:
+            if graph or per_shard:
+                raise ValueError("a mesh across ranks runs the eager loop: graph=True and "
+                                 "per_shard=True need a transport between the ranks' "
+                                 "devices, which the port does not have")
+            graph = False
         kernels = use_pallas_blas1 is not False
         cards = {d for d in self.mesh.devices if d.type == "cuda"}
         per_card = graph is not False and (per_shard or len(cards) > 1)
@@ -821,8 +841,12 @@ class MeshOperator:
         return _stepped(self, b, tolerance, max_iters, verbose)
 
     def assemble(self, xs):
-        """The global (g, g) field of the shards' fields, pad rows dropped, on the mesh's
-        first device: what the JAX package's solver returns."""
+        """The global (g, g) field of the shards' fields, pad rows dropped, on the first
+        shard's device: what the JAX package's solver returns.  On a mesh across ranks,
+        the rank's bands stacked in order, pad rows kept (``dist.gather_to_host(x,
+        rows=g)`` gives rank 0 the field), as a gloo rank returns its band."""
+        if self.link is not None:
+            return torch.cat([x.to(self.device) for x in xs])
         g = self.grid_size
         out = torch.empty((g, g), dtype=self.dtype, device=self.device)
         for sh, x in zip(self.shards, xs):
@@ -840,10 +864,16 @@ def make_mesh_operator(grid_size: int, mesh: dist.Mesh, *, mode: str = "stencil5
                        dtype=torch.float32, overlap: bool = True) -> MeshOperator:
     """The sharded operator over ``mesh`` (``dist.make_band_mesh`` for row bands,
     ``dist.make_mesh((R, C))`` for 2-D blocks), one shard a device of the mesh, as
-    ``make_sharded_operator`` makes each (its refusals included).  Cached for synthesized
-    operands (``clear_caches``), with its captured loops."""
+    ``make_sharded_operator`` makes each (its refusals included).  On a mesh across ranks
+    (``dist.make_rank_mesh``, row bands only) it holds this rank's shards and the link to
+    the neighbouring ranks (``_RankLink``).  Cached for synthesized operands
+    (``clear_caches``), with its captured loops."""
     if len(mesh.shape) not in (1, 2):
         raise ValueError(f"the sharded CG takes a 1-D or 2-D mesh, got shape {mesh.shape}")
+    if mesh.processes > 1 and len(mesh.shape) != 1:
+        raise ValueError("a mesh across ranks takes row bands: 2-D blocks, several a rank, "
+                         "are not implemented (one block a rank: cg_solve_sharded_2d((R, C), "
+                         "g) in an R·C group)")
     dtype = resolve_dtype(dtype)
     key = None
     if planes is None and matrix is None:
@@ -855,8 +885,9 @@ def make_mesh_operator(grid_size: int, mesh: dist.Mesh, *, mode: str = "stencil5
                                          diag=diag, offdiag=offdiag, dtype=dtype,
                                          overlap=overlap, device=d, mesh_shape=mesh_shape,
                                          shard=(i, mesh.size))
-                   for i, d in enumerate(mesh.devices))
-    op = MeshOperator(mesh, shards)
+                   for i, d in enumerate(mesh.devices) if i in mesh.local)
+    op = MeshOperator(mesh, shards, _RankLink(shards, mesh.local.start)
+                      if mesh.processes > 1 else None)
     if key is not None:
         _OPERATOR_CACHE[key] = op
     return op
@@ -875,35 +906,94 @@ def _by_shard(shards):
             yield i, sh
 
 
-def _mesh_exchange(shards, firsts, lasts, fields=None) -> None:
+def _mesh_exchange(shards, firsts, lasts, fields=None, link=None) -> None:
     """Fill every shard's halo buffers from its neighbours: its previous neighbour's last
     row (``lasts``), its next neighbour's first row (``firsts``) and, on a 2-D mesh, its
     west neighbour's last column and its east neighbour's first column of ``fields``, each
     in one copy (a strided column included); between cards a peer copy, which
-    ``Tensor.copy_`` orders with CUDA events on both devices' streams."""
+    ``Tensor.copy_`` orders with CUDA events on both devices' streams.  On a mesh across
+    ranks the lists are this rank's shards', and ``link`` brings the rows of the
+    neighbouring ranks' shards."""
+    lo = 0 if link is None else link.lo
     with profiling.scope(profiling.PHASE_HALO):
+        if link is not None:
+            link.start(firsts[0], lasts[-1])
         for _, sh in _by_shard(shards):
             h = sh.halo
-            if h.prev is not None:
-                h.halo_prev.copy_(lasts[h.prev].reshape(h.halo_prev.shape))
-            if h.next is not None:
-                h.halo_next.copy_(firsts[h.next].reshape(h.halo_next.shape))
+            if h.prev is not None and h.prev >= lo:
+                h.halo_prev.copy_(lasts[h.prev - lo].reshape(h.halo_prev.shape))
+            if h.next is not None and h.next < lo + len(shards):
+                h.halo_next.copy_(firsts[h.next - lo].reshape(h.halo_next.shape))
             if h.west is not None:
                 h.halo_w.copy_(fields[h.west][:, -1])
             if h.east is not None:
                 h.halo_e.copy_(fields[h.east][:, 0])
             HALO_CALLS["exchange"] += h.has_rows
             HALO_CALLS["column_exchange"] += h.has_cols
+        if link is not None:
+            link.finish()
 
 
-def _mesh_sum(parts, device):
+def _mesh_sum(parts, device, link=None):
     """The shards' partials (0-d tensors) summed in shard order in their dtype, as a 0-d
     tensor on ``device``: each is copied there first (a peer copy from another card), as
     ``_allsum`` adds the ranks' on the host, so both transports give the same bits.  Never
-    an ``all_reduce`` or an atomic add, whose order the hardware would pick."""
+    an ``all_reduce`` or an atomic add, whose order the hardware would pick.  On a mesh
+    across ranks (``link``) every rank's partials, in global shard order (``_allsum``)."""
+    if link is not None:
+        return _allsum(*parts).to(device)
     here = [t if t.device == device else _launch.buffer((), t.dtype, device).copy_(t)
             for t in parts]
     return _sum_in_order(here)
+
+
+class _RankLink:
+    """What the ranks of a mesh across ranks pass each other (``dist.make_rank_mesh``: each
+    rank drives shards [lo, lo + L) of one band mesh).  Rows: the rank's first shard's
+    first row goes to the previous rank, its last shard's last row to the next, and what
+    they send back lands in those shards' halo buffers; staged through pinned host buffers
+    and one gloo ``batch_isend_irecv``, as ``_HaloExchange`` stages a rank's one band
+    (``start`` queues the D2H copies, ``finish`` waits for them, swaps and copies to the
+    device).  Between two ranks that is one row each way.  Dots go by ``_allsum``."""
+
+    def __init__(self, shards, lo):
+        self.lo = lo
+        r, n = dist.rank(), dist.world_size()
+        first, last = shards[0], shards[-1]
+        cuda = first.device.type == "cuda"
+        # (peer rank, the shard whose row leaves and whose halo buffer receives, the buffer,
+        # host staging to send and to receive, the event of its D2H copy)
+        self.links = [(peer, sh, buf, *(torch.empty(sh.cols, dtype=sh.dtype, pin_memory=cuda)
+                                        for _ in range(2)),
+                       torch.cuda.Event() if cuda else None)
+                      for peer, sh, buf in ((r - 1, first, first.halo.halo_prev),
+                                            (r + 1, last, last.halo.halo_next))
+                      if 0 <= peer < n]
+
+    def start(self, first, last):
+        """Queue the D2H copies of the rank's first row (for the previous rank) and last
+        row (for the next)."""
+        for peer, sh, _buf, send, _recv, event in self.links:
+            with _current(sh.device):
+                send.copy_((first if peer < dist.rank() else last).reshape(-1),
+                           non_blocking=True)
+                if event is not None:
+                    event.record()
+
+    def finish(self):
+        """Swap the rows with the neighbouring ranks and copy them into the halo buffers."""
+        for *_, event in self.links:
+            if event is not None:
+                event.synchronize()
+        ops = [op for peer, _sh, _buf, send, recv, _e in self.links
+               for op in (tdist.P2POp(tdist.isend, send, peer),
+                          tdist.P2POp(tdist.irecv, recv, peer))]
+        for req in tdist.batch_isend_irecv(ops) if ops else ():
+            req.wait()
+        for _peer, sh, buf, _send, recv, _e in self.links:
+            with _current(sh.device):
+                buf.copy_(recv.reshape(buf.shape), non_blocking=True)
+
 
 
 def _spread(t, copies):
@@ -937,7 +1027,7 @@ class MeshLoop(cg.DeviceLoop):
     def __init__(self, op, loop, max_iters, tolerance, kernels=True, graphed=False,
                  unroll=cg.UNROLL):
         self._init_loop(loop, op.dtype, op.device, max_iters, tolerance, unroll)
-        self.shards, self.graphed = op.shards, graphed
+        self.shards, self.graphed, self.link = op.shards, graphed, op.link
         self.kernels = kernels
         self.r = self._new_x()
         self.p = ((tuple(sh.p_buffer() for sh in self.shards),) if loop == "classic"
@@ -978,7 +1068,7 @@ class MeshLoop(cg.DeviceLoop):
                 self.p[0][i].copy_(self.r[i])
             else:
                 self.p[1][i].zero_()  # the first iteration's p_prev: p' = r + 0·0
-        rr = _mesh_sum(rrs, self.device)
+        rr = _mesh_sum(rrs, self.device, self.link)
         self.rr.copy_(rr)
         self.bb.copy_(rr)
         torch.mul(self.bb, self.tolerance * self.tolerance, out=self.tol2)
@@ -1026,14 +1116,14 @@ class MeshLoop(cg.DeviceLoop):
         cg_update = blas1.cg_update if self.kernels else blas1.cg_update_plain
         p_update = blas1.p_update if self.kernels else blas1.p_update_plain
         with profiling.scope(profiling.PHASE_SPMV):
-            _mesh_exchange(shards, [f[0] for f in p], [f[-1] for f in p], p)
+            _mesh_exchange(shards, [f[0] for f in p], [f[-1] for f in p], p, self.link)
             paps = [sh.spmv_dot(p[i], ap[i], sh.halo.halos) for i, sh in _by_shard(shards)]
-        torch.div(rr, _mesh_sum(paps, self.device), out=self.alpha)
+        torch.div(rr, _mesh_sum(paps, self.device, self.link), out=self.alpha)
         alphas = _spread(self.alpha, self.copies)
         with profiling.scope(profiling.PHASE_AXPY):
             rrs = [cg_update(alphas[i], x[i], r[i], p[i], ap[i])[2]
                    for i, _ in _by_shard(shards)]
-        rr_new = _mesh_sum(rrs, self.device)
+        rr_new = _mesh_sum(rrs, self.device, self.link)
         torch.div(rr_new, rr, out=self.beta)
         betas = _spread(self.beta, self.copies)
         with profiling.scope(profiling.PHASE_UPDATE_P):
@@ -1050,10 +1140,11 @@ class MeshLoop(cg.DeviceLoop):
         torch.div(rr, self.rr_prev, out=self.beta)
         torch.where(self.first, self.zero, self.beta, out=self.beta)  # β = 0 on the first
         betas = _spread(self.beta, self.copies)
-        if len(shards) > 1:
+        if any(sh.halo.has_rows for sh in shards):
             for i, sh in _by_shard(shards):
                 sh.edge_rows(r[i], p_prev[i], betas[i], out=self.edges[i])
-            _mesh_exchange(shards, [e[0] for e in self.edges], [e[-1] for e in self.edges])
+            _mesh_exchange(shards, [e[0] for e in self.edges], [e[-1] for e in self.edges],
+                           link=self.link)
         paps = []
         with profiling.scope(profiling.PHASE_SPMV):
             for i, sh in _by_shard(shards):
@@ -1061,7 +1152,7 @@ class MeshLoop(cg.DeviceLoop):
                 paps.append(_st5.spmv_stencil5_const_pupdate_dot(
                     betas[i], r[i], p_prev[i], hp, hn, out=p[i], **kw)[1])
                 sh.halo.count("spmv_stencil5_const_pupdate_dot", hp, hn)
-        torch.div(rr, _mesh_sum(paps, self.device), out=self.alpha)
+        torch.div(rr, _mesh_sum(paps, self.device, self.link), out=self.alpha)
         alphas = _spread(self.alpha, self.copies)
         rrs = []
         with profiling.scope(profiling.PHASE_AXPY):
@@ -1070,11 +1161,11 @@ class MeshLoop(cg.DeviceLoop):
                 rrs.append(_st5.cg_const_update_recompute(alphas[i], x[i], r[i], p[i], hp,
                                                           hn, **kw)[2])
                 sh.halo.count("cg_const_update_recompute", hp, hn)
-        return _mesh_sum(rrs, self.device)
+        return _mesh_sum(rrs, self.device, self.link)
 
 
 # ---------------------------------------------------------------------------
-# The per-card loop: one graph a shard, the shards meeting on the cards
+# The per-card loop: one graph a card, the cards meeting through each other's memory
 # ---------------------------------------------------------------------------
 
 # how long a wait of the per-card loop may spin (``CardLoop``), in seconds: far above an
@@ -1104,17 +1195,15 @@ def _enable_peers(devices) -> None:
 class _CardShard(cg.DeviceLoop):
     """One shard's part of a ``CardLoop``, all of it on the shard's device: its state (r,
     p, Ap, the recompute loop's p′ rows, rr, the previous rr, <b, b>, tol², α, β, k, and
-    the two sums it waits for), its sync state (``ctl``: the epoch and the error word;
+    the two sums it waits for) and its sync state (``ctl``: the epoch and the error word;
     ``flags``: one a neighbour's rows, in the order previous, next, west, east, then one a
-    shard for each dot; ``partials``: a slot a shard for each dot), its workspace, and
-    its graphs, captured by ``cg.DeviceLoop``'s machinery on a stream of its card.  It
-    refers to its loop weakly: a cycle would leave the graphs to the cyclic garbage
-    collector, whose destruction of a graph during another capture breaks that capture."""
+    shard for each dot; ``partials``: a slot a shard for each dot).  Its card's graph
+    (``_Card``) runs its iterations."""
 
     def __init__(self, owner, index, sh, n):
         self._init_loop(owner.loop, sh.dtype, sh.device, owner.max_iters, owner.tolerance,
                         owner.unroll)
-        self.owner, self.index, self.sh = weakref.ref(owner), index, sh
+        self.index, self.sh = index, sh
         self.shape = tuple(sh.field_shape)
         self.r = self._new_x()
         self.p = ((sh.p_buffer(),) if self.loop == "classic"
@@ -1135,61 +1224,103 @@ class _CardShard(cg.DeviceLoop):
                         if j is not None)
         self.rows = self.dests = None  # its links, made once every shard has its buffers
         self.rows_epoch = 0  # on the CPU: the epoch of the rows its kernels read
-        self.halo_per_iteration = {}
+
+
+class _Card(cg.DeviceLoop):
+    """One card's part of a ``CardLoop``: its shards (``members``, ``_CardShard`` in shard
+    order) and their graph, captured by ``cg.DeviceLoop``'s machinery on a stream of the
+    card and replayed on another.  An iteration runs the live shards (those not withheld)
+    in lockstep (``CardLoop._lockstep``), so one stream holds them all; the condition of
+    its nodes reads the first live shard's k, rr and tol², which every shard holds bit for
+    bit.  What a capture records depends on the withheld shard: ``variants`` keeps, for
+    each, the workspace, the launches and the halo counts of one captured iteration.  It
+    refers to its loop weakly: a cycle would leave the graphs to the cyclic garbage
+    collector, whose destruction of a graph during another capture breaks that capture."""
+
+    def __init__(self, owner, members):
+        lead = members[0]
+        self._init_loop(owner.loop, lead.dtype, lead.device, owner.max_iters,
+                        owner.tolerance, owner.unroll)
+        self.owner, self.members = weakref.ref(owner), tuple(members)
+        self.variants = {}
         if self.device.type == "cuda":
             self.capture_stream = graph_kernels.body_stream(self.device, "capture")
-            self.stream = graph_kernels.body_stream(self.device, ("shard", index))
+            self.stream = graph_kernels.body_stream(self.device, "card")
 
-    def _iteration(self, x, parity):
-        """One iteration on the card: the shard's steps, each sync op launched, except in
-        the eager pass that records the workspace, which leaves them out (it must not wait
-        for shards that are not running)."""
+    def live(self):
+        """The card's shards that a solve runs: all but the withheld one."""
+        withheld = self.owner().withheld
+        return [s for s in self.members if s.index != withheld]
+
+    def _cond_state(self):
+        lead = self.live()[0]
+        return lead.k, self.max_iters, lead.rr, lead.tol2
+
+    def _iteration(self, xs, parity):
+        """One iteration of the card's live shards, each sync op launched, except in the
+        eager pass that records the workspace, which leaves them out (it must not wait for
+        cards that are not running)."""
         dry, owner = self.workspace.recording, self.owner()
-        for op in owner._steps(self.index, x, parity):
+        for op in owner._lockstep(self.live(), xs, parity):
             if not dry:
                 op(owner.bound_ns)
 
-    def _capture(self, x):
-        """``cg.DeviceLoop``'s capture on the shard's card, with the halo counts set apart
-        as it sets the launches apart (``halo_per_iteration``)."""
+    def _capture(self, xs):
+        """``cg.DeviceLoop``'s capture on the card, with the halo counts set apart as it
+        sets the launches apart, into the variant of the withheld shard."""
+        key = self.owner().withheld
+        self.workspace, self.per_iteration, halo = self.variants.get(key, (None, None, {}))
         before = dict(HALO_CALLS)
         runs = self.unroll + (self.workspace is None)  # the first also records an iteration
         with torch.cuda.device(self.device):
             mesh_sync.preload(self.device)
             try:
-                return super()._capture(x)
+                graph = super()._capture(xs)
             finally:
-                self.halo_per_iteration = {n: (v - before[n]) // runs
-                                           for n, v in HALO_CALLS.items()}
+                halo = {n: (v - before[n]) // runs for n, v in HALO_CALLS.items()}
                 HALO_CALLS.update(before)
+        self.variants[key] = (self.workspace, self.per_iteration, halo)
+        return graph
+
+    def count_replay(self, k, key):
+        """A replay of k iterations of the variant ``key``: its launches and halo counts."""
+        _ws, self.per_iteration, halo = self.variants[key]
+        self._count_replay(k)
+        for name, v in halo.items():
+            HALO_CALLS[name] += v * k
 
 
 class CardLoop:
-    """The sharded CG loop with one CUDA graph a shard, each replayed on its shard's card:
-    the counterpart of the JAX package's ``shard_map``-wrapped ``lax.while_loop``, in which
+    """The sharded CG loop with one CUDA graph a card, each replayed on its card: the
+    counterpart of the JAX package's ``shard_map``-wrapped ``lax.while_loop``, in which
     every device runs the loop and ``psum`` hands each the same sums.  A WHILE node's body
     may hold kernels of one device only, so no one graph spans the cards.
 
     Each shard (``_CardShard``) keeps its own copy of the loop's state and scalars on its
-    card and runs ``cg.DeviceLoop``'s graph: a WHILE node, ``unroll`` iterations a body,
-    the further ones under IF nodes, each condition set by the card from its own rr.  An
-    iteration makes the eager mesh's calls in its order (``MeshLoop``), with the mesh's
-    transport replaced by three sync points (``kernels/mesh_sync.py``): the rows (each
-    shard stores its boundary rows, and on a 2-D mesh its side columns, into its
-    neighbours' halo buffers on their cards, then waits for theirs), <p, A·p> and <r, r>
-    (each shard stores its partial into its slot of every shard's slots, then waits for
-    all and adds them in shard order on its own card: ``_mesh_sum``'s bits everywhere).  α
-    and β are then formed on every card by the same torch ops, so every card holds the
-    same scalars, evaluates the same condition and runs the same iterations.  No host
-    read, host copy or event fork-join remains inside a solve: its start runs eagerly as
-    the mesh's (its sums copied into every shard's scalars), then every shard's graph is
-    replayed on a stream of its own with no host wait between them, then one read (every
-    shard's rr, <b, b>, k and error word) ends it; shards that disagree, or a wait that
-    passed its bound (``WAIT_BOUND_S``), raise RuntimeError.
+    card.  Each card (``_Card``) runs ``cg.DeviceLoop``'s graph over its shards: a WHILE
+    node, ``unroll`` iterations a body, the further ones under IF nodes, each condition set
+    by the card from its first shard's rr.  An iteration makes the eager mesh's calls in
+    its order (``MeshLoop``) for every shard of the card, with the mesh's transport
+    replaced by three sync points (``kernels/mesh_sync.py``): the rows (each shard stores
+    its boundary rows, and on a 2-D mesh its side columns, into its neighbours' halo
+    buffers, then waits for theirs), <p, A·p> and <r, r> (each shard stores its partial
+    into its slot of every shard's slots, then waits for all and adds them in shard order
+    itself: ``_mesh_sum``'s bits everywhere).  The card's shards meet each sync point in
+    lockstep (``_lockstep``): all of them run their steps up to it, all publish, and only
+    then does any wait, so a wait finds the flags of its own card's shards set in stream
+    order and spins only for other cards, which run at once.  α and β are then formed on
+    every card by the same torch ops, so every card holds the same scalars, evaluates the
+    same condition and runs the same iterations.  No host read, host copy or event
+    fork-join remains inside a solve: its start runs eagerly as the mesh's (its sums
+    copied into every shard's scalars), then every card's graph is replayed on a stream of
+    its own with no host wait between them, then one read (every shard's rr, <b, b>, k and
+    error word) ends it: one replay a card and one read a solve.  Shards that disagree, or
+    a wait that passed its bound (``WAIT_BOUND_S``), raise RuntimeError.
 
-    Why no remote write can land before its reader is done with the last one (k the
-    iteration; a shard's three sync points in an iteration come in the order rows,
-    <p, A·p>, <r, r>, and each wait needs every writer's publish of that sync point):
+    Why no write can land before its reader is done with the last one (k the iteration;
+    a shard's three sync points in an iteration come in the order rows, <p, A·p>, <r, r>,
+    and each wait needs every writer's publish of that sync point; lockstep is one order of
+    the shards' steps that keeps each shard's own order):
 
       - a shard's halo buffers (rows, columns): the neighbour writes them at the rows
         point of k + 1, after its wait at <r, r> of k, which needs the shard's <r, r>
@@ -1204,18 +1335,16 @@ class CardLoop:
       - a flag: written by its one writer, after its data, to the epoch of the sync point,
         which rises by one at every sync point on every shard alike and never falls.
 
-    Shards that share a card (``per_shard=True`` on one card, or more shards than cards)
-    spin in their waits side by side, so their graphs must run at once: they do, except
-    after a torch.profiler session begun before the kernels were loaded, which runs them
-    one after another; their waits then pass the bound and the solve raises.
-
     On the CPU (the tests) ``solve`` runs the same steps on the kernels' twins: every
-    shard's program (``cg.DeviceLoop``'s structure, each node's condition read on the
-    host) is a coroutine that stops at each sync op, and ``_run_host`` interleaves them,
-    the lowest shard that can go on first, or as ``schedule`` (a ``random.Random``) picks;
-    when every shard waits for another, the bound has passed.  Every read of a halo row
-    there checks its flags' epoch (``mesh_sync.check_epochs``), every sum its slots'.
-    ``withheld``: a shard whose graph (or program) a solve leaves out, to test the bound."""
+    card's program (``cg.DeviceLoop``'s structure, each node's condition read on the host,
+    its shards in lockstep) is a coroutine that stops at each sync op, and ``_run_host``
+    interleaves them, the lowest card that can go on first, or as ``schedule`` (a
+    ``random.Random``) picks; when every card waits for another, the bound has passed.
+    ``card_of``: the model card of each shard, one a shard unless a test says otherwise
+    (on the cards, each shard's card, by device).  Every read of a halo row there checks
+    its flags' epoch (``mesh_sync.check_epochs``), every sum its slots'.  ``withheld``: a
+    shard whose steps a solve leaves out (from its card's graph or program; a card with no
+    other shard is not replayed), to test the bound."""
 
     def __init__(self, op, loop, max_iters, tolerance, unroll=cg.UNROLL):
         self.loop, self.max_iters, self.tolerance, self.unroll = loop, max_iters, tolerance, \
@@ -1234,7 +1363,10 @@ class CardLoop:
                 [(t.partials[d, i], t.dot_flags[d][i]) for t in self.parts], s.device)
                 for d in (0, 1))
         self.bound_ns = int(WAIT_BOUND_S * 1e9)
-        self.solutions = []
+        places = [s.device for s in self.parts] if self.graphed else list(range(n))
+        self.card_of = self._by_device = tuple(places.index(d) for d in places)
+        self._cards = {}
+        self.solutions = {}  # the withheld shard -> its solution slots
         self.schedule = None
         self.withheld = None
 
@@ -1252,6 +1384,17 @@ class CardLoop:
                               self.parts[j].row_flags[flag]))
         return items
 
+    def cards(self):
+        """The cards of ``card_of`` (``_Card``, in the order of their first shard), made
+        at first use; ValueError on the cards for any other map than the devices'."""
+        key = tuple(self.card_of)
+        if key not in self._cards:
+            if self.graphed and key != self._by_device:
+                raise ValueError("on the cards, a shard's card is its device's")
+            self._cards[key] = tuple(_Card(self, [s for s in self.parts if key[s.index] == c])
+                                     for c in dict.fromkeys(key))
+        return self._cards[key]
+
     def solve(self, bs=None):
         """One solve from b = ones (``bs`` None) or the shards' parts of b: (the shards' x
         fields, iterations, rr, <b, b>), the last two Python floats."""
@@ -1261,16 +1404,18 @@ class CardLoop:
             self._run_host(slot.x)
         else:
             self._replay(slot.graph)
-        return (slot.x, *self._read(slot.graph is not None))
+        return (slot.x, *self._read(slot.graph))
 
     def _slot(self):
-        for slot in self.solutions:
+        slots = self.solutions.setdefault(self.withheld, [])
+        for slot in slots:
             if slot.free():
                 return slot
         slot = cg._Slot.of(tuple(s._new_x() for s in self.parts))
-        if self.graphed:
-            slot.graph = tuple(s._capture(x) for s, x in zip(self.parts, slot.x))
-        self.solutions.append(slot)
+        if self.graphed:  # None for a card whose only shards are withheld
+            slot.graph = tuple(card._capture(slot.x) if card.live() else None
+                               for card in self.cards())
+        slots.append(slot)
         return slot
 
     def _start(self, xs, bs):
@@ -1300,47 +1445,55 @@ class CardLoop:
                 s.rr_prev.fill_(1)
 
     def _replay(self, graphs):
-        """Every shard's graph replayed on its own stream of its card, after the start and
+        """Every card's graph replayed on its own stream of its card, after the start and
         before the read, none waiting for another's launch or for the host."""
-        for i, (s, g) in enumerate(zip(self.parts, graphs)):
-            if i == self.withheld:
-                continue
-            s.stream.wait_stream(torch.cuda.current_stream(s.device))
-            with torch.cuda.stream(s.stream):
+        played = [(card, g) for card, g in zip(self.cards(), graphs) if g is not None]
+        for card, g in played:
+            card.stream.wait_stream(torch.cuda.current_stream(card.device))
+            with torch.cuda.stream(card.stream):
                 g.replay()
-        for s in self.parts:
-            torch.cuda.current_stream(s.device).wait_stream(s.stream)
-        cg.COUNTS["replays"] += len(graphs) - (self.withheld is not None)
+        for card, _g in played:
+            torch.cuda.current_stream(card.device).wait_stream(card.stream)
+        cg.COUNTS["replays"] += len(played)
 
-    def _read(self, replayed):
+    def _read(self, graphs):
         """The solve's one read, every shard's rr, <b, b>, k and error word: (k, rr,
-        <b, b>); RuntimeError for a wait past its bound or shards that disagree."""
+        <b, b>); RuntimeError for a wait past its bound or shards that disagree.  After a
+        replay, the cards' launches and halo counts (``graphs``: the slot's)."""
         rows = [torch.stack([s.rr.double(), s.bb.double(), s.k.double(),
                              s.ctl[1].double()]).to(self.device) for s in self.parts]
         status = cg._read(torch.stack(rows)).tolist()
         errors = [int(row[3]) for row in status if row[3]]
         if errors:
-            shared = len({s.device for s in self.parts}) < len(self.parts)
             raise RuntimeError("the per-card loop stopped: " + "; ".join(
                 f"shard {e // 16 - 1}'s wait at {SYNC_POINTS.get(e % 16, e % 16)} passed its "
                 f"bound of {self.bound_ns / 1e9:g} s" for e in errors)
-                + " (a shard did not publish" + (
-                    "; shards that share a card need their graphs to run at once, which a "
-                    "torch.profiler session begun before the kernels were loaded prevents"
-                    if shared and self.graphed else "") + ")")
+                + " (a shard did not publish)")
         ks = {int(row[2]) for row in status}
         if len(ks) > 1 or len({repr(row[0]) for row in status}) > 1:
             raise RuntimeError(f"the shards disagree: k {[int(r[2]) for r in status]}, rr "
                                f"{[r[0] for r in status]}")
         k = ks.pop()
-        if replayed:
-            for s in self.parts:
-                s._count_replay(k)
-                for name, v in s.halo_per_iteration.items():
-                    HALO_CALLS[name] += v * k
+        for card, g in zip(self.cards(), graphs or ()):
+            if g is not None:
+                card.count_replay(k, self.withheld)
         return k, status[0][0], status[0][1]
 
     # -- the iteration, as each shard runs it --------------------------------------------
+
+    def _lockstep(self, members, xs, parity):
+        """One iteration of a card's shards ``members`` in lockstep, as a generator of
+        their sync ops: at each sync point, every shard's steps up to it, then every
+        shard's publish, then every shard's wait, in shard order (``_steps`` yields a
+        publish and its wait with no step between them)."""
+        steps = [self._steps(s.index, xs[s.index], parity) for s in members]
+        while True:
+            ops = [next(step, None) for step in steps]
+            if all(op is None for op in ops):
+                return
+            if None in ops:
+                raise RuntimeError("the shards of a card fell out of step")
+            yield from ops
 
     def _steps(self, i, x, parity):
         """Shard i's iteration, the eager mesh's calls in its order, as a generator of its
@@ -1415,51 +1568,52 @@ class CardLoop:
 
     # -- the loop on the CPU ---------------------------------------------------------------
 
-    def _program(self, i, x):
-        """Shard i's loop on the host: ``cg.DeviceLoop._structure``'s nodes, each
-        condition read on the host, its iterations' sync ops yielded."""
-        s = self.parts[i]
+    def _program(self, card, xs):
+        """A card's loop on the host: ``cg.DeviceLoop._structure``'s nodes, each condition
+        read on the host from the card's first live shard, its shards' iterations in
+        lockstep, their sync ops yielded."""
+        live = card.live()
 
         def cond():
-            return graph_kernels.cond_plain(s.k, self.max_iters, s.rr, s.tol2)
+            return graph_kernels.cond_plain(*card._cond_state())
 
         while cond():
-            yield from self._steps(i, x, 0)
+            yield from self._lockstep(live, xs, 0)
             for j in range(1, self.unroll):
                 if cond():
-                    yield from self._steps(i, x, j % 2)
+                    yield from self._lockstep(live, xs, j % 2)
 
     def _run_host(self, xs):
-        """Every shard's program, interleaved at its sync ops: the lowest shard that can
-        go on runs (or the one ``schedule`` picks), until each is done; when every shard
-        waits for another, the bound has passed and their waits take the error path."""
-        progs = {i: self._program(i, xs[i]) for i in range(len(self.parts))
-                 if i != self.withheld}
+        """Every card's program, interleaved at its sync ops: the lowest card that can go
+        on runs (or the one ``schedule`` picks), until each is done; when every card waits
+        for another, the bound has passed and their waits take the error path."""
+        progs = {c: self._program(card, xs) for c, card in enumerate(self.cards())
+                 if card.live()}
         ops, blocked = {}, set()
 
-        def advance(i):
-            op = next(progs[i], None)
+        def advance(c):
+            op = next(progs[c], None)
             if op is None:
-                ops.pop(i, None)
+                ops.pop(c, None)
             else:
-                ops[i] = op
+                ops[c] = op
 
-        for i in progs:
-            advance(i)
+        for c in progs:
+            advance(c)
         while ops:
             ready = sorted(set(ops) - blocked)
             if not ready:
-                for i in sorted(blocked):
-                    ops[i](0)
-                    advance(i)
+                for c in sorted(blocked):
+                    ops[c](0)
+                    advance(c)
                 blocked.clear()
                 continue
-            i = ready[0] if self.schedule is None else self.schedule.choice(ready)
-            if ops[i](self.bound_ns):
-                advance(i)
+            c = ready[0] if self.schedule is None else self.schedule.choice(ready)
+            if ops[c](self.bound_ns):
+                advance(c)
                 blocked.clear()
             else:
-                blocked.add(i)
+                blocked.add(c)
 
 
 def _publish(fn, args, bound_ns):
@@ -1622,7 +1776,7 @@ class _GlooRank:
         self.shards[0].halo.exchange(fields[0])
 
     def sum(self, parts):
-        return _allsum(parts[0])
+        return _allsum(*parts)
 
     def sync(self):
         if self.shards[0].device.type == "cuda":
