@@ -223,14 +223,27 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      kernels load, then the per-card loop on 4 shards sharing the card at 2048² f64, x bit
      for bit the mesh's) (chiprun_out/chip_smoke_cards.json).
  16. (run after phase 15) ranks that each drive a mesh of local shards
-     (dist.make_rank_mesh): dist.launch_local with 2 gloo ranks sharing the card, each
-     driving 2 of the 4 shards of one band mesh on cuda:0 (halos copied on the card within
-     a rank, one row each way between the ranks and every dot through the host by gloo,
-     the partials added in global shard order), at 20480², stencil5 f64 and const f32
-     recompute: a first solve, then three timed ones (a solve's time the slowest rank's),
-     each rank's launches set to 0 before and read after; x, by the sha256 of each band's
-     bytes, bit for bit the one-process 4-shard mesh's, 14 iterations both, and the
-     medians side by side (chiprun_out/chip_smoke_ranks.json).
+     (dist.make_rank_mesh): dist.launch_local with 2 gloo ranks sharing the card (so the
+     transport between them is gloo: NCCL refuses two ranks on one card), each driving 2
+     of the 4 shards of one mesh on cuda:0 (halos copied on the card within a rank, the
+     rows and columns whose neighbour is on the other rank and every dot through the host
+     by gloo, the partials added in global shard order), at 20480²: 4 bands in stencil5
+     f64 and const f32 recompute, the 2-D blocks of a 2 x 2 mesh (rows cross the ranks)
+     and of a 1 x 4 mesh (a column crosses) in stencil5 f64, and one --timers run (the
+     stepped loop) of the 4 bands: a first solve, then three timed ones (a solve's time
+     the slowest rank's), each rank's launches and halo counts set to 0 before and read
+     after (a row exchange an iteration for each of its shards with a N/S neighbour, a
+     column exchange and side-column corrections for each with a W/E one); x, by the
+     sha256 of each shard's bytes, bit for bit the one-process mesh of the same shape, 14
+     iterations both, the medians side by side, and the stepped run's halo, spmv,
+     allreduce and blas1 ms an iteration beside the one-process mesh's
+     (chiprun_out/chip_smoke_ranks.json).
+
+Protocol cuts to keep the run short (none on a median a gate reads): phase 5's CG runs
+other than the two phase 13's headline gate compares with take a median of 3 after one
+warm-up (CG_CUT_ARGS), its SpMV runs no warm-up; phase 11 runs one round (GRAPH_ROUNDS);
+phases 9 and 10 run the multichip CLI's runs of one group size in one group of ranks,
+spawned once, each run with its own counts.
 
 On a card every cg_solve of phases 5, 7 and 8 runs the graph loop: a path's launch
 counts are its wrappers' eager launches plus its replays' (``cg.LAUNCHES``: the iterations
@@ -327,6 +340,9 @@ CG_RUNS = {
     "dia bf16": ("dia", ["--dtype=bf16"], None, ("spmv_dia",) + CLASSIC),
     "bcoo bf16": ("bcoo", ["--dtype=bf16"], None, CLASSIC),
 }
+# the protocol of the CG runs whose median no gate reads: a median of 3 after a warm-up
+# (the runs phase 13's headline gate compares with keep the CLI's 3 warm-ups and 10 runs)
+CG_CUT_ARGS = ("--runs=3", "--warmup=1")
 # the bf16 solves: Sum/Norm2 within BF16_TOL of stencil5 f64's (a bf16 CG's x is noise at
 # ~5e-3 against the exact solution); phase 7 profiles the first of them only
 BF16_RUNS = tuple(label for label in CG_RUNS if label.endswith(("bf16", "bf16 classic")))
@@ -449,7 +465,7 @@ GRAPH_RUNS = {
     "fused stencil5 f64": ("stencil5", "float64", {"fused_pupdate": True}),
     "fused const f64": ("stencil5-const", "float64", {"fused_pupdate": True}),
 }
-GRAPH_ROUNDS = 2  # rounds of eager, graph, graph, eager after a warm-up solve of each
+GRAPH_ROUNDS = 1  # rounds of eager, graph, graph, eager after a warm-up solve of each
 COND_NODES = 1000  # IF nodes in the graph that times the condition kernel
 # two of phase 5's CLI medians as PERF.md section 6 records them before the solver had
 # phase scopes (NVIDIA H100 80GB HBM3, 700.00 W), in ms
@@ -601,16 +617,26 @@ WITHHELD_BOUND_S = 2.0
 PROFILED_CHILD = "--profiled-child"
 PROFILED_SHARDS = 4
 PROFILED_TIMEOUT_S = 240
-# phase 16: RANK_MESH_RANKS gloo ranks sharing the card, each driving its share of one
-# RANK_MESH_SHARDS-shard band mesh (dist.make_rank_mesh) at G_BIG², against the
-# one-process mesh: label -> (mode, dtype, the kernels its path launches)
+# phase 16: RANK_MESH_RANKS gloo ranks sharing the card, each driving its share of one mesh
+# across the ranks (dist.make_rank_mesh) at G_BIG²: RANK_MESH_SHARDS row bands, or 2-D
+# blocks (two a rank), against the one-process mesh of the same shape: label -> (the
+# mesh's shards: N bands or an (R, C) mesh, mode, dtype, the loop, the kernels its path
+# launches); the stepped run splits a rank mesh's iteration into its --timers buckets
 RANK_MESH_RANKS, RANK_MESH_SHARDS = 2, 4
+RANK_MESH_CLASSIC = ("spmv_stencil5", "cg_update", "p_update", "dot")
 RANK_MESH_RUNS = {
-    "stencil5 f64": ("stencil5", "float64", ("spmv_stencil5", "cg_update", "p_update",
-                                             "dot")),
-    "const f32 recompute": ("stencil5-const", "float32", RECOMPUTE),
+    "stencil5 f64": (RANK_MESH_SHARDS, "stencil5", "float64", "solve", RANK_MESH_CLASSIC),
+    "const f32 recompute": (RANK_MESH_SHARDS, "stencil5-const", "float32", "solve",
+                            RECOMPUTE),
+    # rows cross the ranks
+    "2x2 stencil5 f64": ((2, 2), "stencil5", "float64", "solve", RANK_MESH_CLASSIC),
+    # a column crosses the ranks
+    "1x4 stencil5 f64": ((1, 4), "stencil5", "float64", "solve", RANK_MESH_CLASSIC),
+    "stencil5 f64 --timers": (RANK_MESH_SHARDS, "stencil5", "float64", "stepped",
+                              RANK_MESH_CLASSIC),
 }
 RANK_MESH_TIMED = 3  # timed solves of each, after a first one
+RANK_MESH_BUCKETS = ("halo", "spmv", "allreduce", "blas1")
 # the sync kernels (csrc/mesh_sync.cu, kernels/mesh_sync.py): they port no Pallas kernel;
 # they are the counterparts of the JAX loop's ppermute and psum
 SYNC_KERNELS = {
@@ -1161,8 +1187,9 @@ def phase_main_path(torch, counters, cg_cli, spmv_cli):
     results = {}
     for label, (mode, extra, iters, needs) in CG_RUNS.items():
         path = OUT / f"chip_smoke_cg_{label.replace(' ', '_')}.json"
+        cut = () if label in HEADLINE_LOOPS.values() else CG_CUT_ARGS
         rc = counts.run(f"cg {label}", needs, lambda: cg_cli.main(
-            [f"gen:{G_BIG}", f"--mode={mode}", *extra, f"--json={path}"]))
+            [f"gen:{G_BIG}", f"--mode={mode}", *extra, *cut, f"--json={path}"]))
         res = json.loads(path.read_text())
         its = res["convergence"]["iterations"]
         print(f"[cg] {label}: rc {rc}, mode {mode}, loop {res['loop']}, converged "
@@ -1365,7 +1392,7 @@ def run_spmv_cli(spmv_cli, counts, g, modes, name, dtype="f32", extra=()):
     for mode in modes:
         t0 = time.perf_counter()
         rc = counts.run(f"spmv {mode} {g}² {dtype}", SPMV_NEEDS[mode], lambda: spmv_cli.main(
-            [f"gen:{g}", f"--mode={mode}", f"--dtype={dtype}", "--runs=3", "--warmup=1",
+            [f"gen:{g}", f"--mode={mode}", f"--dtype={dtype}", "--runs=3", "--warmup=0",
              *extra, f"--json={spmv_json}"]))
         wall = time.perf_counter() - t0
         if rc != 0:
@@ -2262,6 +2289,26 @@ def _sharded_rank(device, argv, counts_path):
     return rc
 
 
+def _rank_group(device, runs, jobs):
+    """The ranks of every run and job of one group size, spawned once by
+    dist.launch_local: each phase-9/10 run's multichip CLI in turn (``_sharded_rank``: its
+    own launch and halo counts), then each job (a rank function of this script for a
+    later check, and its arguments: ``_bf16c_rank``, phase 14's ``_mesh_x_rank``, phase
+    16's ``_rank_mesh_rank``), the card's cached memory released after each.  Returns
+    ([each run's rc], {job's name: its rank-0 result})."""
+    import torch
+
+    rcs = []
+    for argv, counts_path in runs:
+        rcs.append(_sharded_rank(device, argv, counts_path))
+        torch.cuda.empty_cache()
+    out = {}
+    for fn, args in jobs:
+        out[fn.__name__] = fn(device, *args)
+        torch.cuda.empty_cache()
+    return rcs, out
+
+
 def _bf16c_rank(device):
     """stencil5 and stencil5-bf16c, f32, at G_BIG² on this rank; rank 0 returns whether
     the gathered solutions are equal bit for bit, and both iteration counts."""
@@ -2314,26 +2361,46 @@ def _block_halo_missing(mesh, r, counts, halo_kernel):
     return missing
 
 
-def run_multichip(label, n, argv, loop, ref_label, needs, halo_missing, results, smi,
-                  launches):
+def multichip_runs(runs):
+    """Every run of ``runs`` (label -> (ranks, the multichip CLI's arguments)) in groups
+    of their size: {ranks: [(label, the CLI's argv, its export, its counts' path
+    prefix)]}."""
+    groups = {}
+    for label, (n, extra) in runs.items():
+        slug = re.sub(r"[^a-z0-9]+", "_", label)
+        path, counts_path = OUT / f"chip_smoke_{slug}.json", SHARDED_DIR / slug
+        argv = [f"gen:{G_BIG}", *extra, *SHARDED_ARGS, f"--json={path}"]
+        groups.setdefault(n, []).append((label, argv, path, counts_path))
+    return groups
+
+
+def launch_ranks(n, group, jobs, smi):
+    """One group of n ranks sharing the card, spawned once, for every run of ``group``
+    (``multichip_runs``) and every job of ``jobs`` (``_rank_group``): ({label: rc}, {job:
+    its rank-0 result})."""
+    from tpusparse_torch import dist
+
+    t0 = time.perf_counter()
+    rcs, out = dist.launch_local(_rank_group, n,
+                                 [(argv, str(counts)) for _l, argv, _p, counts in group],
+                                 jobs, device="cuda")
+    print(f"[sharded] {n} rank(s) sharing the card: {len(group)} runs and "
+          f"{[fn.__name__ for fn, _ in jobs]} in one group, {time.perf_counter() - t0:.1f} s "
+          f"with the spawn [{smi}]", flush=True)
+    return dict(zip((label for label, *_ in group), rcs)), out
+
+
+def check_multichip(label, n, rc, path, counts_path, loop, ref_label, needs, halo_missing,
+                    results, smi, launches):
     """One multichip CLI run on n ranks sharing the card, from its ranks' own launch
     counts: every rank must launch ``needs``, ``halo_missing(r, counts)`` says what rank r
     lacks on its exchanged halos, the solution must equal phase 5's ``ref_label`` to
     1e-10 in 14 iterations (a bf16 state's: to BF16_TOL, in any count), and a
     host-stepped run's four buckets must be > 0 and sum to no more than its median.  Adds
     the ranks' launches to ``launches``; returns the export."""
-    from tpusparse_torch import dist
-
-    slug = re.sub(r"[^a-z0-9]+", "_", label)
-    path, counts_path = OUT / f"chip_smoke_{slug}.json", SHARDED_DIR / slug
-    bf16 = "--dtype=bf16" in argv  # any iteration count, x within BF16_TOL
-    tol = BF16_TOL if bf16 else 1e-10
-    t0 = time.perf_counter()
-    rc = dist.launch_local(_sharded_rank, n, [f"gen:{G_BIG}", *argv, *SHARDED_ARGS,
-                                              f"--json={path}"],
-                           str(counts_path), device="cuda")
-    wall = time.perf_counter() - t0
     res = json.loads(path.read_text())
+    bf16 = res["dtype"] == "bf16"  # any iteration count, x within BF16_TOL
+    tol = BF16_TOL if bf16 else 1e-10
     its, t = res["convergence"]["iterations"], res["timing"]
     for r in range(n):
         counts = json.loads(pathlib.Path(f"{counts_path}_rank{r}.json").read_text())
@@ -2360,8 +2427,8 @@ def run_multichip(label, n, argv, loop, ref_label, needs, halo_missing, results,
           f"{res['loop']}, {its} iterations, median {t['total_median_ms']!r} ms over "
           f"{res['statistics']['total_runs']} runs ({rank_t}); gather to rank 0 "
           f"{t['allgather_ms']!r} ms; Sum rel {errs['solution_sum']:.3e}, Norm2 rel "
-          f"{errs['solution_norm']:.3e} against phase 5's {ref_label} (tol {tol:g}); the "
-          f"run's wall {wall:.1f} s [{smi}]", flush=True)
+          f"{errs['solution_norm']:.3e} against phase 5's {ref_label} (tol {tol:g}) [{smi}]",
+          flush=True)
     if rc != 0 or (its != 14 and not bf16) or res["loop"] != loop \
             or not max(errs.values()) <= tol:
         raise AssertionError(f"{label}: rc {rc}, {its} iterations, loop {res['loop']}, "
@@ -2380,51 +2447,77 @@ def run_multichip(label, n, argv, loop, ref_label, needs, halo_missing, results,
 def phase_sharded(torch, results, smi):
     """Phase 9: the multichip CLI at G_BIG² with 1, 2 and 4 ranks sharing the card (gloo,
     halos and dots staged through the host), each run from its ranks' own launch counts.
-    Returns {wrapper: launches summed over the runs and ranks}."""
-    from tpusparse_torch import dist
-
+    Every piece of work on ranks that shares the card runs here, one group of ranks a
+    group size, spawned once (``launch_ranks``): this phase's runs, phase 10's, the bf16c
+    check, phase 14's gloo ranks of its x parity and phase 16's rank meshes; the later
+    phases check theirs.  Returns ({wrapper: launches summed over this phase's runs and
+    ranks}, {"mesh2d": {phase 10's label: (the ranks' rc, its export, its counts' path
+    prefix)}, "mesh_x": {ranks: phase 14's gloo results}, "rank_mesh": phase 16's})."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     SHARDED_DIR.mkdir(parents=True, exist_ok=True)
-    launches = {}
-    for label, (n, extra, loop, ref_label, needs, halo_needs) in SHARDED_RUNS.items():
-        res = run_multichip(
-            label, n, [*extra, f"--chips={n}"], loop, ref_label, needs,
-            lambda r, counts, n=n, halo_needs=halo_needs: _band_halo_missing(
-                n, r, counts, halo_needs), results, smi, launches)
-        if n == 1:
-            single = results[ref_label]["timing"]["total_median_ms"]
-            median = res["timing"]["total_median_ms"]
-            print(f"[sharded] {label}: one rank's median {median!r} ms against "
-                  f"phase 5's single-device {ref_label} median {single!r} ms: the sharded "
-                  f"machinery and its host-read dots cost {median - single!r} ms a solve "
-                  f"[{smi}]", flush=True)
-    t0 = time.perf_counter()
-    equal, its = dist.launch_local(_bf16c_rank, 2, device="cuda")
-    print(f"[sharded] stencil5-bf16c f32 on 2 ranks: {its[1]} iterations, x equal to "
-          f"stencil5 f32's ({its[0]} iterations) bit for bit: {equal} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    if not equal or its[0] != its[1]:
-        raise AssertionError("sharded stencil5-bf16c x differs from sharded stencil5 f32 x")
-    print(f"[sharded] phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    launches, later = {}, {"mesh2d": {}, "mesh_x": {}}
+    groups = multichip_runs({
+        **{label: (n, [*extra, f"--chips={n}"])
+           for label, (n, extra, *_) in SHARDED_RUNS.items()},
+        **{label: (nr * nc, [*extra, f"--mesh2d={nr}x{nc}"])
+           for label, ((nr, nc), extra, *_) in MESH2D_RUNS.items()}})
+    jobs = {n: [(_mesh_x_rank, (MESH_X_GRID, {label: c for label, c in MESH_X_CASES.items()
+                                              if c[0] == n}))]
+            for n in sorted({c[0] for c in MESH_X_CASES.values()})}
+    jobs[2] = [(_bf16c_rank, ()), *jobs[2]]
+    jobs[RANK_MESH_RANKS] = [*jobs.get(RANK_MESH_RANKS, []),
+                             (_rank_mesh_rank, (RANK_MESH_RUNS, RANK_MESH_TIMED))]
+    for n in sorted(set(groups) | set(jobs)):
+        group = groups.get(n, [])
+        rcs, out = launch_ranks(n, group, jobs.get(n, []), smi)
+        if "_mesh_x_rank" in out:
+            later["mesh_x"][n] = out["_mesh_x_rank"]
+        if "_rank_mesh_rank" in out:
+            later["rank_mesh"] = out["_rank_mesh_rank"]
+        bf16c = out.get("_bf16c_rank")
+        for label, _argv, path, counts_path in group:
+            if label in MESH2D_RUNS:
+                later["mesh2d"][label] = (rcs[label], path, counts_path)
+                continue
+            _n, _extra, loop, ref_label, needs, halo_needs = SHARDED_RUNS[label]
+            res = check_multichip(
+                label, n, rcs[label], path, counts_path, loop, ref_label, needs,
+                lambda r, counts, n=n, halo_needs=halo_needs: _band_halo_missing(
+                    n, r, counts, halo_needs), results, smi, launches)
+            if n == 1:
+                single = results[ref_label]["timing"]["total_median_ms"]
+                median = res["timing"]["total_median_ms"]
+                print(f"[sharded] {label}: one rank's median {median!r} ms against "
+                      f"phase 5's single-device {ref_label} median {single!r} ms: the "
+                      f"sharded machinery and its host-read dots cost {median - single!r} "
+                      f"ms a solve [{smi}]", flush=True)
+        if bf16c is not None:
+            equal, its = bf16c
+            print(f"[sharded] stencil5-bf16c f32 on 2 ranks: {its[1]} iterations, x equal "
+                  f"to stencil5 f32's ({its[0]} iterations) bit for bit: {equal}",
+                  flush=True)
+            if not equal or its[0] != its[1]:
+                raise AssertionError("sharded stencil5-bf16c x differs from sharded "
+                                     "stencil5 f32 x")
+    print(f"[sharded] phase 9 took {time.perf_counter() - t_phase:.1f} s (the rank work of "
+          f"phases 10, 14 and 16 among it)", flush=True)
+    return launches, later
 
 
-def phase_mesh2d(torch, results, smi):
+def phase_mesh2d(results, smi, runs):
     """Phase 10: the multichip CLI's 2-D block decomposition (--mesh2d) at G_BIG² f64, its
-    ranks sharing the card, each run from its ranks' own launch counts; each median beside
-    phase 9's 4-rank row-band median of the same mode.  Returns {wrapper: launches summed
-    over the runs and ranks}."""
+    ranks sharing the card, each run from its ranks' own launch counts (``runs``: what
+    phase 9's 4-rank group ran for it); each median beside phase 9's 4-rank row-band
+    median of the same mode.  Returns {wrapper: launches summed over the runs and
+    ranks}."""
     t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
     launches = {}
-    for label, (mesh, extra, loop, ref_label, needs, band_label) in MESH2D_RUNS.items():
-        halo_kernel = needs[0]
-        res = run_multichip(
-            label, mesh[0] * mesh[1], [*extra, f"--mesh2d={mesh[0]}x{mesh[1]}"], loop,
-            ref_label, needs,
-            lambda r, counts, mesh=mesh, k=halo_kernel: _block_halo_missing(mesh, r, counts,
-                                                                            k),
+    for label, (mesh, _extra, loop, ref_label, needs, band_label) in MESH2D_RUNS.items():
+        rc, path, counts_path = runs[label]
+        res = check_multichip(
+            label, mesh[0] * mesh[1], rc, path, counts_path, loop, ref_label, needs,
+            lambda r, counts, mesh=mesh, k=needs[0]: _block_halo_missing(mesh, r, counts, k),
             results, smi, launches)
         if res["solver"] != f"tpusparse-cg-sharded2d-{mesh[0]}x{mesh[1]}":
             raise AssertionError(f"{label}: solver {res['solver']}")
@@ -2432,7 +2525,8 @@ def phase_mesh2d(torch, results, smi):
         band_ms = json.loads(band.read_text())["timing"]["total_median_ms"]
         print(f"[mesh2d] {label}: median {res['timing']['total_median_ms']!r} ms against "
               f"phase 9's {band_label} {band_ms!r} ms [{smi}]", flush=True)
-    print(f"[mesh2d] phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"[mesh2d] phase 10 took {time.perf_counter() - t_phase:.1f} s (its checks; its "
+          f"runs ran in phase 9)", flush=True)
     return launches
 
 
@@ -2937,17 +3031,17 @@ def _mesh_x_rank(device, grid, cases):
     return out if dist.rank() == 0 else None
 
 
-def check_mesh_x(torch, smi):
+def check_mesh_x(torch, smi, gloo_by_n):
     """The mesh's x against the gloo ranks' bit for bit at MESH_X_GRID² in every case of
-    MESH_X_CASES, one group of ranks sharing the card a shard count."""
+    MESH_X_CASES (``gloo_by_n``: {ranks: {label: (x, iterations)}}, what phase 9's group
+    of ranks sharing the card ran for a shard count)."""
     from tpusparse_torch import dist
     from tpusparse_torch._device import host_numpy
     from tpusparse_torch.solvers import cg_sharded
 
-    for n in (2, 4):
+    for n, gloo in gloo_by_n.items():
         t0 = time.perf_counter()
         cases = {label: c for label, c in MESH_X_CASES.items() if c[0] == n}
-        gloo = dist.launch_local(_mesh_x_rank, n, MESH_X_GRID, cases, device="cuda")
         for label, (_n, blocks, mode, dtype, kw) in cases.items():
             solve_kw = dict(mode=mode, dtype=getattr(torch, dtype))
             if blocks is not None:
@@ -2966,8 +3060,9 @@ def check_mesh_x(torch, smi):
             if not same:
                 raise AssertionError(f"mesh {label} at {MESH_X_GRID}²: x differs from the "
                                      f"gloo ranks' ({s.iterations} vs {its} iterations)")
-        print(f"[mesh] {n} shards against {n} gloo ranks at {MESH_X_GRID}²: "
-              f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+        print(f"[mesh] {n} shards against {n} gloo ranks at {MESH_X_GRID}²: the mesh's "
+              f"solves {time.perf_counter() - t0:.1f} s (the ranks ran in phase 9) [{smi}]",
+              flush=True)
 
 
 def time_transport(torch, smi):
@@ -3092,7 +3187,7 @@ def profile_mesh(torch, summary, splits, smi):
     return out
 
 
-def phase_mesh(torch, counters, results, cmp, smi, splits):
+def phase_mesh(torch, counters, results, cmp, smi, splits, gloo_by_n):
     """Phase 14: the multichip CLI without a process group, so this process drives a mesh
     of shards sharing the card (cg_sharded.MeshOperator), each run of MESH_RUNS at G_BIG²
     uncut from its own launch counts: 14 iterations (a bf16 state: any), Sum/Norm2 against
@@ -3102,7 +3197,7 @@ def phase_mesh(torch, counters, results, cmp, smi, splits):
     make (``mesh_per_iteration``: the graph's replays through ``_launch.count_replay``).
     Then a few of those solves profiled beside phase 7's single-device ones
     (``profile_mesh``; ``splits``: phase 7's), the mesh's x against the gloo ranks' bit
-    for bit at MESH_X_GRID² (``check_mesh_x``),
+    for bit at MESH_X_GRID² (``check_mesh_x``; ``gloo_by_n``: phase 9's ranks' solves),
     the transport's device time (``time_transport``) and the kernels at the shard shapes
     (``compare_mesh_shapes``).  Returns {wrapper: launches summed over the runs}."""
     from tpusparse_torch import generate
@@ -3185,7 +3280,7 @@ def phase_mesh(torch, counters, results, cmp, smi, splits):
                           "assembly_ms": t["allgather_ms"], "launches": got}
         torch.cuda.empty_cache()
     summary["profiles"] = profile_mesh(torch, summary, splits, smi)
-    check_mesh_x(torch, smi)
+    check_mesh_x(torch, smi, gloo_by_n)
     summary["transport_us"] = time_transport(torch, smi)
     compare_mesh_shapes(torch, st5, blas1, ell, generate, cmp)
     summary["card"] = smi
@@ -3555,12 +3650,19 @@ def phase_cards(torch, counters, smi):
     return totals, sync
 
 
+def _rank_mesh_blocks(shape):
+    """(rows, columns) of a rank mesh's shards: N bands or an (R, C) mesh."""
+    return (shape, 1) if isinstance(shape, int) else tuple(shape)
+
+
 def _rank_mesh_rank(device, runs, timed):
     """One rank of phase 16 (spawned by dist.launch_local): each run of ``runs`` on this
-    rank's shards of the RANK_MESH_SHARDS-shard mesh across the ranks at G_BIG²: its
-    launch counts set to 0, a first solve, the sha256 of each of its bands' bytes, then
+    rank's shards of its mesh across the ranks at G_BIG²: its launch counts and the halo
+    counts set to 0, a first solve, the sha256 of each of its shards' bytes, then
     ``timed`` solves, each after a barrier, the counts read.  Rank 0 returns {label:
-    [each rank's {"digests", "launches", "iterations", "ms"}]}."""
+    [each rank's {"digests", "launches", "halo", "local", "transport", "iterations",
+    "ms", "buckets"}]}: the halo counts of every solve, the stepped loop's buckets of its
+    last solve."""
     import hashlib
 
     import torch
@@ -3572,38 +3674,63 @@ def _rank_mesh_rank(device, runs, timed):
 
     del device
     counters = (st5, blas1, ell)
-    mesh = dist.make_rank_mesh(RANK_MESH_SHARDS)
     out = {}
-    for label, (mode, dtype, _needs) in runs.items():
+    for label, (shape, mode, dtype, loop, _needs) in runs.items():
+        mesh = dist.make_rank_mesh(shape)
         op = cg_sharded.make_mesh_operator(G_BIG, mesh, mode=mode, dtype=getattr(torch, dtype))
+        solve = op.solve_stepped if loop == "stepped" else op.solve
         for c in counters:
             c.reset_launches()
-        xs, s = op.solve()
-        digests = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest() for x in xs]
+        cg_sharded.reset_halo_calls()
+        xs, s = solve()
+        digests = [hashlib.sha256(x.cpu().numpy()).hexdigest() for x in xs]
         del xs
         ms = []
         for _ in range(timed):
             dist.barrier()
             t0 = time.perf_counter()
-            op.solve()  # ends in the loop's read: the card is done
+            _, st = solve()  # ends in the loop's read: the card is done
             ms.append((time.perf_counter() - t0) * 1e3)
         launches = {n: v for c in counters for n, v in c.LAUNCHES.items() if v}
-        out[label] = dist._all_objects({"digests": digests, "launches": launches,
-                                        "iterations": s.iterations, "ms": ms})
+        buckets = ({k: getattr(st, f"{k}_time_ms") for k in RANK_MESH_BUCKETS}
+                   if loop == "stepped" else None)
+        out[label] = dist._all_objects({
+            "digests": digests, "launches": launches, "halo": dict(cg_sharded.HALO_CALLS),
+            "local": list(mesh.local), "transport": op.link.transport,
+            "iterations": s.iterations, "ms": ms, "buckets": buckets})
         del op
         cg_sharded.clear_caches()
         torch.cuda.empty_cache()
     return out if dist.rank() == 0 else None
 
 
-def phase_rank_mesh(torch, counters, smi):
+def _rank_mesh_halo_missing(shape, rank, solves, iterations):
+    """What a rank of a phase-16 run lacks in its halo counts over ``solves`` solves of
+    ``iterations`` each: a row exchange an iteration for each of its shards with a N/S
+    neighbour, a column exchange for each with a W/E neighbour (local or on the other
+    rank), and a side-column correction for each such neighbour."""
+    nr, nc = _rank_mesh_blocks(shape)
+    ij = [divmod(i, nc) for i in rank["local"]]
+    k = solves * iterations
+    want = {"exchange": k * sum((i > 0) or (i < nr - 1) for i, _ in ij),
+            "column_exchange": k * sum((j > 0) or (j < nc - 1) for _, j in ij),
+            "column_correction": k * sum((j > 0) + (j < nc - 1) for _, j in ij)}
+    return [f"{n} {rank['halo'][n]} (want {v})" for n, v in want.items()
+            if rank["halo"][n] != v]
+
+
+def phase_rank_mesh(torch, counters, smi, ranks):
     """Phase 16: ranks that each drive a mesh of local shards (``dist.make_rank_mesh``),
-    RANK_MESH_RANKS gloo ranks sharing the card, against the one-process
-    RANK_MESH_SHARDS-shard mesh (its one graph, beside the path, uncounted) in every run
-    of RANK_MESH_RUNS at G_BIG²: the ranks' launches are the path (each rank's set to 0
-    before and read after its solves); x bit for bit by the sha256 of each band's bytes,
-    14 iterations both; the medians of RANK_MESH_TIMED solves (a solve's time the slowest
-    rank's).  Returns {wrapper: launches summed over the runs}."""
+    RANK_MESH_RANKS gloo ranks sharing the card, against the one-process mesh of the
+    same shape (its one graph, or its stepped loop, beside the path, uncounted) in every
+    run of RANK_MESH_RUNS at G_BIG² (``ranks``: what ``_rank_mesh_rank`` returned in phase
+    9's group of RANK_MESH_RANKS ranks): the ranks' launches are the path (each rank's set
+    to 0 before and read after its solves); every rank's halo counts, each 2-D rank's column
+    exchanges and corrections among them; the transport each rank ran (gloo: the ranks
+    share the card); x bit for bit by the sha256 of each shard's bytes, 14 iterations
+    both; the medians of RANK_MESH_TIMED solves (a solve's time the slowest rank's); the
+    stepped run's buckets an iteration beside the one-process mesh's.  Returns {wrapper:
+    launches summed over the runs}."""
     import hashlib
 
     from tpusparse_torch import dist
@@ -3612,34 +3739,33 @@ def phase_rank_mesh(torch, counters, smi):
     t_phase = time.perf_counter()
     counts = PathCounts(counters)
     torch.cuda.empty_cache()
-    ranks = dist.launch_local(_rank_mesh_rank, RANK_MESH_RANKS, RANK_MESH_RUNS,
-                              RANK_MESH_TIMED, device="cuda")
-    print(f"[ranks] {RANK_MESH_RANKS} ranks × {RANK_MESH_SHARDS // RANK_MESH_RANKS} shards: "
-          f"{time.perf_counter() - t_phase:.1f} s with the spawn [{smi}]", flush=True)
     summary = {"card": smi}
-    for label, (mode, dtype, needs) in RANK_MESH_RUNS.items():
+    for label, (shape, mode, dtype, loop, needs) in RANK_MESH_RUNS.items():
         every = ranks[label]
         launches = {}
         for r in every:
             for name, v in r["launches"].items():
                 launches[name] = launches.get(name, 0) + v
         counts.record(f"rank mesh {label}", needs, launches, {})
-        op = cg_sharded.make_mesh_operator(G_BIG, dist.make_band_mesh(RANK_MESH_SHARDS),
-                                           mode=mode, dtype=getattr(torch, dtype))
+        nr, nc = _rank_mesh_blocks(shape)
+        mesh = dist.make_band_mesh(nr) if nc == 1 and isinstance(shape, int) \
+            else dist.make_mesh((nr, nc))
+        op = cg_sharded.make_mesh_operator(G_BIG, mesh, mode=mode, dtype=getattr(torch, dtype))
+        solve = op.solve_stepped if loop == "stepped" else op.solve
 
         def mesh_solves():
-            xs, s = op.solve()
-            digests = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest() for x in xs]
+            xs, s = solve()
+            digests = [hashlib.sha256(x.cpu().numpy()).hexdigest() for x in xs]
             del xs
             ms = []
             for _ in range(RANK_MESH_TIMED):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                op.solve()
+                _, st = solve()
                 ms.append((time.perf_counter() - t0) * 1e3)
-            return digests, s.iterations, ms
+            return digests, s.iterations, ms, st
 
-        digests, k_mesh, ms_mesh = uncounted(mesh_solves)
+        digests, k_mesh, ms_mesh, st_mesh = uncounted(mesh_solves)
         del op
         cg_sharded.clear_caches()
         torch.cuda.empty_cache()
@@ -3648,18 +3774,41 @@ def phase_rank_mesh(torch, counters, smi):
         med_mesh = sorted(ms_mesh)[len(ms_mesh) // 2]
         its = [r["iterations"] for r in every]
         same = [d for r in every for d in r["digests"]] == digests
+        transports = [r["transport"] for r in every]
+        split = f"{nr}x{nc}" if not isinstance(shape, int) else f"{nr} bands"
         print(f"[ranks] {label} {G_BIG}², {RANK_MESH_RANKS} ranks × "
-              f"{RANK_MESH_SHARDS // RANK_MESH_RANKS} shards sharing the card: median "
-              f"{med!r} ms (the slowest rank; each {ranks_ms}), the one-process "
-              f"{RANK_MESH_SHARDS}-shard mesh {med_mesh!r} ms (ranks / mesh "
+              f"{nr * nc // RANK_MESH_RANKS} shards of {split} sharing the card over "
+              f"{transports}: median {med!r} ms (the slowest rank; each {ranks_ms}), the "
+              f"one-process {split} mesh {med_mesh!r} ms (ranks / mesh "
               f"{med / med_mesh:.4f}); iterations {its} (mesh {k_mesh}), x bit for bit by "
-              f"each band's sha256: {same} [{smi}]", flush=True)
-        if not (same and set(its) == {k_mesh} and k_mesh == 14):
+              f"each shard's sha256: {same} [{smi}]", flush=True)
+        for r, rank in enumerate(every):
+            halo = rank["halo"]
+            print(f"[ranks] {label} rank {r} (shards {rank['local']}): {halo['exchange']} "
+                  f"row exchanges, {halo['column_exchange']} column exchanges, "
+                  f"{halo['column_correction']} corrections with exchanged columns over "
+                  f"{1 + RANK_MESH_TIMED} solves", flush=True)
+            missing = _rank_mesh_halo_missing(shape, rank, 1 + RANK_MESH_TIMED, k_mesh)
+            if missing:
+                raise AssertionError(f"rank mesh {label} rank {r}: halo counts {missing}")
+        if not (same and set(its) == {k_mesh} and k_mesh == 14
+                and transports == ["gloo"] * RANK_MESH_RANKS):
             raise AssertionError(f"rank mesh {label}: x bit for bit {same}, iterations {its} "
-                                 f"(mesh {k_mesh})")
+                                 f"(mesh {k_mesh}), transports {transports}")
         summary[label] = {"ranks_ms": ranks_ms, "median_ms": med, "mesh_ms": ms_mesh,
                           "mesh_median_ms": med_mesh, "iterations": k_mesh,
-                          "launches": launches}
+                          "launches": launches, "halo": [r["halo"] for r in every]}
+        if loop == "stepped":
+            per_it = {k: [r["buckets"][k] / k_mesh for r in every] for k in RANK_MESH_BUCKETS}
+            mesh_it = {k: getattr(st_mesh, f"{k}_time_ms") / k_mesh for k in RANK_MESH_BUCKETS}
+            print(f"[ranks] {label}: ms an iteration by bucket, each rank's last solve / the "
+                  f"one-process mesh's: " + ", ".join(
+                      f"{k} {per_it[k]!r} / {mesh_it[k]!r}" for k in RANK_MESH_BUCKETS)
+                  + f" [{smi}]", flush=True)
+            if not all(min(v) > 0 for v in per_it.values()):
+                raise AssertionError(f"rank mesh {label}: buckets {per_it}")
+            summary[label]["buckets_per_iteration"] = per_it
+            summary[label]["mesh_buckets_per_iteration"] = mesh_it
     (OUT / "chip_smoke_ranks.json").write_text(json.dumps(summary, indent=1))
     print(f"[ranks] phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts.totals()
@@ -3681,11 +3830,14 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    t_start = last = time.perf_counter()
 
     def done(phases):
-        print(f"[phase] {phases} done {time.perf_counter() - t_start:.1f} s after the start",
-              flush=True)
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[phase] {phases} done {now - t_start:.1f} s after the start, {now - last:.1f} "
+              f"s for itself", flush=True)
+        last = now
 
     smi = phase_card(torch, sysinfo)
     phase_build(_build)
@@ -3711,9 +3863,10 @@ def main() -> int:
     phase_graph(torch, smi)
     phase_stepped(torch, (st5, blas1, ell, dia, stream_probe), cg_cli, spmv_cli, results,
                   splits, times, smi)
-    for name, count in phase_sharded(torch, results, smi).items():
+    sharded, later = phase_sharded(torch, results, smi)
+    for name, count in sharded.items():
         launches[name] += count
-    for name, count in phase_mesh2d(torch, results, smi).items():
+    for name, count in phase_mesh2d(results, smi, later["mesh2d"]).items():
         launches[name] += count
     done("11, 8-10")
     for name, count in phase_scripts(torch, (st5, blas1, ell, dia), smi).items():
@@ -3723,14 +3876,15 @@ def main() -> int:
         launches[name] += count
     done(13)
     for name, count in phase_mesh(torch, (st5, blas1, ell, dia), results, cmp, smi,
-                                  splits).items():
+                                  splits, later["mesh_x"]).items():
         launches[name] += count
     done(14)
     cards, sync = phase_cards(torch, (st5, blas1, ell, dia), smi)
     for name, count in cards.items():
         launches[name] = launches.get(name, 0) + count
     done(15)
-    for name, count in phase_rank_mesh(torch, (st5, blas1, ell, dia), smi).items():
+    for name, count in phase_rank_mesh(torch, (st5, blas1, ell, dia), smi,
+                                       later["rank_mesh"]).items():
         launches[name] = launches.get(name, 0) + count
     done(16)
     for label, res in results.items():

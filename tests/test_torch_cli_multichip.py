@@ -185,10 +185,12 @@ def _cli_in_group(device, argv):
 
 
 def test_cli_mesh2d_in_a_group_of_another_size(capfd):
-    """In a group (as under torchrun) the group's size must be R·C."""
+    """In a group (as under torchrun) the group's size must divide R·C: R·C blocks, one
+    or several a rank (tests/test_torch_multihost_2d.py runs 2 ranks on 2x4)."""
     argv = ["gen:16", "--platform=cpu", "--mesh2d=2x2", "--runs=1", "--warmup=0"]
-    assert dist.launch_local(_cli_in_group, 2, argv, device="cpu") == 2
-    assert "--mesh2d=2x2 needs 4 ranks but the group has 2" in capfd.readouterr().err
+    assert dist.launch_local(_cli_in_group, 3, argv, device="cpu") == 2
+    assert "--mesh2d=2x2 has 4 blocks, not a multiple of the group's 3 ranks" in \
+        capfd.readouterr().err
 
 
 def test_cli_mesh2d_reads_an_mtx(tmp_path):

@@ -15,8 +15,9 @@ every solve of the file (the ``ranks`` fixture); the tests read its results.  Ba
 - ``dist.rank_time_stats`` after a barrier: two ``per_process_ms`` entries;
 - ``dist.describe_mesh``: two processes, each shard's process as JAX numbers them
   (process 0's devices first), and each rank driving its own four shards;
-- the refusals on a mesh across ranks: ``graph=True``, ``per_shard=True`` and a 2-D mesh
-  of several blocks a rank (ValueError); the CLI's ``--chips=6`` on 4 ranks (rc 2);
+- the refusals on a mesh across ranks: ``graph=True``, ``per_shard=True`` and ``csr`` on
+  a 2-D mesh of several blocks a rank, which runs on row bands only (ValueError); the
+  CLI's ``--chips=6`` on 4 ranks (rc 2);
 - the multichip CLI with ``--chips=8`` on 2 ranks: Sum/Norm2 and iterations bit for bit
   the one-process CLI's, its topology the gloo transport over 8 shards and 2 processes.
 
@@ -77,8 +78,8 @@ def _rank(device, cases):
     out["refusals"] = {
         "graph=True": _refusal(lambda: op.solve(graph=True)),
         "per_shard=True": _refusal(lambda: op.solve(per_shard=True)),
-        "2-D": _refusal(lambda: cg_sharded.make_mesh_operator(
-            16, dist.Mesh((2, 4), ("x", "y"), mesh.devices, RANKS, dist.rank()))),
+        "csr 2-D": _refusal(lambda: cg_sharded.make_mesh_operator(
+            16, dist.make_rank_mesh((2, 4), devices="cpu"), mode="csr")),
     }
     cg_sharded.clear_caches()
     return out if dist.rank() == 0 else None
@@ -149,10 +150,10 @@ def test_describe_mesh_matches_jax_process_of_device(ranks):
     assert ranks["local"] == [[0, 1, 2, 3], [4, 5, 6, 7]]
 
 
-@pytest.mark.parametrize("what", ["graph=True", "per_shard=True", "2-D"])
+@pytest.mark.parametrize("what", ["graph=True", "per_shard=True", "csr 2-D"])
 def test_rank_mesh_refusals(ranks, what):
     words = {"graph=True": "eager loop", "per_shard=True": "eager loop",
-             "2-D": "several a rank"}[what]
+             "csr 2-D": "stencil modes"}[what]
     assert ranks["refusals"][what] is not None and words in ranks["refusals"][what]
 
 

@@ -1,0 +1,140 @@
+"""The transport between ranks (``dist.device_group``): NCCL card to card where every rank
+has cards of its own, gloo through the host elsewhere.
+
+On the CPU (here): ranks on the CPU get no device group and report ``gloo``, and the one
+ordered sum that both transports call (``cg_sharded.sum_in_shard_order``) gives
+``_allsum``'s bits, the partials added left to right in global shard order, on seeded f64
+and f32 partials of 2, 4 and 8 shards across 2 ranks.
+
+On two cards or more (``cuda``-marked; they skip below two cards, and need no JAX): 2
+ranks, each on a card of its own, solve at g = 256 over NCCL and over gloo (``transport=
+"gloo"``) on the same cards, one band a rank (the classic and the recompute loop), a 2 × 2
+mesh as a rank mesh (2 blocks a rank, rows crossing the ranks) and 4 bands as a rank mesh
+(2 a rank): transport ``nccl``, and x and the iterations bit for bit the gloo transport's.
+
+The spawned ranks import this module, so it imports no JAX.
+"""
+
+import functools
+import operator
+
+import numpy as np
+import pytest
+import torch
+
+from tpusparse_torch import dist
+from tpusparse_torch.solvers import cg_sharded
+
+SUM_CASES = [(dtype, n) for dtype in ("float64", "float32") for n in (2, 4, 8)]
+SUM_RANKS = 2
+
+
+def _partials(dtype, n):
+    rng = np.random.default_rng(1000 + n)
+    return torch.from_numpy(rng.standard_normal(n) * 10.0 ** rng.integers(-6, 6, n)).to(
+        getattr(torch, dtype))
+
+
+def _cpu_rank(device, cases):
+    """On each CPU rank: the device group, the transports a rank's operators report, and
+    ``_allsum`` of this rank's share of each case's partials; rank 0 returns them."""
+    mesh = dist.make_rank_mesh(4, devices="cpu")
+    out = {
+        "device_group": dist._all_objects(dist.device_group(device) is None),
+        "halo": dist._all_objects(cg_sharded.make_sharded_operator(
+            16, device=device, dtype=torch.float64).halo.transport),
+        "link": dist._all_objects(cg_sharded.make_mesh_operator(
+            16, mesh, dtype=torch.float64).link.transport),
+        "sums": {},
+    }
+    cg_sharded.clear_caches()
+    for dtype, n in cases:
+        flat = _partials(dtype, n)
+        per = n // dist.world_size()
+        mine = flat[dist.rank() * per:(dist.rank() + 1) * per]
+        out["sums"][(dtype, n)] = dist._all_objects(cg_sharded._allsum(*mine).item())
+    return out if dist.rank() == 0 else None
+
+
+@pytest.fixture(scope="module")
+def cpu_ranks():
+    return dist.launch_local(_cpu_rank, SUM_RANKS, SUM_CASES, device="cpu")
+
+
+def test_device_group_is_none_on_cpu_ranks(cpu_ranks):
+    assert cpu_ranks["device_group"] == [True] * SUM_RANKS
+    assert cpu_ranks["halo"] == cpu_ranks["link"] == ["gloo"] * SUM_RANKS
+
+
+def test_device_group_outside_a_group_and_its_refusal():
+    assert dist.device_group("cpu") is None
+    assert dist.device_group("cpu", "gloo") is None
+    with pytest.raises(ValueError, match="transport is None or 'gloo'"):
+        dist.device_group("cpu", "mpi")
+
+
+@pytest.mark.parametrize("dtype,n", SUM_CASES)
+def test_ordered_sum_gives_allsum_bits(cpu_ranks, dtype, n):
+    """Every rank's ``_allsum`` of its share, the shared ordered sum of all partials, and
+    numpy's left-to-right sum in the same dtype: one value, bit for bit."""
+    flat = _partials(dtype, n)
+    ordered = cg_sharded.sum_in_shard_order(flat)
+    assert ordered.dtype == flat.dtype and ordered.shape == ()
+    left_to_right = functools.reduce(operator.add, flat.numpy())
+    assert ordered.item() == float(left_to_right)
+    assert cpu_ranks["sums"][(dtype, n)] == [ordered.item()] * SUM_RANKS
+    assert cg_sharded._allsum(*flat).item() == ordered.item()  # one rank, every partial
+
+
+# --------------------------------------------------------------------------- the cards
+
+G = 256
+# name -> (rank mesh shape or None for one band a rank, mode, dtype)
+CARD_CASES = {
+    "bands": (None, "stencil5", "float64"),
+    "bands recompute": (None, "stencil5-const", "float32"),
+    "2x2 rank mesh": ((2, 2), "stencil5", "float64"),
+    "4 bands rank mesh": (4, "stencil5", "float64"),
+}
+
+
+def _card_rank(device, case):
+    """One case on this rank's card, over NCCL then over gloo: rank 0 returns ({transport:
+    (x gathered, iterations)}, every rank's transports)."""
+    shape, mode, dtype = CARD_CASES[case]
+    dtype = getattr(torch, dtype)
+    out, transports = {}, []
+    for transport in (None, "gloo"):
+        if shape is None:
+            op = cg_sharded.make_sharded_operator(G, mode=mode, dtype=dtype, device=device,
+                                                  transport=transport)
+            x, s = cg_sharded.cg_solve_sharded(G, mode=mode, dtype=dtype, operator=op)
+            x = dist.gather_to_host(x, rows=G)
+            transports.append(op.halo.transport)
+        else:
+            n = int(np.prod(shape))
+            per = n // dist.world_size()
+            mesh = dist.make_rank_mesh(shape, devices=[f"cuda:{i // per}" for i in range(n)])
+            op = cg_sharded.make_mesh_operator(G, mesh, mode=mode, dtype=dtype,
+                                               transport=transport)
+            xs, s = op.solve()
+            x = op.assemble(xs)
+            x = (dist.gather_blocks_to_host(x, shape) if isinstance(shape, tuple)
+                 else dist.gather_to_host(x, rows=G))
+            transports.append(op.link.transport)
+        out[transport or "nccl"] = (x, s.iterations)
+        cg_sharded.clear_caches()
+    every = dist._all_objects(transports)
+    return (out, every) if dist.rank() == 0 else None
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif(not torch.cuda.is_available() or torch.cuda.device_count() < 2,
+                    reason="NCCL between ranks needs two cards, a rank on each")
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_nccl_ranks_equal_gloo_ranks(case):
+    out, transports = dist.launch_local(_card_rank, 2, case, device="cuda")
+    assert transports == [["nccl", "gloo"]] * 2
+    (x, k), (x_gloo, k_gloo) = out["nccl"], out["gloo"]
+    assert k == k_gloo and x.shape == (G, G)
+    np.testing.assert_array_equal(x, x_gloo)

@@ -2,7 +2,7 @@
 one card.
 
     python -m tpusparse_torch.bench.mesh_scaling [--grid 20480] [--runs 5] [--json PATH]
-        [--platform cuda|cpu] [--profile] [--per-card K]
+        [--platform cuda|cpu] [--profile] [--per-card K] [--ranks W]
 
 For each case (mesh shape, mode, dtype) the mesh is built twice
 (``cg_sharded.make_mesh_operator``): one shard a card (``dist.make_mesh`` over cards 0 to
@@ -23,6 +23,17 @@ Needs as many cards as the largest mesh (4) and exits 1 with fewer, or when an x
 differs.  ``--platform=cpu`` runs every mesh on the CPU, the per-card
 loop on the kernels' twins (a rehearsal of the code path; its times say nothing of a
 card).
+
+``--ranks W`` runs the rank cases of W ranks instead (``RANK_CASES``), each in a group of
+W processes spawned by ``dist.launch_local``, rank r on card r: one band or block a rank
+(W = the shards), or a mesh across the ranks (``dist.make_rank_mesh``; 2 ranks × 2 cards
+each: a rank's own shards copy card to card).  Each solves over both transports between
+the ranks on the same cards, NCCL (``dist.device_group``) and gloo through the host
+(``transport="gloo"``): a first solve, then ``--runs`` solves each after a barrier (a
+solve's time the slowest rank's).  Beside them the same shards as one process's mesh over
+the cards, its per-card and eager loops.  Printed: the four medians, the transport each
+leg ran, the iterations, and whether x is the same bit for bit in all four (each shard's
+bytes by sha256).
 """
 
 from __future__ import annotations
@@ -48,6 +59,17 @@ CASES = (((4,), "stencil5", "f64"), ((4,), "stencil5-const", "f32"), ((2, 2), "s
 LOOPS = {"per card": {"per_shard": True}, "eager": {"graph": False}, "one card": {}}
 # dot sync points (a publish and a wait that sums) in the graph a shard that times one
 SYNC_REPS = 1000
+# the rank cases: label -> (ranks, shards: N bands or an (R, C) mesh, mode, dtype); the
+# shards one a rank, or a mesh across the ranks; shard i on card i either way
+RANK_CASES = {
+    "stencil5 f64, 4 bands": (4, 4, "stencil5", "f64"),
+    "const f32 recompute, 4 bands": (4, 4, "stencil5-const", "f32"),
+    "2x2 stencil5 f64": (4, (2, 2), "stencil5", "f64"),
+    "rank mesh 4 bands stencil5 f64": (2, 4, "stencil5", "f64"),
+    "rank mesh 2x2 stencil5 f64": (2, (2, 2), "stencil5", "f64"),
+}
+# the transports a rank case runs: label -> dist.device_group's transport
+TRANSPORTS = {"nccl": None, "gloo": "gloo"}
 
 
 def _solve(op, runs, loops):
@@ -147,6 +169,127 @@ def _profile(op):
     return out
 
 
+def _digests(fields):
+    """The sha256 of each field's bytes, in order."""
+    import hashlib
+
+    return [hashlib.sha256(f.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for f in fields]
+
+
+def _block_fields(x, shape):
+    """The shards' fields of a whole (g, g) field: N row bands, or the (R, C) blocks
+    row-major."""
+    nr, nc = (shape, 1) if isinstance(shape, int) else shape
+    h, w = x.shape[0] // nr, x.shape[1] // nc
+    return [x[i * h:(i + 1) * h, j * w:(j + 1) * w] for i in range(nr) for j in range(nc)]
+
+
+def _rank_case(device, grid, shards, mode, dtype_name, runs, platform):
+    """One rank case on this rank (spawned by ``dist.launch_local``), over each transport
+    of ``TRANSPORTS``: rank 0 returns {transport: {"ran": the transport every rank
+    reported, "iterations", "digests": every shard's sha256 in shard order, "ms": each
+    timed solve's slowest rank}}."""
+    w, dtype = dist.world_size(), resolve_dtype(dtype_name)
+    n = shards if isinstance(shards, int) else math.prod(shards)
+    blocks = None if isinstance(shards, int) else tuple(shards)
+    out = {}
+    for label, transport in TRANSPORTS.items():
+        if n == w:  # one band or block a rank
+            op = cg_sharded.make_sharded_operator(grid, mode=mode, dtype=dtype, device=device,
+                                                  mesh_shape=blocks, transport=transport)
+            ran = op.halo.transport
+
+            def solve():
+                x, s = cg_sharded.cg_solve_sharded(grid, operator=op)
+                return [x], s
+        else:
+            mesh = dist.make_rank_mesh(blocks or n, devices=platform)
+            op = cg_sharded.make_mesh_operator(grid, mesh, mode=mode, dtype=dtype,
+                                               transport=transport)
+            ran = op.link.transport
+
+            def solve():
+                return op.solve()
+
+        xs, s = solve()
+        digests = _digests(xs)
+        del xs
+        times = []
+        for _ in range(runs):
+            dist.barrier()
+            t0 = time.perf_counter()
+            solve()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        every = dist._all_objects({"ran": ran, "digests": digests, "ms": times})
+        out[label] = {"ran": [e["ran"] for e in every], "iterations": s.iterations,
+                      "digests": [d for e in every for d in e["digests"]],
+                      "ms": [max(e["ms"][i] for e in every) for i in range(runs)]}
+        del op
+        cg_sharded.clear_caches()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out if dist.rank() == 0 else None
+
+
+def _rank_cases(args, smi) -> int:
+    """``--ranks W``: every rank case of W ranks against the one-process mesh of the same
+    shards over the cards (its per-card and eager loops).  0 when every x is the same bit
+    for bit and every leg ran the transport it should, else 1."""
+    cases = {k: v for k, v in RANK_CASES.items() if v[0] == args.ranks}
+    if not cases:
+        print(f"mesh_scaling: no rank case has {args.ranks} ranks "
+              f"({sorted({v[0] for v in RANK_CASES.values()})})", file=sys.stderr)
+        return 1
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    rows, ok = [], True
+    for label, (w, shards, mode, dtype_name) in cases.items():
+        n = shards if isinstance(shards, int) else math.prod(shards)
+        if args.platform == "cuda" and cards < n:
+            print(f"mesh_scaling: {label} needs {n} CUDA cards, {cards} visible",
+                  file=sys.stderr)
+            return 1
+        ranks = dist.launch_local(_rank_case, w, args.grid, shards, mode, dtype_name,
+                                  args.runs, args.platform, device=args.platform)
+        shape = (shards,) if isinstance(shards, int) else tuple(shards)
+        spread = dist.make_mesh(shape, ("x", "y")[:len(shape)],
+                                devices=args.platform if args.platform == "cpu"
+                                else [f"cuda:{i}" for i in range(n)])
+        op = cg_sharded.make_mesh_operator(args.grid, spread, mode=mode,
+                                           dtype=resolve_dtype(dtype_name))
+        res = _solve(op, args.runs, ("per card", "eager"))
+        _free(op, spread)
+        want = "nccl" if args.platform == "cuda" else "gloo"
+        legs = {name: (_digests(_block_fields(x, shards)), k, ms)
+                for name, (x, k, ms, _c) in res.items()}
+        legs.update({name: (r["digests"], r["iterations"], statistics.median(r["ms"]))
+                     for name, r in ranks.items()})
+        same = len({(tuple(d), k) for d, k, _ in legs.values()}) == 1
+        ran_ok = ranks["nccl"]["ran"] == [want] * w and ranks["gloo"]["ran"] == ["gloo"] * w
+        ok &= same and ran_ok
+        med = {name: ms for name, (_d, _k, ms) in legs.items()}
+        print(f"[mesh scaling] {args.grid}² {label}, {w} ranks over {n} cards: ranks over "
+              f"{ranks['nccl']['ran'][0]} median {med['nccl']!r} ms, over gloo "
+              f"{med['gloo']!r} ms; one process's mesh over the cards: per-card graphs "
+              f"{med['per card']!r} ms, eager {med['eager']!r} ms; gloo / nccl "
+              f"{med['gloo'] / med['nccl']!r}, nccl / per card "
+              f"{med['nccl'] / med['per card']!r}; iterations "
+              f"{sorted({k for _d, k, _m in legs.values()})}; x bit for bit in all four "
+              f"(each shard's sha256): {same}; transports {ranks['nccl']['ran']} / "
+              f"{ranks['gloo']['ran']} [{smi}]", flush=True)
+        rows.append({"grid": args.grid, "case": label, "ranks": w, "shards": list(shape),
+                     "mode": mode, "dtype": dtype_name, "median_ms": med,
+                     "transports": {k: ranks[k]["ran"] for k in TRANSPORTS},
+                     "iterations": {name: k for name, (_d, k, _m) in legs.items()},
+                     "x_equal": same, "card": smi})
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rows, f, indent=1)
+    return 0 if ok else 1
+
+
 def _free(op, mesh):
     del op
     cg_sharded.clear_caches()
@@ -167,7 +310,11 @@ def main(argv=None) -> int:
                    help="profile one per-card solve of each case (device time by card)")
     p.add_argument("--per-card", type=int, default=1,
                    help="shards a card: the row-band cases with this many times the shards")
+    p.add_argument("--ranks", type=int, default=0,
+                   help="the rank cases of this many ranks (NCCL and gloo between them)")
     args = p.parse_args(argv)
+    if args.ranks:
+        return _rank_cases(args, sysinfo.nvidia_smi() if args.platform == "cuda" else "cpu")
     k = args.per_card
     cases = CASES if k == 1 else tuple(((n * k,), m, d) for (n, *rest), m, d in CASES
                                        if not rest)

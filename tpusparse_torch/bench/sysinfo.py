@@ -12,6 +12,7 @@ sparsity).  A card missing from the table reports no peak rather than a guessed 
 
 from __future__ import annotations
 
+import functools
 import os
 import platform
 import shutil
@@ -51,9 +52,11 @@ def gpu_peaks(device_kind: str) -> Tuple[Optional[float], Optional[float]]:
     return GPU_SPECS.get(device_kind, (None, None))
 
 
+@functools.lru_cache(maxsize=None)
 def nvidia_smi() -> Optional[str]:
     """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` for card 0, or
-    None where the tool is absent or fails."""
+    None where the tool is absent or fails; read once a process, which reports it with
+    every CLI run it makes (a rank of a group, or ``chip_smoke.py``, makes dozens)."""
     exe = shutil.which("nvidia-smi")
     if exe is None:
         return None

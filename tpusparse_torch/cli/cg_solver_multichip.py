@@ -15,13 +15,14 @@ summed on the mesh's first device, and on one card the whole solve replayed from
 graph (``solvers.cg_sharded.MeshOperator``).  With more shards than cards the shards
 share a card, and the CLI says so, since their times are then no measurement of scaling.
 Under torchrun (``WORLD_SIZE`` set), with ``--multihost``, or in a process that already
-belongs to a group, each process is one rank of a gloo group instead (the JAX CLI's
-multi-host mode), and ``--chips=N`` is the global count of shards, as in the JAX CLI: N
-a multiple of the W ranks, each rank driving a mesh of N / W of them
-(``dist.make_rank_mesh``: halos copied device to device within a rank, one row each way
-between neighbouring ranks and every dot through the host by gloo, its partials added in
-global shard order), or with ``--chips=0`` (or N = W) one band a rank.  An N that is not
-a multiple of W returns 2.
+belongs to a group, each process is one rank of a group instead (the JAX CLI's multi-host
+mode), and ``--chips=N`` is the global count of shards, as in the JAX CLI: N a multiple of
+the W ranks, each rank driving a mesh of N / W of them (``dist.make_rank_mesh``: halos
+copied device to device within a rank, the rows between ranks and every dot by the
+group's transport, its partials added in global shard order), or with ``--chips=0`` (or
+N = W) one band a rank.  An N that is not a multiple of W returns 2.  Between ranks whose
+cards are all their own the transport is NCCL, card to card; elsewhere (the CPU, ranks
+sharing a card) gloo through the host (``dist.device_group``).
 
 ``gen:<g>`` synthesizes each shard's band on its device; a ``.mtx`` is read once a
 process, and each shard keeps its rows (the reference's per-rank load, :50-60 of its
@@ -35,9 +36,11 @@ at bf16 without ``--timers`` (the JAX CLI fails there).
 ``--mesh2d=RxC`` runs the 2-D block decomposition instead (``cg_sharded.
 cg_solve_sharded_2d``): an R×C mesh (``--chips`` is ignored, as in the JAX CLI), shard
 i·C + j holding grid block (i, j), rows and columns exchanged with its four neighbours.
+In a group of W ranks, W = R·C is one block a rank, and W dividing R·C a mesh of R·C / W
+blocks a rank (``dist.make_rank_mesh((R, C))``, the JAX CLI's ``--multihost --mesh2d``).
 The grid must divide by R and C and the mode be a stencil one; ``csr``, a malformed RxC,
-a grid that does not divide, or a group of another size than R·C returns 2.  The export's
-solver is ``tpusparse-cg-sharded2d-RxC``.
+a grid that does not divide, or a group whose size does not divide R·C returns 2.  The
+export's solver is ``tpusparse-cg-sharded2d-RxC``.
 
 The protocol is the reference's: 3 warm-up solves, 10 timed solves with its statistics,
 Sum(x)/Norm2(x) of the solution (the mesh's shards assembled on its first device, a gloo
@@ -47,8 +50,9 @@ one more solve after a barrier whose per-rank times give the load imbalance
 halo/SpMV/allreduce/BLAS1 buckets; ``--trace`` profiles one more solve (on rank 0).  The
 export's ``loop`` is ``recompute-ap`` (``stencil5-const``), ``classic`` or
 ``host-stepped``, and its ``topology`` is ``dist.describe_mesh`` of the mesh (transport
-``mesh``, or ``gloo`` across ranks, with its shards and processes) or
-``dist.describe_group`` of the gloo group.  Only rank 0 prints and writes.
+``mesh``, or across ranks ``nccl`` or ``gloo``, with its shards and processes) or
+``dist.describe_group`` of the group (transport ``nccl`` or ``gloo``).  Only rank 0
+prints and writes.
 """
 
 from __future__ import annotations
@@ -128,10 +132,6 @@ def main(argv=None) -> int:
             return 2
     if tdist.is_initialized() or args.multihost or "WORLD_SIZE" in os.environ:
         dist.initialize_multihost()
-        if mesh is not None and mesh[0] * mesh[1] != dist.world_size():
-            print(f"[ERROR] --mesh2d={args.mesh2d} needs {mesh[0] * mesh[1]} ranks but the "
-                  f"group has {dist.world_size()}", file=sys.stderr)
-            return 2
         return _in_group(args, dist.rank_device(args.platform))
     device = resolve_device(args.platform)  # raises without a card
     devices = (dist.make_mesh(mesh, devices=args.platform) if mesh is not None
@@ -155,11 +155,25 @@ def rank_main(device, argv):
 
 
 def _in_group(args, device) -> int:
-    """This rank's run in a group of W ranks: one band a rank (``--chips`` 0 or W, or
-    ``--mesh2d``), else a mesh of ``--chips`` shards across the ranks; 2 when W does not
-    divide ``--chips``."""
+    """This rank's run in a group of W ranks: one band a rank (``--chips`` 0 or W) or one
+    block a rank (``--mesh2d=RxC``, R·C = W), else a mesh across the ranks of ``--chips``
+    bands or of R·C blocks; 2 when W does not divide them (or a malformed RxC)."""
     w = dist.world_size()
-    if args.mesh2d or args.chips in (0, w):
+    if args.mesh2d:
+        shape = parse_mesh2d(args.mesh2d)
+        if shape is None:
+            print(f"[ERROR] --mesh2d expects RxC (e.g. 2x4), got '{args.mesh2d}'",
+                  file=sys.stderr)
+            return 2
+        n = shape[0] * shape[1]
+        if n == w:
+            return run(args, device)
+        if n % w:
+            print(f"[ERROR] --mesh2d={args.mesh2d} has {n} blocks, not a multiple of the "
+                  f"group's {w} ranks", file=sys.stderr)
+            return 2
+        return run(args, device, dist.make_rank_mesh(shape, devices=args.platform))
+    if args.chips in (0, w):
         return run(args, device)
     if args.chips % w:
         print(f"[ERROR] --chips={args.chips} is not a multiple of the group's {w} ranks",
@@ -213,11 +227,8 @@ def run(args, device, mesh=None) -> int:
     info = sysinfo.get_system_info(device)
     if mesh is not None:
         n, sharing, who = mesh.size, mesh.shards_per_card(), "shards"
-        say(f"[INFO] mesh: {n} x {info['device_kind']} ({mesh.processes} process(es)"
-            f"{', gloo' if mesh.processes > 1 else ''})")
     else:
         n, sharing, who = dist.world_size(), dist.ranks_per_card(device), "ranks"
-        say(f"[INFO] ranks: {n} x {info['device_kind']} ({n} process(es), gloo)")
     if sharing > 1:
         say(f"[INFO] {sharing} {who} share each card: their kernels take turns on it, so "
             "these times are no measurement of scaling across cards")
@@ -236,6 +247,13 @@ def run(args, device, mesh=None) -> int:
         say(f"[ERROR] --mesh2d={args.mesh2d}: {e}", file=sys.stderr)
         return 2
     del planes, matrix
+    if mesh is None:
+        transport = op.halo.transport
+        say(f"[INFO] ranks: {n} x {info['device_kind']} ({n} process(es), {transport})")
+    else:
+        transport = op.link.transport if op.link is not None else "mesh"
+        say(f"[INFO] mesh: {n} x {info['device_kind']} ({mesh.processes} process(es)"
+            f"{', ' + transport if mesh.processes > 1 else ''})")
     if blocks is not None:
         say(f"[INFO] 2-D mesh {blocks[0]}x{blocks[1]}: shard i·{blocks[1]} + j holds block "
             f"(i, j) of {op.band}x{op.cols}")
@@ -304,16 +322,15 @@ def run(args, device, mesh=None) -> int:
     if mesh is not None:
         x = op.assemble(x)
         op.sync()
-    if mesh is None and blocks is not None:
+    if blocks is not None and dist.world_size() > 1:
         x = dist.gather_blocks_to_host(x, blocks)
     elif dist.world_size() > 1:
         x = dist.gather_to_host(x, rows=g)
     allgather_ms = (time.perf_counter() - t_gather) * 1e3
     x_host = host_numpy(x) if torch.is_tensor(x) else x
     del x
-    topology = ({**dist.describe_mesh(mesh),
-                 "transport": "gloo" if mesh.processes > 1 else "mesh"} if mesh is not None
-                else {**dist.describe_group(device), "transport": "gloo"})
+    topology = (dist.describe_mesh(mesh, transport) if mesh is not None
+                else dist.describe_group(device, transport))
     cg_sharded.clear_caches()  # a synthesized operand's operator is cached: drop it
     if not primary:
         return 0 if cg_stats.converged else 1

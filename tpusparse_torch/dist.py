@@ -13,7 +13,13 @@ Two ways to run the sharded CG, as the JAX package has two:
     staged its halos through pinned buffers (cudaMemcpyAsync D2H -> MPI -> H2D,
     cg_solver_mgpu_partitioned.cu:160-231);
   - both at once (``make_rank_mesh``), the JAX package's multi-host mode: each rank of a
-    gloo group drives a mesh of its own shards, one global band mesh across the ranks.
+    gloo group drives a mesh of its own shards, one global band or block mesh across the
+    ranks.
+
+Between ranks whose cards are all their own (``device_group``), halos and dots go card to
+card by NCCL, in a group of its own; ranks on the CPU, and ranks that share a card (where
+NCCL refuses to run), stage them through the host by gloo.  The default group stays gloo:
+barriers, gathers to the host and the provenance go through it.
 
 Outside a process group every helper sees one rank (rank 0 of 1), so the solvers also run
 in a plain process.  Two ways into a group:
@@ -93,20 +99,22 @@ def rank_device(platform: str = "cuda") -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def describe_group(device=None) -> dict:
-    """Topology provenance of a gloo group's exports (the mesh's is ``describe_mesh``),
-    with the keys of the JAX package's ``describe_mesh``: the band axis ``x`` over the
-    ranks, one device per rank, the kinds of the ranks' devices, and the process (rank) of
-    each.  Collective: every rank calls it."""
+def describe_group(device=None, transport: Optional[str] = None) -> dict:
+    """Topology provenance of a group's exports (the mesh's is ``describe_mesh``), with the
+    keys of the JAX package's ``describe_mesh``: the band axis ``x`` over the ranks, one
+    device per rank, the kinds of the ranks' devices, and the process (rank) of each; and
+    ``transport`` (``nccl`` or ``gloo``: what moved the halos and dots) when given.
+    Collective: every rank calls it."""
     n = world_size()
     kinds = _all_objects(_device_kind(device))
-    return {
+    out = {
         "axes": {"x": n},
         "num_devices": n,
         "num_processes": n,
         "device_kinds": sorted(set(kinds)),
         "process_of_device": list(range(n)),
     }
+    return out if transport is None else {**out, "transport": transport}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +124,7 @@ class Mesh:
     one ``torch.device`` a shard, row-major (shard i·C + j holds block (i, j)).  Several
     shards may name one device.  ``processes``: the ranks it spans (1: this process drives
     every shard); ``rank``: this process's, which drives the shards ``local``, N /
-    ``processes`` in a row (``make_rank_mesh``)."""
+    ``processes`` in a row of the row-major numbering (``make_rank_mesh``)."""
 
     shape: tuple
     axis_names: tuple
@@ -186,27 +194,35 @@ def make_band_mesh(num_devices: int = 0, devices=None) -> Mesh:
     return make_mesh((n,), ("x",), devices)
 
 
-def make_rank_mesh(num_shards: int = 0, devices=None) -> Mesh:
-    """The 1-D band mesh of ``num_shards`` shards across the ranks of the gloo group (the
-    JAX package's ``make_band_mesh`` after ``jax.distributed.initialize``): with W ranks
-    and L = N / W, rank r drives shards [r·L, (r+1)·L), shard i on ``cuda:(i %
-    device_count)`` or, with ``devices="cpu"``, on the CPU (``_mesh_devices``).  0 is one
-    shard a rank.  ValueError unless N is a multiple of W.  Outside a group it is
-    ``make_band_mesh``'s mesh.  A 2-D mesh of several blocks a rank is not implemented:
-    one block a rank runs ``cg_solve_sharded_2d((R, C), g)``."""
+def make_rank_mesh(shape=0, devices=None) -> Mesh:
+    """The mesh across the ranks of the group (the JAX package's ``make_band_mesh`` or
+    ``jax.make_mesh((r, c), ("x", "y"))`` after ``jax.distributed.initialize``): ``shape``
+    an int N, N row bands (0: one a rank), or (R, C), R·C blocks numbered row-major
+    (shard i·C + j holds block (i, j)).  With W ranks and L = N / W (or R·C / W), rank r
+    drives shards [r·L, (r+1)·L), JAX's numbering, process by process; shard i sits on
+    ``cuda:(i % device_count)`` or, with ``devices="cpu"``, on the CPU (``_mesh_devices``).
+    ValueError unless W divides the shards.  Outside a group it is ``make_band_mesh``'s or
+    ``make_mesh``'s mesh."""
     w = world_size()
-    n = int(num_shards) or w
+    if isinstance(shape, (tuple, list)):
+        shape, axes = tuple(int(v) for v in shape), ("x", "y")
+        if len(shape) != 2 or min(shape) < 1:
+            raise ValueError(f"a 2-D mesh across ranks is (R, C), got {shape}")
+    else:
+        shape, axes = (int(shape) or w,), ("x",)
+    n = int(np.prod(shape))
     if n < 1 or n % w:
         raise ValueError(f"a mesh across {w} ranks needs a multiple of {w} shards, got {n}")
-    return Mesh((n,), ("x",), _mesh_devices(n, devices), w, rank())
+    return Mesh(shape, axes, _mesh_devices(n, devices), w, rank())
 
 
-def describe_mesh(mesh: Mesh) -> dict:
+def describe_mesh(mesh: Mesh, transport: Optional[str] = None) -> dict:
     """Topology provenance for exports (the JAX package's ``describe_mesh``): the axes,
     the shards, the processes, the kinds of the devices, the process of each shard, and
-    the device of each shard."""
+    the device of each shard; and ``transport`` (``mesh``, ``nccl`` or ``gloo``) when
+    given."""
     per = mesh.size // mesh.processes
-    return {
+    out = {
         "axes": dict(zip(mesh.axis_names, mesh.shape)),
         "num_devices": mesh.size,
         "num_processes": mesh.processes,
@@ -214,17 +230,66 @@ def describe_mesh(mesh: Mesh) -> dict:
         "process_of_device": [i // per for i in range(mesh.size)],
         "devices": [str(d) for d in mesh.devices],
     }
+    return out if transport is None else {**out, "transport": transport}
+
+
+def _as_devices(device) -> list:
+    """A device, or a sequence of them, as a list of ``torch.device``s (a card without an
+    index: the current one)."""
+    devs = [device] if device is None or isinstance(device, (str, torch.device)) \
+        else list(device)
+    devs = [torch.device(d) if d is not None else torch.device("cpu") for d in devs]
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devs]
 
 
 def ranks_per_card(device) -> int:
-    """The most ranks that share one card of one host (1 when none shares; 0 on the
-    CPU)."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
+    """The most ranks that use one card of one host (1 when none shares; 0 on the CPU).
+    ``device``: this rank's device, or the devices of its shards.  Collective on cards:
+    every rank calls it."""
+    cards = [d for d in _as_devices(device) if d.type == "cuda"]
+    if not cards:
         return 0
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    places = _all_objects((socket.gethostname(), index))
-    return max(collections.Counter(places).values())
+    host = socket.gethostname()
+    places = _all_objects(sorted({(host, d.index) for d in cards}))
+    return max(collections.Counter(p for mine in places for p in mine).values())
+
+
+_NCCL = []  # the group's NCCL group, made once a process
+
+
+def device_group(device=None, transport: Optional[str] = None):
+    """The group that moves halos and dots between the ranks on their cards: an NCCL group
+    of every rank (``tdist.new_group(backend="nccl")``, made once a process), when every
+    rank's cards are its own (``ranks_per_card`` 1 on every rank); else None, gloo through
+    the host: ranks on the CPU, and ranks that share a card, where NCCL refuses to run.
+    ``device``: this rank's device, or its shards' (the first is the one NCCL runs on).
+    ``transport`` "gloo" asks for None whatever the cards; None decides.
+
+    Collective on cards: every rank calls it with the same ``transport``; outside a group
+    and on the CPU it returns None without one.  NCCL sets its communicator up at the
+    group's first collective, which every rank must join: an all-gather here makes it,
+    outside any timed solve.  Raises when every rank has cards of its own and the NCCL
+    group cannot be made: nothing carries on through gloo then."""
+    if transport not in (None, "gloo"):
+        raise ValueError(f"transport is None or 'gloo', got {transport!r}")
+    devs = _as_devices(device)
+    if world_size() == 1 or transport == "gloo" or any(d.type != "cuda" for d in devs):
+        return None
+    if ranks_per_card(devs) != 1:
+        return None
+    if not _NCCL:
+        if not tdist.is_nccl_available():
+            raise RuntimeError(f"rank {rank()}: every rank has cards of its own but this "
+                               "torch has no NCCL (pass transport='gloo' to stage through "
+                               "the host)")
+        with torch.cuda.device(devs[0]):
+            group = tdist.new_group(backend="nccl", timeout=TIMEOUT)
+            probe = torch.empty(world_size(), device=devs[0])
+            tdist.all_gather_into_tensor(probe, torch.ones(1, device=devs[0]), group=group)
+            torch.cuda.synchronize(devs[0])
+        _NCCL.append(group)
+    return _NCCL[0]
 
 
 def local_band_rows(grid_size: int, num_devices: int, device_index: int) -> tuple:
@@ -286,21 +351,27 @@ def block_of(rank_: int, mesh_shape, grid_size: int) -> tuple:
 
 
 def gather_blocks_to_host(x, mesh_shape):
-    """Every rank's block of a 2-D decomposed field, put in place on rank 0's host as the
-    whole (R·h, C·w) numpy field; the other ranks get None, as ``gather_to_host``.
-    Collective: every rank calls it, and the group must have R·C ranks.  Each block goes to
-    its host, then by gloo to rank 0."""
+    """Every rank's blocks of a 2-D decomposed field, put in place on rank 0's host as the
+    whole (R·h, C·w) numpy field; the other ranks get None, as ``gather_to_host``.  ``x``:
+    the rank's one block (a group of R·C ranks), or its blocks of a mesh across the ranks
+    (a sequence: shards [r·L, (r+1)·L) of ``make_rank_mesh((R, C))``).  Collective: every
+    rank calls it, and the W ranks' blocks must number R·C.  The blocks go to their host,
+    then by gloo to rank 0."""
     nr, nc = (int(v) for v in mesh_shape)
-    if nr * nc != world_size():
-        raise ValueError(f"a {nr}x{nc} mesh needs {nr * nc} ranks, the group has "
-                         f"{world_size()}")
-    block = x.detach().to("cpu").contiguous()
-    if world_size() == 1:
-        return host_numpy(block)
-    parts = [torch.empty_like(block) for _ in range(nr * nc)] if rank() == 0 else None
-    tdist.gather(block, parts, dst=0)
-    if parts is None:
-        return None
+    blocks = [x] if torch.is_tensor(x) else list(x)
+    n, per = world_size(), len(blocks)
+    if nr * nc != n * per:
+        raise ValueError(f"a {nr}x{nc} mesh needs {nr * nc} blocks, the group's {n} ranks "
+                         f"hold {per} each")
+    local = torch.stack([b.detach().to("cpu") for b in blocks])
+    if n == 1:
+        parts = list(local)
+    else:
+        whole = local.new_empty((n,) + tuple(local.shape)) if rank() == 0 else None
+        tdist.gather(local, list(whole) if whole is not None else None, dst=0)
+        if whole is None:
+            return None
+        parts = list(whole.reshape((n * per,) + tuple(local.shape[1:])))
     return host_numpy(torch.cat([torch.cat(parts[i * nc:(i + 1) * nc], dim=1)
                                  for i in range(nr)], dim=0))
 

@@ -40,18 +40,23 @@ in shard order itself (``kernels/mesh_sync.py``), so every card holds the same s
 runs the same iterations; a card's shards meet each sync point in lockstep, so only the
 waits for other cards spin; one replay a card and one read a solve.  With
 ``graph=False`` the iteration runs eagerly, the flag k < max_iters and rr > tol² read
-once an iteration.  A mesh across the ranks of a gloo group (``dist.make_rank_mesh``,
-the JAX package's multi-host mode: each rank drives its share of the shards) runs the
-eager loop: a rank's halos by device copies, one row each way between neighbouring ranks
-and every dot's partials by gloo through the host, added in global shard order
-(``_RankLink``), so x is the one-process mesh's bit for bit.
+once an iteration.  A mesh across the ranks of a group (``dist.make_rank_mesh``, bands
+or blocks, the JAX package's multi-host mode: each rank drives its share of the shards)
+runs the eager loop: halos between a rank's own shards by device copies, the rows and
+columns whose neighbour lives on another rank and every dot's partials by the group's
+transport (``_RankLink``: NCCL card to card, or gloo through the host), the partials added
+in global shard order, so x is the one-process mesh's bit for bit.
 
-**The gloo ranks** (every other entry, each rank calling the solver), the counterpart of
-the JAX package's multi-host mode: gloo takes CPU tensors only, so the halo rows and the
-dots pass through the host, as the reference's did.  Each rank's partial dot goes to its
-host, gloo gathers the N partials, and every rank adds them in rank order.  α and β go
-back to the device as 0-d tensors.  So this loop is host-stepped by nature: two reads an
-iteration.
+**The ranks** (every other entry, each rank calling the solver), the counterpart of the
+JAX package's multi-host mode, over one of two transports (``dist.device_group``).  Where
+every rank has a card of its own, NCCL moves the halo rows and columns card to card
+(``batch_isend_irecv``) and all-gathers each dot's partials on the card, where every rank
+adds them in rank order (``sum_in_shard_order``): α and β stay on the card, and the host
+reads the loop's flag once an iteration.  Elsewhere (ranks on the CPU, ranks sharing a
+card, where NCCL refuses to run) gloo moves CPU tensors only, so the halos and the dots
+pass through the host, as the reference's did: each rank's partial goes to its host, gloo
+gathers the N partials, every rank adds them in rank order (the same function), and α and
+β go back to the device as 0-d tensors: two more reads an iteration.
 
 A bf16 state (``dtype=torch.bfloat16``) runs the classic and stepped loops on bands and
 blocks: halo rows and columns in bf16, each shard's partial dot f32, α and β rounded to
@@ -190,45 +195,69 @@ class _Halo:
 
 
 class _HaloExchange(_Halo):
-    """One gloo rank's exchange of boundary rows, and on a 2-D mesh of boundary columns,
-    with its neighbours (the JAX package's ``_band_halo_exchange`` and
-    ``_halo_exchange_2d``), staged through pinned host buffers as the reference staged
-    it: ``start`` queues the D2H copy of what to send, ``finish`` waits for it, swaps rows
-    and columns with every present neighbour in one gloo ``batch_isend_irecv`` and copies
-    what it received to the device.  The rank is this process's, its neighbours ranks of
-    the group (``_Halo``; ``mesh_shape`` None: the group's ranks as row bands).  Every
-    buffer is allocated here, once: a field's side columns are strided, so they are first
-    gathered into a contiguous device buffer."""
+    """One rank's exchange of boundary rows, and on a 2-D mesh of boundary columns, with
+    its neighbours (the JAX package's ``_band_halo_exchange`` and ``_halo_exchange_2d``),
+    the rank this process's, its neighbours ranks of the group (``_Halo``; ``mesh_shape``
+    None: the group's ranks as row bands).  ``start`` sends what its neighbours need and
+    ``finish`` gives the halos once what they sent has arrived, over one of two
+    transports (``dist.device_group``; ``transport`` "gloo" asks for the second):
+
+      - ``nccl``, where every rank has a card of its own: one ``batch_isend_irecv`` of the
+        device tensors on the group's NCCL stream, the rows straight from the field into
+        the neighbours' halo buffers; ``finish`` only orders the current stream after it;
+      - ``gloo``, staged through pinned host buffers as the reference staged it: ``start``
+        queues the D2H copy, ``finish`` waits for it, swaps by gloo and copies to the
+        device.
+
+    Every buffer is allocated here, once: a field's side columns are strided, so they are
+    first gathered into a contiguous device buffer."""
 
     def __init__(self, g, dtype, device, out_prev=None, out_next=None, mesh_shape=None,
-                 rows=0):
+                 rows=0, transport=None):
         super().__init__(dist.rank(), mesh_shape or (dist.world_size(), 1), g, rows, dtype,
                          device, out_prev, out_next)
+        self.device = device
+        self.group = dist.device_group(device, transport)
+        self.transport = "gloo" if self.group is None else "nccl"
         cuda = device.type == "cuda"
-        self.event = torch.cuda.Event() if cuda else None
+        self.event = torch.cuda.Event() if cuda and self.group is None else None
+        self.works = []
 
         def staging(n):
             return torch.empty((2, n), dtype=dtype, pin_memory=cuda)
 
-        if self.has_rows:
+        if self.has_rows and self.group is None:
             self.send, self.recv = staging(g), staging(g)
         if self.has_cols:
-            self.send_cols, self.recv_cols = staging(rows), staging(rows)
             self.cols = torch.empty((2, rows), dtype=dtype, device=device)
+            if self.group is None:
+                self.send_cols, self.recv_cols = staging(rows), staging(rows)
 
     def start(self, first, last, field=None):
-        """Queue the D2H copy of the rows ``first`` (for the previous rank) and ``last``
-        (for the next) and, on a 2-D mesh, of ``field``'s first column (for the west
-        rank) and last column (for the east)."""
+        """Send the rows ``first`` (to the previous rank) and ``last`` (to the next) and,
+        on a 2-D mesh, ``field``'s first column (to the west rank) and last column (to the
+        east): over NCCL the exchange itself, over gloo the D2H copy of what it sends."""
         if not (self.has_rows or self.has_cols):
             return
         with profiling.scope(profiling.PHASE_HALO):
+            if self.has_cols:
+                self.cols[0].copy_(field[:, 0])
+                self.cols[1].copy_(field[:, -1])
+            if self.group is not None:
+                sides = [(self.prev, first, self.halo_prev), (self.next, last, self.halo_next)]
+                if self.has_cols:
+                    sides += [(self.west, self.cols[0], self.halo_w),
+                              (self.east, self.cols[1], self.halo_e)]
+                ops = [op for peer, send, out in sides if peer is not None
+                       for op in (tdist.P2POp(tdist.isend, send.reshape(-1), peer, self.group),
+                                  tdist.P2POp(tdist.irecv, out.reshape(-1), peer, self.group))]
+                with _current(self.device):
+                    self.works = tdist.batch_isend_irecv(ops)
+                return
             if self.has_rows:
                 self.send[0].copy_(first.reshape(-1), non_blocking=True)
                 self.send[1].copy_(last.reshape(-1), non_blocking=True)
             if self.has_cols:
-                self.cols[0].copy_(field[:, 0])
-                self.cols[1].copy_(field[:, -1])
                 self.send_cols.copy_(self.cols, non_blocking=True)
             if self.event is not None:
                 self.event.record()
@@ -238,25 +267,31 @@ class _HaloExchange(_Halo):
         if not (self.has_rows or self.has_cols):
             return self.halos()
         with profiling.scope(profiling.PHASE_HALO):
-            if self.event is not None:
-                self.event.synchronize()
-            links = []
-            if self.has_rows:
-                links += [(self.prev, self.send[0], self.recv[0], self.halo_prev),
-                          (self.next, self.send[1], self.recv[1], self.halo_next)]
-            if self.has_cols:
-                links += [(self.west, self.send_cols[0], self.recv_cols[0], self.halo_w),
-                          (self.east, self.send_cols[1], self.recv_cols[1], self.halo_e)]
-            links = [link for link in links if link[0] is not None]
-            ops = [op for peer, send, recv, _ in links
-                   for op in (tdist.P2POp(tdist.isend, send, peer),
-                              tdist.P2POp(tdist.irecv, recv, peer))]
-            for req in tdist.batch_isend_irecv(ops):
-                req.wait()
+            if self.group is not None:
+                with _current(self.device):
+                    for work in self.works:  # the current stream waits for NCCL's
+                        work.wait()
+                self.works = []
+            else:
+                if self.event is not None:
+                    self.event.synchronize()
+                links = []
+                if self.has_rows:
+                    links += [(self.prev, self.send[0], self.recv[0], self.halo_prev),
+                              (self.next, self.send[1], self.recv[1], self.halo_next)]
+                if self.has_cols:
+                    links += [(self.west, self.send_cols[0], self.recv_cols[0], self.halo_w),
+                              (self.east, self.send_cols[1], self.recv_cols[1], self.halo_e)]
+                links = [link for link in links if link[0] is not None]
+                ops = [op for peer, send, recv, _ in links
+                       for op in (tdist.P2POp(tdist.isend, send, peer),
+                                  tdist.P2POp(tdist.irecv, recv, peer))]
+                for req in tdist.batch_isend_irecv(ops):
+                    req.wait()
+                for _, _, recv, out in links:
+                    out.copy_(recv.reshape(out.shape), non_blocking=True)
             HALO_CALLS["exchange"] += self.has_rows
             HALO_CALLS["column_exchange"] += self.has_cols
-            for _, _, recv, out in links:
-                out.copy_(recv.reshape(out.shape), non_blocking=True)
         return self.halos()
 
     def exchange(self, field):
@@ -267,28 +302,47 @@ class _HaloExchange(_Halo):
         return self.finish()
 
 
-def _allsum(*parts):
+def sum_in_shard_order(flat):
+    """flat[0] + flat[1] + ... of a 1-D tensor, added left to right in its dtype on its
+    device, as a 0-d tensor: the one sum of the ranks' partials, on the host (gloo) or on
+    the card (NCCL), so both give the same bits (and ``_mesh_sum``'s)."""
+    total = flat[0].clone()
+    for t in flat[1:]:
+        total += t
+    return total
+
+
+def _allsum(*parts, group=None):
     """The sum over the ranks of each rank's partials (0-d tensors, in shard order: one a
-    rank, or a mesh across ranks' rank's share), as a 0-d CPU tensor in their dtype: each
-    rank's go to its host in one copy, gloo gathers every rank's, and every rank adds all
-    of them left to right in global shard order (``_mesh_sum``'s order), so every rank
-    holds the same bits."""
+    rank, or a mesh across ranks' rank's share) as a 0-d tensor in their dtype, every
+    rank the same bits: every rank's gathered and all of them added left to right in
+    global shard order (``sum_in_shard_order``; ``_mesh_sum``'s order), never an
+    all-reduce, whose order the library picks.  ``group`` (``dist.device_group``) None:
+    each rank's partials go to its host in one copy and gloo gathers them, the sum a CPU
+    tensor; an NCCL group: stacked on the first part's card and all-gathered there
+    (``all_gather_into_tensor``), the sum on that card, no host step."""
     with profiling.annotate(profiling.PHASE_DOT):
-        host = torch.stack([t.detach().reshape(()).to(parts[0].device)
-                            for t in parts]).to("cpu")
+        local = torch.stack([t.detach().reshape(()).to(parts[0].device) for t in parts])
         n = dist.world_size()
-        every = [host] if n == 1 else [torch.empty_like(host) for _ in range(n)]
-        if n > 1:
-            tdist.all_gather(every, host)
-        flat = torch.cat(every)
-        total = flat[0].clone()
-        for t in flat[1:]:
-            total += t
-        return total
+        if group is not None:
+            every = local.new_empty((n * local.numel(),))
+            with _current(local.device):
+                tdist.all_gather_into_tensor(every, local, group=group)
+        else:
+            host = local.to("cpu")
+            every = [host] if n == 1 else [torch.empty_like(host) for _ in range(n)]
+            if n > 1:
+                tdist.all_gather(every, host)
+            every = torch.cat(every)
+        return sum_in_shard_order(every)
 
 
 def _on(t, device, dtype):
-    """A host 0-d tensor as a 0-d tensor on the device: a fill, no host sync."""
+    """A scalar (a float, or a 0-d tensor) as a 0-d tensor on the device in ``dtype``: a
+    host value by a fill, a value already there by a cast on the device; neither makes
+    the host wait."""
+    if torch.is_tensor(t) and t.device == device:
+        return t.to(dtype)
     return torch.full((), float(t), dtype=dtype, device=device)
 
 
@@ -410,11 +464,11 @@ class ShardedOperator:
         return _sum_in_order(dots + self._add_columns(p, y, hw, he, True))
 
     def local_spmv_dot(self, p):
-        """A gloo rank's y = A·p with its halo exchange, and the global <p, A·p> as a 0-d
-        CPU tensor (every rank the same bits)."""
+        """A rank's y = A·p with its halo exchange, and the global <p, A·p> as a 0-d
+        tensor (every rank the same bits; ``_allsum``)."""
         self.halo.start(p[0], p[-1], p)
         y = torch.empty_like(p)
-        return y, _allsum(self.spmv_dot(p, y, self.halo.finish))
+        return y, _allsum(self.spmv_dot(p, y, self.halo.finish), group=self.halo.group)
 
     def edge_rows(self, r, p_prev, beta, out=None):
         """The recompute loop's p′ rows that its neighbours need: r + β·p_prev on rows 0
@@ -522,16 +576,19 @@ def clear_caches() -> None:
 def make_sharded_operator(grid_size: int, *, mode: str = "stencil5", planes=None,
                           matrix=None, diag: float = 5.0, offdiag: float = -1.0,
                           dtype=torch.float32, overlap: bool = True,
-                          device="cuda", mesh_shape=None, shard=None) -> ShardedOperator:
+                          device="cuda", mesh_shape=None, shard=None,
+                          transport: Optional[str] = None) -> ShardedOperator:
     """One shard of the sharded operator, its operand made for its rows only, or with
     ``mesh_shape=(R, C)`` for its block of the 2-D decomposition (the JAX package's
     ``_shard_2d_planes``, ``cg_sharded.py:813-825``; ``_check_2d_mesh`` says what that
     takes): the block's planes cut from the global pattern, in three row pieces when the
     SpMV overlaps its exchange, as on a band.
 
-    ``shard``: None, this rank of the gloo group (``dist.rank()`` of ``dist.world_size()``),
-    its halos staged through the host by gloo; ``(index, count)``, shard ``index`` of
-    ``count`` on ``device``, whose halo buffers a mesh fills (``make_mesh_operator``).
+    ``shard``: None, this rank of the group (``dist.rank()`` of ``dist.world_size()``), its
+    halos exchanged by a ``_HaloExchange`` over ``transport`` (``dist.device_group``'s:
+    NCCL where every rank has a card of its own, else gloo; every rank calling it);
+    ``(index, count)``, shard ``index`` of ``count`` on ``device``, whose halo buffers a
+    mesh fills (``make_mesh_operator``).
 
     ``stencil5``/``stencil5-bf16c``: the band's coefficient planes, synthesized on the
     device or sliced from ``planes`` (a whole (5, g, g) host array, a file's), in the
@@ -553,7 +610,7 @@ def make_sharded_operator(grid_size: int, *, mode: str = "stencil5", planes=None
     key = None
     if planes is None and matrix is None:
         key = (g, mode, diag, offdiag, dtype, overlap, device, index, count, mesh_shape,
-               shard is None)
+               shard is None, transport)
         if key in _OPERATOR_CACHE:
             return _OPERATOR_CACHE[key]
     if mesh_shape is not None:
@@ -572,7 +629,7 @@ def make_sharded_operator(grid_size: int, *, mode: str = "stencil5", planes=None
     def halo(cols, out_prev=None, out_next=None):
         if shard is None:
             return _HaloExchange(cols, dtype, device, out_prev, out_next,
-                                 mesh_shape=mesh_shape, rows=band)
+                                 mesh_shape=mesh_shape, rows=band, transport=transport)
         return _Halo(index, mesh_shape or (count, 1), cols, band, dtype, device, out_prev,
                      out_next)
 
@@ -795,8 +852,9 @@ class MeshOperator:
         if self.link is not None:
             if graph or per_shard:
                 raise ValueError("a mesh across ranks runs the eager loop: graph=True and "
-                                 "per_shard=True need a transport between the ranks' "
-                                 "devices, which the port does not have")
+                                 "per_shard=True would capture the exchanges with the other "
+                                 "ranks, which NCCL runs on its own stream and gloo on the "
+                                 "host; a graph a rank over NCCL is not implemented")
             graph = False
         kernels = use_pallas_blas1 is not False
         cards = {d for d in self.mesh.devices if d.type == "cuda"}
@@ -844,8 +902,11 @@ class MeshOperator:
         """The global (g, g) field of the shards' fields, pad rows dropped, on the first
         shard's device: what the JAX package's solver returns.  On a mesh across ranks,
         the rank's bands stacked in order, pad rows kept (``dist.gather_to_host(x,
-        rows=g)`` gives rank 0 the field), as a gloo rank returns its band."""
+        rows=g)`` gives rank 0 the field), as a rank of one band returns its band; or its
+        blocks, a tuple in shard order (``dist.gather_blocks_to_host(x, mesh.shape)``)."""
         if self.link is not None:
+            if self.mesh_shape is not None:
+                return tuple(xs)
             return torch.cat([x.to(self.device) for x in xs])
         g = self.grid_size
         out = torch.empty((g, g), dtype=self.dtype, device=self.device)
@@ -861,23 +922,21 @@ class MeshOperator:
 
 def make_mesh_operator(grid_size: int, mesh: dist.Mesh, *, mode: str = "stencil5",
                        planes=None, matrix=None, diag: float = 5.0, offdiag: float = -1.0,
-                       dtype=torch.float32, overlap: bool = True) -> MeshOperator:
+                       dtype=torch.float32, overlap: bool = True,
+                       transport: Optional[str] = None) -> MeshOperator:
     """The sharded operator over ``mesh`` (``dist.make_band_mesh`` for row bands,
     ``dist.make_mesh((R, C))`` for 2-D blocks), one shard a device of the mesh, as
     ``make_sharded_operator`` makes each (its refusals included).  On a mesh across ranks
-    (``dist.make_rank_mesh``, row bands only) it holds this rank's shards and the link to
-    the neighbouring ranks (``_RankLink``).  Cached for synthesized operands
-    (``clear_caches``), with its captured loops."""
+    (``dist.make_rank_mesh``, bands or blocks) it holds this rank's shards and the link to
+    the other ranks (``_RankLink``; ``transport`` as ``dist.device_group``'s, every rank
+    calling it).  Cached for synthesized operands (``clear_caches``), with its captured
+    loops."""
     if len(mesh.shape) not in (1, 2):
         raise ValueError(f"the sharded CG takes a 1-D or 2-D mesh, got shape {mesh.shape}")
-    if mesh.processes > 1 and len(mesh.shape) != 1:
-        raise ValueError("a mesh across ranks takes row bands: 2-D blocks, several a rank, "
-                         "are not implemented (one block a rank: cg_solve_sharded_2d((R, C), "
-                         "g) in an R·C group)")
     dtype = resolve_dtype(dtype)
     key = None
     if planes is None and matrix is None:
-        key = ("mesh", int(grid_size), mode, diag, offdiag, dtype, overlap, mesh)
+        key = ("mesh", int(grid_size), mode, diag, offdiag, dtype, overlap, mesh, transport)
         if key in _OPERATOR_CACHE:
             return _OPERATOR_CACHE[key]
     mesh_shape = mesh.shape if len(mesh.shape) == 2 else None
@@ -886,7 +945,7 @@ def make_mesh_operator(grid_size: int, mesh: dist.Mesh, *, mode: str = "stencil5
                                          overlap=overlap, device=d, mesh_shape=mesh_shape,
                                          shard=(i, mesh.size))
                    for i, d in enumerate(mesh.devices) if i in mesh.local)
-    op = MeshOperator(mesh, shards, _RankLink(shards, mesh.local.start)
+    op = MeshOperator(mesh, shards, _RankLink(shards, mesh.local.start, transport)
                       if mesh.processes > 1 else None)
     if key is not None:
         _OPERATOR_CACHE[key] = op
@@ -912,22 +971,26 @@ def _mesh_exchange(shards, firsts, lasts, fields=None, link=None) -> None:
     west neighbour's last column and its east neighbour's first column of ``fields``, each
     in one copy (a strided column included); between cards a peer copy, which
     ``Tensor.copy_`` orders with CUDA events on both devices' streams.  On a mesh across
-    ranks the lists are this rank's shards', and ``link`` brings the rows of the
-    neighbouring ranks' shards."""
+    ranks the lists are this rank's shards' (shard ``link.lo + k`` at position k), and
+    ``link`` fills the halos whose neighbour lives on another rank, rows and columns."""
     lo = 0 if link is None else link.lo
+
+    def local(j):
+        return j is not None and lo <= j < lo + len(shards)
+
     with profiling.scope(profiling.PHASE_HALO):
         if link is not None:
-            link.start(firsts[0], lasts[-1])
+            link.start(firsts, lasts, fields)
         for _, sh in _by_shard(shards):
             h = sh.halo
-            if h.prev is not None and h.prev >= lo:
+            if local(h.prev):
                 h.halo_prev.copy_(lasts[h.prev - lo].reshape(h.halo_prev.shape))
-            if h.next is not None and h.next < lo + len(shards):
+            if local(h.next):
                 h.halo_next.copy_(firsts[h.next - lo].reshape(h.halo_next.shape))
-            if h.west is not None:
-                h.halo_w.copy_(fields[h.west][:, -1])
-            if h.east is not None:
-                h.halo_e.copy_(fields[h.east][:, 0])
+            if local(h.west):
+                h.halo_w.copy_(fields[h.west - lo][:, -1])
+            if local(h.east):
+                h.halo_e.copy_(fields[h.east - lo][:, 0])
             HALO_CALLS["exchange"] += h.has_rows
             HALO_CALLS["column_exchange"] += h.has_cols
         if link is not None:
@@ -937,63 +1000,146 @@ def _mesh_exchange(shards, firsts, lasts, fields=None, link=None) -> None:
 def _mesh_sum(parts, device, link=None):
     """The shards' partials (0-d tensors) summed in shard order in their dtype, as a 0-d
     tensor on ``device``: each is copied there first (a peer copy from another card), as
-    ``_allsum`` adds the ranks' on the host, so both transports give the same bits.  Never
-    an ``all_reduce`` or an atomic add, whose order the hardware would pick.  On a mesh
-    across ranks (``link``) every rank's partials, in global shard order (``_allsum``)."""
+    ``_allsum`` adds the ranks', so both transports give the same bits.  Never an
+    ``all_reduce`` or an atomic add, whose order the hardware would pick.  On a mesh
+    across ranks (``link``) every rank's partials, in global shard order (``_allsum`` over
+    the link's transport)."""
     if link is not None:
-        return _allsum(*parts).to(device)
+        return _allsum(*parts, group=link.group).to(device)
     here = [t if t.device == device else _launch.buffer((), t.dtype, device).copy_(t)
             for t in parts]
     return _sum_in_order(here)
 
 
+@dataclasses.dataclass(eq=False)
+class _Piece:
+    """One message of a ``_RankLink``: local shard ``k``'s row or column ``side`` (0: its
+    first row, to the previous neighbour; 1: its last row, to the next; 2: its first
+    column, to the west; 3: its last column, to the east) goes to rank ``peer``, and what
+    that neighbour sends back lands in ``halo``.  ``send_tag``/``recv_tag`` name both
+    messages by (sending shard, side): 4 · shard + side.  ``col``: the device buffer a
+    column is gathered into; ``send``/``recv``: host staging (gloo) or, for a shard off
+    the rank's first card, staging on that card (NCCL); None where the message needs
+    none."""
+
+    k: int
+    side: int
+    peer: int
+    send_tag: int
+    recv_tag: int
+    halo: torch.Tensor
+    col: Optional[torch.Tensor] = None
+    send: Optional[torch.Tensor] = None
+    recv: Optional[torch.Tensor] = None
+    event: Optional[object] = None
+
+
 class _RankLink:
     """What the ranks of a mesh across ranks pass each other (``dist.make_rank_mesh``: each
-    rank drives shards [lo, lo + L) of one band mesh).  Rows: the rank's first shard's
-    first row goes to the previous rank, its last shard's last row to the next, and what
-    they send back lands in those shards' halo buffers; staged through pinned host buffers
-    and one gloo ``batch_isend_irecv``, as ``_HaloExchange`` stages a rank's one band
-    (``start`` queues the D2H copies, ``finish`` waits for them, swaps and copies to the
-    device).  Between two ranks that is one row each way.  Dots go by ``_allsum``."""
+    rank drives shards [lo, lo + L) of one band or block mesh): for each local shard, and
+    for each of its N/S/W/E neighbours that lives on another rank (rank = shard // L), one
+    message each way (``_Piece``), a row of ``cols`` elements or a column of ``band``;
+    between two ranks there may be several (two ranks × four blocks of a 4 × 2 mesh pass
+    two rows each way).  Every buffer is made here, once.  All of an exchange's messages go
+    in one ``batch_isend_irecv``, in one global order on both sides (by tag, which gloo
+    also matches), over the transport of ``dist.device_group``:
 
-    def __init__(self, shards, lo):
+      - ``nccl`` (every rank on cards of its own): device tensors, on the rank's first
+        card (a shard on another of the rank's cards has its row copied there and its halo
+        copied back); ``start`` sends, ``finish`` orders the current stream after NCCL's;
+      - ``gloo``: ``start`` queues the D2H copies into pinned buffers, ``finish`` waits for
+        them, swaps, and copies what arrived to the halo buffers.
+
+    Dots go by ``_allsum`` over the same transport (``group``)."""
+
+    def __init__(self, shards, lo, transport=None):
         self.lo = lo
-        r, n = dist.rank(), dist.world_size()
-        first, last = shards[0], shards[-1]
-        cuda = first.device.type == "cuda"
-        # (peer rank, the shard whose row leaves and whose halo buffer receives, the buffer,
-        # host staging to send and to receive, the event of its D2H copy)
-        self.links = [(peer, sh, buf, *(torch.empty(sh.cols, dtype=sh.dtype, pin_memory=cuda)
-                                        for _ in range(2)),
-                       torch.cuda.Event() if cuda else None)
-                      for peer, sh, buf in ((r - 1, first, first.halo.halo_prev),
-                                            (r + 1, last, last.halo.halo_next))
-                      if 0 <= peer < n]
+        n = len(shards)
+        home = shards[0].device
+        self.home = home
+        self.group = dist.device_group([sh.device for sh in shards], transport)
+        self.transport = "gloo" if self.group is None else "nccl"
+        cuda = home.type == "cuda"
+        self.pieces, self.works = [], []
+        for k, sh in enumerate(shards):
+            h, i = sh.halo, lo + k
+            for side, nb, back, halo, size in ((0, h.prev, 1, h.halo_prev, sh.cols),
+                                               (1, h.next, 0, h.halo_next, sh.cols),
+                                               (2, h.west, 3, h.halo_w, sh.band),
+                                               (3, h.east, 2, h.halo_e, sh.band)):
+                if nb is None or lo <= nb < lo + n:
+                    continue
+                piece = _Piece(k, side, nb // n, 4 * i + side, 4 * nb + back, halo)
+                if side >= 2 and sh.device.type == "cuda":
+                    piece.col = torch.empty(size, dtype=sh.dtype, device=sh.device)
+                if self.group is None:
+                    piece.send, piece.recv = (torch.empty(size, dtype=sh.dtype,
+                                                          pin_memory=cuda) for _ in range(2))
+                    piece.event = torch.cuda.Event() if cuda else None
+                elif sh.device != home:
+                    piece.send, piece.recv = (torch.empty(size, dtype=sh.dtype, device=home)
+                                              for _ in range(2))
+                self.pieces.append(piece)
+        self.sends = sorted(self.pieces, key=lambda p: p.send_tag)
+        self.recvs = sorted(self.pieces, key=lambda p: p.recv_tag)
 
-    def start(self, first, last):
-        """Queue the D2H copies of the rank's first row (for the previous rank) and last
-        row (for the next)."""
-        for peer, sh, _buf, send, _recv, event in self.links:
-            with _current(sh.device):
-                send.copy_((first if peer < dist.rank() else last).reshape(-1),
-                           non_blocking=True)
-                if event is not None:
-                    event.record()
+    def _source(self, piece, firsts, lasts, fields):
+        """What ``piece`` sends: a row of the field (or of the recompute loop's rows), or a
+        column gathered into its contiguous buffer."""
+        k, side = piece.k, piece.side
+        if side < 2:
+            return (firsts if side == 0 else lasts)[k].reshape(-1)
+        column = fields[k][:, 0 if side == 2 else -1]
+        return column if piece.col is None else piece.col.copy_(column)
+
+    def start(self, firsts, lasts, fields=None):
+        """Send every piece of this rank's shards (``firsts``, ``lasts``, ``fields``: theirs,
+        in local order): over NCCL the exchange itself, over gloo the D2H copies."""
+        if not self.pieces:
+            return
+        sent = []
+        for piece in self.sends:
+            with _current(piece.halo.device):
+                src = self._source(piece, firsts, lasts, fields)
+                if self.group is not None:
+                    sent.append(src if piece.send is None else piece.send.copy_(src))
+                    continue
+                piece.send.copy_(src, non_blocking=True)
+                if piece.event is not None:
+                    piece.event.record()
+        if self.group is None:
+            return
+        ops = [tdist.P2POp(tdist.isend, t, p.peer, self.group, p.send_tag)
+               for p, t in zip(self.sends, sent)]
+        ops += [tdist.P2POp(tdist.irecv, p.halo.reshape(-1) if p.recv is None else p.recv,
+                            p.peer, self.group, p.recv_tag) for p in self.recvs]
+        with _current(self.home):
+            self.works = tdist.batch_isend_irecv(ops)
 
     def finish(self):
-        """Swap the rows with the neighbouring ranks and copy them into the halo buffers."""
-        for *_, event in self.links:
-            if event is not None:
-                event.synchronize()
-        ops = [op for peer, _sh, _buf, send, recv, _e in self.links
-               for op in (tdist.P2POp(tdist.isend, send, peer),
-                          tdist.P2POp(tdist.irecv, recv, peer))]
-        for req in tdist.batch_isend_irecv(ops) if ops else ():
+        """The pieces' halos filled, once every message has arrived."""
+        if not self.pieces:
+            return
+        if self.group is not None:
+            with _current(self.home):
+                for work in self.works:  # the current stream waits for NCCL's
+                    work.wait()
+            self.works = []
+            for piece in self.recvs:
+                if piece.recv is not None:
+                    with _current(piece.halo.device):
+                        piece.halo.copy_(piece.recv.reshape(piece.halo.shape))
+            return
+        for piece in self.sends:
+            if piece.event is not None:
+                piece.event.synchronize()
+        ops = [tdist.P2POp(tdist.isend, p.send, p.peer, tag=p.send_tag) for p in self.sends]
+        ops += [tdist.P2POp(tdist.irecv, p.recv, p.peer, tag=p.recv_tag) for p in self.recvs]
+        for req in tdist.batch_isend_irecv(ops):
             req.wait()
-        for _peer, sh, buf, _send, recv, _e in self.links:
-            with _current(sh.device):
-                buf.copy_(recv.reshape(buf.shape), non_blocking=True)
-
+        for piece in self.recvs:
+            with _current(piece.halo.device):
+                piece.halo.copy_(piece.recv.reshape(piece.halo.shape), non_blocking=True)
 
 
 def _spread(t, copies):
@@ -1707,7 +1853,8 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
     t0 = time.perf_counter()
     r = op.ones_b() if b is None else op.band_of(b)  # x0 = 0: r0 = b
     x = torch.zeros_like(r)
-    rr = rr0 = _allsum(dot(r, r))
+    group = op.halo.group
+    rr = rr0 = _allsum(dot(r, r), group=group)
     tol2 = (tolerance * tolerance) * rr0
     k = 0
     if recompute:
@@ -1723,7 +1870,7 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
             with profiling.scope(profiling.PHASE_AXPY):
                 x, r, rr_local = cg_update(_on(rr / pap, op.device, op.dtype), x, r, p, ap)
             del ap
-            rr_new = _allsum(rr_local)
+            rr_new = _allsum(rr_local, group=group)
             with profiling.scope(profiling.PHASE_UPDATE_P):
                 p_update(_on(rr_new / rr, op.device, op.dtype), r, p)  # p = r + β·p
             rr = rr_new
@@ -1753,21 +1900,22 @@ def _recompute_loop(op, x, r, rr, tol2, max_iters):
             p, pap_local = _st5.spmv_stencil5_const_pupdate_dot(beta, r, p_prev, hp, hn,
                                                                 out=p_buf, **kw)
         op.halo.count("spmv_stencil5_const_pupdate_dot", hp, hn)
-        pap = _allsum(pap_local)
+        pap = _allsum(pap_local, group=op.halo.group)
         with profiling.scope(profiling.PHASE_AXPY):
             x, r, rr_local = _st5.cg_const_update_recompute(
                 _on(rr / pap, op.device, op.dtype), x, r, p, hp, hn, **kw)
         op.halo.count("cg_const_update_recompute", hp, hn)
-        rr_new = _allsum(rr_local)
+        rr_new = _allsum(rr_local, group=op.halo.group)
         p_buf, p_prev = p_prev, p
         rr_prev, rr = rr, rr_new
         k += 1
     return x, r, rr, k
 
 
-class _GlooRank:
-    """The stepped loop's transport on a gloo rank (``MeshOperator`` is the mesh's): this
-    rank's one shard, its halos exchanged through the host, its sums gathered by gloo."""
+class _OneRank:
+    """The stepped loop's transport on a rank of one shard (``MeshOperator`` is the
+    mesh's): its halos exchanged by its ``_HaloExchange``, its sums gathered by
+    ``_allsum`` over the same transport."""
 
     def __init__(self, op):
         self.shards = (op,)
@@ -1776,7 +1924,7 @@ class _GlooRank:
         self.shards[0].halo.exchange(fields[0])
 
     def sum(self, parts):
-        return _allsum(*parts)
+        return _allsum(*parts, group=self.shards[0].halo.group)
 
     def sync(self):
         if self.shards[0].device.type == "cuda":
@@ -1794,7 +1942,8 @@ def cg_solve_sharded_stepped(grid_size: int, *, b=None, mode: str = "stencil5",
     (cg_solver_mgpu.h:55-67).  Every phase ends in ``torch.cuda.synchronize()`` on a card
     (every card of a mesh):
 
-      halo_time_ms      — the halo exchange: a mesh's device copies; a gloo rank's
+      halo_time_ms      — the halo exchange: a mesh's device copies (across ranks also
+                          the link's messages); a rank's NCCL exchange, or over gloo its
                           boundary rows' (on a 2-D mesh also side columns') D2H copy,
                           their gloo exchange and the H2D copy of the halos (the
                           reference's staged MPI_Isend/Irecv);
@@ -1809,7 +1958,7 @@ def cg_solve_sharded_stepped(grid_size: int, *, b=None, mode: str = "stencil5",
     α and β are formed on the host in double precision.  The JAX package's dispatch
     correction, a relay correction, has no counterpart.  Returns (x, CGStats) as
     ``cg_solve_sharded``: over a mesh (``mesh`` or a ``MeshOperator`` as ``operator``) the
-    global field, on a gloo rank its band."""
+    global field (a mesh across ranks: ``MeshOperator.assemble``), on a rank its band."""
     kw = dict(mode=mode, planes=planes, matrix=matrix, diag=diag, offdiag=offdiag,
               dtype=dtype, overlap=overlap)
     op = operator if operator is not None else (
@@ -1819,12 +1968,12 @@ def cg_solve_sharded_stepped(grid_size: int, *, b=None, mode: str = "stencil5",
         xs, stats = op.solve_stepped(b, tolerance=tolerance, max_iters=max_iters,
                                      verbose=verbose)
         return op.assemble(xs), stats
-    (x,), stats = _stepped(_GlooRank(op), b, tolerance, max_iters, verbose)
+    (x,), stats = _stepped(_OneRank(op), b, tolerance, max_iters, verbose)
     return x, stats
 
 
 def _stepped(t, b, tolerance, max_iters, verbose):
-    """The stepped loop over transport ``t`` (a ``MeshOperator`` or a ``_GlooRank``):
+    """The stepped loop over transport ``t`` (a ``MeshOperator`` or a ``_OneRank``):
     (the shards' x fields, CGStats)."""
     shards = t.shards
     stats = CGStats()
@@ -1923,8 +2072,9 @@ def cg_solve_sharded_2d(mesh, grid_size: int, *, mode: str = "stencil5", planes=
     ``planes``: a whole (5, g, g) host array (a file's), else synthesized.  The grid must
     divide by R and C (ValueError; ``cg_solve_sharded`` pads instead).  Returns (x,
     CGStats): over a mesh the global field (``graph`` and ``per_shard`` as in
-    ``MeshOperator.solve``), on a gloo rank its (g/R, g/C) block,
-    ``dist.gather_blocks_to_host(x, mesh)`` giving rank 0 the field."""
+    ``MeshOperator.solve``), over a mesh across ranks (``dist.make_rank_mesh((R, C))``)
+    the rank's blocks, on a rank of an R·C group its (g/R, g/C) block;
+    ``dist.gather_blocks_to_host(x, (R, C))`` gives rank 0 the field."""
     op = _block_operator(mesh, grid_size, operator, device, mode=mode, planes=planes,
                          diag=diag, offdiag=offdiag, dtype=dtype, overlap=overlap)
     return cg_solve_sharded(grid_size, b=b, tolerance=tolerance, max_iters=max_iters,
