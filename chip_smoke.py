@@ -238,6 +238,18 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      iterations both, the medians side by side, and the stepped run's halo, spmv,
      allreduce and blas1 ms an iteration beside the one-process mesh's
      (chiprun_out/chip_smoke_ranks.json).
+ 17. (run after phase 16) a graph a rank over NCCL (cg_sharded.MeshLoop with a rank link:
+     NCCL's calls captured into the rank's WHILE body).  On one card, in phase 9's one-rank
+     group, over a one-rank NCCL group: bench/nccl_graph_probe.py's probe (a 20480-long f64
+     row sent to itself and a partial all-gathered inside the captured body, 14 replayed
+     iterations bit for bit the same calls run eagerly), then MeshOperator.solve on a rank
+     mesh of 2 stencil5 f64 bands on the card (transport "nccl": each dot's partials
+     all-gathered by NCCL inside the graph), from the graph against graph=False: x by each
+     shard's sha256 bit for bit, 14 iterations, one replay and one read a solve, the
+     path's launches.  With two cards or more, 4 ranks (2 below four cards) on cards of
+     their own at 20480²: one band a rank in stencil5 f64 and const f32 recompute, and the
+     2 x 2 blocks in stencil5 f64, each from the graph a rank against the eager NCCL ranks
+     with the same checks.  The phase prints the card count and the legs it ran.
 
 Protocol cuts to keep the run short (none on a median a gate reads): phase 5's CG runs
 other than the two phase 13's headline gate compares with take a median of 3 after one
@@ -252,7 +264,7 @@ the graph's condition kernel (csrc/graph.cu, which ports no Pallas kernel) to it
 and times it.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5, 9, 10 and 12-16; the condition kernel's entry and
+record (launches summed over phases 5, 9, 10 and 12-17; the condition kernel's entry and
 the three sync kernels' last: like it they port no Pallas kernel) and then {"ok": true,
 "device": {...}}.
 Exports go to chiprun_out/.
@@ -636,6 +648,27 @@ RANK_MESH_RUNS = {
                               RANK_MESH_CLASSIC),
 }
 RANK_MESH_TIMED = 3  # timed solves of each, after a first one
+# phase 17, a graph a rank over NCCL.  On one card: the probe's one-rank NCCL group
+# (bench/nccl_graph_probe.py), a G_BIG-long row sent to itself and a partial all-gathered
+# inside a captured WHILE body, NCCL_GRAPH_ITERS iterations, bit for bit the same calls
+# run eagerly; and in that group the port's own rank mesh (RANK_GRAPH_ONE_CARD: 2 bands on
+# the rank's card, transport "nccl", each dot's partials all-gathered by NCCL inside
+# MeshLoop's graph), a graph a rank against its eager loop.  With two cards or more: the
+# rank cases at G_BIG², a graph a rank against the eager NCCL ranks, 4 ranks (2 below four
+# cards; label -> (None for one band a rank, else N bands or the (R, C) blocks, one or two
+# a rank; mode, dtype, kernels the path must launch))
+NCCL_GRAPH_ITERS = 14
+RANK_GRAPH_ONE_CARD = {
+    "stencil5 f64 2 bands, one rank": (2, "stencil5", "float64", RANK_MESH_CLASSIC),
+}
+# and a long solve there (tolerance 0: max_iters ends it) at LONG_GRID², replayed again
+# with the rank's wait bound a quarter of its time: the bound is on a stall, not a solve
+LONG_GRID, LONG_ITERS = 256, 3000
+RANK_GRAPH_CASES = {
+    "stencil5 f64 bands": (None, "stencil5", "float64", RANK_MESH_CLASSIC),
+    "const f32 recompute bands": (None, "stencil5-const", "float32", RECOMPUTE),
+    "2x2 stencil5 f64": ((2, 2), "stencil5", "float64", RANK_MESH_CLASSIC),
+}
 RANK_MESH_BUCKETS = ("halo", "spmv", "allreduce", "blas1")
 # the sync kernels (csrc/mesh_sync.cu, kernels/mesh_sync.py): they port no Pallas kernel;
 # they are the counterparts of the JAX loop's ppermute and psum
@@ -2294,7 +2327,8 @@ def _rank_group(device, runs, jobs):
     dist.launch_local: each phase-9/10 run's multichip CLI in turn (``_sharded_rank``: its
     own launch and halo counts), then each job (a rank function of this script for a
     later check, and its arguments: ``_bf16c_rank``, phase 14's ``_mesh_x_rank``, phase
-    16's ``_rank_mesh_rank``), the card's cached memory released after each.  Returns
+    16's ``_rank_mesh_rank``, phase 17's ``nccl_graph_probe.rank_probe`` and
+    ``_rank_graph_rank``), the card's cached memory released after each.  Returns
     ([each run's rc], {job's name: its rank-0 result})."""
     import torch
 
@@ -2449,10 +2483,14 @@ def phase_sharded(torch, results, smi):
     halos and dots staged through the host), each run from its ranks' own launch counts.
     Every piece of work on ranks that shares the card runs here, one group of ranks a
     group size, spawned once (``launch_ranks``): this phase's runs, phase 10's, the bf16c
-    check, phase 14's gloo ranks of its x parity and phase 16's rank meshes; the later
-    phases check theirs.  Returns ({wrapper: launches summed over this phase's runs and
-    ranks}, {"mesh2d": {phase 10's label: (the ranks' rc, its export, its counts' path
-    prefix)}, "mesh_x": {ranks: phase 14's gloo results}, "rank_mesh": phase 16's})."""
+    check, phase 14's gloo ranks of its x parity, phase 16's rank meshes and phase 17's
+    one-rank NCCL group (the probe and the rank mesh on its card); the later phases check
+    theirs.  Returns ({wrapper: launches
+    summed over this phase's runs and ranks}, {"mesh2d": {phase 10's label: (the ranks'
+    rc, its export, its counts' path prefix)}, "mesh_x": {ranks: phase 14's gloo
+    results}, "rank_mesh": phase 16's, "nccl_graph": phase 17's one-card legs})."""
+    from tpusparse_torch.bench import nccl_graph_probe
+
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     SHARDED_DIR.mkdir(parents=True, exist_ok=True)
@@ -2466,6 +2504,9 @@ def phase_sharded(torch, results, smi):
                                               if c[0] == n}))]
             for n in sorted({c[0] for c in MESH_X_CASES.values()})}
     jobs[2] = [(_bf16c_rank, ()), *jobs[2]]
+    jobs[1] = [*jobs.get(1, []), (nccl_graph_probe.rank_probe, (G_BIG, NCCL_GRAPH_ITERS)),
+               (_rank_graph_rank, (RANK_GRAPH_ONE_CARD, "nccl")),
+               (_rank_graph_long_rank, (LONG_GRID, LONG_ITERS))]
     jobs[RANK_MESH_RANKS] = [*jobs.get(RANK_MESH_RANKS, []),
                              (_rank_mesh_rank, (RANK_MESH_RUNS, RANK_MESH_TIMED))]
     for n in sorted(set(groups) | set(jobs)):
@@ -2475,6 +2516,9 @@ def phase_sharded(torch, results, smi):
             later["mesh_x"][n] = out["_mesh_x_rank"]
         if "_rank_mesh_rank" in out:
             later["rank_mesh"] = out["_rank_mesh_rank"]
+        if "rank_probe" in out:
+            later["nccl_graph"] = (out["rank_probe"], out["_rank_graph_rank"],
+                                   out["_rank_graph_long_rank"])
         bf16c = out.get("_bf16c_rank")
         for label, _argv, path, counts_path in group:
             if label in MESH2D_RUNS:
@@ -3814,6 +3858,192 @@ def phase_rank_mesh(torch, counters, smi, ranks):
     return counts.totals()
 
 
+def _rank_graph_rank(device, cases, transport=None):
+    """Phase 17's legs on a rank with a card of its own (spawned by dist.launch_local):
+    each case over NCCL eagerly (``graph=False``), then from the graph a rank, its first
+    solve capturing, then one solve counted (launch counts and ``cg.COUNTS`` set to 0 just
+    before it, read just after) and timed.  ``transport`` as ``make_mesh_operator``'s
+    ("nccl": phase 9's one-rank group, on one card).  Rank 0 returns {label: [each rank's
+    {"eager", "graph": (each shard's sha256, iterations), "ms": (eager, graph), "counts",
+    "launches", "replayed", "transport"}]}."""
+    import hashlib
+
+    import torch
+
+    from tpusparse_torch import dist
+    from tpusparse_torch.kernels import blas1, ell
+    from tpusparse_torch.kernels import graph as graph_kernels
+    from tpusparse_torch.kernels import stencil5 as st5
+    from tpusparse_torch.solvers import cg, cg_sharded
+
+    counters = (st5, blas1, ell, graph_kernels)
+    w, out = dist.world_size(), {}
+    cg_sharded.clear_caches()
+    torch.cuda.empty_cache()
+    for label, (shape, mode, dtype, _needs) in cases.items():
+        dtype = getattr(torch, dtype)
+        n = w if shape is None else shape if isinstance(shape, int) else shape[0] * shape[1]
+        if shape is None or n == w and transport is None:
+            op = cg_sharded.make_sharded_operator(G_BIG, mode=mode, dtype=dtype, device=device,
+                                                  mesh_shape=shape)
+
+            def solve(graph):
+                x, s = cg_sharded.cg_solve_sharded(G_BIG, operator=op, graph=graph)
+                return [x], s
+        else:  # a rank's blocks on its own card
+            per = n // w
+            mesh = dist.make_rank_mesh(shape, devices=[f"cuda:{i // per}" for i in range(n)])
+            op = cg_sharded.make_mesh_operator(G_BIG, mesh, mode=mode, dtype=dtype,
+                                               transport=transport)
+
+            def solve(graph):
+                return op.solve(graph=graph)
+
+        mine, ms = {}, {}
+        for leg, graph in (("eager", False), ("graph", None)):
+            xs, s = solve(graph)
+            mine[leg] = ([hashlib.sha256(x.cpu().numpy()).hexdigest() for x in xs],
+                         s.iterations)
+            del xs
+            for c in (*counters, cg):
+                c.reset_launches()
+            cg.reset_counts()
+            dist.barrier()
+            t0 = time.perf_counter()
+            solve(graph)
+            ms[leg] = (time.perf_counter() - t0) * 1e3
+            if leg == "graph":
+                mine.update(counts=dict(cg.COUNTS), replayed=dict(cg.LAUNCHES),
+                            launches=launch_counts((*counters, cg)))
+        mine["ms"] = ms
+        mine["transport"] = op.link.transport if isinstance(op, cg_sharded.MeshOperator) \
+            else op.halo.transport
+        out[label] = dist._all_objects(mine)
+        del op
+        cg_sharded.clear_caches()
+        torch.cuda.empty_cache()
+    return out if dist.rank() == 0 else None
+
+
+def _rank_graph_long_rank(device, grid, iters):
+    """Phase 17's long one-card solve (in phase 9's one-rank group): a one-rank NCCL rank
+    mesh of 2 ``stencil5`` f64 bands on this rank's card, tolerance 0, ``iters``
+    iterations from the graph a rank, timed, then again with the loop's wait bound
+    (``MeshLoop.bound_s``) a quarter of that time.  Returns {"k", "k_bounded" (None if it
+    raised), "error", "s", "bound_s", "same" (x bit for bit), "counts"}."""
+    import hashlib
+
+    import torch
+
+    from tpusparse_torch import dist
+    from tpusparse_torch.solvers import cg, cg_sharded
+
+    mesh = dist.make_rank_mesh(2, devices=[device, device])
+    op = cg_sharded.make_mesh_operator(grid, mesh, mode="stencil5", dtype=torch.float64,
+                                       transport="nccl")
+
+    def solve():
+        xs, s = op.solve(tolerance=0.0, max_iters=iters)
+        return [hashlib.sha256(x.cpu().numpy()).hexdigest() for x in xs], s.iterations
+
+    solve()  # the capture
+    (loop,) = op.graphs.values()
+    cg.reset_counts()
+    t0 = time.perf_counter()
+    digests, k = solve()
+    took = time.perf_counter() - t0
+    out = {"k": k, "s": took, "bound_s": took / 4, "counts": dict(cg.COUNTS)}
+    loop.bound_s = took / 4
+    try:
+        again, out["k_bounded"] = solve()
+        out.update(error=None, same=again == digests)
+    except RuntimeError as e:
+        out.update(k_bounded=None, error=str(e), same=False)
+    del op, loop
+    cg_sharded.clear_caches()
+    return out
+
+
+def _check_rank_graph(cases, out, where, counts, smi):
+    """``_rank_graph_rank``'s results (``out``) for ``cases``, run ``where``: each rank's
+    launches of the path and the condition kernel recorded in ``counts``; x bit for bit the
+    eager NCCL loop's (each shard's sha256), the same iterations (14 in f64), one replay
+    and one read a rank a solve, NCCL between the ranks."""
+    for label, every in out.items():
+        _shape, _mode, dtype, needs = cases[label]
+        w = len(every)
+        for r, rank in enumerate(every):
+            counts.record(f"rank graph {label} rank {r}", (*needs, COND), rank["launches"],
+                          rank["replayed"])
+        (e_dig, e_k), (g_dig, g_k) = every[0]["eager"], every[0]["graph"]
+        same = all(rk["eager"] == rk["graph"] for rk in every)
+        ms = {leg: max(rk["ms"][leg] for rk in every) for leg in ("eager", "graph")}
+        reads = [rk["counts"] for rk in every]
+        print(f"[rank graph] {G_BIG}² {label}, {where} over NCCL "
+              f"({sorted({rk['transport'] for rk in every})}): graph {g_k} iterations, "
+              f"{ms['graph']!r} ms, eager {e_k} iterations, {ms['eager']!r} ms (one "
+              f"solve, the slowest rank); x bit for bit (each shard's sha256): {same}; "
+              f"reads and replays a rank a solve {reads} [{smi}]", flush=True)
+        if not same or g_k != e_k or (dtype == "float64" and g_k != 14) \
+                or reads != [{"host_reads": 1, "replays": 1}] * w \
+                or {rk["transport"] for rk in every} != {"nccl"}:
+            raise AssertionError(f"rank graph {label}: {every}")
+
+
+def phase_rank_graph(torch, smi, one_card):
+    """Phase 17: a graph a rank over NCCL (``cg_sharded.MeshLoop`` with a rank link), the
+    counterpart of the JAX multi-host solve's one compiled ``while_loop`` a process.  On
+    one card (a run with no arguments) what phase 9's one-rank NCCL group ran
+    (``one_card``): the probe (its WHILE body's all-gather and send/recv pair to itself,
+    replayed NCCL_GRAPH_ITERS times on a G_BIG-long row, bit for bit its eager run, the
+    condition kernel launched by the replays) and RANK_GRAPH_ONE_CARD, the port's rank
+    mesh of 2 bands on the card through ``MeshOperator.solve``, its dots all-gathered by
+    NCCL inside the rank's graph, held against its eager loop as below, and that mesh's
+    long solve at LONG_GRID² (LONG_ITERS iterations, passing again with its wait bound a
+    quarter of its time, x bit for bit).  With two cards or
+    more, 4 ranks (2 below four cards) each on a card of its own solve RANK_GRAPH_CASES at
+    G_BIG², from the graph a rank against the eager NCCL loop: x bit for bit (each shard's
+    sha256), 14 iterations in f64, one replay and one read a rank a solve, each rank's
+    launches of the path.  Returns the path counts' totals."""
+    from tpusparse_torch import dist
+
+    t_phase = time.perf_counter()
+    probe, mesh_one_card, long = one_card
+    cards = torch.cuda.device_count()
+    legs = ["one-rank probe", "one-rank rank mesh", "one-rank long solve"] + (
+        [f"{4 if cards >= 4 else 2} ranks on cards of their own"] if cards >= 2 else [])
+    print(f"[rank graph] {cards} card(s) found; legs run: {legs}", flush=True)
+    counts = PathCounts(())
+    rank0 = probe["every_rank"][0]
+    print(f"[rank graph] one-rank NCCL group, a {probe['rows']}-long f64 row sent to itself "
+          f"and a partial all-gathered in a captured WHILE body: captured "
+          f"{rank0['captured']}, {rank0.get('k')} iterations (eager {probe['k_eager']}), "
+          f"bit for bit the eager calls: {rank0.get('same')}; ms an iteration eager "
+          f"{probe.get('eager_ms')!r}, graph {probe.get('graph_ms')!r}; "
+          f"NCCL_GRAPH_MIXING_SUPPORT={probe['mixing']} [{smi}]", flush=True)
+    if not probe["ok"] or rank0.get("k") != NCCL_GRAPH_ITERS:
+        raise AssertionError(f"the one-rank NCCL graph probe failed: {rank0}")
+    replayed = probe["replayed"]
+    counts.record("rank graph one-rank probe", (COND,), {COND: replayed.get(COND, 0)},
+                  replayed)
+    _check_rank_graph(RANK_GRAPH_ONE_CARD, mesh_one_card, "one rank on one card", counts,
+                      smi)
+    print(f"[rank graph] {LONG_GRID}² stencil5 f64 2 bands, one rank, tolerance 0: {long['k']} "
+          f"iterations from the graph in {long['s']!r} s ({long['counts']}), then with the "
+          f"wait bound {long['bound_s']!r} s: {long['k_bounded']} iterations, x bit for bit "
+          f"{long['same']}, error {long['error']} [{smi}]", flush=True)
+    if long["error"] is not None or not long["same"] or long["k"] != LONG_ITERS \
+            or long["k_bounded"] != LONG_ITERS \
+            or long["counts"] != {"host_reads": 1, "replays": 1}:
+        raise AssertionError(f"rank graph long solve: {long}")
+    if cards >= 2:
+        w = 4 if cards >= 4 else 2
+        out = dist.launch_local(_rank_graph_rank, w, RANK_GRAPH_CASES, device="cuda")
+        _check_rank_graph(RANK_GRAPH_CASES, out, f"{w} ranks", counts, smi)
+    print(f"[rank graph] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts.totals()
+
+
 def main() -> int:
     import torch
 
@@ -3887,6 +4117,9 @@ def main() -> int:
                                        later["rank_mesh"]).items():
         launches[name] = launches.get(name, 0) + count
     done(16)
+    for name, count in phase_rank_graph(torch, smi, later["nccl_graph"]).items():
+        launches[name] = launches.get(name, 0) + count
+    done(17)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "

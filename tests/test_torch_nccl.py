@@ -11,19 +11,27 @@ ranks, each on a card of its own, solve at g = 256 over NCCL and over gloo (``tr
 "gloo"``) on the same cards, one band a rank (the classic and the recompute loop), a 2 × 2
 mesh as a rank mesh (2 blocks a rank, rows crossing the ranks) and 4 bands as a rank mesh
 (2 a rank): transport ``nccl``, and x and the iterations bit for bit the gloo transport's.
+The graph a rank (NCCL's calls captured into each rank's CUDA graph, ``cg_sharded.
+MeshLoop``), one band a rank in both loops and the 2 × 2 rank mesh: x and the iterations
+bit for bit the eager NCCL loop's (``graph=False``), one replay and one host read a rank
+a solve (``cg.COUNTS``); a rank that never replays its graph (``withheld``) makes the
+other raise RuntimeError within its bound (``RANK_WAIT_BOUND_S``, 3 s here); and a solve
+LONG_ITERS iterations long passes with the bound a quarter of its time, since the bound is
+on the time between iterations' ends, not on the solve's.
 
 The spawned ranks import this module, so it imports no JAX.
 """
 
 import functools
 import operator
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from tpusparse_torch import dist
-from tpusparse_torch.solvers import cg_sharded
+from tpusparse_torch.solvers import cg, cg_sharded
 
 SUM_CASES = [(dtype, n) for dtype in ("float64", "float32") for n in (2, 4, 8)]
 SUM_RANKS = 2
@@ -138,3 +146,124 @@ def test_nccl_ranks_equal_gloo_ranks(case):
     (x, k), (x_gloo, k_gloo) = out["nccl"], out["gloo"]
     assert k == k_gloo and x.shape == (G, G)
     np.testing.assert_array_equal(x, x_gloo)
+
+
+# name -> (rank mesh shape or None for one band a rank, mode, dtype)
+GRAPH_CASES = {
+    "band classic": (None, "stencil5", "float64"),
+    "band recompute": (None, "stencil5-const", "float32"),
+    "2x2 rank mesh": ((2, 2), "stencil5", "float64"),
+}
+BOUND_S = 3.0
+LONG_ITERS = 3000  # tolerance 0: max_iters ends the solve
+
+
+def _graph_rank(device, case):
+    """One case on this rank's card over NCCL, from the graph a rank and eagerly: rank 0
+    returns ({loop: (x gathered, iterations)}, every rank's cg.COUNTS a graph solve)."""
+    shape, mode, dtype = GRAPH_CASES[case]
+    dtype = getattr(torch, dtype)
+    if shape is None:
+        op = cg_sharded.make_sharded_operator(G, mode=mode, dtype=dtype, device=device)
+
+        def solve(graph):
+            x, s = cg_sharded.cg_solve_sharded(G, operator=op, graph=graph)
+            return dist.gather_to_host(x, rows=G), s.iterations
+    else:
+        per = int(np.prod(shape)) // dist.world_size()
+        mesh = dist.make_rank_mesh(shape, devices=[f"cuda:{i // per}"
+                                                   for i in range(int(np.prod(shape)))])
+        op = cg_sharded.make_mesh_operator(G, mesh, mode=mode, dtype=dtype)
+
+        def solve(graph):
+            xs, s = op.solve(graph=graph)
+            return dist.gather_blocks_to_host(op.assemble(xs), shape), s.iterations
+    out = {"eager": solve(False)}
+    solve(None)  # the first graph solve captures
+    cg.reset_counts()
+    out["graph"] = solve(None)
+    counts = dist._all_objects(dict(cg.COUNTS))
+    cg_sharded.clear_caches()
+    return (out, counts) if dist.rank() == 0 else None
+
+
+def _withheld_rank(device):
+    """Two graph solves, the second without rank 1's replay: rank 0 returns (its error,
+    the seconds it waited), rank 1 having stayed out."""
+    cg_sharded.RANK_WAIT_BOUND_S = BOUND_S
+    op = cg_sharded.make_sharded_operator(G, mode="stencil5", dtype=torch.float64,
+                                          device=device)
+    cg_sharded.cg_solve_sharded(G, operator=op)  # both ranks: the capture and a replay
+    (loop,) = cg_sharded.rank_mesh(op).graphs.values()
+    loop.withheld = dist.rank() == 1
+    t0 = time.perf_counter()
+    try:
+        cg_sharded.cg_solve_sharded(G, operator=op)
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    waited = time.perf_counter() - t0
+    every = dist._all_objects((err, waited))
+    del op, loop
+    cg_sharded.clear_caches()  # the captured graphs go before the group does
+    return every if dist.rank() == 0 else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_rank_graph_equals_eager_nccl_ranks(case):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("a graph a rank over NCCL needs two cards, a rank on each")
+    out, counts = dist.launch_local(_graph_rank, 2, case, device="cuda")
+    (x, k), (x_eager, k_eager) = out["graph"], out["eager"]
+    assert k == k_eager and x.shape == (G, G)
+    np.testing.assert_array_equal(x, x_eager)
+    assert counts == [{"host_reads": 1, "replays": 1}] * 2
+
+
+@pytest.mark.cuda
+def test_rank_that_never_replays_makes_the_other_raise():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("a graph a rank over NCCL needs two cards, a rank on each")
+    (err, waited), (err1, _w1) = dist.launch_local(_withheld_rank, 2, device="cuda")
+    assert err is not None and "rank 0" in err and "bound" in err and err1 is None
+    assert BOUND_S <= waited < BOUND_S + 10
+
+
+def _long_rank(device):
+    """A graph solve of LONG_ITERS iterations, then again with each rank's bound a quarter
+    of that solve's time: rank 0 returns every rank's (error or None, the solve's seconds,
+    the bound, both iteration counts, x bit for bit the same)."""
+    op = cg_sharded.make_sharded_operator(G, mode="stencil5", dtype=torch.float64,
+                                          device=device)
+
+    def solve():
+        return cg_sharded.cg_solve_sharded(G, operator=op, tolerance=0.0,
+                                           max_iters=LONG_ITERS)
+
+    solve()  # the capture
+    (loop,) = cg_sharded.rank_mesh(op).graphs.values()
+    dist.barrier()
+    t0 = time.perf_counter()
+    x, s = solve()
+    took = time.perf_counter() - t0
+    x, loop.bound_s = x.cpu(), took / 4
+    dist.barrier()
+    try:
+        x2, s2 = solve()
+        err, k2, same = None, s2.iterations, bool(torch.equal(x2.cpu(), x))
+    except RuntimeError as e:
+        err, k2, same = str(e), None, False
+    every = dist._all_objects((err, took, loop.bound_s, s.iterations, k2, same))
+    del op, loop
+    cg_sharded.clear_caches()
+    return every if dist.rank() == 0 else None
+
+
+@pytest.mark.cuda
+def test_long_rank_graph_solve_passes_a_bound_shorter_than_it():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("a graph a rank over NCCL needs two cards, a rank on each")
+    for err, took, bound, k, k2, same in dist.launch_local(_long_rank, 2, device="cuda"):
+        assert err is None and same and k == k2 >= 1000
+        assert took > 2 * bound > 0

@@ -27,13 +27,17 @@ card).
 ``--ranks W`` runs the rank cases of W ranks instead (``RANK_CASES``), each in a group of
 W processes spawned by ``dist.launch_local``, rank r on card r: one band or block a rank
 (W = the shards), or a mesh across the ranks (``dist.make_rank_mesh``; 2 ranks × 2 cards
-each: a rank's own shards copy card to card).  Each solves over both transports between
-the ranks on the same cards, NCCL (``dist.device_group``) and gloo through the host
+each: a rank's own shards copy card to card).  Each solves in three legs on the same cards
+(``RANK_LEGS``): over NCCL (``dist.device_group``) from one CUDA graph a rank where the
+rank's shards sit on one card (``graph`` None; the leg is left out elsewhere, where
+graph=None runs the eager loop), over NCCL eagerly (``graph=False``, the flag read once
+an iteration) and over gloo through the host
 (``transport="gloo"``): a first solve, then ``--runs`` solves each after a barrier (a
 solve's time the slowest rank's).  Beside them the same shards as one process's mesh over
-the cards, its per-card and eager loops.  Printed: the four medians, the transport each
-leg ran, the iterations, and whether x is the same bit for bit in all four (each shard's
-bytes by sha256).
+the cards, its per-card and eager loops.  Printed: the medians (five with the graph leg,
+else four), the transport each leg ran, each rank's host reads and replays a solve
+(``cg.COUNTS``: one and one in the graph leg), the iterations, and whether x is the same
+bit for bit in every leg (each shard's bytes by sha256).
 """
 
 from __future__ import annotations
@@ -68,8 +72,10 @@ RANK_CASES = {
     "rank mesh 4 bands stencil5 f64": (2, 4, "stencil5", "f64"),
     "rank mesh 2x2 stencil5 f64": (2, (2, 2), "stencil5", "f64"),
 }
-# the transports a rank case runs: label -> dist.device_group's transport
-TRANSPORTS = {"nccl": None, "gloo": "gloo"}
+# the legs a rank case runs: label -> (dist.device_group's transport, the solve's graph):
+# over NCCL from one CUDA graph a rank (graph=None's choice there; run only where it is a
+# graph) and eagerly, over gloo eagerly (the host steps it)
+RANK_LEGS = {"graph": (None, None), "nccl": (None, False), "gloo": ("gloo", False)}
 
 
 def _solve(op, runs, loops):
@@ -186,22 +192,23 @@ def _block_fields(x, shape):
 
 
 def _rank_case(device, grid, shards, mode, dtype_name, runs, platform):
-    """One rank case on this rank (spawned by ``dist.launch_local``), over each transport
-    of ``TRANSPORTS``: rank 0 returns {transport: {"ran": the transport every rank
-    reported, "iterations", "digests": every shard's sha256 in shard order, "ms": each
-    timed solve's slowest rank}}."""
+    """One rank case on this rank (spawned by ``dist.launch_local``), in each leg of
+    ``RANK_LEGS`` that can run here (the graph leg only where a graph a rank runs): rank 0
+    returns {leg: {"ran": the transport every rank reported,
+    "iterations", "digests": every shard's sha256 in shard order, "ms": each timed solve's
+    slowest rank, "counts": every rank's ``cg.COUNTS`` a timed solve}}."""
     w, dtype = dist.world_size(), resolve_dtype(dtype_name)
     n = shards if isinstance(shards, int) else math.prod(shards)
     blocks = None if isinstance(shards, int) else tuple(shards)
     out = {}
-    for label, transport in TRANSPORTS.items():
+    for label, (transport, graph) in RANK_LEGS.items():
         if n == w:  # one band or block a rank
             op = cg_sharded.make_sharded_operator(grid, mode=mode, dtype=dtype, device=device,
                                                   mesh_shape=blocks, transport=transport)
             ran = op.halo.transport
 
             def solve():
-                x, s = cg_sharded.cg_solve_sharded(grid, operator=op)
+                x, s = cg_sharded.cg_solve_sharded(grid, operator=op, graph=graph)
                 return [x], s
         else:
             mesh = dist.make_rank_mesh(blocks or n, devices=platform)
@@ -210,12 +217,17 @@ def _rank_case(device, grid, shards, mode, dtype_name, runs, platform):
             ran = op.link.transport
 
             def solve():
-                return op.solve()
+                return op.solve(graph=graph)
 
+        if graph is None and not (op.halo.group is not None if n == w else op.rank_graph):
+            del op  # no graph a rank here (gloo, or a rank's shards on several cards)
+            cg_sharded.clear_caches()
+            continue
         xs, s = solve()
         digests = _digests(xs)
         del xs
         times = []
+        cg.reset_counts()
         for _ in range(runs):
             dist.barrier()
             t0 = time.perf_counter()
@@ -223,10 +235,13 @@ def _rank_case(device, grid, shards, mode, dtype_name, runs, platform):
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             times.append((time.perf_counter() - t0) * 1e3)
-        every = dist._all_objects({"ran": ran, "digests": digests, "ms": times})
+        counts = {k: v / runs for k, v in cg.COUNTS.items()}
+        every = dist._all_objects({"ran": ran, "digests": digests, "ms": times,
+                                   "counts": counts})
         out[label] = {"ran": [e["ran"] for e in every], "iterations": s.iterations,
                       "digests": [d for e in every for d in e["digests"]],
-                      "ms": [max(e["ms"][i] for e in every) for i in range(runs)]}
+                      "ms": [max(e["ms"][i] for e in every) for i in range(runs)],
+                      "counts": [e["counts"] for e in every]}
         del op
         cg_sharded.clear_caches()
         if device.type == "cuda":
@@ -267,21 +282,35 @@ def _rank_cases(args, smi) -> int:
         legs.update({name: (r["digests"], r["iterations"], statistics.median(r["ms"]))
                      for name, r in ranks.items()})
         same = len({(tuple(d), k) for d, k, _ in legs.values()}) == 1
-        ran_ok = ranks["nccl"]["ran"] == [want] * w and ranks["gloo"]["ran"] == ["gloo"] * w
-        ok &= same and ran_ok
+        ran = {name: r["ran"] for name, r in ranks.items()}
+        # the graph leg where a graph a rank runs (NCCL, one shard a rank on its card)
+        graphed = want == "nccl" and n == w
+        ran_ok = ran == {**({"graph": [want] * w} if graphed else {}), "nccl": [want] * w,
+                         "gloo": ["gloo"] * w}
+        # every rank the same reads and replays a solve; the graph's one and one
+        counts = {name: r["counts"] for name, r in ranks.items()}
+        alike = all(c == [c[0]] * w for c in counts.values())
+        if graphed and "graph" in counts:
+            alike &= counts["graph"][0] == {"host_reads": 1.0, "replays": 1.0}
+        ok &= same and ran_ok and alike
         med = {name: ms for name, (_d, _k, ms) in legs.items()}
+        graph = (f"from one graph a rank median {med['graph']!r} ms "
+                 f"({counts['graph'][0]} a solve), graph / per card "
+                 f"{med['graph'] / med['per card']!r}, eager nccl / graph "
+                 f"{med['nccl'] / med['graph']!r}; " if "graph" in med else
+                 "no graph a rank (a rank's shards on several cards, or gloo); ")
         print(f"[mesh scaling] {args.grid}² {label}, {w} ranks over {n} cards: ranks over "
-              f"{ranks['nccl']['ran'][0]} median {med['nccl']!r} ms, over gloo "
-              f"{med['gloo']!r} ms; one process's mesh over the cards: per-card graphs "
-              f"{med['per card']!r} ms, eager {med['eager']!r} ms; gloo / nccl "
-              f"{med['gloo'] / med['nccl']!r}, nccl / per card "
-              f"{med['nccl'] / med['per card']!r}; iterations "
-              f"{sorted({k for _d, k, _m in legs.values()})}; x bit for bit in all four "
-              f"(each shard's sha256): {same}; transports {ranks['nccl']['ran']} / "
-              f"{ranks['gloo']['ran']} [{smi}]", flush=True)
+              f"{ran['nccl'][0]}: {graph}eager median {med['nccl']!r} ms "
+              f"({counts['nccl'][0]} a solve); over gloo {med['gloo']!r} ms; one process's "
+              f"mesh over the cards: per-card graphs {med['per card']!r} ms, eager "
+              f"{med['eager']!r} ms; eager nccl / per card {med['nccl'] / med['per card']!r}, "
+              f"gloo / eager nccl {med['gloo'] / med['nccl']!r}; iterations "
+              f"{sorted({k for _d, k, _m in legs.values()})}; x bit for bit in all "
+              f"{len(legs)} legs (each shard's sha256): {same}; every rank's reads and "
+              f"replays alike: {alike}; transports {ran} [{smi}]", flush=True)
         rows.append({"grid": args.grid, "case": label, "ranks": w, "shards": list(shape),
-                     "mode": mode, "dtype": dtype_name, "median_ms": med,
-                     "transports": {k: ranks[k]["ran"] for k in TRANSPORTS},
+                     "mode": mode, "dtype": dtype_name, "median_ms": med, "transports": ran,
+                     "counts": counts,
                      "iterations": {name: k for name, (_d, k, _m) in legs.items()},
                      "x_equal": same, "card": smi})
     if args.json:

@@ -49,10 +49,13 @@ one more solve after a barrier whose per-rank times give the load imbalance
 (``dist.rank_time_stats``).  ``--timers`` runs the host-stepped loop with its
 halo/SpMV/allreduce/BLAS1 buckets; ``--trace`` profiles one more solve (on rank 0).  The
 export's ``loop`` is ``recompute-ap`` (``stencil5-const``), ``classic`` or
-``host-stepped``, and its ``topology`` is ``dist.describe_mesh`` of the mesh (transport
-``mesh``, or across ranks ``nccl`` or ``gloo``, with its shards and processes) or
-``dist.describe_group`` of the group (transport ``nccl`` or ``gloo``).  Only rank 0
-prints and writes.
+``host-stepped``, with ``-graph`` after the first two where ranks over NCCL, each rank's
+shards on one card of its own, run the loop from one CUDA graph a rank, NCCL's exchanges
+and sums inside it (``solvers.cg_sharded.MeshLoop``; one replay and one host read a rank
+a solve, the JAX CLI's one compiled ``while_loop`` a process), and its ``topology`` is
+``dist.describe_mesh`` of the mesh (transport ``mesh``, or across ranks ``nccl`` or
+``gloo``, with its shards and processes) or ``dist.describe_group`` of the group
+(transport ``nccl`` or ``gloo``).  Only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -260,7 +263,10 @@ def run(args, device, mesh=None) -> int:
     loop = ("host-stepped" if args.timers
             else "recompute-ap" if op.mode == "stencil5-const" and blocks is None
             else "classic")
-    if loop == "recompute-ap" and dtype == torch.bfloat16:
+    ranks_graph = op.rank_graph if mesh is not None else op.halo.group is not None
+    if ranks_graph and not args.timers:
+        loop += "-graph"  # a graph a rank: the loop with NCCL's calls inside it
+    if loop.startswith("recompute-ap") and dtype == torch.bfloat16:
         say("[ERROR] --mode=stencil5-const --dtype=bf16: the row bands' recompute loop "
             "does not take a bf16 state (the JAX CLI fails there too); use --mesh2d, "
             "--timers or --mode=stencil5", file=sys.stderr)

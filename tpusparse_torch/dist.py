@@ -17,7 +17,8 @@ Two ways to run the sharded CG, as the JAX package has two:
     ranks.
 
 Between ranks whose cards are all their own (``device_group``), halos and dots go card to
-card by NCCL, in a group of its own; ranks on the CPU, and ranks that share a card (where
+card by NCCL, in a group of its own (``nccl_group``), whose calls a rank's sharded CG
+captures into its one CUDA graph; ranks on the CPU, and ranks that share a card (where
 NCCL refuses to run), stage them through the host by gloo.  The default group stays gloo:
 barriers, gathers to the host and the provenance go through it.
 
@@ -40,6 +41,7 @@ import os
 import queue as _queue
 import socket
 import tempfile
+import threading
 import traceback
 from typing import Optional, Sequence
 
@@ -260,36 +262,78 @@ _NCCL = []  # the group's NCCL group, made once a process
 
 def device_group(device=None, transport: Optional[str] = None):
     """The group that moves halos and dots between the ranks on their cards: an NCCL group
-    of every rank (``tdist.new_group(backend="nccl")``, made once a process), when every
-    rank's cards are its own (``ranks_per_card`` 1 on every rank); else None, gloo through
-    the host: ranks on the CPU, and ranks that share a card, where NCCL refuses to run.
-    ``device``: this rank's device, or its shards' (the first is the one NCCL runs on).
-    ``transport`` "gloo" asks for None whatever the cards; None decides.
+    of every rank (``nccl_group``), when every rank's cards are its own (``ranks_per_card``
+    1 on every rank); else None, gloo through the host: ranks on the CPU, and ranks that
+    share a card, where NCCL refuses to run.  ``device``: this rank's device, or its
+    shards' (the first is the one NCCL runs on).  ``transport`` "gloo" asks for None
+    whatever the cards; "nccl" for the NCCL group, in a group of one rank too (the one-card
+    run of a graph a rank), ValueError off the cards, outside a group and where ranks
+    share a card; None decides.  Over NCCL a rank's sharded CG runs its loop from one CUDA
+    graph with NCCL's calls inside it (``solvers.cg_sharded.MeshLoop``); over gloo the
+    host steps it.
 
     Collective on cards: every rank calls it with the same ``transport``; outside a group
-    and on the CPU it returns None without one.  NCCL sets its communicator up at the
-    group's first collective, which every rank must join: an all-gather here makes it,
-    outside any timed solve.  Raises when every rank has cards of its own and the NCCL
-    group cannot be made: nothing carries on through gloo then."""
-    if transport not in (None, "gloo"):
-        raise ValueError(f"transport is None or 'gloo', got {transport!r}")
+    and on the CPU it returns None without one.  Raises when every rank has cards of its
+    own and the NCCL group cannot be made: nothing carries on through gloo then."""
+    if transport not in (None, "gloo", "nccl"):
+        raise ValueError(f"transport is None or 'gloo', or 'nccl' to ask for NCCL, got "
+                         f"{transport!r}")
     devs = _as_devices(device)
-    if world_size() == 1 or transport == "gloo" or any(d.type != "cuda" for d in devs):
+    cards = all(d.type == "cuda" for d in devs)
+    if transport == "nccl" and not (cards and tdist.is_initialized()):
+        raise ValueError(f"transport='nccl' moves tensors between the cards of a group's "
+                         f"ranks: {[str(d) for d in devs]} "
+                         f"{'in' if tdist.is_initialized() else 'outside'} a group")
+    if transport == "gloo" or not cards or world_size() == 1 and transport is None:
         return None
-    if ranks_per_card(devs) != 1:
+    if world_size() > 1 and ranks_per_card(devs) != 1:
+        if transport == "nccl":
+            raise ValueError(f"rank {rank()}: transport='nccl', but ranks share a card, "
+                             "where NCCL refuses to run")
         return None
+    return nccl_group(devs[0])
+
+
+def nccl_group(device):
+    """The NCCL group of every rank of the group (``tdist.new_group(backend="nccl")``),
+    made once a process on this rank's card ``device`` (a group of one rank too: the
+    one-card check of a captured NCCL call).  Collective the first time: every rank calls
+    it.  NCCL sets its communicator up at the group's first collective, which every rank
+    must join: an all-gather here makes it, outside any timed solve and any capture.
+
+    NCCL is asked not to tie its captured calls to its other work by events
+    (``NCCL_GRAPH_MIXING_SUPPORT=0``, unless the caller set it): the body of a CUDA
+    graph's conditional node may hold kernels, copies and fills but no event node, and a
+    rank's loop captures NCCL's calls into one (with it on, that capture failed on an
+    H100 with cudaErrorInvalidValue).  A rank never has a captured and an eager call of
+    one group outstanding at once: the eager ones are ordered on its stream before the
+    replay, which the host waits for."""
     if not _NCCL:
         if not tdist.is_nccl_available():
             raise RuntimeError(f"rank {rank()}: every rank has cards of its own but this "
                                "torch has no NCCL (pass transport='gloo' to stage through "
                                "the host)")
-        with torch.cuda.device(devs[0]):
+        os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
+        dev = _as_devices(device)[0]
+        with torch.cuda.device(dev):
             group = tdist.new_group(backend="nccl", timeout=TIMEOUT)
-            probe = torch.empty(world_size(), device=devs[0])
-            tdist.all_gather_into_tensor(probe, torch.ones(1, device=devs[0]), group=group)
-            torch.cuda.synchronize(devs[0])
+            probe = torch.empty(world_size(), device=dev)
+            tdist.all_gather_into_tensor(probe, torch.ones(1, device=dev), group=group)
+            torch.cuda.synchronize(dev)
         _NCCL.append(group)
     return _NCCL[0]
+
+
+def abort_nccl(group) -> None:
+    """Forget ``group`` and abort its communicator: what a rank does when a peer never
+    came to a captured call.  The abort runs on a thread of its own and this returns at
+    once: ``group.abort()`` did not return on an H100 while a captured NCCL kernel waited
+    for a peer that never came, and a rank that skips it hangs in
+    ``destroy_process_group``.  Free the captured loops (``solvers.cg_sharded.
+    clear_caches``) before the group goes: both ranks did, and exited."""
+    if group in _NCCL:
+        _NCCL.remove(group)
+    threading.Thread(target=group.abort, name="nccl abort", daemon=True).start()
 
 
 def local_band_rows(grid_size: int, num_devices: int, device_index: int) -> tuple:

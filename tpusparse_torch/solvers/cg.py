@@ -332,8 +332,9 @@ class DeviceLoop:
     once and reads (rr, <b, b>, k) to the host in one read.
 
     The graph: a kernel sets the WHILE node's condition, k < max_iters and rr > tol²;
-    the node's body runs ``unroll`` iterations, the first at once, each further one under
-    an IF node whose condition the kernel sets from the state the iteration before left;
+    the node's body runs ``unroll`` iterations, the first at once (``guard_first``: under
+    an IF node too), each further one under an IF node whose condition the kernel sets
+    from the state the iteration before left;
     at the body's end the kernel sets the WHILE node's condition again
     (``kernels/graph.py``).  Once the condition is false it stays false (a skipped
     iteration changes nothing), so no iteration runs after the loop has stopped.  The
@@ -389,6 +390,14 @@ class DeviceLoop:
         self.workspace = None
         self.per_iteration = None  # wrapper -> launches of one captured iteration
         self.capture_stream = None  # the stream captures run on (None: torch.cuda.graph's)
+        # torch.cuda.graph's capture_error_mode: "global" unless the body holds calls that
+        # another thread of the process may meet mid-capture (a rank's NCCL calls)
+        self.capture_mode = "global"
+        # every iteration of the WHILE body under an IF node, the first too: where an
+        # iteration holds NCCL's calls, whose stream, once joined to the WHILE body's
+        # capture, stays in it until it ends, so that no IF body captured inside it may
+        # take that stream again
+        self.guard_first = False
 
     def _new_x(self):
         """A field of the loop's shape: a solution slot's, or a state field."""
@@ -423,7 +432,7 @@ class DeviceLoop:
         if slot.graph is None:
             self._run_host(slot.x)
         else:
-            slot.graph.replay()
+            self._replay(slot.graph)
             COUNTS["replays"] += 1
         status = torch.stack([self.rr.double(), self.bb.double(), self.k.double()])
         rr_f, bb_f, k = _read(status).tolist()  # the one read; also the sync
@@ -431,6 +440,10 @@ class DeviceLoop:
         if slot.graph is not None:
             self._count_replay(k)
         return slot.x, k, rr_f, bb_f
+
+    def _replay(self, graph):
+        """Replay the slot's graph on the current stream."""
+        graph.replay()
 
     def _start(self, x, b, x0, b_is_ones):
         """r0, x0, <r0, r0>, <b, b>, tol², k = 0 and the loop's first p into the state,
@@ -495,13 +508,16 @@ class DeviceLoop:
 
     def _structure(self, node, step):
         """The loop: a WHILE node whose body runs ``unroll`` iterations (``step(parity)``),
-        each after the first under an IF node.  ``node(kind, body)`` makes ``body`` the
-        body of a node of ``kind``: captured on the card, run on the host's reading of the
-        condition on the CPU."""
+        each after the first under an IF node (the first too with ``guard_first``, whose
+        condition then holds already).  ``node(kind, body)`` makes ``body`` the body of a
+        node of ``kind``: captured on the card, run on the host's reading of the condition
+        on the CPU."""
         def body():
-            step(0)
-            for j in range(1, self.unroll):
-                node(graph_kernels.IF, functools.partial(step, j % 2))
+            for j in range(self.unroll):
+                if j or self.guard_first:
+                    node(graph_kernels.IF, functools.partial(step, j % 2))
+                else:
+                    step(0)
 
         node(graph_kernels.WHILE, body)
 
@@ -554,7 +570,9 @@ class DeviceLoop:
 
         g = torch.cuda.CUDAGraph()
         with _launch.set_apart() as captured, \
-                torch.cuda.graph(g, stream=self.capture_stream), _launch.use(self.workspace):
+                torch.cuda.graph(g, stream=self.capture_stream,
+                                 capture_error_mode=self.capture_mode), \
+                _launch.use(self.workspace):
             allocs = _allocations(self.device)
             self._structure(self._capture_node, step)
             made = _allocations(self.device) - allocs
@@ -573,7 +591,7 @@ class DeviceLoop:
 
     def _per_iteration(self, captured):
         """{wrapper: launches of one iteration} from a capture's counts (``unroll``
-        iterations and ``unroll`` + 1 condition kernels)."""
+        iterations and their condition kernels, which it leaves out)."""
         per = {}
         for name, n in captured.items():
             if name == "cg_cond":
@@ -586,10 +604,11 @@ class DeviceLoop:
 
     def _count_replay(self, k):
         """Add a replay's launches to ``LAUNCHES``: k iterations, and the condition kernel
-        once before the WHILE node and ``unroll`` times in each body that ran."""
+        once before the WHILE node and ``unroll`` (``guard_first``: ``unroll`` + 1) times
+        in each body that ran."""
         _launch.count_replay(self.per_iteration, k)
         bodies = -(-k // self.unroll)
-        _launch.count_replay({"cg_cond": 1 + self.unroll * bodies})
+        _launch.count_replay({"cg_cond": 1 + (self.unroll + self.guard_first) * bodies})
 
 
 def _allocations(device) -> int:

@@ -42,19 +42,32 @@ waits for other cards spin; one replay a card and one read a solve.  With
 ``graph=False`` the iteration runs eagerly, the flag k < max_iters and rr > tol² read
 once an iteration.  A mesh across the ranks of a group (``dist.make_rank_mesh``, bands
 or blocks, the JAX package's multi-host mode: each rank drives its share of the shards)
-runs the eager loop: halos between a rank's own shards by device copies, the rows and
-columns whose neighbour lives on another rank and every dot's partials by the group's
-transport (``_RankLink``: NCCL card to card, or gloo through the host), the partials added
-in global shard order, so x is the one-process mesh's bit for bit.
+passes halos between a rank's own shards by device copies, the rows and columns whose
+neighbour lives on another rank and every dot's partials by the group's transport
+(``_RankLink``: NCCL card to card, or gloo through the host), the partials added in
+global shard order, so x is the one-process mesh's bit for bit.  Over NCCL, with the
+rank's shards on one card of its own, each rank runs the loop from one CUDA graph
+(``MeshLoop``: its WHILE node, each iteration under an IF node, the rank's kernels and
+NCCL's exchanges and all-gathers captured inside them), as each JAX process runs one
+compiled ``while_loop`` with its ``ppermute`` and ``psum`` inside: one replay and one
+read a rank a solve; every rank sums the same partials in the same order, so every
+rank's condition sees the same rr and every rank makes the same calls.  A peer that
+never comes to a captured call would hang the replay, and NCCL's watchdog does not
+watch captured work: the host watches the replay's k, and where no iteration ends for
+``RANK_WAIT_BOUND_S`` it aborts the group's communicator and raises.  Over gloo, and
+with a rank's shards on several cards, the loop runs eagerly, its flag read once an
+iteration.
 
 **The ranks** (every other entry, each rank calling the solver), the counterpart of the
 JAX package's multi-host mode, over one of two transports (``dist.device_group``).  Where
 every rank has a card of its own, NCCL moves the halo rows and columns card to card
 (``batch_isend_irecv``) and all-gathers each dot's partials on the card, where every rank
-adds them in rank order (``sum_in_shard_order``): α and β stay on the card, and the host
-reads the loop's flag once an iteration.  Elsewhere (ranks on the CPU, ranks sharing a
-card, where NCCL refuses to run) gloo moves CPU tensors only, so the halos and the dots
-pass through the host, as the reference's did: each rank's partial goes to its host, gloo
+adds them in rank order (``sum_in_shard_order``), and the loop runs from one CUDA graph a
+rank (``rank_mesh``: the rank's band or block as a mesh across the ranks of one shard a
+rank, ``MeshLoop``'s graph as above); with ``graph=False`` eagerly, α and β on the card
+and the flag read once an iteration.  Elsewhere (ranks on the CPU, ranks sharing a card,
+where NCCL refuses to run) gloo moves CPU tensors only, so the halos and the dots pass
+through the host, as the reference's did: each rank's partial goes to its host, gloo
 gathers the N partials, every rank adds them in rank order (the same function), and α and
 β go back to the device as 0-d tensors: two more reads an iteration.
 
@@ -302,11 +315,12 @@ class _HaloExchange(_Halo):
         return self.finish()
 
 
-def sum_in_shard_order(flat):
+def sum_in_shard_order(flat, out=None):
     """flat[0] + flat[1] + ... of a 1-D tensor, added left to right in its dtype on its
-    device, as a 0-d tensor: the one sum of the ranks' partials, on the host (gloo) or on
-    the card (NCCL), so both give the same bits (and ``_mesh_sum``'s)."""
-    total = flat[0].clone()
+    device, as a 0-d tensor (into ``out`` when given: nothing is allocated): the one sum
+    of the ranks' partials, on the host (gloo) or on the card (NCCL), so both give the
+    same bits (and ``_mesh_sum``'s)."""
+    total = flat[0].clone() if out is None else out.copy_(flat[0])
     for t in flat[1:]:
         total += t
     return total
@@ -319,22 +333,28 @@ def _allsum(*parts, group=None):
     global shard order (``sum_in_shard_order``; ``_mesh_sum``'s order), never an
     all-reduce, whose order the library picks.  ``group`` (``dist.device_group``) None:
     each rank's partials go to its host in one copy and gloo gathers them, the sum a CPU
-    tensor; an NCCL group: stacked on the first part's card and all-gathered there
-    (``all_gather_into_tensor``), the sum on that card, no host step."""
+    tensor; an NCCL group: copied into one buffer on the first part's card and
+    all-gathered there (``all_gather_into_tensor``), the sum on that card, no host step.
+    The NCCL form allocates nothing under a ``_launch.Workspace`` (its three buffers are
+    ``_launch.buffer``'s), so a rank's captured loop holds it: it records one buffer set
+    a call site, as the kernels' dots do."""
     with profiling.annotate(profiling.PHASE_DOT):
-        local = torch.stack([t.detach().reshape(()).to(parts[0].device) for t in parts])
         n = dist.world_size()
         if group is not None:
-            every = local.new_empty((n * local.numel(),))
-            with _current(local.device):
+            dev, dtype = parts[0].device, parts[0].dtype
+            local = _launch.buffer((len(parts),), dtype, dev)
+            for slot, t in zip(local, parts):
+                slot.copy_(t.detach().reshape(()))
+            every = _launch.buffer((n * len(parts),), dtype, dev)
+            with _current(dev):
                 tdist.all_gather_into_tensor(every, local, group=group)
-        else:
-            host = local.to("cpu")
-            every = [host] if n == 1 else [torch.empty_like(host) for _ in range(n)]
-            if n > 1:
-                tdist.all_gather(every, host)
-            every = torch.cat(every)
-        return sum_in_shard_order(every)
+            return sum_in_shard_order(every, out=_launch.buffer((), dtype, dev))
+        local = torch.stack([t.detach().reshape(()).to(parts[0].device) for t in parts])
+        host = local.to("cpu")
+        every = [host] if n == 1 else [torch.empty_like(host) for _ in range(n)]
+        if n > 1:
+            tdist.all_gather(every, host)
+        return sum_in_shard_order(torch.cat(every))
 
 
 def _on(t, device, dtype):
@@ -845,23 +865,22 @@ class MeshOperator:
         ``per_shard``: the per-card loop even where every shard is on one card, which it
         then runs from one graph (on the CPU on the kernels' twins).  The per-card loop
         runs the BLAS1 kernels and needs peer access between its cards (ValueError
-        otherwise).  A mesh across ranks (``dist.make_rank_mesh``) runs the eager loop:
-        ``graph=True`` and ``per_shard=True`` raise ValueError there.  A capture that fails
-        raises, and so does a solve whose waits passed their bound: nothing falls back."""
+        otherwise).  A mesh across ranks (``dist.make_rank_mesh``) runs one graph a rank
+        where the rank's shards sit on one card of its own and NCCL links the ranks
+        (``rank_graph``; graph=None's choice there, with the BLAS1 kernels), else the
+        eager loop; ``graph=True`` raises ValueError where no graph a rank can run (gloo
+        ranks: the host steps them), ``per_shard=True`` always.  A capture that fails
+        raises, and so does a solve whose waits passed their bound (a rank's replay that
+        a peer never joined): nothing falls back."""
         loop = _pick_loop(self, recompute_ap)
-        if self.link is not None:
-            if graph or per_shard:
-                raise ValueError("a mesh across ranks runs the eager loop: graph=True and "
-                                 "per_shard=True would capture the exchanges with the other "
-                                 "ranks, which NCCL runs on its own stream and gloo on the "
-                                 "host; a graph a rank over NCCL is not implemented")
-            graph = False
         kernels = use_pallas_blas1 is not False
         cards = {d for d in self.mesh.devices if d.type == "cuda"}
-        per_card = graph is not False and (per_shard or len(cards) > 1)
-        if per_shard and graph is False:
+        per_card = self.link is None and graph is not False and (per_shard or len(cards) > 1)
+        if self.link is not None:
+            key = self._rank_loop(loop, tolerance, max_iters, kernels, graph, per_shard)
+        elif per_shard and graph is False:
             raise ValueError("per_shard=True runs a graph a shard; graph=False the eager loop")
-        if per_card:
+        elif per_card:
             if not kernels:
                 raise ValueError("the per-card loop runs the BLAS1 kernels; pass graph=False "
                                  "for the eager loop with use_pallas_blas1=False")
@@ -887,10 +906,43 @@ class MeshOperator:
         try:
             xs, k, rr, bb = self.graphs[key].solve(bs)
         except RuntimeError:
-            if per_card:  # its epochs may disagree after a wait gave up: make it anew
+            # the per-card loop's epochs may disagree after a wait gave up, and a rank's
+            # group is gone after a peer never came: make it anew
+            if per_card or self.link is not None:
                 self.graphs.pop(key, None)
             raise
         return xs, _cg_stats(k, rr, bb, tolerance, t0)
+
+    @property
+    def rank_graph(self) -> bool:
+        """Whether this rank's share of a mesh across ranks can run its loop from one CUDA
+        graph: its shards on one card of its own, NCCL between the ranks."""
+        return (self.link is not None and self.link.transport == "nccl"
+                and len({sh.device for sh in self.shards}) == 1)
+
+    def _rank_loop(self, loop, tolerance, max_iters, kernels, graph, per_shard):
+        """``solve``'s loop on a mesh across ranks, made at first use: ``MeshLoop`` with
+        the rank link, from one CUDA graph a rank (``rank_graph``, the BLAS1 kernels;
+        ``graph`` None or True) or eagerly (``graph=False``, or where no graph can run)."""
+        if per_shard:
+            raise ValueError("per_shard=True: a mesh across ranks runs the eager loop or, "
+                             "over NCCL, one graph a rank; the per-card loop is one "
+                             "process's")
+        if graph and not self.rank_graph:
+            why = (f"ranks over {self.link.transport} run the eager loop: the host steps "
+                   "it, halos and dots pass through it" if self.link.transport != "nccl"
+                   else "a graph a rank needs the rank's shards on one card (several "
+                   "cards a rank run the eager loop)")
+            raise ValueError(f"graph=True: {why}; a graph a rank needs NCCL between "
+                             "ranks that each have one card of their own")
+        if graph and not kernels:
+            raise ValueError("graph=True runs the BLAS1 kernels; pass graph=False for the "
+                             "eager loop with use_pallas_blas1=False")
+        graphed = self.rank_graph and kernels if graph is None else bool(graph)
+        key = (loop, max_iters, tolerance, kernels, graphed)
+        if key not in self.graphs:
+            self.graphs[key] = MeshLoop(self, loop, max_iters, tolerance, kernels, graphed)
+        return key
 
     def solve_stepped(self, b=None, *, tolerance: float = 1e-6, max_iters: int = 1000,
                       verbose: int = 0):
@@ -929,8 +981,9 @@ def make_mesh_operator(grid_size: int, mesh: dist.Mesh, *, mode: str = "stencil5
     ``make_sharded_operator`` makes each (its refusals included).  On a mesh across ranks
     (``dist.make_rank_mesh``, bands or blocks) it holds this rank's shards and the link to
     the other ranks (``_RankLink``; ``transport`` as ``dist.device_group``'s, every rank
-    calling it).  Cached for synthesized operands (``clear_caches``), with its captured
-    loops."""
+    calling it; "nccl" makes the link in a group of one rank too, whose dots NCCL then
+    all-gathers, the one-card run of a graph a rank).  Cached for synthesized operands
+    (``clear_caches``), with its captured loops."""
     if len(mesh.shape) not in (1, 2):
         raise ValueError(f"the sharded CG takes a 1-D or 2-D mesh, got shape {mesh.shape}")
     dtype = resolve_dtype(dtype)
@@ -946,7 +999,7 @@ def make_mesh_operator(grid_size: int, mesh: dist.Mesh, *, mode: str = "stencil5
                                          shard=(i, mesh.size))
                    for i, d in enumerate(mesh.devices) if i in mesh.local)
     op = MeshOperator(mesh, shards, _RankLink(shards, mesh.local.start, transport)
-                      if mesh.processes > 1 else None)
+                      if mesh.processes > 1 or transport == "nccl" else None)
     if key is not None:
         _OPERATOR_CACHE[key] = op
     return op
@@ -1050,7 +1103,10 @@ class _RankLink:
       - ``gloo``: ``start`` queues the D2H copies into pinned buffers, ``finish`` waits for
         them, swaps, and copies what arrived to the halo buffers.
 
-    Dots go by ``_allsum`` over the same transport (``group``)."""
+    Dots go by ``_allsum`` over the same transport (``group``).  Over NCCL a call
+    allocates nothing on the device (its list of messages is a host object), so a rank's
+    captured loop holds ``start`` and ``finish``: ``finish``'s ``work.wait()`` makes the
+    current stream wait for NCCL's, a dependency a capture records."""
 
     def __init__(self, shards, lo, transport=None):
         self.lo = lo
@@ -1148,6 +1204,32 @@ def _spread(t, copies):
     return [t if c is None else c.copy_(t) for c in copies]
 
 
+# how long a rank's host lets its replay of a graph a rank go without finishing an
+# iteration (``MeshLoop._replay``), in seconds: far above one iteration's time (a
+# quarter of 20480² f64 takes about 5 ms on a card), far below a hang; it bounds a stall,
+# not a solve, whose length max_iters sets; read when a loop is made
+RANK_WAIT_BOUND_S = 60.0
+# how often that host reads the replay's k
+RANK_POLL_S = 1e-3
+
+
+def _watch(done, progress, bound_s, poll_s=RANK_POLL_S, clock=time.monotonic):
+    """Wait until ``done()`` holds, then True; False once ``bound_s`` seconds pass with no
+    new value of ``progress()`` (a counter's latest reading, None while none has come),
+    called at most once every ``poll_s``: a bound on a stall, however long the work."""
+    seen, since, polled = None, clock(), -poll_s
+    while not done():
+        now = clock()
+        if now - polled >= poll_s:
+            polled, value = now, progress()
+            if value is not None and value != seen:
+                seen, since = value, now
+        if now - since > bound_s:
+            return False
+        time.sleep(0)
+    return True
+
+
 class MeshLoop(cg.DeviceLoop):
     """The sharded CG loop over a ``MeshOperator``'s shards in this process:
     ``cg.DeviceLoop``'s graph (a WHILE node, ``unroll`` iterations a body, the further
@@ -1161,9 +1243,19 @@ class MeshLoop(cg.DeviceLoop):
     mesh and the gloo ranks give the same iterations and x bit for bit.  ``graphed``
     (every shard on one card): one replay and one read a solve; the body allocates
     nothing (every shard's dots take the workspace's buffers and its one ticket counter,
-    safely, since they run in turn on one stream).  Otherwise the iteration runs eagerly
-    and the host reads the flag k < max_iters and rr > tol² once an iteration
-    (``cg.COUNTS``).  ``kernels=False`` runs the BLAS1 steps as plain PyTorch ops, eagerly.
+    safely, since they run in turn on one stream).  On a mesh across ranks (``link``)
+    the graph is the rank's, over NCCL: the link's ``batch_isend_irecv`` and
+    ``_allsum``'s all-gather are captured into the body on NCCL's stream, joined to the
+    body's by events (``work.wait()``), their buffers made once.  Every iteration sits
+    under an IF node of its own (``guard_first``): NCCL's stream stays in the capture it
+    joined until that capture ends, and taking it again inside an IF body captured within
+    the WHILE body's capture crashed the WHILE body's end of capture.  The capture is
+    ``thread_local`` on a stream of the port's own, and the host lets a replay go at most
+    ``bound_s`` without an iteration's end (``_replay``).  ``graphed`` on the CPU runs the
+    graph's structure, each node's condition read on the host (``structured``; the
+    tests).  Otherwise the iteration runs eagerly and the host reads the flag
+    k < max_iters and rr > tol² once an iteration (``cg.COUNTS``).  ``kernels=False`` runs
+    the BLAS1 steps as plain PyTorch ops, eagerly.
 
     The recompute loop forms each shard's two p′ rows that its neighbours need
     (``ShardedOperator.edge_rows``, from r and the previous p, which no kernel of the
@@ -1173,8 +1265,26 @@ class MeshLoop(cg.DeviceLoop):
     def __init__(self, op, loop, max_iters, tolerance, kernels=True, graphed=False,
                  unroll=cg.UNROLL):
         self._init_loop(loop, op.dtype, op.device, max_iters, tolerance, unroll)
-        self.shards, self.graphed, self.link = op.shards, graphed, op.link
-        self.kernels = kernels
+        self.shards, self.link, self.kernels = op.shards, op.link, kernels
+        # the graph's structure: captured on a card, run on the host's reading of each
+        # node's condition on the CPU
+        self.structured = graphed
+        self.graphed = graphed and self.device.type == "cuda"
+        # a rank's iterations hold NCCL's calls: each under an IF node of its own
+        # (``cg.DeviceLoop.guard_first``)
+        self.guard_first = self.link is not None
+        if self.graphed and self.link is not None:
+            # a rank's body holds NCCL's calls: its watchdog thread may query events while
+            # the capture runs, which a "global" capture forbids; and the capture runs on
+            # a stream of the port's own, never one of the pool NCCL's stream comes from
+            self.capture_mode = "thread_local"
+            self.capture_stream = graph_kernels.body_stream(self.device, "capture")
+            # where the host reads k while a replay runs: a stream of its own, which the
+            # replay's does not wait for, into pinned memory
+            self.watch = torch.cuda.Stream(self.device)
+            self.k_seen = torch.full((), -1, dtype=self.k.dtype, pin_memory=True)
+        self.bound_s = RANK_WAIT_BOUND_S
+        self.withheld = False  # a test's rank that never replays its graph
         self.r = self._new_x()
         self.p = ((tuple(sh.p_buffer() for sh in self.shards),) if loop == "classic"
                   else (self._new_x(), self._new_x()))
@@ -1238,9 +1348,44 @@ class MeshLoop(cg.DeviceLoop):
         for name, n in self.halo_per_iteration.items():
             HALO_CALLS[name] += n * k
 
+    def _replay(self, graph):
+        """The replay; on a rank, the host then waits for it as long as it finishes an
+        iteration at least once every ``bound_s``: a peer that never comes to a captured
+        exchange or sum would hang it, and NCCL's watchdog does not watch captured calls.
+        A solve of any length passes; a stall aborts the group's communicator
+        (``dist.abort_nccl``, on a thread of its own) and the solve raises at once."""
+        if not self.withheld:
+            graph.replay()
+        if self.link is None:
+            return
+        done = torch.cuda.Event()
+        done.record()
+        if not _watch(done.query, self._k_now, self.bound_s):
+            dist.abort_nccl(self.link.group)
+            raise RuntimeError(
+                f"rank {dist.rank()}: the sharded CG's {self.loop} solve, replayed from its "
+                f"graph, finished no iteration for its bound of {self.bound_s:g} s (k stayed "
+                f"{int(self.k_seen)}): a rank never came to its exchanges and sums (NCCL's "
+                "communicator is aborted)")
+
+    def _k_now(self):
+        """The replay's k as the last read of it found it (None while that read is still
+        under way), the next read queued on the watch stream: a copy engine's read of the
+        card's k while the graph runs, neither a sync nor a read the loop steers by."""
+        if not self.watch.query():
+            return None
+        k = int(self.k_seen)
+        with torch.cuda.stream(self.watch):
+            self.k_seen.copy_(self.k, non_blocking=True)
+        return k
+
     def _run_host(self, x):
-        """The eager loop: an iteration at a time, each after one counted read of the
-        flag k < max_iters and rr > tol²."""
+        """The graph's structure with each node's condition read on the host
+        (``structured``, on the CPU), else the eager loop: an iteration at a time, each
+        after one counted read of the flag k < max_iters and rr > tol²."""
+        if self.structured:
+            super()._run_host(x)
+            return
         parity = 0
         while bool(cg._read((self.k < self.max_iters) & (self.rr > self.tol2))):
             self._iteration(x, parity)
@@ -1818,9 +1963,12 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
 
     Over a mesh it returns (x, CGStats) with x the global (g, g) field on the mesh's first
     device, as the JAX package returns it (``MeshOperator.solve`` gives the shards' fields
-    instead); ``graph`` and ``per_shard`` as in ``MeshOperator.solve``.  On a gloo rank x
-    is this rank's band, (band, g) on its device, pad rows included;
-    ``dist.gather_to_host(x, rows=g)`` gives rank 0 the field.
+    instead); ``graph`` and ``per_shard`` as in ``MeshOperator.solve``.  On a rank x is
+    this rank's band, (band, g) on its device, pad rows included;
+    ``dist.gather_to_host(x, rows=g)`` gives rank 0 the field.  Ranks over NCCL (each a
+    card of its own) run the loop from one CUDA graph a rank (``rank_mesh``; ``graph``
+    None or True), or eagerly with ``graph=False``; ranks over gloo eagerly (``graph=True``
+    raises ValueError there); ``per_shard=True`` raises on a rank.
 
     ``b``: None builds each shard's band of b = ones; else the whole (g, g) field, of which
     each shard takes its rows.  ``recompute_ap``: None runs the recompute loop (K1, K2)
@@ -1843,9 +1991,20 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
                              recompute_ap=recompute_ap, use_pallas_blas1=use_pallas_blas1,
                              graph=graph, per_shard=per_shard)
         return op.assemble(xs), stats
-    if graph or per_shard:
-        raise ValueError("graph=True or per_shard=True: a gloo rank's loop is host-stepped; "
-                         "pass a mesh")
+    nccl = op.halo.group is not None
+    if per_shard:
+        raise ValueError("per_shard=True: a rank of one shard runs its loop eagerly or, over "
+                         "NCCL, from one graph; the per-card loop is one process's: pass a "
+                         "mesh")
+    if graph and not nccl:
+        raise ValueError("graph=True: ranks over gloo run the eager loop: the host steps it, "
+                         "halos and dots pass through it; a graph a rank needs NCCL between "
+                         "ranks that each have one card of their own")
+    if nccl and graph is not False:  # the rank mesh of one shard a rank, one graph a rank
+        xs, stats = rank_mesh(op).solve(b, tolerance=tolerance, max_iters=max_iters,
+                                        recompute_ap=recompute_ap,
+                                        use_pallas_blas1=use_pallas_blas1, graph=graph)
+        return xs[0], stats
     recompute = _pick_loop(op, recompute_ap) == "recompute"
     kernels = use_pallas_blas1 is not False
     dot = blas1.dot if kernels else blas1.dot_plain
@@ -1878,6 +2037,26 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
     return x, _cg_stats(k, rr, rr0, tolerance, t0)
+
+
+def rank_mesh(op) -> MeshOperator:
+    """A rank's one shard (``make_sharded_operator`` with ``shard`` None: a band or a block
+    of the group's ranks) as a mesh across the ranks of one shard a rank, its operator
+    shared (no operand is made again): the ``MeshOperator`` whose ``MeshLoop`` runs it
+    from one graph a rank over NCCL, or on the CPU the graph's structure (the tests).  Its
+    link (``_RankLink``) passes the shard's rows and columns to the neighbours' ranks,
+    rank = shard, into the buffers of the shard's halo.  Made once an operator and kept
+    with the cached operators (``clear_caches``); collective the first time: every rank
+    calls it."""
+    key = ("rank mesh", id(op))
+    if key not in _OPERATOR_CACHE:
+        shape = op.mesh_shape or (dist.world_size(),)
+        mesh = dist.Mesh(shape, ("x", "y")[:len(shape)], (op.device,) * int(np.prod(shape)),
+                         dist.world_size(), dist.rank())
+        transport = "gloo" if op.halo.group is None else "nccl"
+        _OPERATOR_CACHE[key] = MeshOperator(mesh, (op,),
+                                            _RankLink((op,), dist.rank(), transport))
+    return _OPERATOR_CACHE[key]
 
 
 def _recompute_loop(op, x, r, rr, tol2, max_iters):
