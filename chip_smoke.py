@@ -669,6 +669,19 @@ RANK_GRAPH_CASES = {
     "const f32 recompute bands": (None, "stencil5-const", "float32", RECOMPUTE),
     "2x2 stencil5 f64": ((2, 2), "stencil5", "float64", RANK_MESH_CLASSIC),
 }
+# and a graph a card for ranks that drive several cards (cg_sharded.RankCardLoop: NCCL's
+# calls in the home card's graph, mesh_sync between the rank's cards), shard i on card i,
+# against the eager NCCL loop: with two cards one rank drives both in a one-rank NCCL
+# group (RANK_CARDS_ONE_RANK); with four, 2 ranks drive 2 cards each (RANK_CARDS_CASES)
+RANK_CARDS_PATH = (*RANK_MESH_CLASSIC, "mesh_publish_rows", "mesh_publish_partial",
+                   "mesh_wait")
+RANK_CARDS_ONE_RANK = {
+    "stencil5 f64 2 bands, one rank x 2 cards": (2, "stencil5", "float64", RANK_CARDS_PATH),
+}
+RANK_CARDS_CASES = {
+    "stencil5 f64 4 bands, 2 ranks x 2 cards": (4, "stencil5", "float64", RANK_CARDS_PATH),
+    "2x2 stencil5 f64, 2 ranks x 2 cards": ((2, 2), "stencil5", "float64", RANK_CARDS_PATH),
+}
 RANK_MESH_BUCKETS = ("halo", "spmv", "allreduce", "blas1")
 # the sync kernels (csrc/mesh_sync.cu, kernels/mesh_sync.py): they port no Pallas kernel;
 # they are the counterparts of the JAX loop's ppermute and psum
@@ -3858,25 +3871,26 @@ def phase_rank_mesh(torch, counters, smi, ranks):
     return counts.totals()
 
 
-def _rank_graph_rank(device, cases, transport=None):
-    """Phase 17's legs on a rank with a card of its own (spawned by dist.launch_local):
-    each case over NCCL eagerly (``graph=False``), then from the graph a rank, its first
-    solve capturing, then one solve counted (launch counts and ``cg.COUNTS`` set to 0 just
-    before it, read just after) and timed.  ``transport`` as ``make_mesh_operator``'s
-    ("nccl": phase 9's one-rank group, on one card).  Rank 0 returns {label: [each rank's
-    {"eager", "graph": (each shard's sha256, iterations), "ms": (eager, graph), "counts",
-    "launches", "replayed", "transport"}]}."""
+def _rank_graph_rank(device, cases, transport=None, spread=False):
+    """Phase 17's legs on a rank with cards of its own (spawned by dist.launch_local):
+    each case over NCCL eagerly (``graph=False``), then from its graphs (one a rank, or
+    one a card), its first solve capturing, then one solve counted (launch counts and
+    ``cg.COUNTS`` set to 0 just before it, read just after) and timed.  ``transport`` as
+    ``make_mesh_operator``'s ("nccl": a one-rank group).  ``spread``: a rank mesh's shard
+    i on card i (a rank's shards on several cards), else a rank's shards on one card.
+    Rank 0 returns {label: [each rank's {"eager", "graph": (each shard's sha256,
+    iterations), "ms": (eager, graph), "counts", "launches", "replayed", "transport"}]}."""
     import hashlib
 
     import torch
 
     from tpusparse_torch import dist
-    from tpusparse_torch.kernels import blas1, ell
+    from tpusparse_torch.kernels import blas1, ell, mesh_sync
     from tpusparse_torch.kernels import graph as graph_kernels
     from tpusparse_torch.kernels import stencil5 as st5
     from tpusparse_torch.solvers import cg, cg_sharded
 
-    counters = (st5, blas1, ell, graph_kernels)
+    counters = (st5, blas1, ell, graph_kernels, mesh_sync)
     w, out = dist.world_size(), {}
     cg_sharded.clear_caches()
     torch.cuda.empty_cache()
@@ -3890,8 +3904,8 @@ def _rank_graph_rank(device, cases, transport=None):
             def solve(graph):
                 x, s = cg_sharded.cg_solve_sharded(G_BIG, operator=op, graph=graph)
                 return [x], s
-        else:  # a rank's blocks on its own card
-            per = n // w
+        else:  # a rank's bands or blocks on its own card, or shard i on card i
+            per = 1 if spread else n // w
             mesh = dist.make_rank_mesh(shape, devices=[f"cuda:{i // per}" for i in range(n)])
             op = cg_sharded.make_mesh_operator(G_BIG, mesh, mode=mode, dtype=dtype,
                                                transport=transport)
@@ -3964,11 +3978,11 @@ def _rank_graph_long_rank(device, grid, iters):
     return out
 
 
-def _check_rank_graph(cases, out, where, counts, smi):
+def _check_rank_graph(cases, out, where, counts, smi, replays=1):
     """``_rank_graph_rank``'s results (``out``) for ``cases``, run ``where``: each rank's
     launches of the path and the condition kernel recorded in ``counts``; x bit for bit the
-    eager NCCL loop's (each shard's sha256), the same iterations (14 in f64), one replay
-    and one read a rank a solve, NCCL between the ranks."""
+    eager NCCL loop's (each shard's sha256), the same iterations (14 in f64), one read and
+    ``replays`` replays (the rank's cards) a rank a solve, NCCL between the ranks."""
     for label, every in out.items():
         _shape, _mode, dtype, needs = cases[label]
         w = len(every)
@@ -3985,7 +3999,7 @@ def _check_rank_graph(cases, out, where, counts, smi):
               f"solve, the slowest rank); x bit for bit (each shard's sha256): {same}; "
               f"reads and replays a rank a solve {reads} [{smi}]", flush=True)
         if not same or g_k != e_k or (dtype == "float64" and g_k != 14) \
-                or reads != [{"host_reads": 1, "replays": 1}] * w \
+                or reads != [{"host_reads": 1, "replays": replays}] * w \
                 or {rk["transport"] for rk in every} != {"nccl"}:
             raise AssertionError(f"rank graph {label}: {every}")
 
@@ -4004,14 +4018,20 @@ def phase_rank_graph(torch, smi, one_card):
     more, 4 ranks (2 below four cards) each on a card of its own solve RANK_GRAPH_CASES at
     G_BIG², from the graph a rank against the eager NCCL loop: x bit for bit (each shard's
     sha256), 14 iterations in f64, one replay and one read a rank a solve, each rank's
-    launches of the path.  Returns the path counts' totals."""
+    launches of the path.  Then a graph a card for ranks that drive several cards
+    (``RankCardLoop``), the same bars with one replay a card of the rank: with two or
+    three cards one rank over 2 cards in a one-rank NCCL group (RANK_CARDS_ONE_RANK), with
+    four 2 ranks over 2 cards each (RANK_CARDS_CASES); on one card a line says that this
+    leg needs two.  Returns the path counts' totals, the sync kernels' among them."""
     from tpusparse_torch import dist
 
     t_phase = time.perf_counter()
     probe, mesh_one_card, long = one_card
     cards = torch.cuda.device_count()
     legs = ["one-rank probe", "one-rank rank mesh", "one-rank long solve"] + (
-        [f"{4 if cards >= 4 else 2} ranks on cards of their own"] if cards >= 2 else [])
+        [f"{4 if cards >= 4 else 2} ranks on cards of their own",
+         "2 ranks x 2 cards, a graph a card" if cards >= 4
+         else "1 rank x 2 cards, a graph a card"] if cards >= 2 else [])
     print(f"[rank graph] {cards} card(s) found; legs run: {legs}", flush=True)
     counts = PathCounts(())
     rank0 = probe["every_rank"][0]
@@ -4040,8 +4060,18 @@ def phase_rank_graph(torch, smi, one_card):
         w = 4 if cards >= 4 else 2
         out = dist.launch_local(_rank_graph_rank, w, RANK_GRAPH_CASES, device="cuda")
         _check_rank_graph(RANK_GRAPH_CASES, out, f"{w} ranks", counts, smi)
+        w, cases = (2, RANK_CARDS_CASES) if cards >= 4 else (1, RANK_CARDS_ONE_RANK)
+        out = dist.launch_local(_rank_graph_rank, w, cases, "nccl" if w == 1 else None,
+                                True, device="cuda")
+        _check_rank_graph(cases, out, f"{w} rank(s) x 2 cards, a graph a card", counts, smi,
+                          replays=2)
+    else:
+        print("[rank graph] a graph a card for ranks that drive several cards "
+              "(RankCardLoop) needs two cards; one is visible, so that leg does not run",
+              flush=True)
     print(f"[rank graph] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return counts.totals()
+    return {name: sum(c.get(name, 0) for c in counts.by_path.values())
+            for name in (*KERNELS, K3_SCALAR, COND, *SYNC_KERNELS)}
 
 
 def main() -> int:

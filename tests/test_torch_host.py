@@ -13,6 +13,11 @@ thing in the same order.
 other port tests do before they hand a matrix to the port.
 """
 
+import fcntl
+import os
+import subprocess
+import time
+
 import numpy as np
 import pytest
 
@@ -39,6 +44,60 @@ def carry(mat):
         return convert.csr_from_numpy(mat.num_rows, mat.num_cols, mat.row_ptr, mat.col_idx,
                                       mat.val, mat.grid_size)
     raise TypeError(f"cannot carry {type(mat)}")
+
+
+# the JAX package's native library, which ``tpusparse.native`` builds in place
+# (``make -C csrc``) at its first use in a process, and gives up on for the process's life
+_JAX_LIB = os.path.join(os.path.dirname(os.path.abspath(jnative.__file__)), "..", "csrc",
+                        "libmtxio.so")
+# how long a worker waits for another process's build of that library to settle
+_SETTLE_S = 60.0
+
+
+def _jax_native(tmp_path_factory, monkeypatch):
+    """Make sure the JAX package's native reader and writer are in use in this process,
+    so that a ``native`` case compares native with native.  Every test process loads it
+    at its first use (``tests/test_native.py`` at collection), building it in place; a
+    process that loaded it half-written, or whose build lost a race with another
+    process's, keeps its numpy fallback for its life.  Here the build is made again
+    under a lock shared by the test processes, the process's verdict reset and the
+    library loaded anew, until it loads or ``_SETTLE_S`` has passed: then the test fails
+    naming the cause, never comparing the port's native writer with JAX's fallback."""
+    if jnative.available():
+        return
+    lock = tmp_path_factory.getbasetemp().parent / "jax-native-build.lock"
+    deadline, why = time.monotonic() + _SETTLE_S, "not tried"
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            while True:
+                made = subprocess.run(["make", "-C", os.path.dirname(_JAX_LIB),
+                                       "libmtxio.so"], capture_output=True, text=True,
+                                      timeout=120)
+                why = f"make exited {made.returncode}: {made.stderr.strip()[-300:]}"
+                monkeypatch.setattr(jnative, "_TRIED", False)
+                if jnative.available():
+                    return
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    pytest.fail(f"the JAX package's native library ({os.path.normpath(_JAX_LIB)}) did not "
+                f"load in this process within {_SETTLE_S:g} s ({why}): a native case "
+                "would compare the port's native code with JAX's numpy fallback")
+
+
+def _native_case(tmp_path_factory, monkeypatch, reader):
+    """Set up a ``native`` case (``reader`` "native"; "native after a failed load" first
+    leaves the JAX package as a process whose load gave up leaves it): both packages'
+    native libraries in use, or the test fails naming which did not load."""
+    if reader == "native after a failed load":
+        monkeypatch.setattr(jnative, "_LIB", None)
+        monkeypatch.setattr(jnative, "_TRIED", True)
+    if not native.available():
+        pytest.fail("the port's native library did not build")
+    _jax_native(tmp_path_factory, monkeypatch)
 
 
 def _same(port, ref):
@@ -178,15 +237,15 @@ def _write_mtx(path, symmetric):
 
 
 @pytest.mark.parametrize("symmetric", [False, True])
-@pytest.mark.parametrize("reader", ["native", "numpy"])
-def test_mtx_reader_matches(tmp_path, monkeypatch, symmetric, reader):
+@pytest.mark.parametrize("reader", ["native", "numpy", "native after a failed load"])
+def test_mtx_reader_matches(tmp_path, tmp_path_factory, monkeypatch, symmetric, reader):
     path = str(tmp_path / "m.mtx")
     _write_mtx(path, symmetric)
     if reader == "numpy":
         monkeypatch.setattr(native, "available", lambda: False)
         monkeypatch.setattr(jnative, "available", lambda: False)
-    elif not native.available():
-        pytest.fail("the port's native library did not build")
+    else:
+        _native_case(tmp_path_factory, monkeypatch, reader)
     assert io_mtx.read_matrix_type(path) == jio_mtx.read_matrix_type(path)
     coo, ref = io_mtx.load_matrix_market(path), jio_mtx.load_matrix_market(path)
     _same(coo, ref)
@@ -214,12 +273,16 @@ def _mtx(tmp_path, g):
     return str(path)
 
 
-@pytest.mark.parametrize("writer", ["native", "python"])
+@pytest.mark.parametrize("writer", ["native", "python", "native after a failed load"])
 @pytest.mark.parametrize("g,diag,offdiag", [(1, 5.0, -1.0), (7, 5.0, -1.0), (16, 4.0, -0.3)])
-def test_stencil_writer_byte_for_byte(tmp_path, monkeypatch, writer, g, diag, offdiag):
+def test_stencil_writer_byte_for_byte(tmp_path, tmp_path_factory, monkeypatch, writer, g,
+                                      diag, offdiag):
     if writer == "python":
         monkeypatch.setattr(native, "available", lambda: False)
         monkeypatch.setattr(jnative, "available", lambda: False)
+    else:
+        _native_case(tmp_path_factory, monkeypatch, writer)
+        assert jnative.available() and native.available()
     port, ref = tmp_path / "port.mtx", tmp_path / "ref.mtx"
     nnz = generate.write_matrix_market_stencil5(str(port), g, diag, offdiag)
     assert nnz == jgenerate.write_matrix_market_stencil5(str(ref), g, diag, offdiag)

@@ -19,6 +19,15 @@ other raise RuntimeError within its bound (``RANK_WAIT_BOUND_S``, 3 s here); and
 LONG_ITERS iterations long passes with the bound a quarter of its time, since the bound is
 on the time between iterations' ends, not on the solve's.
 
+A graph a card for ranks that drive several cards (``cg_sharded.RankCardLoop``, NCCL's
+calls in the home card's graph only): on two cards one rank drives both in a one-rank
+NCCL group (``transport="nccl"``), 2 bands; on four cards 2 ranks drive 2 cards each, 4
+bands (the classic and the recompute loop) and a 2 × 2 mesh.  x and the iterations bit for
+bit the eager NCCL loop's and the gloo ranks' (one rank: the eager NCCL loop's and the
+one-process mesh's), the eager loop's halo counts, one replay a card and one read a rank
+a solve; and on four cards a rank that replays nothing (``rank_withheld``) makes the other
+raise within its bound (3 s) with no hang.
+
 The spawned ranks import this module, so it imports no JAX.
 """
 
@@ -267,3 +276,97 @@ def test_long_rank_graph_solve_passes_a_bound_shorter_than_it():
     for err, took, bound, k, k2, same in dist.launch_local(_long_rank, 2, device="cuda"):
         assert err is None and same and k == k2 >= 1000
         assert took > 2 * bound > 0
+
+
+# a graph a card for ranks that drive several cards: name -> (ranks, rank mesh: N bands or
+# (R, C) blocks, shard i on card i; mode, dtype)
+RANK_CARD_CASES = {
+    "1 rank x 2 cards, 2 bands": (1, 2, "stencil5", "float64"),
+    "2 ranks x 2 cards, 4 bands": (2, 4, "stencil5", "float64"),
+    "2 ranks x 2 cards, 4 bands recompute": (2, 4, "stencil5-const", "float32"),
+    "2 ranks x 2 cards, 2x2": (2, (2, 2), "stencil5", "float64"),
+}
+
+
+def _rank_cards_rank(device, case):
+    """One case of RANK_CARD_CASES on this rank's cards: the eager NCCL loop, then the
+    gloo ranks (one rank: the one-process mesh's per-card loop), then the graph a card
+    (a first solve capturing, then one counted).  Rank 0 returns ({leg: (x gathered,
+    iterations)}, every rank's (cg.COUNTS of the counted graph solve, the graph's halo
+    counts equal to the eager loop's, whether a ``RankCardLoop`` ran it))."""
+    del device
+    _w, shape, mode, dtype = RANK_CARD_CASES[case]
+    n = int(np.prod(shape))
+    mesh = dist.make_rank_mesh(shape, devices=[f"cuda:{i}" for i in range(n)])
+    one = dist.world_size() == 1
+
+    def solve(transport, **kw):
+        op = cg_sharded.make_mesh_operator(G, mesh, mode=mode, dtype=getattr(torch, dtype),
+                                           transport=transport)
+        cg_sharded.reset_halo_calls()
+        xs, s = op.solve(**kw)
+        x = op.assemble(xs)
+        x = (dist.gather_blocks_to_host(x, shape) if isinstance(shape, tuple)
+             else dist.gather_to_host(x, rows=G))
+        return op, (x, s.iterations), dict(cg_sharded.HALO_CALLS)
+
+    out = {}
+    _op, out["eager"], halo_eager = solve("nccl", graph=False)
+    _op, out["gloo"], _h = solve(None if one else "gloo",
+                                 **({"per_shard": True} if one else {"graph": False}))
+    op, _first, _h = solve("nccl")  # the capture
+    cg.reset_counts()
+    _op, out["graph"], halo = solve("nccl")
+    every = dist._all_objects((dict(cg.COUNTS), halo == halo_eager,
+                               any(isinstance(lp, cg_sharded.RankCardLoop)
+                                   for lp in op.graphs.values())))
+    del op, _op
+    cg_sharded.clear_caches()
+    return (out, every) if dist.rank() == 0 else None
+
+
+def _rank_cards_withheld(device):
+    """2 ranks x 2 cards, 4 bands: two graph solves, the second without rank 1's replays:
+    every rank's (its error, the seconds it waited)."""
+    del device
+    cg_sharded.RANK_WAIT_BOUND_S = BOUND_S
+    mesh = dist.make_rank_mesh(4, devices=[f"cuda:{i}" for i in range(4)])
+    op = cg_sharded.make_mesh_operator(G, mesh, mode="stencil5", dtype=torch.float64)
+    op.solve()  # both ranks: the capture and a replay
+    (loop,) = op.graphs.values()
+    loop.rank_withheld = dist.rank() == 1
+    t0 = time.perf_counter()
+    try:
+        op.solve()
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    waited = time.perf_counter() - t0
+    every = dist._all_objects((err, waited))
+    del op, loop
+    cg_sharded.clear_caches()  # the captured graphs go before the group does
+    return every if dist.rank() == 0 else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RANK_CARD_CASES))
+def test_rank_cards_graph_equals_eager_nccl_and_gloo(case):
+    ranks, shape, _mode, _dtype = RANK_CARD_CASES[case]
+    cards = int(np.prod(shape))
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
+        pytest.skip(f"{ranks} rank(s) driving 2 cards each need {cards} cards")
+    out, every = dist.launch_local(_rank_cards_rank, ranks, case, device="cuda")
+    (x, k), (x_eager, k_eager), (x_gloo, k_gloo) = out["graph"], out["eager"], out["gloo"]
+    assert k == k_eager == k_gloo and x.shape == (G, G)
+    np.testing.assert_array_equal(x, x_eager)
+    np.testing.assert_array_equal(x, x_gloo)
+    assert every == [({"host_reads": 1, "replays": cards // ranks}, True, True)] * ranks
+
+
+@pytest.mark.cuda
+def test_rank_cards_withheld_rank_makes_the_other_raise():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("2 ranks driving 2 cards each need four cards")
+    (err, waited), (err1, _w1) = dist.launch_local(_rank_cards_withheld, 2, device="cuda")
+    assert err is not None and "rank 0" in err and "bound" in err and err1 is None
+    assert BOUND_S <= waited < BOUND_S + 10

@@ -27,17 +27,18 @@ card).
 ``--ranks W`` runs the rank cases of W ranks instead (``RANK_CASES``), each in a group of
 W processes spawned by ``dist.launch_local``, rank r on card r: one band or block a rank
 (W = the shards), or a mesh across the ranks (``dist.make_rank_mesh``; 2 ranks × 2 cards
-each: a rank's own shards copy card to card).  Each solves in three legs on the same cards
-(``RANK_LEGS``): over NCCL (``dist.device_group``) from one CUDA graph a rank where the
-rank's shards sit on one card (``graph`` None; the leg is left out elsewhere, where
-graph=None runs the eager loop), over NCCL eagerly (``graph=False``, the flag read once
-an iteration) and over gloo through the host
-(``transport="gloo"``): a first solve, then ``--runs`` solves each after a barrier (a
+each: a rank's own shards meet card to card).  Each solves in three legs on the same
+cards (``RANK_LEGS``): over NCCL (``dist.device_group``) from CUDA graphs (``graph`` None:
+one graph a rank where the rank's shards sit on one card, ``MeshLoop``; one graph a card
+where they sit on several, ``RankCardLoop``, NCCL's calls in the home card's graph), over
+NCCL eagerly (``graph=False``, the flag read once an iteration) and over gloo through the
+host (``transport="gloo"``): a first solve, then ``--runs`` solves each after a barrier (a
 solve's time the slowest rank's).  Beside them the same shards as one process's mesh over
-the cards, its per-card and eager loops.  Printed: the medians (five with the graph leg,
-else four), the transport each leg ran, each rank's host reads and replays a solve
-(``cg.COUNTS``: one and one in the graph leg), the iterations, and whether x is the same
-bit for bit in every leg (each shard's bytes by sha256).
+the cards, its per-card and eager loops.  Printed: the five medians, the transport each
+leg ran, each rank's host reads and replays a solve (``cg.COUNTS``: in the graph leg one
+read, and one replay a card of the rank), the iterations, and whether x is the same bit
+for bit in every leg (each shard's bytes by sha256).  With ``--platform=cpu`` the ranks
+are gloo's and the graph leg is left out (graph=None runs the eager loop there).
 """
 
 from __future__ import annotations
@@ -73,8 +74,8 @@ RANK_CASES = {
     "rank mesh 2x2 stencil5 f64": (2, (2, 2), "stencil5", "f64"),
 }
 # the legs a rank case runs: label -> (dist.device_group's transport, the solve's graph):
-# over NCCL from one CUDA graph a rank (graph=None's choice there; run only where it is a
-# graph) and eagerly, over gloo eagerly (the host steps it)
+# over NCCL from CUDA graphs (graph=None's choice there: one a rank, or one a card of the
+# rank; run only where it is a graph) and eagerly, over gloo eagerly (the host steps it)
 RANK_LEGS = {"graph": (None, None), "nccl": (None, False), "gloo": ("gloo", False)}
 
 
@@ -193,7 +194,7 @@ def _block_fields(x, shape):
 
 def _rank_case(device, grid, shards, mode, dtype_name, runs, platform):
     """One rank case on this rank (spawned by ``dist.launch_local``), in each leg of
-    ``RANK_LEGS`` that can run here (the graph leg only where a graph a rank runs): rank 0
+    ``RANK_LEGS`` that can run here (the graph leg only over NCCL): rank 0
     returns {leg: {"ran": the transport every rank reported,
     "iterations", "digests": every shard's sha256 in shard order, "ms": each timed solve's
     slowest rank, "counts": every rank's ``cg.COUNTS`` a timed solve}}."""
@@ -220,7 +221,7 @@ def _rank_case(device, grid, shards, mode, dtype_name, runs, platform):
                 return op.solve(graph=graph)
 
         if graph is None and not (op.halo.group is not None if n == w else op.rank_graph):
-            del op  # no graph a rank here (gloo, or a rank's shards on several cards)
+            del op  # no graph here: gloo between the ranks
             cg_sharded.clear_caches()
             continue
         xs, s = solve()
@@ -283,22 +284,24 @@ def _rank_cases(args, smi) -> int:
                      for name, r in ranks.items()})
         same = len({(tuple(d), k) for d, k, _ in legs.values()}) == 1
         ran = {name: r["ran"] for name, r in ranks.items()}
-        # the graph leg where a graph a rank runs (NCCL, one shard a rank on its card)
-        graphed = want == "nccl" and n == w
+        # the graph leg wherever NCCL joins the ranks: one graph a rank, or a card
+        graphed = want == "nccl"
         ran_ok = ran == {**({"graph": [want] * w} if graphed else {}), "nccl": [want] * w,
                          "gloo": ["gloo"] * w}
-        # every rank the same reads and replays a solve; the graph's one and one
+        # every rank the same reads and replays a solve; the graph's one read and one
+        # replay a card of the rank (shard i on card i)
         counts = {name: r["counts"] for name, r in ranks.items()}
         alike = all(c == [c[0]] * w for c in counts.values())
         if graphed and "graph" in counts:
-            alike &= counts["graph"][0] == {"host_reads": 1.0, "replays": 1.0}
+            alike &= counts["graph"][0] == {"host_reads": 1.0, "replays": float(n // w)}
         ok &= same and ran_ok and alike
         med = {name: ms for name, (_d, _k, ms) in legs.items()}
-        graph = (f"from one graph a rank median {med['graph']!r} ms "
+        graph = (f"from one graph {'a rank' if n == w else 'a card'} median "
+                 f"{med['graph']!r} ms "
                  f"({counts['graph'][0]} a solve), graph / per card "
                  f"{med['graph'] / med['per card']!r}, eager nccl / graph "
                  f"{med['nccl'] / med['graph']!r}; " if "graph" in med else
-                 "no graph a rank (a rank's shards on several cards, or gloo); ")
+                 "no graph (gloo between the ranks); ")
         print(f"[mesh scaling] {args.grid}² {label}, {w} ranks over {n} cards: ranks over "
               f"{ran['nccl'][0]}: {graph}eager median {med['nccl']!r} ms "
               f"({counts['nccl'][0]} a solve); over gloo {med['gloo']!r} ms; one process's "

@@ -49,10 +49,12 @@ one more solve after a barrier whose per-rank times give the load imbalance
 (``dist.rank_time_stats``).  ``--timers`` runs the host-stepped loop with its
 halo/SpMV/allreduce/BLAS1 buckets; ``--trace`` profiles one more solve (on rank 0).  The
 export's ``loop`` is ``recompute-ap`` (``stencil5-const``), ``classic`` or
-``host-stepped``, with ``-graph`` after the first two where ranks over NCCL, each rank's
-shards on one card of its own, run the loop from one CUDA graph a rank, NCCL's exchanges
-and sums inside it (``solvers.cg_sharded.MeshLoop``; one replay and one host read a rank
-a solve, the JAX CLI's one compiled ``while_loop`` a process), and its ``topology`` is
+``host-stepped``, with ``-graph`` after the first two where ranks over NCCL run the loop
+from CUDA graphs, NCCL's exchanges and sums inside them: one graph a rank where the rank's
+shards sit on one card of its own (``solvers.cg_sharded.MeshLoop``; one replay and one
+host read a rank a solve, the JAX CLI's one compiled ``while_loop`` a process), one graph
+a card where they sit on several (``solvers.cg_sharded.RankCardLoop``, NCCL's calls in
+the rank's first card's graph; one replay a card, one read a rank), and its ``topology`` is
 ``dist.describe_mesh`` of the mesh (transport ``mesh``, or across ranks ``nccl`` or
 ``gloo``, with its shards and processes) or ``dist.describe_group`` of the group
 (transport ``nccl`` or ``gloo``).  Only rank 0 prints and writes.

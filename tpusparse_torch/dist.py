@@ -269,8 +269,9 @@ def device_group(device=None, transport: Optional[str] = None):
     whatever the cards; "nccl" for the NCCL group, in a group of one rank too (the one-card
     run of a graph a rank), ValueError off the cards, outside a group and where ranks
     share a card; None decides.  Over NCCL a rank's sharded CG runs its loop from one CUDA
-    graph with NCCL's calls inside it (``solvers.cg_sharded.MeshLoop``); over gloo the
-    host steps it.
+    graph with NCCL's calls inside it (``solvers.cg_sharded.MeshLoop``), or from one graph
+    a card of the rank with NCCL's calls in its first card's
+    (``solvers.cg_sharded.RankCardLoop``); over gloo the host steps it.
 
     Collective on cards: every rank calls it with the same ``transport``; outside a group
     and on the CPU it returns None without one.  Raises when every rank has cards of its

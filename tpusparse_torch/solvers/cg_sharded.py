@@ -51,12 +51,14 @@ rank's shards on one card of its own, each rank runs the loop from one CUDA grap
 NCCL's exchanges and all-gathers captured inside them), as each JAX process runs one
 compiled ``while_loop`` with its ``ppermute`` and ``psum`` inside: one replay and one
 read a rank a solve; every rank sums the same partials in the same order, so every
-rank's condition sees the same rr and every rank makes the same calls.  A peer that
-never comes to a captured call would hang the replay, and NCCL's watchdog does not
-watch captured work: the host watches the replay's k, and where no iteration ends for
-``RANK_WAIT_BOUND_S`` it aborts the group's communicator and raises.  Over gloo, and
-with a rank's shards on several cards, the loop runs eagerly, its flag read once an
-iteration.
+rank's condition sees the same rr and every rank makes the same calls.  With the rank's
+shards on several cards of its own, each card runs the loop from a graph of its own
+(``RankCardLoop``: ``CardLoop``'s graphs, the rank's cards meeting through each other's
+memory, NCCL's calls in the home card's graph only): one replay a card and one read a
+rank a solve.  A peer that never comes to a captured call would hang the replay, and
+NCCL's watchdog does not watch captured work: the host watches the replay's k, and where
+no iteration ends for ``RANK_WAIT_BOUND_S`` it aborts the group's communicator and
+raises.  Over gloo the loop runs eagerly, its flag read once an iteration.
 
 **The ranks** (every other entry, each rank calling the solver), the counterpart of the
 JAX package's multi-host mode, over one of two transports (``dist.device_group``).  Where
@@ -64,7 +66,8 @@ every rank has a card of its own, NCCL moves the halo rows and columns card to c
 (``batch_isend_irecv``) and all-gathers each dot's partials on the card, where every rank
 adds them in rank order (``sum_in_shard_order``), and the loop runs from one CUDA graph a
 rank (``rank_mesh``: the rank's band or block as a mesh across the ranks of one shard a
-rank, ``MeshLoop``'s graph as above); with ``graph=False`` eagerly, α and β on the card
+rank, ``MeshLoop``'s graph as above; a mesh across ranks whose rank drives several cards:
+one graph a card, ``RankCardLoop``); with ``graph=False`` eagerly, α and β on the card
 and the flag read once an iteration.  Elsewhere (ranks on the CPU, ranks sharing a card,
 where NCCL refuses to run) gloo moves CPU tensors only, so the halos and the dots pass
 through the host, as the reference's did: each rank's partial goes to its host, gloo
@@ -865,13 +868,14 @@ class MeshOperator:
         ``per_shard``: the per-card loop even where every shard is on one card, which it
         then runs from one graph (on the CPU on the kernels' twins).  The per-card loop
         runs the BLAS1 kernels and needs peer access between its cards (ValueError
-        otherwise).  A mesh across ranks (``dist.make_rank_mesh``) runs one graph a rank
-        where the rank's shards sit on one card of its own and NCCL links the ranks
-        (``rank_graph``; graph=None's choice there, with the BLAS1 kernels), else the
-        eager loop; ``graph=True`` raises ValueError where no graph a rank can run (gloo
-        ranks: the host steps them), ``per_shard=True`` always.  A capture that fails
-        raises, and so does a solve whose waits passed their bound (a rank's replay that
-        a peer never joined): nothing falls back."""
+        otherwise).  A mesh across ranks (``dist.make_rank_mesh``) over NCCL
+        (``rank_graph``; graph=None's choice there, with the BLAS1 kernels) runs one graph
+        a rank where the rank's shards sit on one card of its own (``MeshLoop``), one
+        graph a card where they sit on several (``RankCardLoop``), else the eager loop;
+        ``graph=True`` raises ValueError where no graph can run (gloo ranks, ranks that
+        share a card: the host steps them), ``per_shard=True`` always.  A capture that
+        fails raises, and so does a solve whose waits passed their bound (a rank's replay
+        that a peer never joined): nothing falls back."""
         loop = _pick_loop(self, recompute_ap)
         kernels = use_pallas_blas1 is not False
         cards = {d for d in self.mesh.devices if d.type == "cuda"}
@@ -915,30 +919,34 @@ class MeshOperator:
 
     @property
     def rank_graph(self) -> bool:
-        """Whether this rank's share of a mesh across ranks can run its loop from one CUDA
-        graph: its shards on one card of its own, NCCL between the ranks."""
-        return (self.link is not None and self.link.transport == "nccl"
-                and len({sh.device for sh in self.shards}) == 1)
+        """Whether this rank's share of a mesh across ranks can run its loop from CUDA
+        graphs: NCCL between the ranks (each rank's cards its own), the rank's shards on
+        one card (one graph a rank) or on several (one graph a card)."""
+        return self.link is not None and self.link.transport == "nccl"
 
     def _rank_loop(self, loop, tolerance, max_iters, kernels, graph, per_shard):
-        """``solve``'s loop on a mesh across ranks, made at first use: ``MeshLoop`` with
-        the rank link, from one CUDA graph a rank (``rank_graph``, the BLAS1 kernels;
-        ``graph`` None or True) or eagerly (``graph=False``, or where no graph can run)."""
+        """``solve``'s loop on a mesh across ranks, made at first use: from CUDA graphs
+        (``rank_graph``, the BLAS1 kernels; ``graph`` None or True) ``MeshLoop`` with the
+        rank link where the rank's shards sit on one card, ``RankCardLoop`` where they
+        sit on several; else (``graph=False``, or where no graph can run) ``MeshLoop``
+        eagerly."""
         if per_shard:
             raise ValueError("per_shard=True: a mesh across ranks runs the eager loop or, "
-                             "over NCCL, one graph a rank; the per-card loop is one "
-                             "process's")
+                             "over NCCL, one graph a rank or a card; the per-card loop "
+                             "is one process's")
         if graph and not self.rank_graph:
-            why = (f"ranks over {self.link.transport} run the eager loop: the host steps "
-                   "it, halos and dots pass through it" if self.link.transport != "nccl"
-                   else "a graph a rank needs the rank's shards on one card (several "
-                   "cards a rank run the eager loop)")
-            raise ValueError(f"graph=True: {why}; a graph a rank needs NCCL between "
-                             "ranks that each have one card of their own")
+            raise ValueError(f"graph=True: ranks over {self.link.transport} run the eager "
+                             "loop: the host steps it, halos and dots pass through it; a "
+                             "graph needs NCCL between ranks whose cards are their own")
         if graph and not kernels:
             raise ValueError("graph=True runs the BLAS1 kernels; pass graph=False for the "
                              "eager loop with use_pallas_blas1=False")
         graphed = self.rank_graph and kernels if graph is None else bool(graph)
+        if graphed and len({sh.device for sh in self.shards}) > 1:
+            key = ("rank cards", loop, max_iters, tolerance)
+            if key not in self.graphs:
+                self.graphs[key] = RankCardLoop(self, loop, max_iters, tolerance)
+            return key
         key = (loop, max_iters, tolerance, kernels, graphed)
         if key not in self.graphs:
             self.graphs[key] = MeshLoop(self, loop, max_iters, tolerance, kernels, graphed)
@@ -1641,39 +1649,65 @@ class CardLoop:
         self.loop, self.max_iters, self.tolerance, self.unroll = loop, max_iters, tolerance, \
             unroll
         self.shards, self.device, self.dtype = op.shards, op.device, op.dtype
+        self.link = op.link
+        self.lo = 0 if op.link is None else op.link.lo  # the first shard's global index
+        self.exchanging = op.mesh.size > 1  # a rows sync point in every iteration
         self.graphed = self.device.type == "cuda"
         if self.graphed:
-            _enable_peers(op.mesh.devices)
-        n = len(self.shards)
-        self.parts = tuple(_CardShard(self, i, sh, n) for i, sh in enumerate(self.shards))
-        for i, s in enumerate(self.parts):
-            if n > 1:
-                src = s.p[0] if loop == "classic" else s.edges
-                s.rows = mesh_sync.row_links(self._row_items(i, src), s.device)
-            s.dests = tuple(mesh_sync.partial_links(
-                [(t.partials[d, i], t.dot_flags[d][i]) for t in self.parts], s.device)
-                for d in (0, 1))
+            _enable_peers([sh.device for sh in self.shards])
+        slots = self._dot_slots()
+        self.parts = tuple(_CardShard(self, i, sh, slots) for i, sh in enumerate(self.shards))
+        self._make_links()
         self.bound_ns = int(WAIT_BOUND_S * 1e9)
-        places = [s.device for s in self.parts] if self.graphed else list(range(n))
+        places = [s.device for s in self.parts] if self.graphed else list(range(len(self.parts)))
         self.card_of = self._by_device = tuple(places.index(d) for d in places)
         self._cards = {}
         self.solutions = {}  # the withheld shard -> its solution slots
         self.schedule = None
         self.withheld = None
 
+    def _dot_slots(self) -> int:
+        """The slots of a shard's dot sync point: one a shard, each shard's partial."""
+        return len(self.shards)
+
+    def _make_links(self):
+        """Every shard's links: its rows (a mesh of more than one shard) and, for each
+        dot, its partial (``_dot_items``)."""
+        for i, s in enumerate(self.parts):
+            if self.exchanging:
+                src = s.p[0] if self.loop == "classic" else s.edges
+                s.rows = mesh_sync.row_links(self._row_items(i, src), s.device)
+            s.dests = tuple(mesh_sync.partial_links(self._dot_items(i, d), s.device)
+                            for d in (0, 1))
+
+    def _dot_items(self, i, d):
+        """(slot, flag) of shard i's partial of dot d: its slot of every shard's slots."""
+        return [(t.partials[d, i], t.dot_flags[d][i]) for t in self.parts]
+
     def _row_items(self, i, src):
         """(source, destination, flag) of shard i's rows: its first row into its previous
         neighbour's next halo, its last into its next neighbour's previous halo, its first
-        and last columns into its west and east neighbours' halo columns."""
+        and last columns into its west and east neighbours' halo columns; a neighbour on
+        another rank gets it through the rank link (``_outbound``)."""
         h, items = self.shards[i].halo, []
-        for j, row, name, flag in ((h.prev, src[0], "halo_next", 1),
-                                   (h.next, src[-1], "halo_prev", 0),
-                                   (h.west, src[:, 0], "halo_e", 3),
-                                   (h.east, src[:, -1], "halo_w", 2)):
-            if j is not None:
-                items.append((row, getattr(self.shards[j].halo, name).view(-1),
-                              self.parts[j].row_flags[flag]))
+        for j, side, row, name, flag in ((h.prev, 0, src[0], "halo_next", 1),
+                                         (h.next, 1, src[-1], "halo_prev", 0),
+                                         (h.west, 2, src[:, 0], "halo_e", 3),
+                                         (h.east, 3, src[:, -1], "halo_w", 2)):
+            if j is None:
+                continue
+            k = j - self.lo
+            if 0 <= k < len(self.parts):
+                items.append((row, getattr(self.shards[k].halo, name).view(-1),
+                              self.parts[k].row_flags[flag]))
+            else:
+                items.append((row, *self._outbound(i, side)))
         return items
+
+    def _outbound(self, i, side):
+        """(destination, flag) of shard i's row ``side`` for a neighbour on another rank:
+        only a mesh across ranks has one (``RankCardLoop``)."""
+        raise AssertionError(f"shard {self.lo + i}'s neighbour on side {side} is not here")
 
     def cards(self):
         """The cards of ``card_of`` (``_Card``, in the order of their first shard), made
@@ -1726,7 +1760,7 @@ class CardLoop:
                 s.p[0].copy_(s.r)
             else:
                 s.p[1].zero_()  # the first iteration's p_prev: p' = r + 0·0
-        rr = _mesh_sum(rrs, self.device)
+        rr = _mesh_sum(rrs, self.device, self.link)
         for s in self.parts:
             with _current(s.device):
                 s.rr.copy_(rr)
@@ -1753,13 +1787,15 @@ class CardLoop:
         replay, the cards' launches and halo counts (``graphs``: the slot's)."""
         rows = [torch.stack([s.rr.double(), s.bb.double(), s.k.double(),
                              s.ctl[1].double()]).to(self.device) for s in self.parts]
+        rows += [torch.stack([w.double()] * 4).to(self.device) for w in self._error_words()]
         status = cg._read(torch.stack(rows)).tolist()
         errors = [int(row[3]) for row in status if row[3]]
+        status = status[:len(self.parts)]
         if errors:
             raise RuntimeError("the per-card loop stopped: " + "; ".join(
-                f"shard {e // 16 - 1}'s wait at {SYNC_POINTS.get(e % 16, e % 16)} passed its "
-                f"bound of {self.bound_ns / 1e9:g} s" for e in errors)
-                + " (a shard did not publish)")
+                f"{self._waiter(e)}'s wait at {SYNC_POINTS.get(e % 16, e % 16)} passed its "
+                "bound" for e in errors) + f" (a shard's bound {self.bound_ns / 1e9:g} s; a "
+                "shard did not publish)")
         ks = {int(row[2]) for row in status}
         if len(ks) > 1 or len({repr(row[0]) for row in status}) > 1:
             raise RuntimeError(f"the shards disagree: k {[int(r[2]) for r in status]}, rr "
@@ -1770,6 +1806,14 @@ class CardLoop:
                 card.count_replay(k, self.withheld)
         return k, status[0][0], status[0][1]
 
+    def _error_words(self):
+        """0-d int64 error words beside the shards' that the solve's read takes: none."""
+        return ()
+
+    def _waiter(self, code) -> str:
+        """Who made a wait whose error word is ``code`` (``_code``)."""
+        return f"shard {code // 16 - 1 + self.lo}"
+
     # -- the iteration, as each shard runs it --------------------------------------------
 
     def _lockstep(self, members, xs, parity):
@@ -1778,6 +1822,7 @@ class CardLoop:
         shard's publish, then every shard's wait, in shard order (``_steps`` yields a
         publish and its wait with no step between them)."""
         steps = [self._steps(s.index, xs[s.index], parity) for s in members]
+        rounds = 0
         while True:
             ops = [next(step, None) for step in steps]
             if all(op is None for op in ops):
@@ -1785,6 +1830,16 @@ class CardLoop:
             if None in ops:
                 raise RuntimeError("the shards of a card fell out of step")
             yield from ops
+            if rounds % 2 == 0:  # every shard has published; their waits come next
+                yield from self._between(members, rounds // 2)
+            rounds += 1
+
+    def _between(self, members, point):
+        """The card's sync ops between its shards' publishes and their waits at the
+        iteration's ``point``-th sync point: none (``RankCardLoop``'s home card has its
+        link's)."""
+        del members, point
+        return ()
 
     def _steps(self, i, x, parity):
         """Shard i's iteration, the eager mesh's calls in its order, as a generator of its
@@ -1793,7 +1848,7 @@ class CardLoop:
         s, sh = self.parts[i], self.shards[i]
         if self.loop == "classic":
             p = s.p[0]
-            if len(self.parts) > 1:
+            if self.exchanging:
                 yield from self._exchange(s)
             with profiling.scope(profiling.PHASE_SPMV):
                 self._check_rows(s)
@@ -1812,7 +1867,7 @@ class CardLoop:
             torch.eq(s.k, 0, out=s.first)
             torch.div(s.rr, s.rr_prev, out=s.beta)
             torch.where(s.first, s.zero, s.beta, out=s.beta)  # β = 0 on the first
-            if len(self.parts) > 1:
+            if self.exchanging:
                 sh.edge_rows(s.r, p_prev, s.beta, out=s.edges)
                 yield from self._exchange(s)
             hp, hn = sh.halo.halo_prev, sh.halo.halo_next
@@ -1848,7 +1903,7 @@ class CardLoop:
         for every shard's and add them in shard order into ``out``."""
         yield functools.partial(_publish, mesh_sync.publish_partial, (s.ctl, part, s.dests[d]))
         yield functools.partial(mesh_sync.wait, s.ctl, s.dot_flags[d],
-                                (1 << len(self.parts)) - 1, _code(s, 2 + d),
+                                (1 << s.partials.shape[1]) - 1, _code(s, 2 + d),
                                 slots=s.partials[d], out=out)
 
     def _check_rows(self, s):
@@ -1905,6 +1960,259 @@ class CardLoop:
                 blocked.clear()
             else:
                 blocked.add(c)
+
+
+class RankCardLoop(CardLoop):
+    """The per-card loop of a rank whose shards of a mesh across ranks sit on several
+    cards of its own, over NCCL (``MeshOperator.rank_graph`` and more than one card):
+    one CUDA graph a card, as ``CardLoop`` runs a process's mesh, joined to the other
+    ranks by NCCL's calls captured into one graph only, the home card's (``_RankLink.home``,
+    the rank's first card, where its NCCL group runs).  Each JAX process runs one
+    compiled ``while_loop`` over all its local devices; a WHILE node's body holds kernels
+    of one device, so here each of the rank's cards replays its own graph.
+
+    Within the rank the cards meet at ``CardLoop``'s three sync points through
+    ``kernels/mesh_sync.py``, with the rank link in the home card's graph:
+
+      - rows: a row or column whose neighbour is local goes straight into its halo, as in
+        ``CardLoop``; one whose neighbour lives on another rank goes into its piece's send
+        buffer on the home card (``staging``, one a ``_RankLink`` piece) with a flag
+        there (``send_flags``).  Between its shards' publishes and their waits the home
+        card waits for every send flag, runs the exchange (``batch_isend_irecv`` of the
+        send buffers into the receive buffers, ``work.wait()`` the join), then publishes
+        what arrived into each piece's halo with the shard's row flag, on whatever card
+        the shard sits;
+      - a dot: each shard publishes its partial into its slot of the home card's gather
+        buffer (``gather``, flags ``gather_flags``); the home card waits for all of them,
+        all-gathers them over NCCL (``all_gather_into_tensor``) and adds the N partials in
+        global shard order (``sum_in_shard_order``: ``_allsum``'s order and dtype, so the
+        bits of the eager NCCL ranks, the gloo ranks and ``_mesh_sum``), then publishes the
+        total into every shard's one slot with its flag; each shard waits for it and forms
+        α or β itself, as in ``CardLoop``.
+
+    Epochs: the home card's waits for its rank's shards advance an epoch of their own
+    (``lctl``, the link's; error word ``lctl[1]``), one wait at every sync point, so it
+    rises as every shard's does.  The home card's publishes (rows that arrived, the
+    totals) come after its shards' publishes and before their waits in its stream
+    (``_between``), so they take the epoch from the ctl of the home card's first live
+    shard, which has not yet advanced past the sync point.  ``CardLoop``'s argument that
+    no write lands before its reader is done with the last one holds for the new buffers
+    too (k the iteration; the home card's stream is one order):
+
+      - a piece's send buffer: its shard writes it at the rows point of k + 1, after its
+        wait at <r, r> of k, which needs the home card's total of k, published after that
+        sum's all-gather, which follows the exchange of k in the home card's stream, after
+        ``work.wait()`` (the send is done);
+      - a piece's receive buffer: the exchange of k + 1 writes it, after the home card's
+        publish of k read it, in the home card's stream;
+      - a halo that the rank link fills: the home card publishes into it at the rows
+        point of k + 1, after its wait for every shard's <r, r> partial of k, which the
+        shard publishes after its last read of its halos in k;
+      - a gather slot of shard s: s writes it at a dot point after its wait at the
+        previous dot point for that point's total, which the home card published after
+        that point's all-gather had read the slots;
+      - a shard's total slot: the home card writes it at a dot point of k + 1 after its
+        wait for every shard's partial of that point, which shard s publishes after its
+        wait at the same point of k read the slot;
+      - the all-gather's buffer and the total: the home card's stream alone.
+
+    Bounds: a shard's wait depends on the other ranks (their rows and partials come
+    through NCCL), so it is bounded by the rank's stall bound (``RANK_WAIT_BOUND_S``);
+    the home card's waits depend only on its rank's cards (``WAIT_BOUND_S``).  The ranks
+    meet at a barrier after a capture and before its first replay, so no wait counts a
+    peer's capture.  A home card's wait that passed its bound sets the link's error word,
+    and its next gather is NaN on every slot, so every rank's sums turn NaN and every
+    card of every rank stops; a rank whose sum came back NaN raises.  The host watches
+    the replays as ``MeshLoop._replay`` does: where no iteration ends for ``bound_s`` (a
+    peer that never came to a captured call) it aborts the NCCL group and raises.
+
+    One replay a card and one read a rank a solve.  On the CPU (gloo ranks, the tests)
+    the rank's model cards (``card_of``) run ``CardLoop``'s coroutines, interleaved, and
+    the home card's program makes the link's gloo calls where the card makes NCCL's
+    (``group``, the link's group; a test may give another, of a short timeout).
+    ``rank_withheld``: the rank replays nothing (runs no program), to test the bound."""
+
+    def __init__(self, op, loop, max_iters, tolerance, unroll=cg.UNROLL):
+        self.group = op.link.group
+        self.rank_withheld = False
+        super().__init__(op, loop, max_iters, tolerance, unroll)
+        self.bound_s = RANK_WAIT_BOUND_S
+        self.bound_ns = int(RANK_WAIT_BOUND_S * 1e9)  # a shard's: it waits for the ranks
+        self.link_bound_ns = int(WAIT_BOUND_S * 1e9)  # the home card's: the rank's cards
+        if self.graphed:
+            # where the host reads k while the replays run (MeshLoop._k_now)
+            self.watch = torch.cuda.Stream(self.device)
+            self.k_seen = torch.full((), -1, dtype=torch.int64, pin_memory=True)
+
+    def _dot_slots(self) -> int:
+        return 1  # the total, which the home card publishes
+
+    def _make_links(self):
+        """The rank link's buffers on the home card, then ``CardLoop``'s links (a
+        neighbour on another rank: its piece's send buffer; a dot's partial: its slot of
+        the home card's gather buffer)."""
+        home, link, n = self.device, self.link, len(self.parts)
+        acc = self.parts[0].rr.dtype
+        self.lctl = torch.zeros(2, dtype=torch.int64, device=home)
+        self.staging = {(p.k, p.side): tuple(torch.empty(p.halo.numel(), dtype=self.dtype,
+                                                         device=home) for _ in range(2))
+                        for p in link.pieces}
+        self.send_flags = torch.zeros(max(len(link.pieces), 1), dtype=torch.int64,
+                                      device=home)
+        self.send_flag = {(p.k, p.side): self.send_flags[j]
+                          for j, p in enumerate(link.pieces)}
+        self.gather = torch.zeros((2, n), dtype=acc, device=home)
+        self.gather_flags = torch.zeros((2, n), dtype=torch.int64, device=home)
+        self.every = torch.empty(dist.world_size() * n, dtype=acc, device=home)
+        self.total = torch.empty((), dtype=acc, device=home)
+        self.ok = torch.empty((), dtype=torch.bool, device=home)
+        self.nan = torch.full((), float("nan"), dtype=acc, device=home)
+        self.arrived = mesh_sync.row_links(
+            [(self.staging[(p.k, p.side)][1], p.halo.view(-1),
+              self.parts[p.k].row_flags[p.side]) for p in link.recvs], home) \
+            if link.pieces else None
+        self.totals = tuple(mesh_sync.partial_links(
+            [(t.partials[d, 0], t.dot_flags[d][0]) for t in self.parts], home)
+            for d in (0, 1))
+        super()._make_links()
+
+    def _dot_items(self, i, d):
+        return [(self.gather[d, i], self.gather_flags[d, i])]
+
+    def _outbound(self, i, side):
+        return self.staging[(i, side)][0], self.send_flag[(i, side)]
+
+    def cards(self):
+        """``CardLoop``'s cards; the home card (its first shard's) holds NCCL's calls, so
+        each of its iterations sits under an IF node of its own (``MeshLoop``'s
+        ``guard_first``), and every card captures ``thread_local`` (NCCL's watchdog
+        thread may query events meanwhile)."""
+        cards = super().cards()
+        for card in cards:
+            card.guard_first = self._home(card.members)
+            if self.group is not None:
+                card.capture_mode = "thread_local"
+        return cards
+
+    def _home(self, members) -> bool:
+        return self.card_of[members[0].index] == self.card_of[0]
+
+    def _lead(self):
+        """The home card's first live shard."""
+        return next(s for s in self.parts
+                    if s.index != self.withheld and self._home([s]))
+
+    # -- the home card's link -------------------------------------------------------------
+
+    def _between(self, members, point):
+        if not self._home(members):
+            return
+        points = ("rows", 0, 1) if self.exchanging else (0, 1)
+        point = points[point]
+        if point == "rows":
+            yield functools.partial(self._link_wait, self.send_flags,
+                                    (1 << len(self.link.pieces)) - 1, 1)
+            yield self._link_rows
+        else:
+            yield functools.partial(self._link_wait, self.gather_flags[point],
+                                    (1 << len(self.parts)) - 1, 2 + point)
+            yield functools.partial(self._link_sum, point)
+
+    def _link_wait(self, flags, mask, point, bound_ns):
+        """The home card's wait for its rank's shards at a sync point: the link's own
+        epoch, the rank's cards' bound (0: the bound has passed, on the CPU)."""
+        return mesh_sync.wait(self.lctl, flags, mask, point, min(bound_ns, self.link_bound_ns))
+
+    def _link_rows(self, bound_ns):
+        """The rows sync point's exchange between the ranks, then what arrived published
+        into the halos, each with its shard's row flag."""
+        del bound_ns
+        link = self.link
+        if not link.pieces:
+            return True
+        ops = [tdist.P2POp(tdist.isend, self.staging[(p.k, p.side)][0], p.peer, self.group,
+                           p.send_tag) for p in link.sends]
+        ops += [tdist.P2POp(tdist.irecv, self.staging[(p.k, p.side)][1], p.peer, self.group,
+                            p.recv_tag) for p in link.recvs]
+        with _current(self.device):
+            for work in tdist.batch_isend_irecv(ops):  # the stream waits for NCCL's
+                work.wait()
+        return mesh_sync.publish_rows(self._lead().ctl, self.arrived)
+
+    def _link_sum(self, d, bound_ns):
+        """Dot ``d``'s partials of every rank, all-gathered and added in global shard order
+        (NaN on every slot if a wait of this card gave up), published to every shard."""
+        del bound_ns
+        slots = self.gather[d]
+        torch.eq(self.lctl[1], 0, out=self.ok)
+        torch.where(self.ok, slots, self.nan, out=slots)
+        with _current(self.device):
+            tdist.all_gather_into_tensor(self.every, slots, group=self.group)
+        sum_in_shard_order(self.every, out=self.total)
+        return mesh_sync.publish_partial(self._lead().ctl, self.total, self.totals[d])
+
+    # -- the solve ------------------------------------------------------------------------
+
+    def _slot(self):
+        slots = self.solutions.setdefault(self.withheld, [])
+        made = len(slots)
+        slot = super()._slot()
+        if self.graphed and len(slots) > made:
+            dist.barrier()  # every rank's capture done before any replays
+        return slot
+
+    def _run_host(self, xs):
+        if self.rank_withheld:
+            return
+        try:
+            super()._run_host(xs)
+        except RuntimeError as e:  # a peer's gloo call that never came, past its timeout
+            raise RuntimeError(f"rank {dist.rank()}: the sharded CG's {self.loop} solve "
+                               f"stopped in a call between the ranks ({e}): a rank never "
+                               "came to its exchanges and sums") from e
+
+    def _replay(self, graphs):
+        """Every card's graph replayed (none: ``rank_withheld``), then the host waits for
+        them as long as the home card finishes an iteration at least once every
+        ``bound_s``; a stall aborts the NCCL group and raises (``MeshLoop._replay``)."""
+        if not self.rank_withheld:
+            super()._replay(graphs)
+        ends = []
+        for card in self.cards():
+            with torch.cuda.device(card.device):
+                ends.append(torch.cuda.Event())
+                ends[-1].record()
+        if not _watch(lambda: all(e.query() for e in ends), self._k_now, self.bound_s):
+            if self.group is not None:
+                dist.abort_nccl(self.group)
+            raise RuntimeError(
+                f"rank {dist.rank()}: the sharded CG's {self.loop} solve, replayed from a "
+                f"graph a card, finished no iteration for its bound of {self.bound_s:g} s "
+                f"(k stayed {int(self.k_seen)}): a rank never came to its exchanges and sums "
+                "(NCCL's communicator is aborted)")
+
+    def _k_now(self):
+        """``MeshLoop._k_now`` on the home card's first live shard's k."""
+        if not self.watch.query():
+            return None
+        k = int(self.k_seen)
+        with torch.cuda.stream(self.watch):
+            self.k_seen.copy_(self._lead().k, non_blocking=True)
+        return k
+
+    def _read(self, graphs):
+        k, rr, bb = super()._read(graphs)
+        if rr != rr:
+            raise RuntimeError(f"rank {dist.rank()}: the sharded CG's sums came back NaN "
+                               f"after {k} iterations: a wait on another rank passed its "
+                               "bound, and its rank's gather carried NaN")
+        return k, rr, bb
+
+    def _error_words(self):
+        return (self.lctl[1],)
+
+    def _waiter(self, code) -> str:
+        return "the home card" if code < 16 else super()._waiter(code)
 
 
 def _publish(fn, args, bound_ns):
@@ -1967,8 +2275,9 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
     this rank's band, (band, g) on its device, pad rows included;
     ``dist.gather_to_host(x, rows=g)`` gives rank 0 the field.  Ranks over NCCL (each a
     card of its own) run the loop from one CUDA graph a rank (``rank_mesh``; ``graph``
-    None or True), or eagerly with ``graph=False``; ranks over gloo eagerly (``graph=True``
-    raises ValueError there); ``per_shard=True`` raises on a rank.
+    None or True; a mesh across ranks whose rank drives several cards, one graph a card),
+    or eagerly with ``graph=False``; ranks over gloo eagerly (``graph=True`` raises
+    ValueError there); ``per_shard=True`` raises on a rank.
 
     ``b``: None builds each shard's band of b = ones; else the whole (g, g) field, of which
     each shard takes its rows.  ``recompute_ap``: None runs the recompute loop (K1, K2)
