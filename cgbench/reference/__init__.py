@@ -1,0 +1,6 @@
+"""The plain reference the benchmark judges the program by.
+
+Plain PyTorch only: it imports nothing of the program, of its JAX original or of the
+harness, and takes from a run only the inputs the benchmark made (the grid, the stencil's
+coefficients, b, the tolerance) and, to judge them, the program's outputs.
+"""

@@ -1,0 +1,100 @@
+"""The benchmark's data, found by name: ``BENCHMARK.json`` at the checkout's root, a
+configuration in ``configs/<config>.json``, a traffic mix in ``traffic/<traffic>.json``
+and a metric's reader in ``metrics/<metric>.py`` (a ``<metric>.ranks`` with no file
+of its own reads by ``<metric>``'s).  A cell, or workload, is one entry of
+``BENCHMARK.json``'s ``workloads``: a configuration under a traffic mix.  Adding any of
+them is adding files and entries; nothing here names one."""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import pathlib
+import re
+
+HERE = pathlib.Path(__file__).resolve().parent
+ROOT = HERE.parent
+BENCHMARK = ROOT / "BENCHMARK.json"
+
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
+UNIT = re.compile(r"[A-Za-z0-9_/%.\-]{1,16}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """One workload with everything the harness reads for it."""
+
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    end_to_end: tuple  # the BENCHMARK.json entries of the metrics this cell reports
+    per_layer: tuple
+
+
+def load_benchmark(path: pathlib.Path = BENCHMARK) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _load_json(path: pathlib.Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def config_path(name: str, root: pathlib.Path = HERE) -> pathlib.Path:
+    return root / "configs" / f"{name}.json"
+
+
+def traffic_path(name: str, root: pathlib.Path = HERE) -> pathlib.Path:
+    return root / "traffic" / f"{name}.json"
+
+
+def metric_path(name: str, root: pathlib.Path = HERE) -> pathlib.Path:
+    return root / "metrics" / f"{name}.py"
+
+
+def reports(metric: dict, workload: str) -> bool:
+    """Whether a metric entry is reported in ``workload``: every cell where it lists
+    none."""
+    return "workloads" not in metric or workload in metric["workloads"]
+
+
+def cell(workload: str, bench: dict | None = None, root: pathlib.Path = HERE) -> Cell:
+    """The cell named ``workload``; KeyError when BENCHMARK.json has no such workload."""
+    bench = load_benchmark() if bench is None else bench
+    entry = next((w for w in bench["workloads"] if w["name"] == workload), None)
+    if entry is None:
+        raise KeyError(f"no workload {workload!r} in BENCHMARK.json "
+                       f"({[w['name'] for w in bench['workloads']]})")
+    return Cell(
+        name=workload,
+        chips=int(entry["chips"]),
+        config=_load_json(config_path(entry["config"], root)),
+        traffic=_load_json(traffic_path(entry["traffic"], root)),
+        end_to_end=tuple(m for m in bench["end_to_end"] if reports(m, workload)),
+        per_layer=tuple(m for m in bench["per_layer"] if reports(m, workload)),
+    )
+
+
+def reader_path(name: str, root: pathlib.Path = HERE) -> pathlib.Path:
+    """The file of a metric's reader: ``metrics/<name>.py``, or, for a metric of several
+    ranks (``<base>.ranks``) with no reader of its own, its base metric's, which reads
+    rank 0's window the same way."""
+    path = metric_path(name, root)
+    base, _, suffix = name.rpartition(".")
+    if not path.is_file() and suffix == "ranks" and base:
+        return metric_path(base, root)
+    return path
+
+
+def reader(name: str, root: pathlib.Path = HERE):
+    """The ``read(run)`` function of the metric's reader (``reader_path``).  A metric's
+    name may hold a dot, so the file is loaded by its path, not imported by a module
+    name."""
+    path = reader_path(name, root)
+    spec = importlib.util.spec_from_file_location(f"cgbench_metric_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
