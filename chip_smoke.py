@@ -839,7 +839,11 @@ def _template_args(mangled) -> str:
 def phase_build(build):
     """Build the kernels; print each one's registers and spills (ptxas -v), keep the full
     compiler output in chiprun_out/build_log.txt."""
-    build.lib()
+    from tpusparse_torch.bench import profiling
+
+    with profiling.recording():  # the time printed is the Kernel_Load span's
+        build.lib()
+    loads = [sp for sp in profiling.spans() if sp.name == profiling.PHASE_KERNEL_LOAD]
     OUT.mkdir(exist_ok=True)
     (OUT / "build_log.txt").write_text(build.build_log)
     kernel = spills = None
@@ -853,8 +857,12 @@ def phase_build(build):
         elif kernel and "registers" in ln:
             print(f"[build] {kernel}: {ln.split(':', 1)[1].strip()}; {spills}")
             kernel = None
-    how = "built" if build.build_log else "loaded an earlier build of the same sources"
-    print(f"[build] {how} in {build.build_seconds:.1f} s: {build.BUILD}", flush=True)
+    if not loads:
+        print(f"[build] loaded before this phase: {build.BUILD}", flush=True)
+        return
+    how = "built" if loads[-1].attrs["built"] else "loaded an earlier build of the same sources"
+    print(f"[build] {how} in {(loads[-1].end_ns - loads[-1].start_ns) / 1e9:.1f} s: "
+          f"{build.BUILD}", flush=True)
 
 
 def k3_counts(st5):
@@ -1985,6 +1993,8 @@ def profile_split(torch, solve, label, median, whose, tables, smi):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from tpusparse_torch.bench import profiling
+
     groups = [(short, re.compile(rf"(?<![a-z_]){fn}")) for short, fn, _s, _r in
               KERNELS.values()]
     groups.append(("final sums", re.compile(r"(?<![a-z_])final_sum_kernel")))
@@ -1995,10 +2005,10 @@ def profile_split(torch, solve, label, median, whose, tables, smi):
         x, stats = solve()
         wall = (time.perf_counter() - t0) * 1e3
     del x
-    # the solver's phase scopes appear as device rows too (their ranges on the card's
+    # the program's scopes appear as device rows too (their ranges on the card's
     # timeline): leave them out, or their kernels would count twice
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in PHASE_NAMES]
+            if e.device_type == DeviceType.CUDA and e.key not in profiling.NAMES]
     if not rows:
         raise AssertionError(f"profile {label}: the profiler saw no device time")
     busy = sum(e.self_device_time_total for e in rows) / 1e3
@@ -2098,7 +2108,7 @@ def phase_graph(torch, smi):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             x, s = cg.cg_solve(op, b_is_ones=True, graph=graph, **kwargs)
-            return (time.perf_counter() - t0) * 1e3, x, s, dict(cg.COUNTS)
+            return (time.perf_counter() - t0) * 1e3, x, s, reads_of(cg.COUNTS)
 
         _, x_e, s_e, reads_e = solve(False)
         _, x_g, s_g, reads_g = solve(True)
@@ -3282,7 +3292,7 @@ def phase_mesh(torch, counters, results, cmp, smi, splits, gloo_by_n):
         rc = counts.run(label, tuple(per), lambda: cg_solver_multichip.main(
             [f"gen:{G_BIG}", *extra, *split, *MESH_ARGS, f"--json={path}"]))
         wall = time.perf_counter() - t0
-        reads, halo = dict(cg.COUNTS), dict(cg_sharded.HALO_CALLS)
+        reads, halo = reads_of(cg.COUNTS), dict(cg_sharded.HALO_CALLS)
         res = json.loads(path.read_text())
         its, dtype, topo = res["convergence"]["iterations"], res["dtype"], res["topology"]
         if rc != 0 or res["loop"] != loop or (its != 14 and dtype != "bf16"):
@@ -3344,6 +3354,12 @@ def phase_mesh(torch, counters, results, cmp, smi, splits, gloo_by_n):
     (OUT / "chip_smoke_mesh.json").write_text(json.dumps(summary, indent=1))
     print(f"[mesh] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts.totals()
+
+
+def reads_of(counts):
+    """The host reads and the replays of a ``cg.COUNTS``: what the checks compare (its
+    solves and captures are the spans' counters)."""
+    return {k: counts[k] for k in ("host_reads", "replays")}
 
 
 def uncounted(fn):
@@ -3669,7 +3685,7 @@ def phase_cards(torch, counters, smi):
                         uncounted(lambda: timed("mesh"))
                     else:
                         timed("cards", per_shard=True)
-            return dict(cg.COUNTS)
+            return reads_of(cg.COUNTS)
 
         cards = len(set(op.mesh.devices))
         needs = tuple(card_launches(shape, mode, 1, 1))
@@ -3927,7 +3943,7 @@ def _rank_graph_rank(device, cases, transport=None, spread=False):
             solve(graph)
             ms[leg] = (time.perf_counter() - t0) * 1e3
             if leg == "graph":
-                mine.update(counts=dict(cg.COUNTS), replayed=dict(cg.LAUNCHES),
+                mine.update(counts=reads_of(cg.COUNTS), replayed=dict(cg.LAUNCHES),
                             launches=launch_counts((*counters, cg)))
         mine["ms"] = ms
         mine["transport"] = op.link.transport if isinstance(op, cg_sharded.MeshOperator) \
@@ -3966,7 +3982,7 @@ def _rank_graph_long_rank(device, grid, iters):
     t0 = time.perf_counter()
     digests, k = solve()
     took = time.perf_counter() - t0
-    out = {"k": k, "s": took, "bound_s": took / 4, "counts": dict(cg.COUNTS)}
+    out = {"k": k, "s": took, "bound_s": took / 4, "counts": reads_of(cg.COUNTS)}
     loop.bound_s = took / 4
     try:
         again, out["k_bounded"] = solve()

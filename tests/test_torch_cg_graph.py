@@ -199,7 +199,8 @@ def test_cg_solve_picks_its_loop_on_the_cpu():
     op = _port_op("stencil5-const", "f64", 16)
     cg.reset_counts()
     x, s = cg.cg_solve(op, b_is_ones=True)
-    assert cg.COUNTS == {"host_reads": s.iterations + 2, "replays": 0} and not op.graphs
+    assert cg.COUNTS == {"host_reads": s.iterations + 2, "replays": 0, "solves": 1,
+                         "captures": 0} and not op.graphs
     with pytest.raises(ValueError, match="graph=True"):
         cg.cg_solve(op, b_is_ones=True, graph=True)
     assert torch.equal(x, _graph_solve(op, "recompute")[0])

@@ -107,7 +107,7 @@ def test_mesh_bands_match_jax(n, case):
     assert x.shape == (g, g)
     _close(x, xj)
     # the eager loop: its flag once an iteration and once more, then the closing read
-    assert counts == {"host_reads": s.iterations + 2, "replays": 0}
+    assert counts == {"host_reads": s.iterations + 2, "replays": 0, "solves": 1, "captures": 0}
 
 
 @pytest.mark.parametrize("mode", ["stencil5", "stencil5-const", "csr"])
@@ -142,7 +142,8 @@ def test_mesh_stepped_matches_jax(shape):
     _close(x, xj)
     assert min(s.halo_time_ms, s.spmv_time_ms, s.allreduce_time_ms, s.blas1_time_ms) > 0
     assert s.reduction_time_ms == s.allreduce_time_ms
-    assert counts == {"host_reads": 0, "replays": 0}  # its reads are its own, of the dots
+    # its reads are its own, of the dots; the stepped loop opens no solve span
+    assert counts == {"host_reads": 0, "replays": 0, "solves": 0, "captures": 0}
 
 
 def test_mesh_bf16_matches_jax():
@@ -220,7 +221,8 @@ def test_per_card_loop_equals_gloo_ranks(gloo, name):
     n, blocks, g, _kind, kw = GLOO[name]
     x, s, counts = _port(blocks or (n,), g, per_shard=True, **kw)
     xg, its = gloo[name]
-    assert s.iterations == its and counts == {"host_reads": 1, "replays": 0}
+    assert s.iterations == its
+    assert counts == {"host_reads": 1, "replays": 0, "solves": 1, "captures": 0}
     np.testing.assert_array_equal(x, np.asarray(xg, np.float64))
 
 

@@ -309,7 +309,7 @@ def _same_as_eager(out):
     xe, se, _, halo_e = out["eager"]
     assert s.converged and s.iterations == se.iterations
     np.testing.assert_array_equal(x, xe)
-    assert counts == {"host_reads": 1, "replays": 0}
+    assert counts == {"host_reads": 1, "replays": 0, "solves": 1, "captures": 0}
     assert halo == halo_e
     return x, s
 
@@ -362,7 +362,7 @@ def test_solvers_take_per_shard():
     cg.reset_counts()
     x, s = cg_sharded.cg_solve_sharded(16, mode="stencil5", dtype=F64, mesh=m,
                                        per_shard=True)
-    assert cg.COUNTS == {"host_reads": 1, "replays": 0}
+    assert cg.COUNTS == {"host_reads": 1, "replays": 0, "solves": 1, "captures": 0}
     xe, se = cg_sharded.cg_solve_sharded(16, mode="stencil5", dtype=F64, mesh=m, graph=False)
     assert s.iterations == se.iterations and torch.equal(x, xe)
     x2, _ = cg_sharded.cg_solve_sharded_2d(_mesh((2, 2)), 16, dtype=F64, per_shard=True)

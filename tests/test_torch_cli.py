@@ -271,6 +271,29 @@ def test_cli_trace_holds_the_phase_names(tmp_path, capsys):
                                    rtol=1e-10)
 
 
+def test_cli_trace_records_the_spans(tmp_path, capsys):
+    """--trace records the program's spans from the start (its operator's build, every
+    solve) and ends with their sums; the trace holds the solve's spans as ranges, and
+    recording is off again after the run."""
+    from tpusparse_torch.bench import profiling
+
+    profiling.reset()
+    logdir = tmp_path / "trace"
+    assert cg_solver.main(["gen:12", "--dtype=f64", "--runs=3", "--warmup=1",
+                           "--platform=cpu", f"--trace={logdir}"]) == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines() if "spans (count, s)" in ln]
+    assert len(line) == 1
+    totals = profiling.totals()
+    # the build, the warm-up, 3 timed runs, the solution's solve and the traced one
+    assert totals["Operator_Build"][0] == 1 and totals["CG_Solver"][0] == 6
+    assert f"CG_Solver 6 {totals['CG_Solver'][1]:.6f}" in line[0]
+    (trace,) = logdir.glob("*.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"CG_Solver", "CG_Start"} <= names
+    assert not profiling.record(False)
+    profiling.reset()
+
+
 def test_spmv_bench_skips_a_mode_the_matrix_does_not_fit(tmp_path, capsys):
     """A square .mtx that is no 5-point stencil (the 9-point stencil at g = 12): mode
     stencil5 raises ValueError in its operator's build, so both CLIs print [SKIP], run csr

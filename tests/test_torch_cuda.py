@@ -945,12 +945,15 @@ def test_graph_loop_equals_eager_on_card(dev, mode, dtype, loop):
     op = ops.get_operator(mode, st, dtype=dtype, device=dev)
     x_e, s_e, _, _, counts_e = _solve_counted(op, b_is_ones=True, graph=False,
                                               **LOOP_ARGS[loop])
-    assert counts_e == {"host_reads": s_e.iterations + 2, "replays": 0}
-    for _ in range(2):  # the capture, then a replay of the cached graph
+    assert counts_e == {"host_reads": s_e.iterations + 2, "replays": 0, "solves": 1,
+                        "captures": 0}
+    # the capture, then another: the first x is still held while the second solve runs,
+    # so it takes a slot of its own (test_torch_cg_graph: a held x keeps its slot)
+    for _ in range(2):
         x, s, eager, replayed, counts = _solve_counted(op, b_is_ones=True, **LOOP_ARGS[loop])
         assert s.converged and s.iterations == s_e.iterations
         assert torch.equal(x, x_e)
-        assert counts == {"host_reads": 1, "replays": 1}
+        assert counts == {"host_reads": 1, "replays": 1, "solves": 1, "captures": 1}
         assert eager == {"dot": 1}
         loop_obj = op.graphs[cg.DeviceLoop.key(op, loop, 1000, 1e-6)]
         per = loop_obj.per_iteration
@@ -958,6 +961,33 @@ def test_graph_loop_equals_eager_on_card(dev, mode, dtype, loop):
             {n: s.iterations * v for n, v in per.items()}
         assert replayed["cg_cond"] == 1 + cg.UNROLL * -(-s.iterations // cg.UNROLL)
         assert s.residual_norm == s_e.residual_norm
+
+
+def test_graph_solve_spans_on_card(dev):
+    """With recording on, a new operator's first graph solve opens ``CG_Capture`` under
+    its ``CG_Slot`` (the slot's graph, the workspace's eager iteration in it); the second,
+    the first x dropped, replays that slot and captures nothing."""
+    st = Stencil5(grid_size=256, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5-const", st, dtype=torch.float64, device=dev)
+    profiling.reset()
+    cg.reset_counts()
+    with profiling.recording():
+        for _ in range(2):
+            x, s = cg.cg_solve(op, b_is_ones=True)
+            del x
+    spans = profiling.spans()
+    profiling.reset()
+    assert s.converged and cg.COUNTS == {"host_reads": 2, "replays": 2, "solves": 2,
+                                         "captures": 1}
+    roots = [i for i, sp in enumerate(spans) if sp.parent is None]
+    assert [(spans[i].name, spans[i].solve) for i in roots] == [("CG_Solver", 1),
+                                                              ("CG_Solver", 2)]
+    for i, captured in zip(roots, (True, False)):
+        kids = [j for j, sp in enumerate(spans) if sp.parent == i]
+        assert [spans[j].name for j in kids] == ["CG_Slot", "CG_Start", "CG_Replay",
+                                                 "CG_Read"]
+        under_slot = [sp.name for sp in spans if sp.parent == kids[0]]
+        assert under_slot == (["CG_Capture"] if captured else [])
 
 
 @pytest.mark.parametrize("case", ["zero b", "max_iters 0", "max_iters 1", "max_iters 5",

@@ -87,12 +87,13 @@ def test_mesh_graph_equals_eager_on_card(dev, label):
     op = cg_sharded.make_mesh_operator(G, _mesh(shape), mode=mode, dtype=dtype)
     assert op.one_card and op.mesh.shards_per_card() == op.mesh.size
     xs_e, s_e, counts_e, _, halo_e = _solve(op, graph=False, **kw)
-    assert counts_e == {"host_reads": s_e.iterations + 2, "replays": 0}
-    for _ in range(2):  # the capture, then a replay of the cached graph
+    assert counts_e == {"host_reads": s_e.iterations + 2, "replays": 0, "solves": 1,
+                        "captures": 0}
+    for captures in (1, 0):  # the capture, then a replay of the cached graph
         xs, s, counts, replayed, halo = _solve(op, **kw)
         assert s.converged and s.iterations == s_e.iterations
         assert all(torch.equal(a, b) for a, b in zip(xs, xs_e))
-        assert counts == {"host_reads": 1, "replays": 1}
+        assert counts == {"host_reads": 1, "replays": 1, "solves": 1, "captures": captures}
         (loop,) = [lp for lp in op.graphs.values() if lp.graphed]
         per = loop.per_iteration
         assert {n: v for n, v in replayed.items() if n != "cg_cond"} == \
@@ -139,7 +140,7 @@ def test_mesh_equals_gloo_ranks_on_card(dev, n):
         op = cg_sharded.make_mesh_operator(G, _mesh(blocks or (n,)), mode=mode, dtype=dtype)
         cg.reset_counts()
         x, s = cg_sharded.cg_solve_sharded(G, operator=op, **kw)
-        assert cg.COUNTS == {"host_reads": 1, "replays": 1}, name
+        assert cg.COUNTS == {"host_reads": 1, "replays": 1, "solves": 1, "captures": 1}, name
         xg, its = got[name]
         assert s.iterations == its, name
         assert torch.equal(x.float().cpu() if dtype == BF16 else x.cpu(),
@@ -180,7 +181,7 @@ def test_mesh_cli_reads_once_a_solve(dev, tmp_path):
     cg.reset_counts()
     assert cg_solver_multichip.main([f"gen:{G}", "--chips=4", "--dtype=f64", "--runs=3",
                                      "--warmup=1", f"--json={out}"]) == 0
-    assert cg.COUNTS == {"host_reads": 5, "replays": 5}
+    assert cg.COUNTS == {"host_reads": 5, "replays": 5, "solves": 5, "captures": 1}
     res = json.loads(out.read_text())
     assert res["topology"]["transport"] == "mesh"
     assert res["topology"]["num_processes"] == 1 and res["topology"]["num_devices"] == 4
@@ -196,11 +197,11 @@ def test_per_shard_loop_equals_mesh_loop_on_card(dev, label):
     op = cg_sharded.make_mesh_operator(G, _mesh(shape), mode=mode, dtype=dtype)
     n = op.mesh.size
     xs_m, s_m, _, launched_m, halo_m = _solve(op, **kw)
-    for _ in range(2):  # the captures, then replays of the cached graphs
+    for captures in (1, 0):  # the captures, then replays of the cached graphs
         xs, s, counts, launched, halo = _solve(op, per_shard=True, **kw)
         assert s.converged and s.iterations == s_m.iterations
         assert all(torch.equal(a, b) for a, b in zip(xs, xs_m))
-        assert counts == {"host_reads": 1, "replays": 1}
+        assert counts == {"host_reads": 1, "replays": 1, "solves": 1, "captures": captures}
         sync = {k: launched.pop(k, 0) for k in mesh_sync.LAUNCHES}
         assert launched == launched_m
         rows = n > 1  # a shard's waits: its rows (with neighbours), then the two dots

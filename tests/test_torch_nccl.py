@@ -227,7 +227,7 @@ def test_rank_graph_equals_eager_nccl_ranks(case):
     (x, k), (x_eager, k_eager) = out["graph"], out["eager"]
     assert k == k_eager and x.shape == (G, G)
     np.testing.assert_array_equal(x, x_eager)
-    assert counts == [{"host_reads": 1, "replays": 1}] * 2
+    assert counts == [{"host_reads": 1, "replays": 1, "solves": 1, "captures": 0}] * 2
 
 
 @pytest.mark.cuda
@@ -360,7 +360,8 @@ def test_rank_cards_graph_equals_eager_nccl_and_gloo(case):
     assert k == k_eager == k_gloo and x.shape == (G, G)
     np.testing.assert_array_equal(x, x_eager)
     np.testing.assert_array_equal(x, x_gloo)
-    assert every == [({"host_reads": 1, "replays": cards // ranks}, True, True)] * ranks
+    assert every == [({"host_reads": 1, "replays": cards // ranks, "solves": 1,
+                       "captures": 0}, True, True)] * ranks
 
 
 @pytest.mark.cuda

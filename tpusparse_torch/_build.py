@@ -20,7 +20,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
-import time
+
+from .bench import profiling
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -90,7 +91,6 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of the build (or load) that produced the library
 build_log = ""  # nvcc's output of that build (ptxas register and spill lines)
 
 
@@ -162,17 +162,18 @@ def _load(path: pathlib.Path):
 
 
 def lib():
-    """The loaded kernel library, built first if needed."""
-    global _lib, build_seconds, build_log
+    """The loaded kernel library, built first if needed, inside a ``Kernel_Load`` span
+    (``bench.profiling``; attribute ``built``: whether nvcc ran)."""
+    global _lib, build_log
     if _lib is not None:  # the launch path: no lock once the library is loaded
         return _lib
     with _lock:
         if _lib is None:
-            t0 = time.perf_counter()
-            out = BUILD / _digest() / LIB_NAME
-            log = _compile(out) if not out.exists() else ""
-            _lib = _load(out)
-            build_seconds = time.perf_counter() - t0
+            with profiling.scope(profiling.PHASE_KERNEL_LOAD) as span:
+                out = BUILD / _digest() / LIB_NAME
+                span.attrs["built"] = not out.exists()
+                log = _compile(out) if span.attrs["built"] else ""
+                _lib = _load(out)
             build_log = log
         return _lib
 

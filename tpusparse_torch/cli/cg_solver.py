@@ -29,7 +29,9 @@ once untimed and once timed, the reference's host path (cg_solver.cu:172-181).  
 makes the export's ``loop`` ``host-stepped``, whatever ``--loop`` says.
 ``performance.gflops_spmv`` comes from the stepped SpMV time when there is one, else from
 the measured time of one SpMV apply (CUDA events).  ``--trace LOGDIR`` profiles one more
-solve, excluded from the statistics (``bench.profiling``).  ``--platform=cpu`` runs the
+solve, excluded from the statistics, and records the program's spans from the start
+(``bench.profiling``): the trace shows them as ranges, and the run ends with a line of
+their counts and seconds (set-up's and every solve's).  ``--platform=cpu`` runs the
 plain PyTorch twins (for tests at small sizes).
 """
 
@@ -87,6 +89,15 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if not args.trace:
+        return _main(args)
+    # the program's spans throughout (bench.profiling): the trace shows them, and the
+    # run ends with their sums
+    with profiling.recording():
+        return _main(args)
+
+
+def _main(args) -> int:
     if args.host and args.device:
         # argv only: fail before the load and the operator's build
         print("[ERROR] --host and --device are mutually exclusive", file=sys.stderr)
@@ -144,6 +155,7 @@ def main(argv=None) -> int:
     if args.trace:
         profiling.profiled_run(run_solve, logdir=args.trace)
         print(f"[INFO] trace captured: {args.trace}")
+        print(f"[INFO] {profiling.summary()}")
     x_host = host_numpy(op.from_field(x)).astype(np.float64)  # checksums in f64
     del x
 

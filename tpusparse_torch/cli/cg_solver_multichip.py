@@ -47,7 +47,8 @@ Sum(x)/Norm2(x) of the solution (the mesh's shards assembled on its first device
 group's bands gathered to rank 0, timed as ``allgather_ms``), and with several gloo ranks
 one more solve after a barrier whose per-rank times give the load imbalance
 (``dist.rank_time_stats``).  ``--timers`` runs the host-stepped loop with its
-halo/SpMV/allreduce/BLAS1 buckets; ``--trace`` profiles one more solve (on rank 0).  The
+halo/SpMV/allreduce/BLAS1 buckets; ``--trace`` profiles one more solve (on rank 0), the
+program's spans recorded from the start on every rank and summed on rank 0's.  The
 export's ``loop`` is ``recompute-ap`` (``stencil5-const``), ``classic`` or
 ``host-stepped``, with ``-graph`` after the first two where ranks over NCCL run the loop
 from CUDA graphs, NCCL's exchanges and sums inside them: one graph a rank where the rank's
@@ -216,7 +217,15 @@ def _load(args, say):
 def run(args, device, mesh=None) -> int:
     """The CLI's solves and report: over ``mesh`` (a ``dist.Mesh``) in this process, or
     as this rank of the gloo group (``mesh`` None; every rank loads, builds its operator
-    and solves; rank 0 reports)."""
+    and solves; rank 0 reports).  ``--trace`` records the program's spans throughout
+    (``bench.profiling``), so the trace shows them and rank 0 sums them at the end."""
+    if not args.trace:
+        return _run(args, device, mesh)
+    with profiling.recording():
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh) -> int:
     primary = dist.rank() == 0
 
     def say(*a, **kw):
@@ -311,6 +320,7 @@ def run(args, device, mesh=None) -> int:
         if primary:
             profiling.profiled_run(lambda: run_solve()[1][0], logdir=args.trace)
             print(f"[INFO] trace captured: {args.trace}")
+            print(f"[INFO] {profiling.summary()}")
         else:
             run_solve()
 

@@ -50,6 +50,7 @@ import torch
 import torch.distributed as tdist
 
 from ._device import host_numpy
+from .bench import profiling
 
 # how long a collective may wait for its peers before gloo gives up
 TIMEOUT = datetime.timedelta(seconds=300)
@@ -308,7 +309,9 @@ def nccl_group(device):
     rank's loop captures NCCL's calls into one (with it on, that capture failed on an
     H100 with cudaErrorInvalidValue).  A rank never has a captured and an eager call of
     one group outstanding at once: the eager ones are ordered on its stream before the
-    replay, which the host waits for."""
+    replay, which the host waits for.
+
+    The group and its first all-gather make an ``NCCL_Group`` span (``bench.profiling``)."""
     if not _NCCL:
         if not tdist.is_nccl_available():
             raise RuntimeError(f"rank {rank()}: every rank has cards of its own but this "
@@ -316,7 +319,7 @@ def nccl_group(device):
                                "the host)")
         os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
         dev = _as_devices(device)[0]
-        with torch.cuda.device(dev):
+        with profiling.scope(profiling.PHASE_NCCL_GROUP), torch.cuda.device(dev):
             group = tdist.new_group(backend="nccl", timeout=TIMEOUT)
             probe = torch.empty(world_size(), device=dev)
             tdist.all_gather_into_tensor(probe, torch.ones(1, device=dev), group=group)

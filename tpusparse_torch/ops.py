@@ -58,6 +58,7 @@ import torch
 
 from . import convert, formats
 from ._device import acc_dtype, host_numpy, resolve_device, resolve_dtype
+from .bench import profiling
 from .formats import CSRMatrix, Stencil5
 from .generate import (make_stencil5_csr_device, make_stencil5_dia_device,
                        make_stencil5_ell_device, make_stencil5_planes_device,
@@ -539,7 +540,9 @@ def available_modes():
 
 
 def get_operator(mode: str, mat, dtype=torch.float32, device="cuda") -> DeviceOperator:
-    """Build a device operator (reference get_operator + op->init in one step)."""
+    """Build a device operator (reference get_operator + op->init in one step), inside an
+    ``Operator_Build`` span (``bench.profiling``)."""
     if mode not in _REGISTRY:
         raise ValueError(f"unknown SpMV mode '{mode}'; available: {available_modes()}")
-    return _REGISTRY[mode](mat, resolve_dtype(dtype), resolve_device(device))
+    with profiling.scope(profiling.PHASE_OPERATOR_BUILD):
+        return _REGISTRY[mode](mat, resolve_dtype(dtype), resolve_device(device))

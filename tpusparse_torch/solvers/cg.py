@@ -190,10 +190,11 @@ def cg_solve(op, b=None, x0=None, *, config: Optional[CGConfig] = None,
         if b is None or tuple(b.shape) != tuple(op.field_shape):
             raise ValueError(f"b must be a field of shape {op.field_shape}")
         b = b.to(device=op.device, dtype=op.dtype)
-    if graph:
-        x, k, rr_f, bb_f = DeviceLoop.of(op, loop, config).solve(b, x0, b_is_ones)
-    else:
-        x, k, rr_f, bb_f = _eager_loop(op, b, x0, b_is_ones, config, loop, kernels)
+    with solve_scope():
+        if graph:
+            x, k, rr_f, bb_f = DeviceLoop.of(op, loop, config).solve(b, x0, b_is_ones)
+        else:
+            x, k, rr_f, bb_f = _eager_loop(op, b, x0, b_is_ones, config, loop, kernels)
     total_ms = (time.perf_counter() - t0) * 1e3
     res = rr_f ** 0.5
     b_norm = bb_f ** 0.5
@@ -211,13 +212,14 @@ def _eager_loop(op, b, x0, b_is_ones, config, loop, kernels):
     """The loop run op by op from the host, which reads rr > tol² every iteration.
     Returns (x, iterations, rr, <b, b>), the last two as Python floats."""
     cg_update = blas1.cg_update if kernels else blas1.cg_update_plain
-    if x0 is None:
-        r = op.ones_b() if b_is_ones else b.clone()  # the loops update r in place
-        x = torch.zeros_like(r)
-        rr = bb = _dot(kernels)(r, r)
-    else:
-        x, r, rr, bb = _start_from(x0, b, op.run_device, kernels)
-    tol2 = (config.tolerance * config.tolerance) * bb
+    with profiling.scope(profiling.PHASE_START):
+        if x0 is None:
+            r = op.ones_b() if b_is_ones else b.clone()  # the loops update r in place
+            x = torch.zeros_like(r)
+            rr = bb = _dot(kernels)(r, r)
+        else:
+            x, r, rr, bb = _start_from(x0, b, op.run_device, kernels)
+        tol2 = (config.tolerance * config.tolerance) * bb
 
     k = 0
     if loop != "classic":
@@ -264,8 +266,9 @@ def _eager_loop(op, b, x0, b_is_ones, config, loop, kernels):
 
 
 # cg_solve's device-to-host reads (the eager loop's flag each iteration and its closing
-# read; the graph loop's one read a solve) and graph replays, summed over its calls
-COUNTS = {"host_reads": 0, "replays": 0}
+# read; the graph loop's one read a solve), graph replays, solves (every solver's root
+# span, ``solve_scope``: the last solve's id) and graph captures, summed over its calls
+COUNTS = {"host_reads": 0, "replays": 0, "solves": 0, "captures": 0}
 # the kernel launches that graph replays made, by wrapper name (``_launch.REPLAYED``): the
 # iterations a replay ran (k, read from the card) times the launches of one captured
 # iteration, and the condition kernel's; a wrapper's own count (``LAUNCHES`` of its module)
@@ -280,6 +283,13 @@ def reset_counts() -> None:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def solve_scope():
+    """A solve's root span (``CG_Solver``), under the next solve id: every solver opens
+    one around a solve, so the solves of ranks that run in lockstep share their ids."""
+    COUNTS["solves"] += 1
+    return profiling.scope(profiling.PHASE_SOLVER, solve=COUNTS["solves"])
 
 
 def _read(t):
@@ -427,15 +437,19 @@ class DeviceLoop:
     def _run(self, start):
         """Take a free slot, ``start(x)`` on its solution, run the loop (one replay, or on
         the host) and read (rr, <b, b>, k) in one read: (x, k, rr, <b, b>)."""
-        slot = self._slot()
-        start(slot.x)
-        if slot.graph is None:
-            self._run_host(slot.x)
-        else:
-            self._replay(slot.graph)
-            COUNTS["replays"] += 1
-        status = torch.stack([self.rr.double(), self.bb.double(), self.k.double()])
-        rr_f, bb_f, k = _read(status).tolist()  # the one read; also the sync
+        with profiling.scope(profiling.PHASE_SLOT):
+            slot = self._slot()
+        with profiling.scope(profiling.PHASE_START):
+            start(slot.x)
+        with profiling.scope(profiling.PHASE_REPLAY):
+            if slot.graph is None:
+                self._run_host(slot.x)
+            else:
+                self._replay(slot.graph)
+                COUNTS["replays"] += 1
+        with profiling.scope(profiling.PHASE_READ):
+            status = torch.stack([self.rr.double(), self.bb.double(), self.k.double()])
+            rr_f, bb_f, k = _read(status).tolist()  # the one read; also the sync
         k = int(k)
         if slot.graph is not None:
             self._count_replay(k)
@@ -557,7 +571,13 @@ class DeviceLoop:
         iteration's kernels; every captured iteration then takes the same buffers, since
         they run one after another.  The capture is set-up, not a solve: the wrappers'
         counts are put back as they were before it, warm-up included, and one captured
-        iteration's share is kept in ``per_iteration``."""
+        iteration's share is kept in ``per_iteration``.  Counted in ``COUNTS``, inside a
+        ``CG_Capture`` span."""
+        COUNTS["captures"] += 1
+        with profiling.scope(profiling.PHASE_CAPTURE):
+            return self._capture_graph(x)
+
+    def _capture_graph(self, x):
         if self.workspace is None:
             graph_kernels.preload(self.device)
             self.workspace = _launch.Workspace(self.device)

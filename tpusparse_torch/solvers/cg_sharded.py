@@ -621,7 +621,15 @@ def make_sharded_operator(grid_size: int, *, mode: str = "stencil5", planes=None
     ``matrix`` (CSR, COO or Stencil5; None synthesizes the stencil) as an ELL operand
     over the gather domain; every nonzero's column must lie within one grid row of its
     row (the halo reach, the reference's partitioned kernels' contract), else
-    ValueError.  Operators of synthesized operands are cached (``clear_caches``)."""
+    ValueError.  Operators of synthesized operands are cached (``clear_caches``).  Made
+    inside an ``Operator_Build`` span (``bench.profiling``)."""
+    with profiling.scope(profiling.PHASE_OPERATOR_BUILD):
+        return _make_sharded_operator(grid_size, mode, planes, matrix, diag, offdiag, dtype,
+                                      overlap, device, mesh_shape, shard, transport)
+
+
+def _make_sharded_operator(grid_size, mode, planes, matrix, diag, offdiag, dtype, overlap,
+                           device, mesh_shape, shard, transport):
     g = int(grid_size)
     dtype = resolve_dtype(dtype)
     device = resolve_device(device)
@@ -906,9 +914,9 @@ class MeshOperator:
             if key not in self.graphs:
                 self.graphs[key] = MeshLoop(self, loop, max_iters, tolerance, kernels, graphed)
         t0 = time.perf_counter()
-        bs = None if b is None else [sh.band_of(b) for sh in self.shards]
         try:
-            xs, k, rr, bb = self.graphs[key].solve(bs)
+            with cg.solve_scope():
+                xs, k, rr, bb = self.graphs[key].solve(b)
         except RuntimeError:
             # the per-card loop's epochs may disagree after a wait gave up, and a rank's
             # group is gone after a peer never came: make it anew
@@ -1308,24 +1316,25 @@ class MeshLoop(cg.DeviceLoop):
         return tuple(torch.empty(sh.field_shape, dtype=self.dtype, device=sh.device)
                      for sh in self.shards)
 
-    def solve(self, bs=None):
-        """One solve from b = ones (``bs`` None) or the shards' parts of b: (the shards' x
-        fields, iterations, rr, <b, b>), the last two Python floats."""
-        return self._run(lambda x: self._start(x, bs))
+    def solve(self, b=None):
+        """One solve from b = ones (None) or the whole (g, g) field b, of which the start
+        cuts each shard's part (``ShardedOperator.band_of``): (the shards' x fields,
+        iterations, rr, <b, b>), the last two Python floats."""
+        return self._run(lambda x: self._start(x, b))
 
     def _dot(self):
         return blas1.dot if self.kernels else blas1.dot_plain
 
-    def _start(self, x, bs):
+    def _start(self, x, b):
         """r0 = b, x0 = 0, <r0, r0> (each shard's K6, summed in shard order), <b, b>, tol²,
         k = 0 and the loop's first p into the state, eagerly, as the gloo ranks start."""
         dot = self._dot()
         rrs = []
         for i, sh in _by_shard(self.shards):
-            if bs is None:
+            if b is None:
                 sh.ones_b(out=self.r[i])
             else:
-                self.r[i].copy_(bs[i])
+                self.r[i].copy_(sh.band_of(b))
             x[i].zero_()
             rrs.append(dot(self.r[i], self.r[i]))
             if self.loop == "classic":
@@ -1720,16 +1729,21 @@ class CardLoop:
                                      for c in dict.fromkeys(key))
         return self._cards[key]
 
-    def solve(self, bs=None):
-        """One solve from b = ones (``bs`` None) or the shards' parts of b: (the shards' x
-        fields, iterations, rr, <b, b>), the last two Python floats."""
-        slot = self._slot()
-        self._start(slot.x, bs)
-        if slot.graph is None:
-            self._run_host(slot.x)
-        else:
-            self._replay(slot.graph)
-        return (slot.x, *self._read(slot.graph))
+    def solve(self, b=None):
+        """One solve from b = ones (None) or the whole (g, g) field b (``MeshLoop.solve``):
+        (the shards' x fields, iterations, rr, <b, b>), the last two Python floats; the
+        spans of ``cg.DeviceLoop``'s solve."""
+        with profiling.scope(profiling.PHASE_SLOT):
+            slot = self._slot()
+        with profiling.scope(profiling.PHASE_START):
+            self._start(slot.x, b)
+        with profiling.scope(profiling.PHASE_REPLAY):
+            if slot.graph is None:
+                self._run_host(slot.x)
+            else:
+                self._replay(slot.graph)
+        with profiling.scope(profiling.PHASE_READ):
+            return (slot.x, *self._read(slot.graph))
 
     def _slot(self):
         slots = self.solutions.setdefault(self.withheld, [])
@@ -1743,17 +1757,17 @@ class CardLoop:
         slots.append(slot)
         return slot
 
-    def _start(self, xs, bs):
+    def _start(self, xs, b):
         """The mesh's start (``MeshLoop._start``), eagerly: each shard's r0, x0 and
         <r0, r0> (K6), the sum in shard order, then <r0, r0>, <b, b>, tol², k = 0 and the
         previous rr into every shard's scalars."""
         rrs = []
         for i, sh in _by_shard(self.shards):
             s = self.parts[i]
-            if bs is None:
+            if b is None:
                 sh.ones_b(out=s.r)
             else:
-                s.r.copy_(bs[i])
+                s.r.copy_(sh.band_of(b))
             xs[i].zero_()
             rrs.append(blas1.dot(s.r, s.r))
             if self.loop == "classic":
@@ -2319,32 +2333,35 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
     dot = blas1.dot if kernels else blas1.dot_plain
 
     t0 = time.perf_counter()
-    r = op.ones_b() if b is None else op.band_of(b)  # x0 = 0: r0 = b
-    x = torch.zeros_like(r)
-    group = op.halo.group
-    rr = rr0 = _allsum(dot(r, r), group=group)
-    tol2 = (tolerance * tolerance) * rr0
-    k = 0
-    if recompute:
-        x, r, rr, k = _recompute_loop(op, x, r, rr, tol2, max_iters)
-    else:
-        cg_update = blas1.cg_update if kernels else blas1.cg_update_plain
-        p_update = blas1.p_update if kernels else blas1.p_update_plain
-        p = op.p_buffer()
-        p.copy_(r)  # its own buffer: K4 updates r in place while it reads p
-        while k < max_iters and bool(rr > tol2):
-            with profiling.scope(profiling.PHASE_SPMV):
-                ap, pap = op.local_spmv_dot(p)
-            with profiling.scope(profiling.PHASE_AXPY):
-                x, r, rr_local = cg_update(_on(rr / pap, op.device, op.dtype), x, r, p, ap)
-            del ap
-            rr_new = _allsum(rr_local, group=group)
-            with profiling.scope(profiling.PHASE_UPDATE_P):
-                p_update(_on(rr_new / rr, op.device, op.dtype), r, p)  # p = r + β·p
-            rr = rr_new
-            k += 1
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
+    with cg.solve_scope():
+        with profiling.scope(profiling.PHASE_START):
+            r = op.ones_b() if b is None else op.band_of(b)  # x0 = 0: r0 = b
+            x = torch.zeros_like(r)
+            group = op.halo.group
+            rr = rr0 = _allsum(dot(r, r), group=group)
+            tol2 = (tolerance * tolerance) * rr0
+        k = 0
+        if recompute:
+            x, r, rr, k = _recompute_loop(op, x, r, rr, tol2, max_iters)
+        else:
+            cg_update = blas1.cg_update if kernels else blas1.cg_update_plain
+            p_update = blas1.p_update if kernels else blas1.p_update_plain
+            p = op.p_buffer()
+            p.copy_(r)  # its own buffer: K4 updates r in place while it reads p
+            while k < max_iters and bool(rr > tol2):
+                with profiling.scope(profiling.PHASE_SPMV):
+                    ap, pap = op.local_spmv_dot(p)
+                with profiling.scope(profiling.PHASE_AXPY):
+                    x, r, rr_local = cg_update(_on(rr / pap, op.device, op.dtype), x, r, p,
+                                               ap)
+                del ap
+                rr_new = _allsum(rr_local, group=group)
+                with profiling.scope(profiling.PHASE_UPDATE_P):
+                    p_update(_on(rr_new / rr, op.device, op.dtype), r, p)  # p = r + β·p
+                rr = rr_new
+                k += 1
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
     return x, _cg_stats(k, rr, rr0, tolerance, t0)
 
 
