@@ -83,7 +83,9 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      K1 and K2 on the 4-rank band, in f32 and f64.  K3's vector body against its forced
      scalar body in turns (vector/scalar/scalar/vector) at 20480² and in the three pieces
      of every band and block shape, in f32, f64 and bf16, each beside the bound (and, in
-     phase 8, the measured ceiling).  The bf16-state instances the same way (fields bit
+     phase 8, the measured ceiling); K1's and K2's two bodies the same way at 20480² and
+     at the benchmark's 20000², f32 and f64, after holding both to the twin (p', x' and
+     r' bit for bit).  The bf16-state instances the same way (fields bit
      for bit): K3, K4-K7 and K8 (bf16 planes) at 20480², against F.conv2d in bf16,
      torch.add and torch.dot on bf16 (held to the kernel at 1e-2: the library rounds once
      where the kernel rounds each operation), K11 and the ELL kernel (against bcoo at
@@ -281,16 +283,17 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 G_BIG = 20480
+G_CELLS = 20000  # the benchmark's grid (cgbench/configs)
 G_HOST = 10240
 GRIDS = (37, 1000, 4096)
 DIAG, OFFDIAG = 5.0, -1.0
 # wrapper name -> (short name, kernel functions in the CUDA source as a regex, source, the
 # Pallas wrapper it replaces), in the order of the kernels line
 KERNELS = {
-    "spmv_stencil5_const_pupdate_dot": ("K1", "pupdate_dot_kernel",
+    "spmv_stencil5_const_pupdate_dot": ("K1", "pupdate_dot_(vec_)?kernel",
                                         "tpusparse_torch/csrc/stencil5_const.cu",
                                         "tpusparse/kernels/stencil5.py:861"),
-    "cg_const_update_recompute": ("K2", "update_recompute_kernel",
+    "cg_const_update_recompute": ("K2", "update_recompute_(vec_)?kernel",
                                   "tpusparse_torch/csrc/stencil5_const.cu",
                                   "tpusparse/kernels/stencil5.py:1014"),
     "spmv_stencil5_const": ("K3", "spmv_(vec_)?kernel",
@@ -321,10 +324,12 @@ KERNELS = {
 COND = "cg_cond"
 COND_ENTRY = ("cond", "cond_kernel", "tpusparse_torch/csrc/graph.cu",
               "tpusparse/solvers/cg.py:360 (lax.while_loop's cond; no pallas_call)")
-# K3's scalar body's share of K3's launches (stencil5.LAUNCHES): every field of the main
-# paths, the sharded runs and phase 6's shapes is aligned for the vector body, so none of
-# them may launch the scalar body
-K3_SCALAR = "spmv_stencil5_const_scalar"
+# the counts of K3's, K1's and K2's scalar bodies, by wrapper (stencil5.LAUNCHES): every
+# field of the main paths, the sharded runs and phase 6's shapes is aligned for the
+# vector bodies, so none of them may launch a scalar body
+SCALAR_BODIES = {w: f"{w}_scalar" for w in ("spmv_stencil5_const",
+                                             "spmv_stencil5_const_pupdate_dot",
+                                             "cg_const_update_recompute")}
 # the kernels each main path must launch in its own run: the recompute loop's two passes
 # and its <r0, r0>; the classic loop's SpMV with its dot, K4, K5 and <r0, r0>
 RECOMPUTE = ("spmv_stencil5_const_pupdate_dot", "cg_const_update_recompute", "dot")
@@ -721,12 +726,14 @@ def short(name) -> str:
     return KERNELS[name][0] if name in KERNELS else name
 
 
-def k3_scalar_launched(label, counts):
-    """Raise if a path launched K3's scalar body (counts: wrapper -> launches)."""
-    if counts.get(K3_SCALAR, 0):
-        raise AssertionError(f"{label}: K3's scalar body launched {counts[K3_SCALAR]} of "
-                             f"{counts['spmv_stencil5_const']} K3 launches on fields aligned "
-                             f"for the vector body")
+def scalar_launched(label, counts):
+    """Raise if a path launched the scalar body of K3, K1 or K2 (counts: wrapper ->
+    launches)."""
+    for wrapper, scalar in SCALAR_BODIES.items():
+        if counts.get(scalar, 0):
+            raise AssertionError(f"{label}: {short(wrapper)}'s scalar body launched "
+                                 f"{counts[scalar]} of {counts[wrapper]} {short(wrapper)} "
+                                 "launches on fields aligned for the vector body")
 
 
 def launch_counts(counters) -> dict:
@@ -777,13 +784,13 @@ class PathCounts:
         stray = [f"{short(n)} {n}" for n in forbid if counts.get(n, 0)]
         if stray:
             raise AssertionError(f"{label}: kernels of another path launched: {stray}")
-        k3_scalar_launched(label, counts)
+        scalar_launched(label, counts)
 
     def totals(self):
-        """{wrapper: launches summed over the paths}, K3's scalar body's and the graph
+        """{wrapper: launches summed over the paths}, the scalar bodies' and the graph
         condition kernel's too."""
         return {name: sum(c.get(name, 0) for c in self.by_path.values())
-                for name in (*KERNELS, K3_SCALAR, COND)}
+                for name in (*KERNELS, *SCALAR_BODIES.values(), COND)}
 
 
 class Compare:
@@ -867,7 +874,8 @@ def phase_build(build):
 
 def k3_counts(st5):
     """(K3 launches, of which the scalar body's)."""
-    return st5.LAUNCHES["spmv_stencil5_const"], st5.LAUNCHES[K3_SCALAR]
+    return (st5.LAUNCHES["spmv_stencil5_const"],
+            st5.LAUNCHES[SCALAR_BODIES["spmv_stencil5_const"]])
 
 
 def compare_k3_bodies(torch, st5, cmp, args, label):
@@ -1531,21 +1539,22 @@ def check_library(name, label, got, want, tol=1e-5):
         raise AssertionError(f"library call of {name} {label}: rel err {e:.3e}")
 
 
-def time_k3_bodies(torch, run, work, key, label, smi):
-    """K3's vector body against its forced scalar body on the same operands, in turns
-    (vector/scalar/scalar/vector); ``run(scalar)`` makes the call.  Prints both beside the
-    bound; returns (vector ms, scalar ms), each the better of its two."""
+def time_bodies(torch, run, work, key, label, smi, kernel="K3"):
+    """A kernel's vector body (K3's, or K1's or K2's) against its forced scalar body on the
+    same operands, in turns (vector/scalar/scalar/vector); ``run(scalar)`` makes the call.
+    Prints both beside the bound; returns (vector ms, scalar ms), each the better of its
+    two."""
     t = [_time_ms(torch, lambda sc=sc: run(sc)) for sc in (False, True, True, False)]
     vector, scalar = min(t[0], t[3]), min(t[1], t[2])
     b, by = bound(work, key)
-    print(f"[time] K3 bodies {label}: vector {vector!r} ms ({100 * b / vector:.1f}% of the "
-          f"bound), scalar {scalar!r} ms ({100 * b / scalar:.1f}%), bound {b!r} ms ({by}); "
+    print(f"[time] {kernel} bodies {label}: vector {vector!r} ms ({100 * b / vector:.1f}% "
+          f"of the bound), scalar {scalar!r} ms ({100 * b / scalar:.1f}%), bound {b!r} ms ({by}); "
           f"scalar / vector {scalar / vector:.3f} [{smi}]", flush=True)
     return vector, scalar
 
 
-def k3_entry(ms, work, key, plain_ms=None, library_ms=None):
-    """A timing entry of K3 (one body, one shape) beside its bound."""
+def body_entry(ms, work, key, plain_ms=None, library_ms=None):
+    """A timing entry of a kernel with two bodies (one body, one shape) beside its bound."""
     b, by = bound(work, key)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b,
             "bound_by": by}
@@ -1558,10 +1567,11 @@ def time_k3(torch, st5, times, x, key, label, smi):
     kw = {"diag": DIAG, "offdiag": OFFDIAG}
     work = (2 * nbytes(x), 6 * x.numel())
     e = times["spmv_stencil5_const"]
-    _vector, scalar = time_k3_bodies(
+    _vector, scalar = time_bodies(
         torch, lambda sc: st5.spmv_stencil5_const(x, _scalar_body=sc, **kw), work, key,
         label, smi)
-    e[f"scalar_{key}"] = k3_entry(scalar, work, key, e[key]["plain_ms"], e[key]["library_ms"])
+    e[f"scalar_{key}"] = body_entry(scalar, work, key, e[key]["plain_ms"],
+                                    e[key]["library_ms"])
 
 
 def phase_full_size(torch, st5, blas1, cmp, smi):
@@ -1676,6 +1686,75 @@ def phase_full_size(torch, st5, blas1, cmp, smi):
         del x, r, p, pout
     torch.cuda.empty_cache()
     return times
+
+
+def compare_recompute_bodies(torch, st5, cmp, r, p, x, label):
+    """K1 and K2 on the main paths' operands (no halo rows, β and α ≠ 0) in both bodies:
+    p', x' and r' bit for bit the twin's, the dots to tolerance, and each launch taking
+    the body it should (the vector body on these fresh fields, the scalar body forced)."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    dtype = r.dtype
+    s = torch.tensor(0.37, dtype=dtype, device=r.device)
+    pout = torch.empty_like(r)
+    pp, dp = st5.spmv_stencil5_const_pupdate_dot_plain(s, r, p, **kw)
+    for scalar in (False, True):
+        body = "scalar" if scalar else "vector"
+        before = st5.LAUNCHES[SCALAR_BODIES["spmv_stencil5_const_pupdate_dot"]]
+        pk, dk = st5.spmv_stencil5_const_pupdate_dot(s, r, p, out=pout, _scalar_body=scalar,
+                                                     **kw)
+        if st5.LAUNCHES[SCALAR_BODIES["spmv_stencil5_const_pupdate_dot"]] - before != scalar:
+            raise AssertionError(f"K1 {label}: the launch did not take the {body} body")
+        cmp.check("spmv_stencil5_const_pupdate_dot", f"{label}, {body} body", dtype,
+                  [("p'", pk, pp, "exact"), ("<p',Ap'>", dk, dp, "dot")])
+    del pp, pk
+    xp, rp, dp = st5.cg_const_update_recompute_plain(s, x.clone(), r.clone(), p, **kw)
+    for scalar in (False, True):
+        body = "scalar" if scalar else "vector"
+        before = st5.LAUNCHES[SCALAR_BODIES["cg_const_update_recompute"]]
+        xk, rk, dk = st5.cg_const_update_recompute(s, x.clone(), r.clone(), p,
+                                                   _scalar_body=scalar, **kw)
+        if st5.LAUNCHES[SCALAR_BODIES["cg_const_update_recompute"]] - before != scalar:
+            raise AssertionError(f"K2 {label}: the launch did not take the {body} body")
+        cmp.check("cg_const_update_recompute", f"{label}, {body} body", dtype,
+                  [("x'", xk, xp, "exact"), ("r'", rk, rp, "exact"), ("<r',r'>", dk, dp, "dot")])
+        del xk, rk
+
+
+def phase_full_size_recompute(torch, st5, cmp, smi, times):
+    """K1's and K2's two bodies at G_BIG² and at the benchmark's 20000², f32 and f64:
+    held to the twin (compare_recompute_bodies), then timed against each other in turns
+    beside their bounds, into ``times`` (keys "scalar_<state>" at G_BIG², "g20000_<state>"
+    and "scalar_g20000_<state>" at 20000²)."""
+    kw = {"diag": DIAG, "offdiag": OFFDIAG}
+    dev = torch.device("cuda")
+    for g in (G_BIG, G_CELLS):
+        for dtype in (torch.float32, torch.float64):
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev).manual_seed(g)
+            x, r, p = (torch.rand(g, g, generator=gen, device=dev, dtype=dtype)
+                       for _ in range(3))
+            key = dname(dtype).replace("float", "f")
+            lab = f"{g}² {dname(dtype)}"
+            compare_recompute_bodies(torch, st5, cmp, r, p, x, lab)
+            pout = torch.empty_like(r)
+            s = torch.tensor(0.37, dtype=dtype, device=dev)
+            a = torch.tensor(1e-3, dtype=dtype, device=dev)  # x and r drift slowly
+            n, f = r.numel(), nbytes(r)
+            for name, short_name, work, run in (
+                    ("spmv_stencil5_const_pupdate_dot", "K1", (3 * f, 10 * n),
+                     lambda sc: st5.spmv_stencil5_const_pupdate_dot(
+                         s, r, p, out=pout, _scalar_body=sc, **kw)),
+                    ("cg_const_update_recompute", "K2", (5 * f, 12 * n),
+                     lambda sc: st5.cg_const_update_recompute(a, x, r, p, _scalar_body=sc,
+                                                              **kw))):
+                vector, scalar = time_bodies(torch, run, work, key, lab, smi, short_name)
+                e = times[name]
+                if g == G_BIG:
+                    e[f"scalar_{key}"] = body_entry(scalar, work, key)
+                else:
+                    e[f"g{g}_{key}"] = body_entry(vector, work, key)
+                    e[f"scalar_g{g}_{key}"] = body_entry(scalar, work, key)
+            del x, r, p, pout
 
 
 def phase_full_size_bf16(torch, st5, blas1, cmp, smi, times):
@@ -1823,13 +1902,13 @@ def phase_full_size_bands(torch, st5, cmp, smi, times):
                                     f"{'scalar' if scalar else 'vector'} body", scalar)
             y = torch.empty_like(p)
             work = (2 * nbytes(p) + nbytes(hp, hn), 8 * p.numel())
-            vector, scalar = time_k3_bodies(torch, lambda sc: k3_pieces(st5, p, hp, hn, y, sc),
-                                            work, key, lab + ", three pieces", smi)
+            vector, scalar = time_bodies(torch, lambda sc: k3_pieces(st5, p, hp, hn, y, sc),
+                                         work, key, lab + ", three pieces", smi)
             plain = _time_ms(torch, lambda: st5.spmv_stencil5_const_plain(p, hp, hn,
                                                                           with_dot=True, **kw))
-            times["spmv_stencil5_const"][f"{skey}_{key}"] = k3_entry(vector, work, key, plain)
-            times["spmv_stencil5_const"][f"{skey}_scalar_{key}"] = k3_entry(scalar, work, key,
-                                                                            plain)
+            times["spmv_stencil5_const"][f"{skey}_{key}"] = body_entry(vector, work, key, plain)
+            times["spmv_stencil5_const"][f"{skey}_scalar_{key}"] = body_entry(scalar, work, key,
+                                                                             plain)
             del y
             for pdt in dict.fromkeys((dtype, torch.bfloat16)):
                 planes = rand(5, band, width).to(pdt)
@@ -2472,7 +2551,7 @@ def check_multichip(label, n, rc, path, counts_path, loop, ref_label, needs, hal
         missing += halo_missing(r, counts)
         if missing:
             raise AssertionError(f"{label} rank {r}: never launched {missing}")
-        k3_scalar_launched(f"{label} rank {r}", counts["LAUNCHES"])
+        scalar_launched(f"{label} rank {r}", counts["LAUNCHES"])
         for k, v in counts["LAUNCHES"].items():
             launches[k] = launches.get(k, 0) + v
     ref = results[ref_label]["validation"]
@@ -3718,7 +3797,7 @@ def phase_cards(torch, counters, smi):
     summary["card"] = smi
     (OUT / "chip_smoke_cards.json").write_text(json.dumps(summary, indent=1))
     totals = {name: sum(c.get(name, 0) for c in counts.by_path.values())
-              for name in (*KERNELS, K3_SCALAR, COND, *SYNC_KERNELS)}
+              for name in (*KERNELS, *SCALAR_BODIES.values(), COND, *SYNC_KERNELS)}
     print(f"[cards] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return totals, sync
 
@@ -4087,7 +4166,7 @@ def phase_rank_graph(torch, smi, one_card):
               flush=True)
     print(f"[rank graph] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {name: sum(c.get(name, 0) for c in counts.by_path.values())
-            for name in (*KERNELS, K3_SCALAR, COND, *SYNC_KERNELS)}
+            for name in (*KERNELS, *SCALAR_BODIES.values(), COND, *SYNC_KERNELS)}
 
 
 def main() -> int:
@@ -4128,6 +4207,7 @@ def main() -> int:
                                                spmv_cli)
     done(5)
     times = phase_full_size(torch, st5, blas1, cmp, smi)
+    phase_full_size_recompute(torch, st5, cmp, smi, times)
     phase_full_size_bf16(torch, st5, blas1, cmp, smi, times)
     phase_full_size_bands(torch, st5, cmp, smi, times)
     phase_full_size_generic(torch, generate, ell, dia, cmp, smi, times)
@@ -4186,8 +4266,8 @@ def main() -> int:
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": cmp.max_abs[name], "max_rel_err": cmp.max_rel[name],
                  **t["f32"]}
-        if name == "spmv_stencil5_const":
-            entry["launches_scalar_body"] = launches[K3_SCALAR]
+        if name in SCALAR_BODIES:
+            entry["launches_scalar_body"] = launches[SCALAR_BODIES[name]]
         for key, e in t.items():
             if key != "f32":
                 entry.update({f"{k}_{key}": v for k, v in e.items() if k != "bound_by"})

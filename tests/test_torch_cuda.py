@@ -26,7 +26,11 @@ twins: the ELL kernel's rectangular call and K3/K8 on one-row bands written into
 y.  K3's two bodies (the vector body, the scalar body) are each held bit for bit to the
 twin at widths 1 to 4096 and bands of 1 to 2049 rows, each launch taking the body the
 alignment rule names (``stencil5.const_vector_fits``; views off a 16-byte boundary take
-the scalar body), and the vector body's dot is one launch, repeatable bit for bit.  The
+the scalar body), and the vector body's dot is one launch, repeatable bit for bit.  K1's
+and K2's two bodies are held the same way (p', x' and r' bit for bit the twin's at widths
+2 to 1000 and bands of 1 to 129 rows, each operand's misaligned view taking the scalar
+body, one launch a dot), K1's A·p' to K3's, K10's and K2's, and a captured recompute
+solve at the benchmark's 20000² launches no scalar body.  The
 graph loop (``cg.DeviceLoop``, ``cg_solve``'s default on a card) is held to the eager loop
 (``graph=False``) bit for bit with equal iterations in every loop and dtype it runs, reads
 the device once a solve, leaves a returned x alone, keeps device memory flat over 20
@@ -200,7 +204,10 @@ def test_each_wrapper_counts_its_launches(dev):
     assert st5.LAUNCHES == {"spmv_stencil5": 1, "spmv_stencil5_pupdate": 1,
                             "spmv_stencil5_const": 2, "spmv_stencil5_const_scalar": 0,
                             "spmv_stencil5_const_pupdate_dot": 1,
-                            "cg_const_update_recompute": 1, "spmv_stencil5_const_pupdate": 1}
+                            "spmv_stencil5_const_pupdate_dot_scalar": 0,
+                            "cg_const_update_recompute": 1,
+                            "cg_const_update_recompute_scalar": 0,
+                            "spmv_stencil5_const_pupdate": 1}
     blas1.reset_launches()
     blas1.cg_update(a, x, r, p, p.clone())
     blas1.p_update(a, r, p)
@@ -318,6 +325,185 @@ def test_k3_vector_dot_is_one_launch_and_repeatable(dev):
             assert len(kernels) == len(names) and all(c == 1 for _, c in kernels), kernels
             assert all(any(f"::{n}<" in k for k, _ in kernels) for n in names), kernels
     assert all(int(t) == 0 for t in _launch._TICKETS.values())
+
+
+# K1's and K2's two bodies: widths of 1 to 16 16-byte vectors in f32 (4 to 64) and f64 (2
+# to 32), several tiles of 32 vectors (1000), and widths that are no whole number of
+# vectors (7, 37; 2 in f32), which take the scalar body
+RECOMPUTE_WIDTHS = [2, 4, 7, 8, 32, 37, 64, 1000]
+# band heights around a stack of K2's vector body (UPDATE_VEC_STACK tiles of 32 rows) and
+# of K1's (VEC_STACK[True]): 1, one short of a stack, one stack, one more
+RECOMPUTE_ROWS = (1, 63, 64, 65, 127, 128, 129)
+
+
+def _recompute_counts():
+    """(K1 launches, of which the scalar body's, K2 launches, of which the scalar body's)."""
+    return tuple(st5.LAUNCHES[n] for n in (
+        "spmv_stencil5_const_pupdate_dot", "spmv_stencil5_const_pupdate_dot_scalar",
+        "cg_const_update_recompute", "cg_const_update_recompute_scalar"))
+
+
+@pytest.mark.parametrize("g", RECOMPUTE_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_k2_bodies_match_twin_on_card(dev, g, dtype):
+    """K1 and K2 in both bodies, with and without halo rows: p', x and r bit for bit the
+    twin's, the dots within TOL of the twin's and bitwise equal over two launches, and
+    each launch taking the body the alignment rule names (fresh fields: the vector body
+    whenever g·itemsize is a multiple of 16)."""
+    gen = torch.Generator(device=dev).manual_seed(g + 24)
+    vector = g * torch.empty((), dtype=dtype).element_size() % 16 == 0
+    for rows in RECOMPUTE_ROWS:
+        x, r, p = (_randn(gen, dev, dtype, rows, g) for _ in range(3))
+        hs = (_randn(gen, dev, dtype, 1, g), _randn(gen, dev, dtype, 1, g))
+        b = torch.tensor(0.37, dtype=dtype, device=dev)
+        a = torch.tensor(-0.61, dtype=dtype, device=dev)
+        for halos in ((), hs):
+            pp, dp = st5.spmv_stencil5_const_pupdate_dot_plain(b, r, p, *halos, **KW)
+            xp, rp, rrp = st5.cg_const_update_recompute_plain(a, x.clone(), r.clone(), p,
+                                                              *halos, **KW)
+            for scalar in (False, True):
+                what = (rows, len(halos), "scalar" if scalar or not vector else "vector")
+                st5.reset_launches()
+                k1 = [st5.spmv_stencil5_const_pupdate_dot(b, r, p, *halos, _scalar_body=scalar,
+                                                          **KW) for _ in range(2)]
+                k2 = [st5.cg_const_update_recompute(a, x.clone(), r.clone(), p, *halos,
+                                                    _scalar_body=scalar, **KW)
+                      for _ in range(2)]
+                once = 0 if vector and not scalar else 2
+                assert _recompute_counts() == (2, once, 2, once), what
+                for pk, dk in k1:
+                    assert torch.equal(pk, pp) and _rel(dk, dp) <= TOL[dtype][1], what
+                for xk, rk, rrk in k2:
+                    assert torch.equal(xk, xp) and torch.equal(rk, rp), what
+                    assert _rel(rrk, rrp) <= TOL[dtype][1], what
+                assert torch.equal(k1[0][1], k1[1][1]) and torch.equal(k2[0][2], k2[1][2]), what
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_shares_a_p_with_k2_k3_and_k10_on_card(dev, dtype):
+    """K1's vector body forms the A·p' of K3, K10 and K2: its p' is K10's bit for bit, its
+    dot is K3's vector dot over p' bit for bit (the same tiles, stack and order), and K2's
+    vector body with α = -1 on x = r = 0 leaves r' = A·p', K10's y bit for bit."""
+    g, rows = 1000, 300
+    gen = torch.Generator(device=dev).manual_seed(10)
+    r, p = (_randn(gen, dev, dtype, rows, g) for _ in range(2))
+    hs = (_randn(gen, dev, dtype, 1, g), _randn(gen, dev, dtype, 1, g))
+    b = torch.tensor(0.37, dtype=dtype, device=dev)
+    st5.reset_launches()
+    pk, dk = st5.spmv_stencil5_const_pupdate_dot(b, r, p, *hs, **KW)
+    p10, y10, _ = st5.spmv_stencil5_const_pupdate(b, r, p, *hs, **KW)
+    _, d3 = st5.spmv_stencil5_const(pk, *hs, with_dot=True, **KW)
+    minus = torch.tensor(-1.0, dtype=dtype, device=dev)
+    _, ap, _ = st5.cg_const_update_recompute(minus, torch.zeros_like(pk), torch.zeros_like(pk),
+                                             pk, *hs, **KW)
+    assert _recompute_counts() == (1, 0, 1, 0)
+    assert torch.equal(pk, p10) and torch.equal(dk, d3) and torch.equal(ap, y10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_k2_misaligned_views_take_the_scalar_body_on_card(dev, dtype):
+    """A view one element into its storage of any operand K1 or K2 reads or writes fails
+    the alignment rule, and the launch takes the scalar body, adds one to its scalar count
+    and gives the twin's fields; the aligned launch adds nothing there."""
+    g, rows = 1000, 35
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, r, p, hp, hn = (_randn(gen, dev, dtype, *s)
+                       for s in ((rows, g), (rows, g), (rows, g), (1, g), (1, g)))
+    b = torch.tensor(0.37, dtype=dtype, device=dev)
+    pp, dp = st5.spmv_stencil5_const_pupdate_dot_plain(b, r, p, hp, hn, **KW)
+    xp, rp, rrp = st5.cg_const_update_recompute_plain(b, x.clone(), r.clone(), p, hp, hn, **KW)
+
+    def shifted(t):  # a copy of t one element into its own storage
+        return torch.empty(t.numel() + 1, device=dev, dtype=dtype)[1:].view(t.shape).copy_(t)
+
+    k1 = {"aligned": (r, p, hp, hn, None), "r": (shifted(r), p, hp, hn, None),
+          "p": (r, shifted(p), hp, hn, None), "halo_prev": (r, p, shifted(hp), hn, None),
+          "halo_next": (r, p, hp, shifted(hn), None),
+          "out": (r, p, hp, hn, shifted(torch.empty_like(r)))}
+    for name, (rk, pk, hpk, hnk, out) in k1.items():
+        st5.reset_launches()
+        pn, d = st5.spmv_stencil5_const_pupdate_dot(b, rk, pk, hpk, hnk, out=out, **KW)
+        fits = st5.const_vector_fits(rk, hpk, hnk, pn, fields=(pk,))
+        assert fits == (name == "aligned"), name
+        assert _recompute_counts()[:2] == (1, int(not fits)), name
+        assert torch.equal(pn, pp) and _rel(d, dp) <= TOL[dtype][1], name
+    k2 = {"aligned": (x, r, p, hp, hn), "x": (shifted(x), r, p, hp, hn),
+          "r": (x, shifted(r), p, hp, hn), "p": (x, r, shifted(p), hp, hn),
+          "halo_prev": (x, r, p, shifted(hp), hn), "halo_next": (x, r, p, hp, shifted(hn))}
+    for name, (xk, rk, pk, hpk, hnk) in k2.items():
+        xk, rk = (shifted(t) if t.data_ptr() % 16 else t.clone() for t in (xk, rk))
+        fits = st5.const_vector_fits(rk, hpk, hnk, fields=(xk, pk))
+        assert fits == (name == "aligned"), name
+        st5.reset_launches()
+        xn, rn, rr = st5.cg_const_update_recompute(b, xk, rk, pk, hpk, hnk, **KW)
+        assert _recompute_counts()[2:] == (1, int(not fits)), name
+        assert torch.equal(xn, xp) and torch.equal(rn, rp), name
+        assert _rel(rr, rrp) <= TOL[dtype][1], name
+
+
+def test_k1_k2_vector_dots_are_one_launch(dev):
+    """K1's and K2's vector bodies finish their dots in their own launch (no
+    final_sum_kernel, which the scalar bodies launch after theirs), their ticket counter
+    back at 0."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for dtype in (torch.float32, torch.float64):
+        x, r, p, r2 = (_randn(gen, dev, dtype, 2049, 4096) for _ in range(4))
+        b = torch.tensor(0.37, dtype=dtype, device=dev)
+        calls = {"pupdate_dot": lambda sc: st5.spmv_stencil5_const_pupdate_dot(
+                     b, r, p, _scalar_body=sc, **KW),
+                 "update_recompute": lambda sc: st5.cg_const_update_recompute(
+                     b, x, r2, p, _scalar_body=sc, **KW)}
+        for stem, call in calls.items():
+            for scalar, names in ((False, [f"{stem}_vec_kernel"]),
+                                  (True, [f"{stem}_kernel", "final_sum_kernel"])):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    call(scalar)
+                    torch.cuda.synchronize()
+                kernels = [(e.key, e.count) for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA]
+                assert len(kernels) == len(names) and all(c == 1 for _, c in kernels), kernels
+                assert all(any(f"::{n}<" in k for k, _ in kernels) for n in names), kernels
+    assert all(int(t) == 0 for t in _launch._TICKETS.values())
+
+
+def _twin_recompute_solve(g, dtype, dev, tol=1e-6, max_iters=1000):
+    """The recompute loop of ``cg._eager_loop`` from b = ones and x = 0 on the card,
+    every pass the plain twin's: its iteration count."""
+    r = torch.ones((g, g), dtype=dtype, device=dev)
+    x, p_prev = torch.zeros_like(r), torch.zeros_like(r)
+    rr = bb = blas1.dot_plain(r, r)
+    tol2 = tol * tol * bb
+    rr_prev, k = torch.ones_like(rr), 0
+    while k < max_iters and bool(rr > tol2):
+        beta = torch.zeros_like(rr) if k == 0 else rr / rr_prev
+        p, pap = st5.spmv_stencil5_const_pupdate_dot_plain(beta, r, p_prev, **KW)
+        x, r, rr_new = st5.cg_const_update_recompute_plain(rr / pap, x, r, p, **KW)
+        p_prev, rr_prev, rr = p, rr, rr_new
+        k += 1
+    return k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_recompute_solve_at_20000_takes_the_vector_bodies(dev, dtype):
+    """The benchmark's shape: a captured recompute solve at g = 20000 launches K1's and
+    K2's vector bodies only (their scalar counts stay 0 in its capture and its replays)
+    and converges in the iteration count of the plain twins' loop on the card."""
+    g = 20000
+    k_twin = _twin_recompute_solve(g, dtype, dev)
+    torch.cuda.empty_cache()
+    st = Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5-const", st, dtype=dtype, device=dev)
+    x, s, eager, replayed, counts = _solve_counted(op, b_is_ones=True)
+    del x
+    per = op.graphs[cg.DeviceLoop.key(op, "recompute", 1000, 1e-6)].per_iteration
+    op.free()
+    assert counts["replays"] == 1 and s.converged and s.iterations == k_twin
+    assert per == {"spmv_stencil5_const_pupdate_dot": 1, "cg_const_update_recompute": 1}
+    assert replayed["spmv_stencil5_const_pupdate_dot"] == s.iterations
+    assert not any(replayed.get(n, 0) or eager.get(n, 0)
+                   for n in ("spmv_stencil5_const_pupdate_dot_scalar",
+                             "cg_const_update_recompute_scalar"))
 
 
 def _offset_copy(t, offset):

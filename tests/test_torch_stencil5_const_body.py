@@ -73,6 +73,47 @@ def test_vector_rule_follows_shapes_and_offsets(state, g, x_offset, shifted, wan
         assert st5.const_vector_fits(x) is want
 
 
+# (kernel, state, g, which operand lies off by ``shift`` elements or None, shift) ->
+# whether its vector body takes the launch: K1 reads r and p and writes out (p'), K2 reads
+# and writes x and r and reads p, each with the halo rows
+RECOMPUTE_OPERANDS = {"K1": ("r", "p", "out", "halo_prev", "halo_next"),
+                      "K2": ("x", "r", "p", "halo_prev", "halo_next")}
+RECOMPUTE_CASES = [
+    # rows of whole 16-byte vectors: 4 f32, 2 f64 elements at the least
+    *((k, "f32", g, None, 0, g % 4 == 0) for k in RECOMPUTE_OPERANDS for g in (4, 64, 1000,
+                                                                             2, 37)),
+    *((k, "f64", g, None, 0, g % 2 == 0) for k in RECOMPUTE_OPERANDS for g in (2, 32, 37, 1)),
+    # each operand one element off a 16-byte boundary, or a whole vector in (on one again)
+    *((k, state, g, name, shift, shift * size % 16 == 0)
+      for k, names in RECOMPUTE_OPERANDS.items() for name in names
+      for state, g, size in (("f32", 8, 4), ("f64", 4, 8))
+      for shift in (1, 16 // size)),
+]
+
+
+def _recompute_fits(kernel, ops):
+    """The wrapper's rule for K1's or K2's operands (kernels/stencil5.py)."""
+    if kernel == "K1":
+        return st5.const_vector_fits(ops["r"], ops["halo_prev"], ops["halo_next"], ops["out"],
+                                     fields=(ops["p"],))
+    return st5.const_vector_fits(ops["r"], ops["halo_prev"], ops["halo_next"],
+                                 fields=(ops["x"], ops["p"]))
+
+
+@pytest.mark.parametrize("kernel,state,g,shifted,shift,want", RECOMPUTE_CASES)
+def test_recompute_vector_rule_follows_shapes_and_offsets(kernel, state, g, shifted, shift,
+                                                          want):
+    dtype = STATES[state][0]
+    ops = {name: _view(dtype, (1, g) if name.startswith("halo") else (5, g))
+           for name in RECOMPUTE_OPERANDS[kernel]}
+    if shifted is not None:
+        ops[shifted] = _view(dtype, ops[shifted].shape, shift)
+    assert _recompute_fits(kernel, ops) is want
+    if shifted is None or shifted.startswith("halo"):  # the halo rows may be absent
+        assert _recompute_fits(kernel, {**ops, "halo_prev": None, "halo_next": None}) is \
+            (want if shifted is None else True)
+
+
 @pytest.mark.parametrize("state", list(STATES))
 def test_vector_rule_refuses_what_the_kernels_cannot_read(state):
     """A transposed (non-contiguous) field or halo row, a 1-D or 3-D field, and float16."""

@@ -49,6 +49,10 @@ _SIGNATURES = {
                                                 _P, _P), ctypes.c_int) for t in ("f32", "f64")},
     **{f"tps_cg_const_update_recompute_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _P,
                                                _P, _P), ctypes.c_int) for t in ("f32", "f64")},
+    **{f"tps_{k}_vec_{t}": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _P, _P, _P, _P),
+                            ctypes.c_int)
+       for k in ("stencil5_const_pupdate_dot", "cg_const_update_recompute")
+       for t in ("f32", "f64")},
     **{f"tps_stencil5_const_pupdate_spmv_{t}": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D,
                                                  _P, _P, _P), ctypes.c_int)
        for t in ("f32", "f64")},

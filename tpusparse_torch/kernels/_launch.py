@@ -126,8 +126,8 @@ _TICKETS = {}
 
 
 def dot_tickets(like, cuda_stream):
-    """The ticket counter of the one-launch dots (K6, K3's vector body) on ``like``'s
-    device and the stream ``cuda_stream``: a zeroed int32 tensor, made at its first use and
+    """The ticket counter of the one-launch dots (K6, the vector bodies of K3, K1 and K2)
+    on ``like``'s device and the stream ``cuda_stream``: a zeroed int32 tensor, made at its first use and
     kept; the workspace's own while one is in use.  The kernel's last block resets it to
     0, so it needs no reset from the host between launches, nor in a CUDA graph; launches
     on other streams may run at the same time, so each stream has its own."""

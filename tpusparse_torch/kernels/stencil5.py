@@ -31,11 +31,14 @@ band's rows piece by piece into one y.  K9 and K10 take ``y_out=`` for their y: 
 device-resident CG loop hands every wrapper its fields, so that its captured body
 allocates nothing.
 
-K3 has two CUDA bodies (``csrc/stencil5_const.cu``): the vector body, a 16-byte vector of
-columns a thread, which finishes its dot in the same launch, and the scalar body, one
-element a thread.  ``spmv_stencil5_const`` launches the vector body whenever
-``const_vector_fits`` holds and the scalar body otherwise; ``LAUNCHES["spmv_stencil5_const"]``
-counts both, ``LAUNCHES["spmv_stencil5_const_scalar"]`` the scalar body's launches alone.
+K3, K1 and K2 have two CUDA bodies each (``csrc/stencil5_const.cu``): the vector body, a
+16-byte vector of columns a thread, which finishes its dot in the same launch, and the
+scalar body, one element a thread.  Their wrappers launch the vector body whenever
+``const_vector_fits`` holds for every operand of the launch and the scalar body otherwise;
+a wrapper's ``LAUNCHES`` entry counts both bodies, the entry ``<wrapper>_scalar`` the
+scalar body's launches alone.  The vector bodies' one-launch dots take
+the ticket counter of ``_launch.dot_tickets``: one a stream eagerly, the workspace's in a
+captured loop, whose launches run one after another on one stream.
 """
 
 from __future__ import annotations
@@ -56,17 +59,22 @@ LAUNCHES = counter((
     "spmv_stencil5_const",
     "spmv_stencil5_const_scalar",
     "spmv_stencil5_const_pupdate_dot",
+    "spmv_stencil5_const_pupdate_dot_scalar",
     "cg_const_update_recompute",
+    "cg_const_update_recompute_scalar",
     "spmv_stencil5_const_pupdate",
 ))
 
 # planes dtype -> the part of the K8/K9 entry points' suffix before the state's
 _PLANES_SUFFIX = {torch.float32: "", torch.float64: "", torch.bfloat16: "bf16_"}
-# tiles of 32 rows one block of K3's vector body takes, one under the other
-# (csrc/stencil5_const.cu), without and with the dot: a block's share of the dot (its
-# reduction, fence and ticket) costs about what streaming a tile does, so a block of the
-# dot's launch takes four; bench/k3_layouts.py times 1 to 8 (PERF.md section 6)
+# tiles of 32 rows one block of a vector body takes, one under the other
+# (csrc/stencil5_const.cu), K3's without and with its dot: a block's share of the dot (its
+# reduction, fence and ticket) costs about what streaming a tile does, so a block of a
+# dot's launch takes four (K3, K1); K2's blocks, which hold x and r besides p (two blocks
+# an SM), stream best taking two.  bench/k3_layouts.py times 1 to 8 for K3; PERF.md
+# section 6 keeps the timings of 1 to 8 for K1 and K2
 VEC_STACK = {False: 1, True: 4}
+UPDATE_VEC_STACK = 2
 
 
 def reset_launches() -> None:
@@ -229,16 +237,17 @@ def spmv_stencil5_pupdate(planes, beta, r, p, halo_prev=None, halo_next=None, *,
     return out, y, dot
 
 
-def const_vector_fits(x, halo_prev=None, halo_next=None, out=None) -> bool:
-    """Whether K3's vector body takes these operands: a contiguous 2-D field x of f32, f64 or
+def const_vector_fits(x, halo_prev=None, halo_next=None, out=None, *, fields=()) -> bool:
+    """Whether a vector body takes these operands: a contiguous 2-D field x of f32, f64 or
     bf16 whose rows are whole 16-byte vectors (g·itemsize a multiple of 16), and x, the
-    halo rows and ``out`` (each when given) contiguous and 16-byte aligned.  Then every row
-    of x and y starts on a 16-byte boundary.  A plain function of shapes, strides and
-    addresses: it holds for CPU tensors too."""
+    halo rows, ``out`` and the further ``fields`` of the launch (each when given: K1's p,
+    K2's x and p beside r) contiguous and 16-byte aligned.  Then every row of every field
+    starts on a 16-byte boundary.  A plain function of shapes, strides and addresses: it
+    holds for CPU tensors too."""
     if x.dim() != 2 or x.dtype not in SUFFIX or x.shape[1] * x.element_size() % 16:
         return False
     return all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (x, halo_prev, halo_next, out) if t is not None)
+               for t in (x, halo_prev, halo_next, out, *fields) if t is not None)
 
 
 def spmv_stencil5_const(x, halo_prev=None, halo_next=None, *, diag, offdiag,
@@ -281,12 +290,15 @@ def spmv_stencil5_const(x, halo_prev=None, halo_next=None, *, diag, offdiag,
 
 
 def spmv_stencil5_const_pupdate_dot(beta, r, p, halo_prev=None, halo_next=None, *, diag,
-                                    offdiag, out=None):
+                                    offdiag, out=None, _scalar_body=False):
     """(p', <p', A·p'>) with p' = r + β·p; A·p' is formed in registers and never stored.
 
     Replaces the Pallas kernel ``spmv_stencil5_const_pupdate_dot_pipelined``.  Unlike it,
     p' never overwrites p: pass ``out`` (a field that overlaps neither r nor p) to reuse
-    a buffer, else a new one is allocated.  Halo rows are the neighbours' p' rows."""
+    a buffer, else a new one is allocated.  Halo rows are the neighbours' p' rows.  The
+    body as in ``spmv_stencil5_const``: the vector body when ``const_vector_fits(r,
+    halo_prev, halo_next, out, fields=(p,))`` holds, else the scalar body; both give p'
+    bit for bit, each its own fixed order of the dot."""
     if r.device.type == "cpu":
         return spmv_stencil5_const_pupdate_dot_plain(beta, r, p, halo_prev, halo_next,
                                                      diag=diag, offdiag=offdiag, out=out)
@@ -296,12 +308,24 @@ def spmv_stencil5_const_pupdate_dot(beta, r, p, halo_prev=None, halo_next=None, 
     _check_halos(halo_prev, halo_next, r)
     out = _pupdate_out(out, r, p)
     beta = scalar(beta, r)
-    dot, part = dot_buffers(r, _partials(rows, g))
-    fn = getattr(_build.lib(), f"tps_stencil5_const_pupdate_dot_{SUFFIX[r.dtype]}")
-    _build.check(fn(beta.data_ptr(), r.data_ptr(), p.data_ptr(), ptr(halo_prev),
-                    ptr(halo_next), out.data_ptr(), rows, g, float(diag), float(offdiag),
-                    part.data_ptr(), dot.data_ptr(), stream(r)),
-                 "spmv_stencil5_const_pupdate_dot")
+    s = stream(r)
+    if not _scalar_body and const_vector_fits(r, halo_prev, halo_next, out, fields=(p,)):
+        stack = VEC_STACK[True]
+        dot, part = dot_buffers(r, _vec_partials(rows, g, r.element_size(), stack))
+        fn = getattr(_build.lib(), f"tps_stencil5_const_pupdate_dot_vec_{SUFFIX[r.dtype]}")
+        _build.check(fn(beta.data_ptr(), r.data_ptr(), p.data_ptr(), ptr(halo_prev),
+                        ptr(halo_next), out.data_ptr(), rows, g, stack, float(diag),
+                        float(offdiag), part.data_ptr(), dot_tickets(r, s).data_ptr(),
+                        dot.data_ptr(), s),
+                     "spmv_stencil5_const_pupdate_dot (vector body)")
+    else:
+        dot, part = dot_buffers(r, _partials(rows, g))
+        fn = getattr(_build.lib(), f"tps_stencil5_const_pupdate_dot_{SUFFIX[r.dtype]}")
+        _build.check(fn(beta.data_ptr(), r.data_ptr(), p.data_ptr(), ptr(halo_prev),
+                        ptr(halo_next), out.data_ptr(), rows, g, float(diag), float(offdiag),
+                        part.data_ptr(), dot.data_ptr(), s),
+                     "spmv_stencil5_const_pupdate_dot (scalar body)")
+        LAUNCHES["spmv_stencil5_const_pupdate_dot_scalar"] += 1
     LAUNCHES["spmv_stencil5_const_pupdate_dot"] += 1
     return out, dot
 
@@ -334,11 +358,14 @@ def spmv_stencil5_const_pupdate(beta, r, p, halo_prev=None, halo_next=None, *, d
 
 
 def cg_const_update_recompute(alpha, x, r, p, halo_prev=None, halo_next=None, *, diag,
-                              offdiag):
+                              offdiag, _scalar_body=False):
     """(x, r, <r, r>) after x += α·p and r -= α·A·p, in place; A·p is recomputed from p.
 
     Replaces the Pallas kernel ``cg_const_update_recompute_pipelined``.  Halo rows are the
-    neighbours' p rows.  p must overlap neither x nor r."""
+    neighbours' p rows.  p must overlap neither x nor r.  The body as in
+    ``spmv_stencil5_const``: the vector body when ``const_vector_fits(r, halo_prev,
+    halo_next, fields=(x, p))`` holds, else the scalar body; both give x and r bit for
+    bit, each its own fixed order of the dot."""
     if r.device.type == "cpu":
         return cg_const_update_recompute_plain(alpha, x, r, p, halo_prev, halo_next,
                                                diag=diag, offdiag=offdiag)
@@ -349,12 +376,24 @@ def cg_const_update_recompute(alpha, x, r, p, halo_prev=None, halo_next=None, *,
     check_apart({"x": x, "r": r}, {"p": p})
     _check_halos(halo_prev, halo_next, r)
     alpha = scalar(alpha, r)
-    dot, part = dot_buffers(r, _partials(rows, g))
-    fn = getattr(_build.lib(), f"tps_cg_const_update_recompute_{SUFFIX[r.dtype]}")
-    _build.check(fn(alpha.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
-                    ptr(halo_prev), ptr(halo_next), rows, g, float(diag), float(offdiag),
-                    part.data_ptr(), dot.data_ptr(), stream(r)),
-                 "cg_const_update_recompute")
+    s = stream(r)
+    if not _scalar_body and const_vector_fits(r, halo_prev, halo_next, fields=(x, p)):
+        stack = UPDATE_VEC_STACK
+        dot, part = dot_buffers(r, _vec_partials(rows, g, r.element_size(), stack))
+        fn = getattr(_build.lib(), f"tps_cg_const_update_recompute_vec_{SUFFIX[r.dtype]}")
+        _build.check(fn(alpha.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
+                        ptr(halo_prev), ptr(halo_next), rows, g, stack, float(diag),
+                        float(offdiag), part.data_ptr(), dot_tickets(r, s).data_ptr(),
+                        dot.data_ptr(), s),
+                     "cg_const_update_recompute (vector body)")
+    else:
+        dot, part = dot_buffers(r, _partials(rows, g))
+        fn = getattr(_build.lib(), f"tps_cg_const_update_recompute_{SUFFIX[r.dtype]}")
+        _build.check(fn(alpha.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
+                        ptr(halo_prev), ptr(halo_next), rows, g, float(diag), float(offdiag),
+                        part.data_ptr(), dot.data_ptr(), s),
+                     "cg_const_update_recompute (scalar body)")
+        LAUNCHES["cg_const_update_recompute_scalar"] += 1
     LAUNCHES["cg_const_update_recompute"] += 1
     return x, r, dot
 
