@@ -1,6 +1,6 @@
 """The comparison that decides ``correct``: the program's x of a solve the window ran, and
-the iteration count of every solve it ran, against the plain reference's (``reference.cg``)
-on the same b.
+the iteration count of every solve it ran, against the plain reference's
+(``reference.solve`` on the problem's ``apply``) on the same b.
 
 ``x_err`` is the largest gap between the two fields over every grid point, over the
 largest magnitude of the reference's field: max|x − x_ref| / max|x_ref|.  ``iters_gap``
@@ -18,19 +18,24 @@ import math
 
 import torch
 
-BLOCK_ROWS = 1024
+# the points compared at once: a block of whole rows, at least one
+BLOCK_POINTS = 1 << 24
 
 
 def field_gap(x: torch.Tensor, x_ref: torch.Tensor, rows: tuple | None = None) -> float:
-    """max|x − x_ref[rows]| over the field x (rows of the (g, g) reference from
-    ``rows[0]``, all of them by default), in float64, a block of rows at a time.  x may be
-    the flat (g²,) field of a generic operator."""
+    """max|x − x_ref[rows]| over the field x, in float64, a block of rows at a time.  A row
+    is what follows the first index of the reference's field, of any shape
+    (``x_ref.reshape(x_ref.shape[0], -1)``); x holds the reference's rows from
+    ``rows[0]``, all of them by default, and may be flat, as a generic operator's field
+    is."""
     lo = 0 if rows is None else rows[0]
-    x = x.reshape(-1, x_ref.shape[1])
+    ref = x_ref.reshape(x_ref.shape[0], -1)
+    x = x.reshape(-1, ref.shape[1])
+    step = max(1, BLOCK_POINTS // ref.shape[1])
     gap = 0.0
-    for i in range(0, x.shape[0], BLOCK_ROWS):
-        part = x[i:i + BLOCK_ROWS].to(torch.float64)
-        d = float((part - x_ref[lo + i:lo + i + part.shape[0]]).abs().max())
+    for i in range(0, x.shape[0], step):
+        part = x[i:i + step].to(torch.float64)
+        d = float((part - ref[lo + i:lo + i + part.shape[0]]).abs().max())
         if not math.isfinite(d):
             return math.inf
         gap = max(gap, d)

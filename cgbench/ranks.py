@@ -2,9 +2,10 @@
 sharded CG over NCCL, each rank's loop replayed from its own CUDA graph.
 
 The window drives ``tpusparse_torch.solvers.cg_sharded.cg_solve_sharded(g, b=b,
-operator=op, graph=None)`` on every rank, ``op`` from ``make_sharded_operator`` (the
-rank's row band, its halos and dots passed over the group ``dist.device_group`` picks:
-NCCL where every rank has a card of its own).
+operator=op, graph=None)`` on every rank, ``op`` from the problem's ``sharded_operator``
+(for ``lap5`` ``make_sharded_operator``: the rank's row band, its halos and dots passed
+over the group ``dist.device_group`` picks, NCCL where every rank has a card of its own);
+a problem without one runs on one card only.
 
 This process (the one that prints the result) starts the ranks (``launch``) and touches
 no card itself.  Every rank makes the whole b from the seed on its card and runs the same
@@ -17,6 +18,7 @@ those rows, so the comparison covers every row of x without moving it off the ca
 
 from __future__ import annotations
 
+import functools
 import gc
 import math
 import statistics
@@ -25,7 +27,7 @@ import time
 import torch
 import torch.distributed as tdist
 
-from . import check, inputs, launch, single, smi, trace, window
+from . import check, inputs, launch, single, smi, spec, trace, window
 from .reference import cg as reference
 
 # how long the ranks may take, from the start of the run to their last report, before
@@ -34,22 +36,23 @@ RANKS_BOUND_S = 330.0
 
 
 class RankProgram:
-    """The system under test on one rank: its band of the sharded operator."""
+    """The system under test on one rank: its band of the sharded operator.  ValueError,
+    before anything is built, for a problem without ``sharded_operator``."""
 
     def __init__(self, cell, device, dtype: str | None = None, grid: int | None = None):
+        spec.require_sharded(cell.problem_file)
         from tpusparse_torch.solvers import cg_sharded
 
         c = cell.config
-        self.g = grid or c["grid_size"]
+        problem = cell.problem()
+        self.g = problem.shape(c, grid)[0]  # the rows the bands split
         self.dtype = inputs.DTYPES[dtype or c["dtype"]]
         self.recompute = (cell.traffic["loop"] == "recompute"
                           and self.dtype != torch.bfloat16)
         self.tolerance, self.max_iters = c["tolerance"], c["max_iters"]
         self._cg = cg_sharded
         t0 = time.perf_counter()
-        self.op = cg_sharded.make_sharded_operator(
-            self.g, mode=cell.traffic["mode"], diag=c["diag"], offdiag=c["offdiag"],
-            dtype=self.dtype, device=device)
+        self.op = problem.sharded_operator(c, grid, cell.traffic["mode"], self.dtype, device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.build_s = time.perf_counter() - t0
@@ -57,7 +60,7 @@ class RankProgram:
         self.rows = (lo, min(lo + self.op.band, self.g))  # the band's grid rows, no pad
 
     def solve(self, b):
-        """One solve of the whole (g, g) b: (this rank's band of x, CGStats)."""
+        """One solve of the whole b: (this rank's band of x, CGStats)."""
         return self._cg.cg_solve_sharded(self.g, b=b, operator=self.op,
                                          tolerance=self.tolerance, max_iters=self.max_iters,
                                          recompute_ap=self.recompute, graph=None)
@@ -79,13 +82,14 @@ def rank_run(r, dev, cell, seed, seconds, traced, t_start, grid, wrap):
     from . import harness
 
     c, t = cell.config, cell.traffic
-    g = grid or c["grid_size"]
+    problem = cell.problem()
+    shape = problem.shape(c, grid)
     stamps = {"imports and the group": time.time()}
     if traced:
         trace.prime(dev)
-    b = inputs.right_hand_side(g, seed, inputs.DTYPES[c["dtype"]], dev, t["b"])
+    b = inputs.right_hand_side(shape, seed, inputs.DTYPES[c["dtype"]], dev, t["b"])
     stamps["b"] = time.time()
-    prog = RankProgram(cell, dev, grid=g)
+    prog = RankProgram(cell, dev, grid=grid)
     build_s, rows = prog.build_s, prog.rows
     stamps["operator"] = time.time()
 
@@ -117,7 +121,8 @@ def rank_run(r, dev, cell, seed, seconds, traced, t_start, grid, wrap):
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    x_ref, ref_iters = reference.cg(b, c["diag"], c["offdiag"], c["tolerance"], c["max_iters"])
+    x_ref, ref_iters = reference.solve(b, functools.partial(problem.apply, config=c),
+                                       c["tolerance"], c["max_iters"])
     return {
         "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "setup_s": opened - t_start,
@@ -137,7 +142,7 @@ def rank_run(r, dev, cell, seed, seconds, traced, t_start, grid, wrap):
         "scale": check.scale(x_ref),
         "traces": traces,
         "memory_peak_bytes": peak,
-        "points": (rows[1] - rows[0]) * g,
+        "points": (rows[1] - rows[0]) * math.prod(shape[1:]),
         "leaked": harness.leaked(),
     }
 

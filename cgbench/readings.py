@@ -13,6 +13,7 @@ reading.  Needs the cell's cards, as a run does.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -25,16 +26,19 @@ from .reference import cg as reference
 DEADLINE_S = 3000.0
 
 
-def _readings(prog, cell, seeds, dev, g, rows=None) -> list:
+def _readings(prog, cell, seeds, dev, grid, rows=None) -> list:
     """[(seed, max|x − x_ref| over the field or the band, max|x_ref|, iterations, the
     reference's iterations)] for each seed."""
     c = cell.config
+    problem = cell.problem()
+    shape = problem.shape(c, grid)
+    apply = functools.partial(problem.apply, config=c)
     out = []
     for seed in seeds:
-        b = inputs.right_hand_side(g, seed, inputs.DTYPES[c["dtype"]], dev, cell.traffic["b"])
+        b = inputs.right_hand_side(shape, seed, inputs.DTYPES[c["dtype"]], dev,
+                                   cell.traffic["b"])
         x, stats = prog.solve(b)
-        x_ref, ref_iters = reference.cg(b, c["diag"], c["offdiag"], c["tolerance"],
-                                        c["max_iters"])
+        x_ref, ref_iters = reference.solve(b, apply, c["tolerance"], c["max_iters"])
         part = x if rows is None else x[:rows[1] - rows[0]]
         out.append((seed, check.field_gap(part, x_ref, rows), check.scale(x_ref),
                     stats.iterations, ref_iters))
@@ -45,14 +49,13 @@ def _readings(prog, cell, seeds, dev, g, rows=None) -> list:
 def rank_readings(r, dev, cell, seeds, dtype, grid):
     """A rank's readings (``collect``)."""
     prog = ranks.RankProgram(cell, dev, dtype=dtype, grid=grid)
-    return _readings(prog, cell, seeds, dev, prog.g, prog.rows)
+    return _readings(prog, cell, seeds, dev, grid, prog.rows)
 
 
 def collect(cell, seeds, dtype: str | None = None, device: str = "cuda",
             grid: int | None = None) -> list:
     """[{"seed", "x_err", "iterations", "ref_iterations"}] of the program in ``dtype``
     (the configuration's by default) on each seed."""
-    g = grid or cell.config["grid_size"]
     if cell.traffic["ranks"] > 1:
         started = launch.Ranks("cgbench.readings:rank_readings", cell.traffic["ranks"],
                                (cell, seeds, dtype, grid), device)
@@ -66,7 +69,8 @@ def collect(cell, seeds, dtype: str | None = None, device: str = "cuda",
                 for i, (s, _, sc, k, kr) in enumerate(every[0])]
     else:
         dev = torch.device(device)
-        rows = _readings(single.Program(cell, dev, dtype=dtype, grid=g), cell, seeds, dev, g)
+        rows = _readings(single.Program(cell, dev, dtype=dtype, grid=grid), cell, seeds, dev,
+                         grid)
     return [{"seed": s, "x_err": gap / sc, "iterations": k, "ref_iterations": kr}
             for s, gap, sc, k, kr in rows]
 

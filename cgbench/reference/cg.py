@@ -1,6 +1,8 @@
-"""Conjugate Gradient on the 5-point stencil, written out from its definition.
+"""Conjugate Gradient, written out from its definition, and the 5-point stencil it runs on
+by default.
 
-A is the g×g grid's 5-point stencil with Dirichlet edges: (A·x)[i, j] = diag·x[i, j] +
+``solve`` takes A as a function; ``cg`` is ``solve`` on the 5-point stencil.  That A is the
+g×g grid's 5-point stencil with Dirichlet edges: (A·x)[i, j] = diag·x[i, j] +
 offdiag·(x[i−1, j] + x[i+1, j] + x[i, j−1] + x[i, j+1]), a neighbour off the grid
 counting 0.  The solve is the textbook CG from x0 = 0 that the program states:
 
@@ -35,6 +37,15 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> float:
 def cg(b: torch.Tensor, diag: float, offdiag: float, tol: float,
        max_iters: int) -> tuple[torch.Tensor, int]:
     """(x, iterations) of the stencil's CG on the (g, g) right-hand side b, in float64."""
+    def apply(x, out=None):
+        return stencil_apply(x, diag, offdiag, out=out)
+
+    return solve(b, apply, tol, max_iters)
+
+
+def solve(b: torch.Tensor, apply, tol: float, max_iters: int) -> tuple[torch.Tensor, int]:
+    """(x, iterations) of CG on the right-hand side b, a field of any shape, in float64:
+    ``apply(x, out=y)`` writes A·x for a float64 field x of b's shape into y."""
     r = b.to(torch.float64, copy=True)
     x = torch.zeros_like(r)
     p = r.clone()
@@ -43,7 +54,7 @@ def cg(b: torch.Tensor, diag: float, offdiag: float, tol: float,
     tol2 = tol * tol * rr
     k = 0
     while k < max_iters and rr > tol2:
-        stencil_apply(p, diag, offdiag, out=ap)
+        apply(p, out=ap)
         alpha = rr / _dot(p, ap)
         x.add_(p, alpha=alpha)
         r.add_(ap, alpha=-alpha)

@@ -1,13 +1,16 @@
-"""A cell on one card: the program's single-device CG on the configuration's grid.
+"""A cell on one card: the program's single-device CG on the configuration's problem.
 
 The window drives ``tpusparse_torch.solvers.cg.cg_solve(op, b, graph=None)`` with ``op``
-from ``tpusparse_torch.ops.get_operator(mode, Stencil5(g, None, (diag, offdiag)), dtype,
-device)``: the planes-free stencil, whose operands the program makes on the device.
+from ``tpusparse_torch.ops.get_operator(mode, operand, dtype, device)``, ``operand`` the
+problem's (``problems/<name>.py``; for ``lap5`` the planes-free stencil, whose operands
+the program makes on the device).
 """
 
 from __future__ import annotations
 
+import functools
 import gc
+import math
 import time
 
 import torch
@@ -32,12 +35,11 @@ def _phases(t_start, stamps, opened) -> dict:
 
 
 class Program:
-    """The system under test for one cell: its operator, built at the configuration's
-    grid in ``dtype`` (the configuration's own unless a control asks for a lower one)."""
+    """The system under test for one cell: its operator, built from the configuration's
+    problem in ``dtype`` (the configuration's own unless a control asks for a lower one)."""
 
     def __init__(self, cell, device, dtype: str | None = None, grid: int | None = None):
         from tpusparse_torch import ops
-        from tpusparse_torch.formats import Stencil5
         from tpusparse_torch.solvers import cg
 
         c = cell.config
@@ -47,16 +49,16 @@ class Program:
                           and self.dtype != torch.bfloat16)
         self.config = cg.CGConfig(max_iters=c["max_iters"], tolerance=c["tolerance"])
         self._cg = cg
-        g = grid or c["grid_size"]
+        problem = cell.problem()
         t0 = time.perf_counter()
-        self.op = ops.get_operator(cell.traffic["mode"],
-                                   Stencil5(g, None, (c["diag"], c["offdiag"])),
+        self.op = ops.get_operator(cell.traffic["mode"], problem.operand(c, grid),
                                    self.dtype, device)
         _sync(device)
         self.build_s = time.perf_counter() - t0
 
     def solve(self, b):
-        """One solve of b, a (g, g) field on the operator's device: (x, CGStats)."""
+        """One solve of b, a field of the problem's shape on the operator's device: (x,
+        CGStats)."""
         return self._cg.cg_solve(self.op, b.reshape(self.op.field_shape),
                                  config=self.config, recompute_ap=self.recompute,
                                  graph=None)
@@ -73,14 +75,15 @@ def run(cell, seed: int, seconds: float, traced: bool, t_start: float, device="c
     Returns the run's record, the fields ``harness.result`` reads."""
     dev = torch.device(device)
     c, t = cell.config, cell.traffic
-    g = grid or c["grid_size"]
+    problem = cell.problem()
+    shape = problem.shape(c, grid)
     stamps = {"imports": time.time()}
     if traced:
         trace.prime(dev)
-    b = inputs.right_hand_side(g, seed, inputs.DTYPES[c["dtype"]], dev, t["b"])
+    b = inputs.right_hand_side(shape, seed, inputs.DTYPES[c["dtype"]], dev, t["b"])
     _sync(dev)
     stamps["b"] = time.time()
-    prog = Program(cell, dev, grid=g)
+    prog = Program(cell, dev, grid=grid)
     build_s = prog.build_s
     stamps["operator"] = time.time()
 
@@ -108,7 +111,8 @@ def run(cell, seed: int, seconds: float, traced: bool, t_start: float, device="c
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    x_ref, ref_iters = reference.cg(b, c["diag"], c["offdiag"], c["tolerance"], c["max_iters"])
+    x_ref, ref_iters = reference.solve(b, functools.partial(problem.apply, config=c),
+                                       c["tolerance"], c["max_iters"])
     return {
         "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "setup_s": opened - t_start,
@@ -127,6 +131,6 @@ def run(cell, seed: int, seconds: float, traced: bool, t_start: float, device="c
         "scale": check.scale(x_ref),
         "traces": traces,
         "memory_peak_bytes": peak,
-        "points": [g * g],
+        "points": [math.prod(shape)],
         "smi": smi.within(samples, opened, closed),
     }

@@ -39,6 +39,8 @@ def test_a_dry_import_loads_neither():
             "for p in sorted(spec.HERE.rglob('*.py')):\n"
             "    if p.parent.name == 'metrics':\n"
             "        spec.reader(p.stem)\n"
+            "    elif p.parent.name == 'problems':\n"
+            "        spec.problem(p.stem)\n"
             "    elif p.name != 'run.py':\n"
             "        rel = p.relative_to(spec.ROOT).with_suffix('')\n"
             "        importlib.import_module('.'.join(rel.parts).removesuffix('.__init__'))\n"

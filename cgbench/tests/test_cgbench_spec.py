@@ -105,6 +105,7 @@ def test_every_workload_resolves_by_name(workload):
     assert cell.config["name"] == entry["config"]
     assert cell.traffic["name"] == entry["traffic"]
     assert cell.chips == max(1, cell.traffic["ranks"])
+    assert cell.problem_file.is_file()
     e2e = [m["name"] for m in cell.end_to_end]
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
     for m in cell.per_layer:
