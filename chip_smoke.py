@@ -252,6 +252,18 @@ for CUDA; it imports no JAX.  Phases, one line of output or more each:
      their own at 20480²: one band a rank in stencil5 f64 and const f32 recompute, and the
      2 x 2 blocks in stencil5 f64, each from the graph a rank against the eager NCCL ranks
      with the same checks.  The phase prints the card count and the legs it ran.
+ 18. (run after phase 17) HPCG's 27-point problem (formats.Stencil27, diag 26, offdiag
+     -1) at STENCIL27_SIDE³ f64 through ops.get_operator("csr", ...), recording the
+     program's spans: the Stencil27_Build span inside Operator_Build with its attributes,
+     the build's memory peak over the operand (at most two f64 fields),
+     the ELL kernel at width 27 against its twin (y bit for bit, the dot to 1e-12) and
+     timed against its 340 B a row, then HPCG's CG set (50 iterations, tolerance 0) twice
+     from the graph loop, x bit for bit the eager loop's; the kernel's width-27 launches,
+     eager and replayed, are printed and must be every SpMV's.  Then the benchmark's
+     shape, STENCIL27_MAIN_SIDE³ (a 43.5 GB operand, slot indices k·n + i past 2^31 from
+     slot 16 on): the build's peak and span again, one launch of the kernel against its
+     twin run over blocks of STENCIL27_BLOCK_ROWS rows (y bit for bit, the dot to 1e-12),
+     and the kernel timed there.
 
 Protocol cuts to keep the run short (none on a median a gate reads): phase 5's CG runs
 other than the two phase 13's headline gate compares with take a median of 3 after one
@@ -266,7 +278,7 @@ the graph's condition kernel (csrc/graph.cu, which ports no Pallas kernel) to it
 and times it.
 
 Any failure raises and the exit code is non-zero.  The last lines are the kernels' JSON
-record (launches summed over phases 5, 9, 10 and 12-17; the condition kernel's entry and
+record (launches summed over phases 5, 9, 10 and 12-18; the condition kernel's entry and
 the three sync kernels' last: like it they port no Pallas kernel) and then {"ok": true,
 "device": {...}}.
 Exports go to chiprun_out/.
@@ -533,6 +545,11 @@ TABLE_MODES = ("stencil5", "stencil5-bf16c", "stencil5-const", "csr", "bcoo")
 # it must launch (cg: the classic loop K3 K4 K5 K6, the recompute loop K1 K2 K6, the bf16c
 # companion K8 K4 K5 K6, each solve a graph replay with the condition kernel; spmv: K8)
 HEADLINE_CHILD = "--headline-child"
+# phase 18: HPCG's 27-point problem, STENCIL27_SIDE³ rows (16.8M; a 1.81 GB f64 operand)
+STENCIL27_SIDE = 256
+STENCIL27_MAIN_SIDE = 512  # the benchmark's (cgbench/configs/hpcg27-512-f64.json)
+STENCIL27_BLOCK_ROWS = 1 << 24  # the twin's rows a pass at the main side
+STENCIL27_ITERS = 50  # HPCG's CG set, tolerance 0
 HEADLINE_DIR = OUT / "headline"
 HEADLINE_RUNS = {"cg": RECOMPUTE + ("spmv_stencil5_const", "cg_update", "p_update",
                                     "spmv_stencil5", COND),
@@ -3126,6 +3143,8 @@ def mesh_per_iteration(shape, mode, stepped):
             "csr": "spmv_ell"}[mode]
     sides = nr * (2 * nc - 2)  # the blocks' side columns that have a neighbour
     launches = {spmv: (1 if mode == "csr" else 3) * n, "cg_update": n, "p_update": n}
+    if mode == "csr":  # the ELL kernel's count at the stencil's width
+        launches["spmv_ell_w5"] = n
     if sides and not stepped:  # each side column's term of <p, A·p> (K6)
         launches["dot"] = sides
     if nr > 1:
@@ -4169,6 +4188,120 @@ def phase_rank_graph(torch, smi, one_card):
             for name in (*KERNELS, *SCALAR_BODIES.values(), COND, *SYNC_KERNELS)}
 
 
+def build_stencil27(torch, side):
+    """The 27-point operator at side³ f64 through ops.get_operator("csr", ...), its
+    Stencil27_Build span inside Operator_Build checked and its peak over the operand held
+    to two f64 fields."""
+    from tpusparse_torch import formats, ops
+    from tpusparse_torch.bench import profiling
+
+    st = formats.Stencil27(side, side, side, (26.0, -1.0))
+    n = st.num_rows
+    profiling.reset()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profiling.recording():
+        op = ops.get_operator("csr", st, torch.float64, "cuda")
+        torch.cuda.synchronize()
+    over = torch.cuda.max_memory_allocated() - before - 27 * n * 12
+    if over > 2 * n * 8:
+        raise AssertionError(f"stencil27: the build's peak is {over} B over the operand, "
+                             f"more than two f64 fields ({2 * n * 8} B)")
+    spans = {sp.name: sp for sp in profiling.spans()}
+    profiling.reset()
+    build, whole = spans[profiling.PHASE_STENCIL27_BUILD], spans[profiling.PHASE_OPERATOR_BUILD]
+    want = {"nx": side, "ny": side, "nz": side, "width": 27, "slots": 27 * n,
+            "bytes": 27 * n * 12}
+    if build.attrs != want \
+            or not whole.start_ns <= build.start_ns <= build.end_ns <= whole.end_ns:
+        raise AssertionError(f"stencil27: span {build} inside {whole}, want attrs {want}")
+    print(f"[stencil27] {side}³: {profiling.PHASE_STENCIL27_BUILD} "
+          f"{(build.end_ns - build.start_ns) / 1e6:.3f} ms {build.attrs} inside "
+          f"{profiling.PHASE_OPERATOR_BUILD} {(whole.end_ns - whole.start_ns) / 1e6:.3f} ms; "
+          f"nnz {op.nnz}; peak {over} B over the operand (bound {2 * n * 8})", flush=True)
+    return op
+
+
+def time_k12_width27(torch, ell, vals, cols, x, side, smi):
+    out = torch.empty_like(x)
+    ms = _time_ms(torch, lambda: ell.spmv_ell(vals, cols, x, out=out), n=20)
+    least = 340 * x.numel() / HBM_BYTES_PER_S * 1e3
+    print(f"[time] K12 width 27 at {side}³ f64: {ms!r} ms, bound {least!r} ms (340 B a row), "
+          f"{100 * least / ms:.1f}% [{smi}]", flush=True)
+
+
+def phase_stencil27(torch, cmp, smi) -> dict:
+    """Phase 18 (module docstring); returns {wrapper: launches} of its solves."""
+    from tpusparse_torch.kernels import blas1, ell
+    from tpusparse_torch.solvers import cg
+
+    side, f64 = STENCIL27_SIDE, torch.float64
+    op = build_stencil27(torch, side)
+    vals, cols = op.operand["vals"], op.operand["cols"]
+    x = torch.randn(op.num_rows, generator=torch.Generator(device="cuda").manual_seed(27),
+                    dtype=f64, device="cuda")
+    y, d = ell.spmv_ell(vals, cols, x, with_dot=True)
+    yp, dp = ell.spmv_ell_plain(vals, cols, x, with_dot=True)
+    cmp.check("spmv_ell", f"HPCG 27-point {side}³ f64, width 27", f64,
+              [("y", y, yp, "exact"), ("dot", d, dp, "dot")])
+    del y, yp, dp
+    time_k12_width27(torch, ell, vals, cols, x, side, smi)
+    b = x
+    config = cg.CGConfig(max_iters=STENCIL27_ITERS, tolerance=0.0)
+    x_e, s_e = cg.cg_solve(op, b, config=config, graph=False)
+    for c in (ell, blas1, cg):
+        c.reset_launches()
+    xs = []
+    for _ in range(2):  # a capture, then a replay of the same slot
+        x_g, s_g = cg.cg_solve(op, b, config=config)
+        if not (s_g.converged and s_g.iterations == STENCIL27_ITERS
+                and torch.equal(x_g, x_e)):
+            raise AssertionError(f"stencil27: graph solve {s_g} against eager {s_e}, x "
+                                 f"equal {torch.equal(x_g, x_e)}")
+        xs.append(float(x_g.sum()))
+        del x_g
+    counts = launch_counts((ell, blas1, cg))
+    replayed = dict(cg.LAUNCHES)
+    print(f"[launches] stencil27 {side}³ two CG sets: K12 width-27 "
+          f"{counts.get('spmv_ell_w27', 0)} ({replayed.get('spmv_ell_w27', 0)} replayed) of "
+          f"{counts.get('spmv_ell', 0)} K12 launches; {counts}", flush=True)
+    if not counts.get("spmv_ell_w27") == counts.get("spmv_ell") == 2 * STENCIL27_ITERS:
+        raise AssertionError(f"stencil27: K12 launches {counts}, want "
+                             f"{2 * STENCIL27_ITERS} at width 27")
+    op.free()
+    del op, vals, cols, x, b, x_e
+    torch.cuda.empty_cache()
+    compare_stencil27_main(torch, cmp, smi, ell)
+    return counts
+
+
+def compare_stencil27_main(torch, cmp, smi, ell):
+    """K12 at the benchmark's shape, where a slot's index k·n + i passes 2^31: one launch
+    against its twin run over row blocks (the twin's gathers in one pass would stage
+    (27, n) f64 beside the operand), then timed."""
+    side, f64 = STENCIL27_MAIN_SIDE, torch.float64
+    op = build_stencil27(torch, side)
+    vals, cols = op.operand["vals"], op.operand["cols"]
+    n = op.num_rows
+    x = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(512), dtype=f64,
+                    device="cuda")
+    y, d = ell.spmv_ell(vals, cols, x, with_dot=True)
+    yp, dp = torch.empty_like(x), torch.zeros((), dtype=f64, device="cuda")
+    for a in range(0, n, STENCIL27_BLOCK_ROWS):
+        z = min(a + STENCIL27_BLOCK_ROWS, n)
+        _, part = ell.spmv_ell_plain(vals[:, a:z], cols[:, a:z], x, with_dot=True,
+                                     dot_offset=a, out=yp[a:z])
+        dp += part
+    cmp.check("spmv_ell", f"HPCG 27-point {side}³ f64, width 27, slot index past 2^31",
+              f64, [("y", y, yp, "exact"), ("dot", d, dp, "dot")])
+    del y, yp, dp
+    time_k12_width27(torch, ell, vals, cols, x, side, smi)
+    op.free()
+    del op, vals, cols, x
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4221,19 +4354,19 @@ def main() -> int:
                   splits, times, smi)
     sharded, later = phase_sharded(torch, results, smi)
     for name, count in sharded.items():
-        launches[name] += count
+        launches[name] = launches.get(name, 0) + count
     for name, count in phase_mesh2d(results, smi, later["mesh2d"]).items():
-        launches[name] += count
+        launches[name] = launches.get(name, 0) + count
     done("11, 8-10")
     for name, count in phase_scripts(torch, (st5, blas1, ell, dia), smi).items():
-        launches[name] += count
+        launches[name] = launches.get(name, 0) + count
     done(12)
     for name, count in phase_entry(torch, (st5, blas1, ell, dia), results, cmp, smi).items():
-        launches[name] += count
+        launches[name] = launches.get(name, 0) + count
     done(13)
     for name, count in phase_mesh(torch, (st5, blas1, ell, dia), results, cmp, smi,
                                   splits, later["mesh_x"]).items():
-        launches[name] += count
+        launches[name] = launches.get(name, 0) + count
     done(14)
     cards, sync = phase_cards(torch, (st5, blas1, ell, dia), smi)
     for name, count in cards.items():
@@ -4246,6 +4379,9 @@ def main() -> int:
     for name, count in phase_rank_graph(torch, smi, later["nccl_graph"]).items():
         launches[name] = launches.get(name, 0) + count
     done(17)
+    for name, count in phase_stencil27(torch, cmp, smi).items():
+        launches[name] = launches.get(name, 0) + count
+    done(18)
     for label, res in results.items():
         print(f"[solve] {label} {G_BIG}²: median {res['timing']['total_median_ms']!r} ms, "
               f"{res['convergence']['iterations']} iterations, "

@@ -74,6 +74,32 @@ def test_cli_refuses_what_is_not_ported(capsys):
     assert cg_solver.main(["gen:8", "--platform=cpu", "--mode=csr", "--loop=recompute"]) == 2
 
 
+@pytest.mark.parametrize("spec,shape", [("gen27:6", (6, 6, 6)), ("gen27:4x5x3", (4, 5, 3))])
+def test_cli_solves_hpcgs_27_point_problem(tmp_path, capsys, spec, shape):
+    """``gen27:<n>`` and ``gen27:<nx>x<ny>x<nz>``: HPCG's matrix (diag 26, offdiag −1) in
+    mode csr, on the ELL twin here; Sum(x) and Norm2(x) of A·x = ones against a dense
+    solve of the matrix written from its definition."""
+    from tpusparse_torch.formats import Stencil27, stencil27_to_csr
+
+    rc, port = _run(cg_solver.main, tmp_path, "gen27",
+                    [spec, "--mode=csr", "--platform=cpu", "--dtype=f64", "--runs=3",
+                     "--warmup=0", "--tol=1e-12"])
+    st = Stencil27(*shape)
+    x = np.linalg.solve(stencil27_to_csr(st).to_dense(), np.ones(st.num_rows))
+    assert rc == 0 and port["convergence"]["converged"]
+    assert port["matrix"]["rows"] == st.num_rows and port["matrix"]["nnz"] == st.nnz
+    assert port["matrix"]["name"] == "stencil27-{}x{}x{}".format(*shape)
+    np.testing.assert_allclose(port["validation"]["solution_sum"], x.sum(), rtol=1e-10)
+    np.testing.assert_allclose(port["validation"]["solution_norm"], np.linalg.norm(x),
+                               rtol=1e-10)
+    # the stencil modes and dia take no 27-point stencil
+    for mode in ("stencil5", "dia"):
+        assert cg_solver.main([spec, f"--mode={mode}", "--platform=cpu"]) == 2
+    assert "does not take the 27-point stencil" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="gen27"):
+        cg_solver.main(["gen27:4x5", "--mode=csr", "--platform=cpu"])
+
+
 def test_spmv_bench_checksums_agree(tmp_path, capsys):
     """y = A·ones through K8's twin (planes in f32 and in bf16) and K3's: the analytic
     checksums, in every mode."""

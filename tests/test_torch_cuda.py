@@ -725,7 +725,7 @@ def test_generic_wrappers_count_and_check(dev):
     ell.spmv_ell_plain(vals, cols, x)  # twins do not count
     assert torch.equal(dia.spmv_dia(data, offsets, x), x)
     dia.spmv_dia_plain(data, offsets, x)
-    assert ell.LAUNCHES == {"spmv_ell": 2} and dia.LAUNCHES == {"spmv_dia": 1}
+    assert ell.LAUNCHES == {"spmv_ell": 2, "spmv_ell_w1": 2} and dia.LAUNCHES == {"spmv_dia": 1}
     with pytest.raises(ValueError, match="int32"):
         ell.spmv_ell(vals, cols.long(), x)
     with pytest.raises(ValueError, match="int64"):
@@ -824,6 +824,63 @@ def test_scopes_reach_the_profiler(dev, tmp_path):
         assert any(kernel in n for n in names), kernel
 
 
+@pytest.mark.parametrize("shape", [(3, 5, 7), (64, 64, 64), (130, 130, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_at_width_27_matches_twin_on_card(dev, shape, dtype):
+    """The ELL kernel on HPCG's 27-point operand made on the card: y bit for bit the
+    twin's (and, up to 64³, the host pack's through the twin), its dot within the dot
+    tolerance, each launch counted at width 27 (130³: 2,197,000 rows, the last block
+    partial)."""
+    vals, cols = generate.make_stencil27_ell_device(*shape, dtype=dtype, device=dev)
+    n = vals.shape[1]
+    x = _randn(torch.Generator(device=dev).manual_seed(n), dev, dtype, n)
+    ell.reset_launches()
+    y, d = ell.spmv_ell(vals, cols, x, with_dot=True)
+    yp, dp = ell.spmv_ell_plain(vals, cols, x, with_dot=True)
+    assert torch.equal(y, yp) and torch.equal(ell.spmv_ell(vals, cols, x), yp)
+    assert _rel(d, dp) <= TOL[dtype][1]
+    assert ell.LAUNCHES == {"spmv_ell": 2, "spmv_ell_w27": 2}
+    if n <= 64 ** 3:
+        host = formats.csr_to_ell(formats.stencil27_to_csr(formats.Stencil27(*shape)))
+        assert torch.equal(ell.spmv_ell_plain(*convert.ell_from_numpy(
+            host.col, host.val, dtype, dev), x), y)
+
+
+def test_stencil27_generator_stages_nothing_on_card(dev):
+    """At 256³ (16.8M rows, a 1.81 GB f64 operand) the device build's peak over what it
+    returns stays within two f64 fields (at 512³ the bound is 2.1 GB beside 43.5 GB)."""
+    side = 256
+    n = side ** 3
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vals, cols = generate.make_stencil27_ell_device(side, side, side, dtype=torch.float64,
+                                                    device=dev)
+    torch.cuda.synchronize(dev)
+    operand = vals.numel() * vals.element_size() + cols.numel() * cols.element_size()
+    assert operand == 27 * n * 12
+    assert torch.cuda.max_memory_allocated(dev) - before <= operand + 2 * n * 8
+    assert int(torch.count_nonzero(vals)) == formats.Stencil27(side, side, side).nnz
+
+
+def test_stencil27_graph_solve_counts_width_27_on_card(dev):
+    """CG through ``get_operator("csr", Stencil27(...))`` at 64³, HPCG's set of 50
+    iterations at tolerance 0: the graph loop's x bit for bit the eager loop's, both
+    converged after 50, and every replayed SpMV counted at width 27."""
+    op = ops.get_operator("csr", formats.Stencil27(64, 64, 64), torch.float64, dev)
+    b = _randn(torch.Generator(device=dev).manual_seed(27), dev, torch.float64, 64 ** 3)
+    config = cg.CGConfig(max_iters=50, tolerance=0.0)
+    x_e, s_e, eager_e, _, _ = _solve_counted(op, b, graph=False, config=config)
+    x, s, _, replayed, counts = _solve_counted(op, b, config=config)
+    assert s_e.iterations == s.iterations == 50 and s_e.converged and s.converged
+    assert torch.equal(x, x_e)
+    assert eager_e["spmv_ell_w27"] == eager_e["spmv_ell"] == 50
+    assert replayed["spmv_ell_w27"] == replayed["spmv_ell"] == 50
+    assert counts["replays"] == 1
+    op.free()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_rectangular_ell_matches_twin_on_card(dev, dtype):
     """The ELL kernel over a gather domain: a band of rows [lo, hi) of the g = 37 stencil,
@@ -838,7 +895,7 @@ def test_rectangular_ell_matches_twin_on_card(dev, dtype):
     yp, dp = ell.spmv_ell_plain(vals, cols, dom, with_dot=True, dot_offset=g)
     assert y.shape == ((hi - lo) * g,) and torch.equal(y, yp)
     assert _rel(d, dp) <= TOL[dtype][1]
-    assert ell.LAUNCHES == {"spmv_ell": 1}
+    assert ell.LAUNCHES == {"spmv_ell": 1, "spmv_ell_w5": 1}
     with pytest.raises(ValueError, match="dot_offset"):
         ell.spmv_ell(vals, cols, dom, with_dot=True, dot_offset=3 * g)
 

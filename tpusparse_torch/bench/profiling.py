@@ -32,7 +32,9 @@ and records nothing.  The spans the port opens:
     sync.  The eager loops open ``CG_Solver`` and ``CG_Start``, and their iterations the
     phase names above;
   - set-up's: ``Kernel_Load`` (``_build.lib()``'s build or load, attribute ``built``),
-    ``Operator_Build`` (``ops.get_operator``, ``cg_sharded.make_sharded_operator``) and
+    ``Operator_Build`` (``ops.get_operator``, ``cg_sharded.make_sharded_operator``),
+    ``Stencil27_Build`` inside it (``generate.make_stencil27_ell_device``, attributes
+    ``nx``, ``ny``, ``nz``, ``width``, ``slots`` and the operand's ``bytes``) and
     ``NCCL_Group`` (``dist.nccl_group``'s group and its first all-gather).
 """
 
@@ -67,11 +69,12 @@ PHASE_READ = "CG_Read"
 # set-up
 PHASE_KERNEL_LOAD = "Kernel_Load"
 PHASE_OPERATOR_BUILD = "Operator_Build"
+PHASE_STENCIL27_BUILD = "Stencil27_Build"
 PHASE_NCCL_GROUP = "NCCL_Group"
 # every name the port's scopes open
 NAMES = (PHASE_SOLVER, PHASE_ITERATION, PHASE_SPMV, PHASE_DOT, PHASE_AXPY, PHASE_HALO,
          PHASE_UPDATE_P, PHASE_SLOT, PHASE_CAPTURE, PHASE_START, PHASE_REPLAY, PHASE_READ,
-         PHASE_KERNEL_LOAD, PHASE_OPERATOR_BUILD, PHASE_NCCL_GROUP)
+         PHASE_KERNEL_LOAD, PHASE_OPERATOR_BUILD, PHASE_STENCIL27_BUILD, PHASE_NCCL_GROUP)
 
 
 @dataclasses.dataclass

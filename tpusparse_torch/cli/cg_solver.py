@@ -2,7 +2,7 @@
 
 Counterpart of ``tpusparse/cli/cg_solver.py`` (reference src/main/cg_solver.cu:46-53):
 
-    python -m tpusparse_torch.cli.cg_solver <matrix.mtx|gen:<g>> [--mode=stencil5]
+    python -m tpusparse_torch.cli.cg_solver <matrix.mtx|gen:<g>|gen27:<n>> [--mode=stencil5]
         [--tol=1e-6] [--maxiter=1000] [--timers] [--host|--device]
         [--loop=auto|classic|recompute] [--json=<f>] [--csv=<f>] [--runs=10] [--warmup=3]
         [--dtype=f32|f64|bf16] [--trace=<logdir>] [--platform=cuda|cpu]
@@ -12,7 +12,10 @@ Modes: stencil5 (the default, the reference's stencil5-csr) and stencil5-bf16c
 (values-free, K1-K3), and their plain-PyTorch oracles stencil5-xla and stencil5-const-xla;
 the generic operators csr (and its alias cusparse-csr, the ELL kernel that replaces
 K12/K13), dia (K11), their plain twins csr-xla, ell and dia-xla, and bcoo (cuSPARSE), on
-gen:<g> or any square .mtx, classic loop.  The classic loop's updates run through the
+gen:<g> or any square .mtx, classic loop; ``gen27:<n>`` or ``gen27:<nx>x<ny>x<nz>``
+is HPCG's 27-point problem (diag 26, offdiag −1), its ELL operand made on the card, which
+only csr, cusparse-csr, csr-xla and ell take (``--mode=csr``; any other mode returns 2).
+The classic loop's updates run through the
 BLAS1 kernels K4-K7.  ``--dtype=bf16`` runs a bf16 state through the classic loop (K3,
 K4-K8, K11 and the ELL kernel in their bf16 instances; ``bcoo`` in f32 with x and y
 rounded once) and the stepped one; ``--loop=recompute``, and ``--loop=auto`` on
@@ -53,7 +56,8 @@ from .spmv_bench import load_operand
 def build_parser():
     p = argparse.ArgumentParser(prog="tpusparse_torch.cli.cg_solver", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("matrix", help=".mtx path, or gen:<grid_size>")
+    p.add_argument("matrix", help=".mtx path, gen:<grid_size>, or gen27:<n> / "
+                   "gen27:<nx>x<ny>x<nz> (HPCG's 27-point stencil, --mode=csr)")
     p.add_argument("--mode", default="stencil5", help="SpMV operator "
                    f"({', '.join(ops.available_modes())})")
     p.add_argument("--tol", type=float, default=1e-6)
@@ -105,7 +109,11 @@ def _main(args) -> int:
     device = resolve_device(args.platform)
     dtype = resolve_dtype(args.dtype)
     mat, name = load_operand(args.matrix)
-    op = ops.get_operator(args.mode, mat, dtype=dtype, device=device)
+    try:
+        op = ops.get_operator(args.mode, mat, dtype=dtype, device=device)
+    except ValueError as e:  # a mode the matrix does not fit
+        print(f"[ERROR] {args.matrix}: {e}", file=sys.stderr)
+        return 2
     info = sysinfo.get_system_info(device)
     print(f"[INFO] device: {info['device_kind']} x{info['num_devices']} "
           f"(backend={info['backend']}, nvidia-smi: {info.get('nvidia_smi')})")

@@ -2,7 +2,7 @@
 
 Counterpart of ``tpusparse/cli/spmv_bench.py`` (reference src/main/main.cu:48-55):
 
-    python -m tpusparse_torch.cli.spmv_bench <matrix.mtx|gen:<g>> --mode=<m1[,m2,...]>
+    python -m tpusparse_torch.cli.spmv_bench <matrix.mtx|gen:<g>|gen27:<n>> --mode=<m1[,...]>
         [--json=<file>] [--csv=<file>] [--runs=10] [--warmup=5] [--dtype=f32|f64|bf16]
         [--resident-x] [--ceiling-probe | --ceiling-from=<probe.json>]
         [--platform=cuda|cpu]
@@ -14,7 +14,9 @@ with ``[SKIP]``, the other modes run, and the exit code is 1; x = ones (:136-137
 one export per mode, suffixed ``_<mode>`` (:200-241); Sum(y)/Norm2(y) checksums at 16
 decimals (:245-248), summed in f64 at every ``--dtype`` (the JAX CLI sums a bf16 y in bf16,
 ``tpusparse/cli/spmv_bench.py:172``, and misses the analytic sum).
-``gen:<g>`` makes the stencil operand on the device, without a .mtx file, in every mode.
+``gen:<g>`` makes the stencil operand on the device, without a .mtx file, in every mode;
+``gen27:<n>`` (or ``gen27:<nx>x<ny>x<nz>``) makes HPCG's 27-point stencil's ELL operand
+there, in the ELL modes (the others skip it).
 
 The run times follow ``run_timed`` (upload x, apply, download y) or, with ``--resident-x``,
 ``run_timed_resident`` (x stays on the card); GFLOPS and GB/s come from the device time of
@@ -44,11 +46,20 @@ from ..bench import export, metrics, probes, stats, sysinfo
 def load_operand(spec: str):
     """(matrix, display name) of a CLI operand: ``gen:<g>`` is the planes-free constant
     stencil (diag 5, offdiag −1), whose operands the stencil, ELL, DIA and CSR operators
-    make on the device; any other spec is a .mtx file, read into sorted CSR."""
+    make on the device; ``gen27:<n>`` or ``gen27:<nx>x<ny>x<nz>`` is HPCG's 27-point
+    stencil (diag 26, offdiag −1) on an n³ or nx×ny×nz grid, whose ELL operand the ELL
+    modes make on the device (``ops.STENCIL27_MODES``); any other spec is a .mtx file, read
+    into sorted CSR."""
     if spec.startswith("gen:"):
         g = int(spec[4:])
         return (formats.Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0)),
                 f"stencil5-{g}x{g}")
+    if spec.startswith("gen27:"):
+        sides = [int(v) for v in spec[6:].split("x")]
+        if len(sides) not in (1, 3):
+            raise ValueError(f"{spec!r}: give gen27:<n> or gen27:<nx>x<ny>x<nz>")
+        nx, ny, nz = sides * 3 if len(sides) == 1 else sides
+        return formats.Stencil27(nx, ny, nz, (26.0, -1.0)), f"stencil27-{nx}x{ny}x{nz}"
     coo = io_mtx.load_matrix_market(spec)
     return formats.coo_to_csr(coo), os.path.basename(spec)
 
@@ -56,7 +67,8 @@ def load_operand(spec: str):
 def build_parser():
     p = argparse.ArgumentParser(prog="tpusparse_torch.cli.spmv_bench", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("matrix", help=".mtx path, or gen:<grid_size> for synthesis on the device")
+    p.add_argument("matrix", help=".mtx path, or gen:<grid_size> or gen27:<n> for synthesis "
+                   "on the device")
     p.add_argument("--mode", default="stencil5",
                    help=f"comma-separated SpMV modes ({', '.join(ops.available_modes())})")
     p.add_argument("--json", default=None, help="JSON output base path")

@@ -12,7 +12,9 @@ numpy arrays with int64 indices (the reference's ``int nnz`` overflows past ~21.
   - ``DIAMatrix``  diagonal-offset storage, ``A[i, i + offsets[d]] = data[d, i]``: the host
                    pack of the DIA kernel;
   - ``Stencil5``   the 5-point stencil on a g×g grid as five (g, g) coefficient planes in
-                   the order N, W, C, E, S, or planes-free with constant coefficients.
+                   the order N, W, C, E, S, or planes-free with constant coefficients;
+  - ``Stencil27``  HPCG's 27-point stencil on an nx×ny×nz grid, constant coefficients
+                   (``stencil27_to_csr`` writes its rows on the host).
 
 The device operands are made from these by ``convert`` and ``generate``.
 """
@@ -144,6 +146,38 @@ class Stencil5:
         g = self.grid_size
         # diag everywhere + 4 neighbours minus the ones clipped at each of the 4 edges
         return 5 * g * g - 4 * g
+
+
+# HPCG's 27 neighbour offsets (sz, sy, sx), in the order its generator loops over them
+# (src/GenerateProblem_ref.cpp: sz, then sy, then sx, each −1, 0, 1); slot 13 is the point
+# itself.  Each row's columns come out ascending in this order.
+STENCIL27_OFFSETS = tuple((sz, sy, sx) for sz in (-1, 0, 1) for sy in (-1, 0, 1)
+                          for sx in (-1, 0, 1))
+STENCIL27_CENTER = 13
+
+
+@dataclasses.dataclass
+class Stencil27:
+    """HPCG's problem (https://github.com/hpcg-benchmark/hpcg, src/GenerateProblem_ref.cpp):
+    the 27-point stencil on an nx×ny×nz grid, row ``iz·nx·ny + iy·nx + ix`` for point
+    (ix, iy, iz), coupling the point to each neighbour that lies on the grid (Dirichlet
+    edges: boundary rows hold 8, 12 or 18 entries, interior rows 27), with the coefficient
+    ``constant[0]`` on the diagonal and ``constant[1]`` off it (HPCG's 26 and −1).  Planes
+    free: its operands are made on the device (``generate.make_stencil27_ell_device``)."""
+
+    nx: int
+    ny: int
+    nz: int
+    constant: tuple = (26.0, -1.0)  # (diag, offdiag)
+
+    @property
+    def num_rows(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    @property
+    def nnz(self) -> int:
+        # along each axis a point has 3 neighbours in the grid, 2 at either edge
+        return (3 * self.nx - 2) * (3 * self.ny - 2) * (3 * self.nz - 2)
 
 
 # ---------------------------------------------------------------------------
@@ -397,3 +431,30 @@ def stencil5_to_csr(st: Stencil5) -> CSRMatrix:
                                 row=np.concatenate([e[0] for e in entries]),
                                 col=np.concatenate([e[1] for e in entries]),
                                 val=np.concatenate([e[2] for e in entries]), grid_size=g))
+
+
+def stencil27_to_csr(st: Stencil27) -> CSRMatrix:
+    """HPCG's rows of a Stencil27 as sorted CSR, written from its definition on the host
+    (small sizes and tests): for each row, each offset of ``STENCIL27_OFFSETS`` whose
+    neighbour lies on the grid, in that order (ascending columns), the diagonal's value at
+    the point itself and the off-diagonal's elsewhere.  Every such entry is stored, as
+    HPCG stores it, whatever its value."""
+    nx, ny, nz = st.nx, st.ny, st.nz
+    if min(nx, ny, nz) < 1:
+        raise ValueError(f"a Stencil27 needs nx, ny, nz >= 1, got {nx} x {ny} x {nz}")
+    diag, offdiag = st.constant
+    n = st.num_rows
+    iz, iy, ix = (a.ravel() for a in np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),
+                                                 indexing="ij"))
+    cand = np.empty((n, 27), np.int64)
+    ok = np.empty((n, 27), bool)
+    for k, (sz, sy, sx) in enumerate(STENCIL27_OFFSETS):
+        jz, jy, jx = iz + sz, iy + sy, ix + sx
+        ok[:, k] = (jz >= 0) & (jz < nz) & (jy >= 0) & (jy < ny) & (jx >= 0) & (jx < nx)
+        cand[:, k] = (jz * ny + jy) * nx + jx
+    vals = np.full(27, offdiag, np.float64)
+    vals[STENCIL27_CENTER] = diag
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(ok.sum(axis=1), out=row_ptr[1:])
+    return CSRMatrix(num_rows=n, num_cols=n, row_ptr=row_ptr, col_idx=cand[ok],
+                     val=np.broadcast_to(vals, (n, 27))[ok].copy())

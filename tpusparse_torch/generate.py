@@ -7,11 +7,12 @@ Norm2 of y = A·ones).  The device half builds the stencil's coefficient planes
 (``make_stencil5_planes_device``), its ELL, DIA and CSR operands
 (``make_stencil5_ell_device``, ``make_stencil5_dia_device``, ``make_stencil5_csr_device``)
 and the canonical x = ones / b = ones field (``ones_field``) directly on the target device
-in the target dtype.  The planes, the ELL operand and b = ones (``ones_band``) also come as
-one rank's row band with zero pad rows, for the sharded solver; the planes and b = ones
-also as one rank's block of rows and columns, for its 2-D decomposition.  Every device
-maker takes ``dtype=torch.bfloat16`` and fills in it directly, never through an f32 copy
-(5, −1, 0 and 1 are exact in bf16).
+in the target dtype, and HPCG's 27-point stencil's ELL operand
+(``make_stencil27_ell_device``).  The planes, the ELL operand and b = ones (``ones_band``)
+also come as one rank's row band with zero pad rows, for the sharded solver; the planes
+and b = ones also as one rank's block of rows and columns, for its 2-D decomposition.
+Every device maker takes ``dtype=torch.bfloat16`` and fills in it directly, never through
+an f32 copy (5, −1, 0 and 1 are exact in bf16).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .formats import C, E, N, S, Stencil5, W
+from .formats import STENCIL27_CENTER, STENCIL27_OFFSETS, C, E, N, S, Stencil5, W
 
 # the reference generator's coefficients (src/io/io.cu:375): Laplacian + mass term
 DEFAULT_DIAG = 5.0
@@ -269,6 +270,46 @@ def make_stencil5_ell_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAULT_
     ecol = torch.where(pad, last[:, None], ecol)
     cols[:, edge - p0] = ecol.T.to(torch.int32)
     vals[:, edge - p0] = evals.T
+    return vals, cols
+
+
+def make_stencil27_ell_device(nx: int, ny: int, nz: int, diag=26.0, offdiag=-1.0,
+                              dtype=torch.float64, device="cuda"):
+    """The slot-major ELL operand of HPCG's 27-point stencil on the nx×ny×nz grid
+    (``formats.Stencil27``), made on the device: values (27, n) in ``dtype`` and columns
+    (27, n) int32, n = nx·ny·nz.  Slot k is the neighbour offset
+    ``formats.STENCIL27_OFFSETS[k]`` (HPCG's (sz, sy, sx) order): for a point whose
+    neighbour lies on the grid, the neighbour's row and the off-diagonal (the diagonal in
+    slot 13); for one whose neighbour is off the grid, the point's own row and value 0.
+
+    Every row's real entries keep their order, and the kernel adds a pad slot's product, 0,
+    without changing the sum, so y equals that of ``formats.csr_to_ell`` of
+    ``formats.stencil27_to_csr``, whose pad slots come after the real ones, bit for bit.
+
+    Built slot by slot in place: each slot's columns are the point's own row (a copy of
+    slot 13's ``arange``), shifted by the offset on the box of points whose neighbour is
+    on the grid, and its values are filled on that box.  Nothing is staged beside the
+    operand (at 512³ it is 29.0 GB of f64 values and 14.5 GB of columns; a (27, n) int64
+    index tensor would be another 29 GB).  ValueError for an empty grid, or one of 2^31
+    points or more (int32 columns)."""
+    nx, ny, nz = int(nx), int(ny), int(nz)
+    if min(nx, ny, nz) < 1:
+        raise ValueError(f"grid {nx} x {ny} x {nz}: every side must be >= 1")
+    n = nx * ny * nz
+    if n >= 2 ** 31:
+        raise ValueError(f"grid {nx} x {ny} x {nz} too large for int32 columns")
+    dev = resolve_device(device)
+    vals = torch.zeros((27, n), dtype=dtype, device=dev)
+    cols = torch.empty((27, n), dtype=torch.int32, device=dev)
+    torch.arange(n, dtype=torch.int32, device=dev, out=cols[STENCIL27_CENTER])
+    for k, (sz, sy, sx) in enumerate(STENCIL27_OFFSETS):
+        if k != STENCIL27_CENTER:
+            cols[k].copy_(cols[STENCIL27_CENTER])
+        # the points whose neighbour (iz + sz, iy + sy, ix + sx) lies on the grid
+        box = (slice(max(0, -sz), nz - max(0, sz)), slice(max(0, -sy), ny - max(0, sy)),
+               slice(max(0, -sx), nx - max(0, sx)))
+        cols[k].view(nz, ny, nx)[box].add_((sz * ny + sy) * nx + sx)
+        vals[k].view(nz, ny, nx)[box].fill_(diag if k == STENCIL27_CENTER else offdiag)
     return vals, cols
 
 

@@ -213,7 +213,9 @@ def counter(names):
 def set_apart():
     """Yields a dict that holds, after the block, the launches the wrappers counted inside
     it ({wrapper: launches}), and puts every count back as it was before the block: a
-    capture (whose replays ``count_replay`` counts) or a graph's warm-up (set-up)."""
+    capture (whose replays ``count_replay`` counts) or a graph's warm-up (set-up).  A key
+    first counted in the block (a counter made at first use, as the ELL kernel's count by
+    width) is taken out again."""
     before = [dict(c) for c in COUNTERS]
     launches = {}
     try:
@@ -221,7 +223,9 @@ def set_apart():
     finally:
         for i, c in enumerate(COUNTERS):  # a module imported in the block starts at 0
             b = before[i] if i < len(before) else dict.fromkeys(c, 0)
-            launches.update({n: v - b[n] for n, v in c.items() if v != b[n]})
+            launches.update({n: v - b.get(n, 0) for n, v in c.items() if v != b.get(n, 0)})
+            for n in set(c) - set(b):
+                del c[n]
             c.update(b)
 
 

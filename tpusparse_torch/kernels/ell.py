@@ -26,7 +26,9 @@ field it launches the kernel of ``tpusparse_torch/csrc/ell.cu`` or raises; there
 fallback between the two.  Kernel and twin round every operation alike, so their y agree
 bit for bit; the dots differ only in summation order.
 
-``LAUNCHES["spmv_ell"]`` counts the kernel's launches (the twin does not count).
+``LAUNCHES["spmv_ell"]`` counts the kernel's launches (the twin does not count), and
+``LAUNCHES["spmv_ell_w<W>"]`` those at ELL width W (``spmv_ell_w5`` for the 5-point
+stencil, ``spmv_ell_w27`` for HPCG's 27-point one), each made at its width's first launch.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ LAUNCHES = counter(("spmv_ell",))
 
 
 def reset_launches() -> None:
+    LAUNCHES.clear()
     LAUNCHES["spmv_ell"] = 0
 
 
@@ -85,6 +88,8 @@ def spmv_ell(vals, cols, x, *, with_dot=False, dot_offset=0, out=None):
     _build.check(fn(vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
                     vals.shape[0], n, dot_offset, ptr(part), ptr(dot), stream(x)), "spmv_ell")
     LAUNCHES["spmv_ell"] += 1
+    key = f"spmv_ell_w{vals.shape[0]}"
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return (y, dot) if with_dot else y
 
 

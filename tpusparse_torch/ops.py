@@ -36,7 +36,9 @@ A generic operator's field is the vector itself, ``num_rows`` elements: the JAX 
 128-lane padding is a TPU answer and has no counterpart.  x and y share that field, so a
 non-square matrix raises ``ValueError``.  A planes-free constant ``Stencil5`` (``gen:<g>``)
 gets its ELL, DIA and CSR operands made on the device (``generate.make_stencil5_ell_device``,
-``make_stencil5_dia_device``, ``make_stencil5_csr_device``); every other matrix goes
+``make_stencil5_dia_device``, ``make_stencil5_csr_device``), and HPCG's ``Stencil27``
+(``gen27:<n>``) its ELL operand (``generate.make_stencil27_ell_device``), which only the
+ELL modes take (``STENCIL27_MODES``; the others raise ``ValueError``); every other matrix goes
 through the host packs (``formats.csr_to_ell``/``stencil5_to_ell``,
 ``csr_to_dia``/``stencil5_to_dia``, ``stencil5_to_csr``).  The
 matrices are the port's own classes (``formats``); ``convert.stencil5_from_numpy`` and
@@ -59,10 +61,11 @@ import torch
 from . import convert, formats
 from ._device import acc_dtype, host_numpy, resolve_device, resolve_dtype
 from .bench import profiling
-from .formats import CSRMatrix, Stencil5
+from .formats import CSRMatrix, Stencil5, Stencil27
 from .generate import (make_stencil5_csr_device, make_stencil5_dia_device,
                        make_stencil5_ell_device, make_stencil5_planes_device,
-                       stencil5_dia_device_ok, stencil5_ell_device_ok)
+                       make_stencil27_ell_device, stencil5_dia_device_ok,
+                       stencil5_ell_device_ok)
 from .kernels import blas1 as _blas1
 from .kernels import dia as _dia
 from .kernels import ell as _ell
@@ -336,7 +339,17 @@ def _const_stencil(mat):
 
 def _ell_operand(mat, mode, dtype, device):
     """(vals, cols, nnz, grid_size): the slot-major ELL operand on the device and its nnz,
-    counted as the JAX package counts it (a Stencil5's stored nonzeros)."""
+    counted as the JAX package counts it (a Stencil5's stored nonzeros; a Stencil27's
+    matrix entries, not its 27 slots a row)."""
+    if isinstance(mat, Stencil27):
+        itemsize = torch.finfo(dtype).bits // 8
+        slots = 27 * mat.num_rows
+        with profiling.scope(profiling.PHASE_STENCIL27_BUILD, nx=mat.nx, ny=mat.ny,
+                             nz=mat.nz, width=27, slots=slots,
+                             bytes=slots * (itemsize + 4)):
+            vals, cols = make_stencil27_ell_device(mat.nx, mat.ny, mat.nz, *mat.constant,
+                                                   dtype=dtype, device=device)
+        return vals, cols, mat.nnz, 0
     const = _const_stencil(mat)
     if const is not None and stencil5_ell_device_ok(*const):
         vals, cols = make_stencil5_ell_device(*const, dtype=dtype, device=device)
@@ -539,10 +552,17 @@ def available_modes():
     return sorted(_REGISTRY)
 
 
+# the modes that take a Stencil27: the ELL kernel and its twin
+STENCIL27_MODES = ("csr", "cusparse-csr", "csr-xla", "ell")
+
+
 def get_operator(mode: str, mat, dtype=torch.float32, device="cuda") -> DeviceOperator:
     """Build a device operator (reference get_operator + op->init in one step), inside an
     ``Operator_Build`` span (``bench.profiling``)."""
     if mode not in _REGISTRY:
         raise ValueError(f"unknown SpMV mode '{mode}'; available: {available_modes()}")
+    if isinstance(mat, Stencil27) and mode not in STENCIL27_MODES:
+        raise ValueError(f"mode '{mode}' does not take the 27-point stencil: it runs through "
+                         f"its ELL operand, mode 'csr' (or {', '.join(STENCIL27_MODES[1:])})")
     with profiling.scope(profiling.PHASE_OPERATOR_BUILD):
         return _REGISTRY[mode](mat, resolve_dtype(dtype), resolve_device(device))

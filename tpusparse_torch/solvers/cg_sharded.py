@@ -923,7 +923,7 @@ class MeshOperator:
             if per_card or self.link is not None:
                 self.graphs.pop(key, None)
             raise
-        return xs, _cg_stats(k, rr, bb, tolerance, t0)
+        return xs, _cg_stats(k, rr, bb, tolerance, max_iters, t0)
 
     @property
     def rank_graph(self) -> bool:
@@ -2259,13 +2259,13 @@ def _pick_loop(op, recompute_ap) -> str:
     return loop
 
 
-def _cg_stats(k, rr, rr0, tolerance, t0) -> CGStats:
+def _cg_stats(k, rr, rr0, tolerance, max_iters, t0) -> CGStats:
     """The ``CGStats`` of a solve that took k iterations from <r0, r0> = rr0 to rr,
     started at ``t0`` (``time.perf_counter``)."""
     res, b_norm = float(rr) ** 0.5, float(rr0) ** 0.5
     return CGStats(
         iterations=k,
-        converged=bool(res < tolerance * b_norm) if b_norm > 0 else True,
+        converged=cg.converged(res, b_norm, tolerance, k, max_iters),
         residual_norm=res,
         relative_residual=res / b_norm if b_norm > 0 else 0.0,
         total_time_ms=(time.perf_counter() - t0) * 1e3,
@@ -2362,7 +2362,7 @@ def cg_solve_sharded(grid_size: int, *, b=None, mode: str = "stencil5-const", pl
                 k += 1
         if x.is_cuda:
             torch.cuda.synchronize(x.device)
-    return x, _cg_stats(k, rr, rr0, tolerance, t0)
+    return x, _cg_stats(k, rr, rr0, tolerance, max_iters, t0)
 
 
 def rank_mesh(op) -> MeshOperator:
@@ -2520,7 +2520,7 @@ def _stepped(t, b, tolerance, max_iters, verbose):
         k += 1
         if verbose >= 2 and dist.rank() == 0:
             print(f"[CG-SHARDED] Iter {k:3d}: rel = {rr_new ** 0.5 / b_norm:e}")
-        if rr_new ** 0.5 < tolerance * b_norm:
+        if rr_new == 0 or rr_new ** 0.5 < tolerance * b_norm:
             converged = True
         else:
             t0 = time.perf_counter()
@@ -2533,7 +2533,7 @@ def _stepped(t, b, tolerance, max_iters, verbose):
     stats.reduction_time_ms = stats.allreduce_time_ms
     stats.total_time_ms = (time.perf_counter() - t_solve) * 1e3
     stats.iterations = k
-    stats.converged = converged
+    stats.converged = converged or cg.converged(rr ** 0.5, b_norm, tolerance, k, max_iters)
     stats.residual_norm = rr ** 0.5
     stats.relative_residual = rr ** 0.5 / b_norm if b_norm else 0.0
     return tuple(x), stats
